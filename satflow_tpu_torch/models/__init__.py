@@ -1,0 +1,5 @@
+"""Model zoo of the PyTorch port; importing it fills the registry."""
+
+from satflow_tpu_torch.models.conv_lstm import ConvLSTMCore, EncoderDecoderConvLSTM
+
+__all__ = ["ConvLSTMCore", "EncoderDecoderConvLSTM"]

@@ -16,9 +16,14 @@ setup(
     long_description_content_type="text/markdown",
     author="Open Climate Fix (TPU rebuild)",
     license="MIT",
+    # satflow_tpu (JAX, the reference) and satflow_tpu_torch (the PyTorch port)
     packages=find_packages(exclude=("tests",)),
     include_package_data=True,
-    package_data={"satflow_tpu": ["configs/**/*.yaml", "configs/*.yaml"]},
+    package_data={
+        "satflow_tpu": ["configs/**/*.yaml", "configs/*.yaml"],
+        # the PyTorch port's CUDA sources, built with nvcc at first use
+        "satflow_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
+    },
     install_requires=[
         "jax",
         "flax",
