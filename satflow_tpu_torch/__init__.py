@@ -7,12 +7,17 @@ Pallas kernel on a ported path with a hand-written CUDA kernel
 
 Subpackages
 -----------
-- ``core``:     the model registry.
-- ``ops``:      CUDA kernels, their nvcc build and their plain PyTorch versions.
-- ``nn``:       layers (the fused ConvLSTM cell).
-- ``models``:   the model zoo (``EncoderDecoderConvLSTM``).
-- ``interop``:  the flax -> PyTorch weight bridge.
-- ``serve``:    inference sessions, micro-batching and the HTTP server.
+- ``core``:        the model registry, config surgery and logging utilities,
+                   and the loader of the JAX package's framework-free modules.
+- ``ops``:         CUDA kernels, their nvcc build and their plain PyTorch
+                   versions; the fused step's autograd Function.
+- ``nn``:          layers (the fused ConvLSTM cell) and losses.
+- ``models``:      the model zoo (``EncoderDecoderConvLSTM``).
+- ``interop``:     the flax -> PyTorch weight bridge.
+- ``data``:        a torch adapter over the JAX package's datasets and loaders.
+- ``train``:       train state, train/eval steps and the ``Trainer``.
+- ``experiments``: the experiment entry point behind ``python -m satflow_tpu_torch.run``.
+- ``serve``:       inference sessions, micro-batching and the HTTP server.
 """
 
 from __future__ import annotations

@@ -3,18 +3,22 @@
 Counterpart of ``satflow_tpu/models/base.py``. The JAX wrapper owns a pure
 flax module and takes its variables as an argument; here the wrapper is an
 ``nn.Module`` that owns its core as the child ``module`` and holds the
-weights itself. Forward only for now: ``loss`` and ``make_optimizer`` come
-with the training port (ROADMAP queue 1 item 4).
+weights itself. It gives the engine what the JAX one does: the batch
+preparation, ``loss`` (the criterion plus the per-lead-time ``frame_loss``
+metric), ``make_optimizer`` (Adam) and the metric-key convention
+(:func:`expand_frame_metrics`).
 """
 
 from __future__ import annotations
 
 import inspect
 import json
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+
+from satflow_tpu_torch.nn.losses import get_loss
 
 
 class BaseModel(nn.Module):
@@ -40,6 +44,7 @@ class BaseModel(nn.Module):
         self.input_channels = input_channels
         self.output_channels = output_channels
         self.pretrained = pretrained
+        self.criterion = get_loss(loss)
         self.loss_name = loss if isinstance(loss, str) else getattr(loss, "__name__", "custom")
         self.module = self.build_module()
 
@@ -56,8 +61,37 @@ class BaseModel(nn.Module):
         return x, y
 
     def forward(self, x: torch.Tensor, **kwargs) -> torch.Tensor:
-        """Inference forward through the core; ``kwargs`` go to the core."""
+        """Forward through the core; ``kwargs`` go to the core."""
         return self.module(x, **kwargs)
+
+    def set_compute_dtype(self, dtype: Optional[torch.dtype]) -> None:
+        """Compute in ``dtype`` (bf16 for ``precision="bf16"``) with the f32
+        weights kept as they are: nothing is re-initialised."""
+        self.dtype = dtype
+        self.module.set_compute_dtype(dtype)
+
+    def loss(self, batch, **kwargs) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(loss, metrics) of one batch, ``kwargs`` to the core: the JAX
+        ``loss``, with the weights held by the module."""
+        x, y = self.prepare_batch(batch)
+        y_hat = self(x, **kwargs)
+        loss = self.criterion(y_hat, y)
+        return loss, {"loss": loss, **self.frame_metrics(y_hat, y)}
+
+    @torch.no_grad()
+    def frame_metrics(self, y_hat: torch.Tensor, y: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Per-lead-time loss vector ``frame_loss`` (T,): the configured
+        criterion on each frame (the JAX vmap over the lead-time axis)."""
+        if y_hat.dim() >= 5 and y_hat.shape[1] == y.shape[1]:
+            per_frame = [self.criterion(y_hat[:, f], y[:, f]) for f in range(y.shape[1])]
+            return {"frame_loss": torch.stack(per_frame)}
+        return {}
+
+    def make_optimizer(self) -> torch.optim.Optimizer:
+        """Adam at ``self.lr`` with optax's ``adam`` defaults (b1 0.9, b2
+        0.999, eps 1e-8 outside the square root, no eps_root, the same bias
+        correction)."""
+        return torch.optim.Adam(self.parameters(), lr=self.lr, betas=(0.9, 0.999), eps=1e-8)
 
     def hparams(self) -> Dict[str, Any]:
         """Serializable hyperparameters, read back from the subclass
@@ -82,6 +116,22 @@ class BaseModel(nn.Module):
                     if not callable(value) and _jsonable(value):
                         hp[name] = value
         return hp
+
+
+def expand_frame_metrics(metrics: Dict[str, Any], split: str) -> Dict[str, float]:
+    """Flatten metrics into the logging keys of the JAX package: scalars
+    become ``{split}/{name}``, a ``frame_loss`` vector
+    ``{split}/frame_{f}_loss``. Reads the values to the host."""
+    out: Dict[str, float] = {}
+    for k, v in metrics.items():
+        v = torch.as_tensor(v).detach().float().cpu()
+        if k.endswith("frame_loss") and v.dim() == 1:
+            prefix = k[: -len("frame_loss")]
+            for f, val in enumerate(v.tolist()):
+                out[f"{split}/{prefix}frame_{f}_loss"] = float(val)
+        elif v.dim() == 0:
+            out[f"{split}/{k}"] = float(v)
+    return out
 
 
 def _jsonable(value) -> bool:

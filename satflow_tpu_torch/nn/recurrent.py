@@ -4,7 +4,8 @@
 (``x_gates_kernel`` (3, 3, Cx, 4Ch), ``h_gates_kernel`` (3, 3, Ch, 4Ch),
 ``bias`` (4Ch), gate order i, f, o, g), holds them in f32 and casts them to
 the compute dtype per call, and runs the whole step through
-:func:`satflow_tpu_torch.ops.fused_convlstm_step.fused_convlstm_step`.
+:func:`satflow_tpu_torch.ops.fused_convlstm_step.fused_convlstm_step`. Under
+autograd the gradients flow back through that cast to the f32 parameters.
 """
 
 from __future__ import annotations

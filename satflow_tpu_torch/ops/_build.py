@@ -1,7 +1,8 @@
 """Build the CUDA sources under ``csrc/`` with ``nvcc`` and load them with ctypes.
 
 Each source is one shared library with a plain C interface (no PyTorch
-headers, so a build takes seconds). It is compiled at first use into
+headers, so a build takes seconds); :func:`load_all` runs one nvcc per source,
+all at once. A library is compiled at first use into
 ``satflow_tpu_torch/_build/`` (git-ignored), under a name that carries a hash
 of the sources and flags, so an edited source is never served from a stale
 build. A missing ``nvcc`` or a failed build raises with the compiler's output.
@@ -16,8 +17,9 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -27,7 +29,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _locks and _loaded
+_locks: Dict[str, threading.Lock] = {}  # one per source: builds run in parallel
 _loaded: Dict[str, ctypes.CDLL] = {}
 #: per source name: the compiler's output (ptxas register and spill report)
 #: and the build's wall seconds, for builds made by this process
@@ -77,12 +80,26 @@ def _compile(src: Path, out: Path) -> None:
 def load(name: str) -> ctypes.CDLL:
     """The shared library built from ``csrc/<name>.cu``, built if needed."""
     with _lock:
-        if name not in _loaded:
-            src = CSRC_DIR / f"{name}.cu"
-            if not src.is_file():
-                raise FileNotFoundError(f"CUDA source {src} is missing")
-            out = _library_path(name)
-            if not out.exists():
-                _compile(src, out)
-            _loaded[name] = ctypes.CDLL(str(out))
-        return _loaded[name]
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
+        with _lock:
+            if name in _loaded:
+                return _loaded[name]
+        src = CSRC_DIR / f"{name}.cu"
+        if not src.is_file():
+            raise FileNotFoundError(f"CUDA source {src} is missing")
+        out = _library_path(name)
+        if not out.exists():
+            _compile(src, out)
+        lib = ctypes.CDLL(str(out))
+        with _lock:
+            _loaded[name] = lib
+        return lib
+
+
+def load_all(names: Iterable[str]) -> Dict[str, ctypes.CDLL]:
+    """:func:`load` for several sources at once, their nvcc runs in parallel;
+    the first failure raises."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return dict(zip(names, pool.map(load, names)))
