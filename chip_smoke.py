@@ -8,8 +8,9 @@ Run from the root of the repository, with one card visible:
 Phases, in order; any failure exits non-zero before the last line:
 
 1. the card's name and power limit (nvidia-smi); a CUDA card is required;
-2. build both kernels from ``satflow_tpu_torch/csrc`` (one nvcc each, run
-   together): K1, the fused ConvLSTM step, and K2, its backward's gate chain;
+2. build the four kernels from ``satflow_tpu_torch/csrc`` (one nvcc each, run
+   together): K1, the fused ConvLSTM step; K2, its backward's gate chain;
+   K3, the LSTM gate tail; K4, the axial attention;
 3. K1 against its plain PyTorch version at the serving shapes (B=8,
    256x256, Cx 12 and 64, Ch 64), in float32 and bfloat16, with the image's
    first and last rows and columns checked on their own;
@@ -30,7 +31,26 @@ Phases, in order; any failure exits non-zero before the last line:
    gradient held nonzero and against the same step through the plain
    versions, the train step timed through the kernels and through the plain
    step, and one step profiled;
-9. a JSON line of the kernels, and last a JSON line
+9. K3 against its plain version at MetNet's shape (49 152 rows x C=64) and
+   at an odd one, float32 and bfloat16, and ``FusedLSTMGates``' two
+   gradients against autograd of the plain version; K4 against its plain
+   version at (24 576, 16, 8), (2048, 128, 64), (2048, 256, 64) and (256,
+   512, 256), float32 and bfloat16, and ``AxialAttention``'s three gradients;
+10. MetNet serving: the full-width ``LitMetNet`` (metnet.yaml: hidden 64, one
+   axial-attention layer of 8 heads, kernel 3, 24 lead times, 12 channels;
+   bf16 compute on f32 weights; weights from numpy seed 0 in the flax
+   layout, converted by the bridge) behind ``NowcastServer`` answers 5
+   concurrent requests of 7 x 256x256x12; 7 K3 and 2 K4 launches per
+   forward, and one reply held against the same forward through the plain
+   versions;
+11. MetNet timings: K3 and K4 per call against their plain versions, the b8
+   forward both ways, and one forward profiled;
+12. MetNet training: 3 bf16 Adam steps under ``warmup_cosine`` through
+   ``Trainer.fit`` on fake b8 256x256 data (23 input channels); losses
+   finite, launches counted, every parameter's gradient nonzero and held
+   against the same step through the plain versions, the step timed both
+   ways and profiled;
+13. a JSON line of the kernels, and last a JSON line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.
@@ -91,6 +111,34 @@ TOL_GRAD_F32 = 1e-4  # x max|grad| of each tensor
 #   5.0e-3 x max|grad| per tensor, cosine > 0.99999 (see PERF.md).
 TOL_TRAIN_GRAD = 5e-2  # x max|grad| of each tensor
 MIN_TRAIN_GRAD_COS = 0.999
+
+# MetNet (satflow_tpu/configs/model/metnet.yaml at the zoo's geometry: b8,
+# 7 history frames of 256x256, 24 lead times, bf16 compute on f32 weights)
+MN_HIDDEN, MN_HEADS, MN_F, MN_COUT, MN_CIN = 64, 8, 24, 12, 12
+MN_TRAIN_CIN = 23  # the fake datamodule: 12 satellite + 1 topography + 10 NWP
+MN_EH = H // 16  # 16: the temporal encoder's and the attention's grid
+MN_ROWS = MN_F * B * MN_EH * MN_EH  # K3's rows per call: 49 152
+MN_K3_PER_FORWARD = T  # one gate tail per history frame
+MN_K4_PER_FORWARD = 2  # one attention along H, one along W
+K4_SHAPES = ((MN_F * B * MN_EH * MN_HEADS, MN_EH, MN_HIDDEN // MN_HEADS),  # MetNet's
+             (2048, 128, 64), (2048, 256, 64), (256, 512, 256))  # the long-axis regime
+# Tolerances, |kernel - plain| <= atol + rtol * |plain|:
+# - K3 and K4, float32: the same f32 arithmetic (K4's online softmax sums the
+#   keys in tiles, in another order): a few f32 rounding steps.
+TOL_K34_F32 = dict(atol=1e-5, rtol=1e-5)
+# - K3 and K4, bfloat16: both keep f32 inside and round only the stored
+#   output; an f32 difference at a rounding boundary flips one bf16 step.
+TOL_K34_BF16 = dict(atol=1e-2, rtol=2 ** -7)
+# - the served MetNet reply (bf16 compute, f32 head) against the same forward
+#   through the plain versions: one-step bf16 flips in h' and in the
+#   attention output carried through the MLP and the head.
+TOL_MN_REPLY = 5e-2  # x max|plain|
+# MetNet's parameters whose gradient is zero in exact arithmetic (c0's bias
+# is a per-channel shift that the max-pool passes on and the train-mode
+# BatchNorm removes; a key bias shifts every score of a row alike, which the
+# softmax removes): both sides are rounding noise, held to be small against
+# the same layer's weight gradient instead.
+MN_ZERO_GRAD = ("image_encoder.c0.bias", "axial0.attn0.k.bias", "axial0.attn1.k.bias")
 
 
 def fail(msg: str) -> None:
@@ -422,49 +470,18 @@ class LaunchesPerStep:
 
 def profile_step(torch, train_step, state, batch, card) -> None:
     """One train step through the kernels under torch.profiler: device time
-    by kernel class and the device's idle share of the step's wall time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        train_step(state, batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    classes = {"K1": 0.0, "K2": 0.0, "library convs": 0.0, "optimizer": 0.0, "other": 0.0}
-    for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:  # a CPU op's row repeats its kernels' time
-            continue
-        ms = evt.self_device_time_total / 1e3
-        name = evt.key.lower()
-        if "fused_convlstm_step_kernel" in name:
-            classes["K1"] += ms
-        elif "gate_bwd_kernel" in name:
-            classes["K2"] += ms
-        elif any(k in name for k in ("conv", "cudnn", "xmma", "dgrad", "wgrad", "cutlass", "implicit")):
-            classes["library convs"] += ms
-        elif "adam" in name or "multi_tensor" in name:
-            classes["optimizer"] += ms
-        else:
-            classes["other"] += ms
-    busy = sum(classes.values())
-    if busy <= 0:
-        print(f"train step profile: the profiler saw no device time; not measured [{card}]",
-              flush=True)
-        return
-    # the head's convs (weight (COUT, HIDDEN, 3, 3)) among the library convs,
-    # from the device time of the aten ops that launched them
+    by kernel class, the device's idle share of the step's wall time, and
+    the head's convs among the library convs."""
+    result = device_time_by_class(torch, lambda: train_step(state, batch), CONVLSTM_CLASSES)
+    # the head's convs (weight (COUT, HIDDEN, 3, 3)), from the device time of
+    # the aten ops that launched them
     head = sum(evt.device_time_total / 1e3
-               for evt in prof.key_averages(group_by_input_shape=True)
+               for evt in result[-1].key_averages(group_by_input_shape=True)
                if evt.key in ("aten::cudnn_convolution", "aten::convolution_backward")
                and [COUT, HIDDEN, 3, 3] in (evt.input_shapes or []))
-    print(f"train step profile (bf16 b{B} {H}x{W}, {T} in / {STEPS} out, remat_chunk "
-          f"{REMAT_CHUNK}): wall {wall_ms:.2f} ms, device busy {busy:.2f} ms, idle "
-          f"{100 * (1 - busy / wall_ms):.1f} %; "
-          + ", ".join(f"{k} {v:.2f} ms ({100 * v / busy:.1f} %)" for k, v in classes.items())
-          + f"; of the library convs, the head's {head:.2f} ms [{card}]", flush=True)
+    print_profile(f"train step (bf16 b{B} {H}x{W}, {T} in / {STEPS} out, remat_chunk "
+                  f"{REMAT_CHUNK})", result, card,
+                  f"; of the library convs, the head's {head:.2f} ms")
 
 
 def train_slice(torch, card):
@@ -572,6 +589,418 @@ def train_slice(torch, card):
     return k1, k2, worst, step_ms
 
 
+def _randn(torch, *shape, seed: int, scale: float = 1.0):
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    return torch.randn(*shape, generator=g, device=DEVICE) * scale
+
+
+def _max_err(torch, got, want, tol, what: str) -> float:
+    err = (got.float() - want.float()).abs().max().item()
+    if not within(torch, got, want, tol):
+        fail(f"{what}: max|diff| {err:.3g} beyond tol {tol}")
+    return err
+
+
+def check_gate_tail(torch, card) -> float:
+    """Phase 9a: K3 vs its plain version and FusedLSTMGates' gradients;
+    returns the largest bf16 |K3 - plain| at MetNet's shape."""
+    from satflow_tpu_torch.ops.fused_lstm import fused_lstm_gates, fused_lstm_gates_ref
+
+    worst = 0.0
+    for rows, ch in ((MN_ROWS, MN_HIDDEN), (1001, 3)):
+        for dtype, tol in ((torch.float32, TOL_K34_F32), (torch.bfloat16, TOL_K34_BF16)):
+            gates = _randn(torch, rows, 4 * ch, seed=rows, scale=2.0).to(dtype)
+            c = _randn(torch, rows, ch, seed=rows + 1).to(dtype)
+            got, want = fused_lstm_gates(gates, c), fused_lstm_gates_ref(gates, c)
+            torch.cuda.synchronize()
+            err = max(_max_err(torch, g_, w_, tol, f"K3 {name} {str(dtype)[6:]} ({rows}, {4 * ch})")
+                      for name, g_, w_ in zip(("h", "c"), got, want))
+            if dtype == torch.bfloat16 and rows == MN_ROWS:
+                worst = err
+            print(f"K3 vs plain: {str(dtype)[6:]} gates ({rows}, {4 * ch}): max|diff| {err:.3g} "
+                  f"tol {tol} ok [{card}]", flush=True)
+    gates, c = _randn(torch, 4096, 4 * MN_HIDDEN, seed=5, scale=2.0), _randn(torch, 4096, MN_HIDDEN, seed=6)
+    dh, dc = _randn(torch, 4096, MN_HIDDEN, seed=7), _randn(torch, 4096, MN_HIDDEN, seed=8)
+
+    def grads(fn):
+        ts = [t.clone().requires_grad_() for t in (gates, c)]
+        h, c_next = fn(*ts)
+        ((h * dh).sum() + (c_next * dc).sum()).backward()
+        return [t.grad for t in ts], h
+
+    (got, h) = grads(fused_lstm_gates)
+    if type(h.grad_fn).__name__ != "FusedLSTMGatesBackward":
+        fail(f"the gate tail under autograd is {h.grad_fn}, not FusedLSTMGates")
+    want, _ = grads(fused_lstm_gates_ref)
+    errs = [_max_err(torch, g_, w_, TOL_K34_F32, f"FusedLSTMGates {n}")
+            for n, g_, w_ in zip(("dgates", "dc"), got, want)]
+    print(f"FusedLSTMGates gradients (K3 forward) vs plain autograd, float32 (4096, 256): "
+          f"max|diff| dgates {errs[0]:.3g}, dc {errs[1]:.3g} tol {TOL_K34_F32} ok [{card}]",
+          flush=True)
+    return worst
+
+
+def check_attention(torch, card) -> float:
+    """Phase 9b: K4 vs its plain version at every listed shape and
+    AxialAttention's gradients; returns the largest bf16 |K4 - plain| at
+    MetNet's shape."""
+    from satflow_tpu_torch.ops.axial_attention import axial_attention, axial_attention_ref
+
+    worst = 0.0
+    for shape in K4_SHAPES:
+        for dtype, tol in ((torch.float32, TOL_K34_F32), (torch.bfloat16, TOL_K34_BF16)):
+            q, k, v = (_randn(torch, *shape, seed=shape[1] + i).to(dtype) for i in range(3))
+            before = axial_attention.launches
+            got = axial_attention(q, k, v)
+            torch.cuda.synchronize()
+            if axial_attention.launches != before + 1:
+                fail(f"K4 did not launch at {shape}")
+            err = _max_err(torch, got, axial_attention_ref(q, k, v), tol,
+                           f"K4 {str(dtype)[6:]} {shape}")
+            if dtype == torch.bfloat16 and shape == K4_SHAPES[0]:
+                worst = err
+            print(f"K4 vs plain: {str(dtype)[6:]} (N, L, d) {shape}: max|diff| {err:.3g} "
+                  f"tol {tol} ok [{card}]", flush=True)
+    q, k, v, g = (_randn(torch, *K4_SHAPES[0], seed=40 + i) for i in range(4))
+
+    def grads(fn):
+        ts = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*ts)
+        (out * g).sum().backward()
+        return [t.grad for t in ts], out
+
+    got, out = grads(axial_attention)
+    if type(out.grad_fn).__name__ != "AxialAttentionBackward":
+        fail(f"the attention under autograd is {out.grad_fn}, not AxialAttention")
+    want, _ = grads(axial_attention_ref)
+    errs = [_max_err(torch, g_, w_, TOL_K34_F32, f"AxialAttention d{n}")
+            for n, g_, w_ in zip("qkv", got, want)]
+    print(f"AxialAttention gradients (K4 forward) vs plain autograd, float32 {K4_SHAPES[0]}: "
+          "max|diff| " + ", ".join(f"d{n} {e:.3g}" for n, e in zip("qkv", errs))
+          + f" tol {TOL_K34_F32} ok [{card}]", flush=True)
+    return worst
+
+
+def metnet_flax_variables(in_channels: int, seed: int = 0) -> dict:
+    """Random weights in the JAX LitMetNet's flax tree, as flax initialises
+    them: lecun-normal kernels, zero biases, unit scales, pos_emb normal(0.02),
+    running statistics (0, 1)."""
+    rng = np.random.default_rng(seed)
+    h, heads = MN_HIDDEN, MN_HEADS
+
+    def conv(k, cin, cout):
+        return {"kernel": lecun_normal(rng, (k, k, cin, cout)), "bias": np.zeros(cout, np.float32)}
+
+    def norm(c):
+        return {"scale": np.ones(c, np.float32), "bias": np.zeros(c, np.float32)}
+
+    def dense_general(cout_shape, fan_in, shape):
+        kernel = lecun_normal(rng, (fan_in, int(np.prod(shape)) // fan_in)).reshape(shape)
+        return {"kernel": kernel, "bias": np.zeros(cout_shape, np.float32)}
+
+    def attn():
+        qkv = {n: dense_general((heads, h // heads), h, (h, heads, h // heads)) for n in "qkv"}
+        return {"pos_emb": (rng.standard_normal((MN_EH, h)) * 0.02).astype(np.float32), **qkv,
+                "out": dense_general((h,), h, (heads, h // heads, h))}
+
+    params = {
+        "image_encoder": {"c0": conv(3, in_channels, 160), "bn0": norm(160),
+                          "c1": conv(3, 160, 256), "c2": conv(3, 256, 256), "bn1": norm(256),
+                          "c3": conv(3, 256, 256)},
+        "temporal_encoder": {"cell": {"gates": conv(3, 256 + h, 4 * h)}},
+        "axial0": {"ln0": norm(h), "attn0": attn(), "ln1": norm(h), "attn1": attn(),
+                   "ln_mlp": norm(h), "mlp_in": conv(1, h, 2 * h), "mlp_out": conv(1, 2 * h, h)},
+        "head": conv(1, h, MN_COUT),
+    }
+    for name in ("mlp_in", "mlp_out"):  # Dense kernels are (in, out)
+        params["axial0"][name]["kernel"] = params["axial0"][name]["kernel"][0, 0]
+    stats = {"image_encoder": {f"bn{i}": {"mean": np.zeros(c, np.float32),
+                                          "var": np.ones(c, np.float32)}
+                               for i, c in ((0, 160), (1, 256))}}
+    return {"params": params, "batch_stats": stats}
+
+
+def _metnet(torch, **kw):
+    from satflow_tpu_torch.core.registry import create_model
+    import satflow_tpu_torch.models  # noqa: F401 - populate the registry
+
+    return create_model("litmetnet", image_encoder="downsampler", input_channels=MN_CIN,
+                        sat_channels=12, input_size=64, output_channels=MN_COUT,
+                        hidden_dim=MN_HIDDEN, kernel_size=3, num_layers=1, num_att_layers=1,
+                        forecast_steps=MN_F, temporal_dropout=0.2, lr=1e-3, loss="mse", **kw)
+
+
+def metnet_serve_slice(torch, card):
+    """Phase 10; returns (K3 launches, K4 launches, model)."""
+    from satflow_tpu_torch.ops.axial_attention import axial_attention, axial_attention_ref
+    from satflow_tpu_torch.ops.fused_lstm import fused_lstm_gates, fused_lstm_gates_ref
+    from satflow_tpu_torch.serve import InferenceSession, NowcastServer
+
+    model = _metnet(torch)
+    session = InferenceSession(model, max_batch=B, variables=metnet_flax_variables(4 * MN_CIN + MN_F),
+                               dtype=torch.bfloat16, device=DEVICE)
+    server = NowcastServer(session, port=0, window_ms=200.0)
+    server.start()
+    rng = np.random.default_rng(3)
+    requests = [rng.random((T, H, W, MN_CIN), dtype=np.float32) for _ in range(4)]
+    requests.append(rng.random((2, T, H, W, MN_CIN), dtype=np.float32))
+    replies = [None] * len(requests)
+    try:
+        fused_lstm_gates.launches = axial_attention.launches = 0
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=post, args=(server.port, x, replies, i))
+                   for i, x in enumerate(requests)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.perf_counter() - t0
+        k3, k4 = fused_lstm_gates.launches, axial_attention.launches
+        forwards = server.batcher.batches_run
+    finally:
+        server.close()
+    if any(t.is_alive() for t in threads):
+        fail("a MetNet request did not finish")
+    for x, (status, y) in zip(requests, replies):
+        if status != 200:
+            fail(f"MetNet request of shape {x.shape} answered {status}: {y!r}"[:500])
+        want = (MN_F, MN_EH, MN_EH, MN_COUT)
+        want = want if x.ndim == 4 else (x.shape[0],) + want
+        if y.shape != want:
+            fail(f"MetNet reply shape {y.shape}, expected {want}")
+        if not np.isfinite(y).all():
+            fail("MetNet reply not finite")
+    if forwards < 1 or (k3, k4) != (MN_K3_PER_FORWARD * forwards, MN_K4_PER_FORWARD * forwards):
+        fail(f"MetNet launches K3 {k3}, K4 {k4} != ({MN_K3_PER_FORWARD}, {MN_K4_PER_FORWARD}) "
+             f"x {forwards} forwards")
+    print(f"MetNet served {len(requests)} requests (6 samples) in {forwards} forward(s) of b{B}, "
+          f"{wall:.3f} s wall; launches K3 {k3} = {MN_K3_PER_FORWARD} x {forwards}, K4 {k4} = "
+          f"{MN_K4_PER_FORWARD} x {forwards} [{card}]", flush=True)
+
+    with torch.inference_mode():
+        x0 = torch.from_numpy(requests[0][None]).to(DEVICE, torch.bfloat16)
+        ref = model(x0, gate_tail=fused_lstm_gates_ref,
+                    attention=axial_attention_ref).float().cpu().numpy()[0]
+    diff = float(np.abs(ref - replies[0][1]).max())
+    scale = float(np.abs(ref).max())
+    if not diff <= TOL_MN_REPLY * scale:
+        fail(f"MetNet reply vs plain-version forward: max|diff| {diff:.3g} > "
+             f"{TOL_MN_REPLY} x max|plain| {scale:.3g}")
+    print(f"MetNet reply vs the plain versions' forward (bf16): max|diff| {diff:.3g} <= "
+          f"{TOL_MN_REPLY} x max|plain| {scale:.3g} ok [{card}]", flush=True)
+    return k3, k4, model
+
+
+def device_time_by_class(torch, fn, classes):
+    """Run ``fn()`` once under torch.profiler; returns (wall ms, {class: device
+    ms}, busy ms, the 6 largest kernels of "other" as (name, ms), the
+    profile), a kernel going to the first class one of whose name fragments
+    it contains, else to "other"."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    out = {name: 0.0 for name in classes}
+    out["other"] = 0.0
+    others = []
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:  # a CPU op's row repeats its kernels' time
+            continue
+        key = evt.key.lower()
+        name = next((n for n, frags in classes.items() if any(f in key for f in frags)), "other")
+        ms = evt.self_device_time_total / 1e3
+        out[name] += ms
+        if name == "other":
+            others.append((evt.key[:70], ms))
+    return wall_ms, out, sum(out.values()), sorted(others, key=lambda e: -e[1])[:6], prof
+
+
+# kernel classes of a profile, by name fragments (the first match wins)
+LIBRARY_CONVS = ("conv", "cudnn", "xmma", "dgrad", "wgrad", "cutlass", "implicit", "sm90_")
+OPTIMIZER = ("adam", "multi_tensor")
+CONVLSTM_CLASSES = {"K1": ("fused_convlstm_step_kernel",), "K2": ("gate_bwd_kernel",),
+                    "library convs": LIBRARY_CONVS, "optimizer": OPTIMIZER}
+MN_CLASSES = {"K3": ("fused_lstm_gates_kernel",), "K4": ("axial_attention_kernel",),
+              "library convs": LIBRARY_CONVS, "optimizer": OPTIMIZER}
+
+
+def print_profile(what, result, card, extra: str = "") -> None:
+    """Print a :func:`device_time_by_class` result."""
+    wall_ms, classes, busy, others, _ = result
+    if busy <= 0:
+        print(f"{what} profile: the profiler saw no device time; not measured [{card}]", flush=True)
+        return
+    print(f"{what} profile: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms, idle "
+          f"{100 * (1 - busy / wall_ms):.1f} %; "
+          + ", ".join(f"{k} {v:.2f} ms ({100 * v / busy:.1f} %)" for k, v in classes.items())
+          + "; largest of other: " + "; ".join(f"{n} {ms:.2f} ms" for n, ms in others)
+          + f"{extra} [{card}]", flush=True)
+
+
+def metnet_timings(torch, model, card):
+    """Phase 11: K3 and K4 per call against their plain versions at the
+    path's shapes, the b8 forward both ways, one forward profiled. Returns
+    (K3 ms {"kernel", "plain"}, {K4 shape: ms})."""
+    from satflow_tpu_torch.ops.axial_attention import attention_kernel, axial_attention_ref
+    from satflow_tpu_torch.ops.fused_lstm import _gates, fused_lstm_gates_ref
+
+    gates = _randn(torch, MN_ROWS, 4 * MN_HIDDEN, seed=50, scale=2.0).to(torch.bfloat16)
+    c = _randn(torch, MN_ROWS, MN_HIDDEN, seed=51).to(torch.bfloat16)
+    k3 = per_call_ms(torch, _gates, fused_lstm_gates_ref, (gates, c))
+    k3_bytes = gates.numel() * 2 + c.numel() * 2 * 3
+    print(f"time per K3 call, bf16 ({MN_ROWS}, {4 * MN_HIDDEN}): kernel {k3['kernel'] * 1e3:.2f} us "
+          f"({k3_bytes / k3['kernel'] / 1e6:.0f} GB/s), plain {k3['plain'] * 1e3:.2f} us [{card}]",
+          flush=True)
+    k4 = {}
+    for shape in K4_SHAPES:
+        q, k, v = (_randn(torch, *shape, seed=60 + i).to(torch.bfloat16) for i in range(3))
+        k4[shape] = per_call_ms(torch, attention_kernel, axial_attention_ref, (q, k, v))
+        n, length, d = shape
+        flop = 4 * n * length * length * d
+        print(f"time per K4 call, bf16 (N, L, d) {shape}: kernel {k4[shape]['kernel'] * 1e3:.2f} us "
+              f"({flop / k4[shape]['kernel'] / 1e9:.1f} TFLOP/s), plain "
+              f"{k4[shape]['plain'] * 1e3:.2f} us ({flop / k4[shape]['plain'] / 1e9:.1f} TFLOP/s) "
+              f"[{card}]", flush=True)
+
+    x = torch.from_numpy(np.random.default_rng(4).random((B, T, H, W, MN_CIN), dtype=np.float32))
+    x = x.to(DEVICE, torch.bfloat16)
+    plain = dict(gate_tail=fused_lstm_gates_ref, attention=axial_attention_ref)
+    runs = {"plain": [], "kernel": []}
+    with torch.inference_mode():
+        for kw in ({}, plain):
+            model(x, **kw)  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        for name in ("kernel", "plain", "plain", "kernel"):
+            kw = plain if name == "plain" else {}
+            runs[name].append(cuda_ms(torch, lambda: model(x, **kw), 3))
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        for name, r in runs.items():
+            ms = sum(r) / len(r)
+            print(f"MetNet b{B} forward ({T} x {H}x{W}x{MN_CIN} in, {MN_F} lead times, bf16) "
+                  f"through the {name} versions: {ms:.2f} ms, {B * MN_F / (ms / 1e3):.1f} "
+                  f"forecast frames/s (runs {', '.join(f'{v:.2f}' for v in r)} ms); peak device "
+                  f"memory {peak_gib:.2f} GiB [{card}]", flush=True)
+        print_profile(f"MetNet b{B} forward",
+                      device_time_by_class(torch, lambda: model(x), MN_CLASSES), card)
+    return k3, k4
+
+
+def metnet_train_slice(torch, card):
+    """Phase 12; returns (K3 launches, K4 launches)."""
+    from satflow_tpu_torch.data import SatFlowDataModule
+    from satflow_tpu_torch.data.datamodule import to_device
+    from satflow_tpu_torch.ops.axial_attention import axial_attention, axial_attention_ref
+    from satflow_tpu_torch.ops.fused_lstm import fused_lstm_gates, fused_lstm_gates_ref
+    from satflow_tpu_torch.train import Trainer
+    from satflow_tpu_torch.train.steps import make_train_step
+
+    gen = torch.Generator()
+    model = _metnet(torch, generator=gen, warmup_steps=1000, total_steps=100_000)
+    model.module.load_state_dict(model.state_dict_from_flax(
+        metnet_flax_variables(4 * MN_TRAIN_CIN + MN_F, seed=1)))
+    dm = SatFlowDataModule(fake_data=True, num_workers=0, n_train_data=TRAIN_STEPS, n_val_data=1,
+                           history_minutes=5 * (T - 1), forecast_minutes=5 * MN_F,
+                           fake_kwargs=dict(batch_size=B, width=W, height=H))
+    counter = LaunchesPerStep(fused_lstm_gates, axial_attention)
+    trainer = Trainer(max_steps=TRAIN_STEPS, precision="bf16", log_every_n_steps=1,
+                      device=DEVICE, callbacks=[counter])
+    gen.manual_seed(0)
+    fused_lstm_gates.launches = axial_attention.launches = 0
+    t0 = time.perf_counter()
+    trainer.fit(model, dm)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k3, k4 = fused_lstm_gates.launches, axial_attention.launches
+    losses = [e["train/loss"] for e in trainer.history.history if "train/loss" in e]
+    lrs = [model.lr_schedule(i) for i in range(TRAIN_STEPS)]
+    val_loss = trainer.callback_metrics.get("val/loss", float("nan"))
+    if trainer.global_step != TRAIN_STEPS or len(losses) != TRAIN_STEPS:
+        fail(f"MetNet fit took {trainer.global_step} steps and logged {len(losses)} losses")
+    if not all(np.isfinite(losses + [val_loss])):
+        fail(f"MetNet non-finite losses: train {losses}, val {val_loss}")
+    want_step = (MN_K3_PER_FORWARD, MN_K4_PER_FORWARD)  # forward kernels; plain backward chains
+    if counter.per_step != [want_step] * TRAIN_STEPS:
+        fail(f"MetNet (K3, K4) launches per train step {counter.per_step}, expected {want_step}")
+    if (k3, k4) != ((TRAIN_STEPS + 1) * MN_K3_PER_FORWARD, (TRAIN_STEPS + 1) * MN_K4_PER_FORWARD):
+        fail(f"MetNet fit launched K3 {k3} and K4 {k4} times")
+    if model.dtype != torch.bfloat16 or not model.module.image_encoder.bn0.mean.abs().sum() > 0:
+        fail("MetNet did not train in bf16 with moving BatchNorm statistics")
+    print(f"MetNet trained {TRAIN_STEPS} steps (bf16, b{B} {H}x{W}x{MN_TRAIN_CIN}, {T} in / {MN_F} "
+          f"lead times) in {wall:.2f} s wall with data generation: losses "
+          + ", ".join(f"{v:.6f}" for v in losses) + f", val {val_loss:.6f}; Adam learning rates "
+          + ", ".join(f"{v:.3g}" for v in lrs) + f" (warmup_cosine); launches per step K3 "
+          f"{want_step[0]}, K4 {want_step[1]}; fit total K3 {k3}, K4 {k4} (with one validation "
+          f"forward) [{card}]", flush=True)
+
+    batch = to_device(next(iter(dm.train_dataloader())), torch.device(DEVICE))
+    plain = dict(gate_tail=fused_lstm_gates_ref, attention=axial_attention_ref)
+
+    def step_grads(**kw):
+        model.train()
+        model.zero_grad(set_to_none=True)
+        gen.manual_seed(1)  # the same temporal-dropout mask both ways
+        loss, _ = model.loss(batch, **kw)
+        loss.backward()
+        grads = {n: p.grad.detach().clone() for n, p in model.module.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        return grads
+
+    got, want = step_grads(), step_grads(**plain)
+    worst, worst_cos = 0.0, 1.0
+    for name, g in got.items():
+        w = want[name]
+        if g is None or not bool(torch.isfinite(g).all()):
+            fail(f"MetNet parameter {name} has no finite gradient through the kernels")
+        if name in MN_ZERO_GRAD:
+            scale = want[name.replace(".bias", ".weight")].abs().max().item()
+            if not (g.abs().max().item() <= 1e-3 * scale and w.abs().max().item() <= 1e-3 * scale):
+                fail(f"MetNet {name}: gradient not negligible against its layer's weight's")
+            continue
+        if not g.abs().sum().item() > 0:
+            fail(f"MetNet parameter {name} has a zero gradient through the kernels")
+        rel = (g - w).abs().max().item() / w.abs().max().item()
+        cos = torch.nn.functional.cosine_similarity(g.flatten(), w.flatten(), dim=0).item()
+        worst, worst_cos = max(worst, rel), min(worst_cos, cos)
+        if not (rel <= TOL_TRAIN_GRAD and cos >= MIN_TRAIN_GRAD_COS):
+            fail(f"MetNet gradient of {name} through K3+K4 vs plain: max|diff| / max|grad| "
+                 f"{rel:.3g} (tol {TOL_TRAIN_GRAD}), cosine {cos:.6f} (min {MIN_TRAIN_GRAD_COS})")
+    print(f"MetNet train step's gradients through K3+K4 vs the plain versions (bf16): "
+          f"{len(got) - len(MN_ZERO_GRAD)} parameters nonzero (and {len(MN_ZERO_GRAD)} zero in "
+          f"exact arithmetic, negligible both ways); max|diff| / max|grad| {worst:.3g} <= "
+          f"{TOL_TRAIN_GRAD}, cosine >= {worst_cos:.6f} ok [{card}]", flush=True)
+
+    state = trainer.state
+    steps = {"kernel": make_train_step(model), "plain": make_train_step(model, **plain)}
+    for fn in steps.values():
+        fn(state, batch)  # warm-up
+    runs = {"plain": [], "kernel": []}
+    peaks = {"plain": 0.0, "kernel": 0.0}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        steps[name](state, batch)
+        torch.cuda.synchronize()
+        runs[name].append((time.perf_counter() - t0) * 1e3)
+        peaks[name] = max(peaks[name], torch.cuda.max_memory_allocated() / 2**30)
+    for name in ("kernel", "plain"):
+        ms = sum(runs[name]) / len(runs[name])
+        print(f"MetNet b{B} train step (bf16, {T} in / {MN_F} lead times, {H}x{W}x{MN_TRAIN_CIN}, "
+              f"Adam) through the {name} versions: {ms:.2f} ms, {B * MN_F / (ms / 1e3):.1f} "
+              f"frames/s (runs {', '.join(f'{r:.2f}' for r in runs[name])} ms); peak device "
+              f"memory {peaks[name]:.2f} GiB [{card}]", flush=True)
+    print_profile(f"MetNet b{B} train step",
+                  device_time_by_class(torch, lambda: steps["kernel"](state, batch), MN_CLASSES),
+                  card)
+    return k3, k4
+
+
 def main() -> None:
     try:
         import torch
@@ -582,7 +1011,6 @@ def main() -> None:
     try:
         from satflow_tpu_torch.ops import _build
         from satflow_tpu_torch.ops.fused_convlstm_step import (
-            build,
             fused_convlstm_step,
             fused_convlstm_step_ref,
             gate_bwd,
@@ -601,7 +1029,8 @@ def main() -> None:
 
     # phase 2
     t0 = time.perf_counter()
-    build()
+    _build.load_all(["fused_convlstm_step", "fused_convlstm_step_bwd", "fused_lstm_gates",
+                     "axial_attention"])
     print(f"kernel build: {time.perf_counter() - t0:.2f} s wall, nvcc in parallel ("
           + ", ".join(f"{k} {v:.2f} s" for k, v in _build.build_seconds.items())
           + (")" if _build.build_seconds else "already built)"), flush=True)
@@ -626,7 +1055,18 @@ def main() -> None:
     # phase 8: training (counts set to 0 inside, just before fit)
     train_k1, train_k2, _, _ = train_slice(torch, card)
 
-    # phase 9
+    # phase 9: K3 and K4 against their plain versions
+    k3_err = check_gate_tail(torch, card)
+    k4_err = check_attention(torch, card)
+    # phase 10: MetNet serving (counts set to 0 inside, just before the requests)
+    serve_k3, serve_k4, mn_model = metnet_serve_slice(torch, card)
+    # phase 11
+    k3_ms, k4_ms = metnet_timings(torch, mn_model, card)
+    del mn_model
+    # phase 12: MetNet training (counts set to 0 inside, just before fit)
+    train_k3, train_k4 = metnet_train_slice(torch, card)
+
+    # phase 13
     print(json.dumps({"kernels": [{
         "name": "fused_convlstm_step",
         "route": "cuda",
@@ -645,6 +1085,24 @@ def main() -> None:
         "max_abs_err": k2_err,
         "ms": per_call_bwd[HIDDEN]["kernel"],
         "plain_ms": per_call_bwd[HIDDEN]["plain"],
+    }, {
+        "name": "fused_lstm_gates",
+        "route": "cuda",
+        "source": "satflow_tpu_torch/csrc/fused_lstm_gates.cu",
+        "replaces": "satflow_tpu/ops/pallas/fused_lstm.py:75",
+        "launches": serve_k3 + train_k3,  # MetNet serving + training runs
+        "max_abs_err": k3_err,
+        "ms": k3_ms["kernel"],
+        "plain_ms": k3_ms["plain"],
+    }, {
+        "name": "axial_attention",
+        "route": "cuda",
+        "source": "satflow_tpu_torch/csrc/axial_attention.cu",
+        "replaces": "satflow_tpu/ops/pallas/axial_attention.py:60",
+        "launches": serve_k4 + train_k4,
+        "max_abs_err": k4_err,
+        "ms": k4_ms[K4_SHAPES[0]]["kernel"],
+        "plain_ms": k4_ms[K4_SHAPES[0]]["plain"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -26,7 +26,7 @@ _UNPORTED_CALLBACKS = {
 }
 # JAX model modules without a port yet, by the ROADMAP item that ports them
 _UNPORTED_MODELS = {
-    "metnet": 9, "perceiver": 10, "hf_perceiver": 10, "dgmr": 11, "cloudgan": 11,
+    "perceiver": 10, "hf_perceiver": 10, "dgmr": 11, "cloudgan": 11,
     "pix2pix": 11, "gan_base": 11,
 }
 

@@ -1,4 +1,4 @@
-"""flax params -> PyTorch state_dict for the port's ConvLSTM core.
+"""flax variables -> PyTorch state_dict for the port's ConvLSTM and MetNet cores.
 
 The inverse direction of ``satflow_tpu/interop/torch_weights.py``. Its
 layout rule, read backwards: a flax conv kernel (kh, kw, I, O) becomes an
@@ -14,7 +14,18 @@ The flax tree of ``EncoderDecoderConvLSTM`` is::
 with two other nestings that the JAX model's ``adapt_restored_params``
 relocates and this bridge normalises the same way: ``encoder/steps/…`` and
 ``decoder/steps/…`` (``remat_chunk`` > 1), and ``head/…`` at the top level
-(``head_in_scan=False``). Pure numpy: no jax is needed to read the weights.
+(``head_in_scan=False``).
+
+:func:`metnet_state_dict_from_flax` converts ``LitMetNet``'s variables,
+params and the BatchNorm ``batch_stats``, leaf by leaf: conv kernels HWIO ->
+OIHW, Dense kernels (in, out) -> (out, in), the attention's DenseGeneral
+kernels (C, heads, d) and (heads, d, C) -> ``nn.Linear`` weights, LayerNorm
+``scale`` -> ``weight``; BatchNorm ``scale``/``bias``, ``pos_emb`` and the
+running ``mean``/``var`` keep their names.
+
+A flat ``.npz`` (:func:`save_npz`) holds the params under their paths and a
+``batch_stats`` collection under ``batch_stats/``. Pure numpy: no jax is
+needed to read the weights.
 """
 
 from __future__ import annotations
@@ -97,14 +108,61 @@ def params_from_flax(tree: Mapping[str, Any]) -> "OrderedDict[str, torch.Tensor]
     return sd
 
 
+def metnet_state_dict_from_flax(variables: Mapping[str, Any]) -> "OrderedDict[str, torch.Tensor]":
+    """flax variables of ``LitMetNet`` (``{"params": ..., "batch_stats":
+    ...}``, numpy leaves) -> state_dict of the port's ``MetNetCore``."""
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    for path, a in flatten_tree(variables["params"]).items():
+        *mods, leaf = path.split("/")
+        key = ".".join(mods)
+        a = np.asarray(a, dtype=np.float32)
+        if leaf == "kernel":
+            if a.ndim == 4:  # conv (kh, kw, I, O) -> (O, I, kh, kw)
+                a = a.transpose(3, 2, 0, 1)
+            elif mods[-1] == "out" and a.ndim == 3:  # DenseGeneral (h, d, C)
+                a = a.reshape(-1, a.shape[-1]).T
+            elif a.ndim == 3:  # DenseGeneral (C, h, d)
+                a = a.reshape(a.shape[0], -1).T
+            else:  # Dense (in, out)
+                a = a.T
+            leaf = "weight"
+        elif leaf == "bias":
+            a = a.reshape(-1)  # DenseGeneral (h, d)
+        elif leaf == "scale" and mods[-1].startswith("ln"):
+            leaf = "weight"  # LayerNorm
+        elif leaf not in ("scale", "pos_emb"):
+            raise KeyError(f"unexpected flax param {path!r}")
+        sd[f"{key}.{leaf}"] = torch.from_numpy(np.array(a, order="C"))
+    for path, a in flatten_tree(variables.get("batch_stats", {})).items():
+        sd[path.replace("/", ".")] = torch.from_numpy(np.array(a, dtype=np.float32))
+    return sd
+
+
 def save_npz(path, tree: Mapping[str, Any]) -> None:
-    """Write a flax params tree (numpy leaves) as the flat ``.npz`` that
-    :func:`load_npz` reads: keys like ``"encoder/encoder_1/x_gates_kernel"``."""
-    np.savez(path, **flatten_tree(tree.get("params", tree)))
+    """Write flax variables (numpy leaves) as the flat ``.npz`` that
+    :func:`read_npz` reads: params under their paths, like
+    ``"encoder/encoder_1/x_gates_kernel"``, and a ``batch_stats`` collection
+    under ``"batch_stats/..."``."""
+    flat = flatten_tree(tree.get("params", tree))
+    if "batch_stats" in tree:
+        flat.update(flatten_tree(tree["batch_stats"], "batch_stats/"))
+    np.savez(path, **flat)
+
+
+def read_npz(path) -> Dict[str, Any]:
+    """The flax variables of a flat ``.npz``: ``{"params": ...}``, with
+    ``"batch_stats"`` when the file holds that collection."""
+    with np.load(path, allow_pickle=False) as data:
+        flat = {k: data[k] for k in data.files}
+    stats = {k[len("batch_stats/"):]: v for k, v in flat.items() if k.startswith("batch_stats/")}
+    variables = {"params": unflatten_tree({k: v for k, v in flat.items()
+                                           if not k.startswith("batch_stats/")})}
+    if stats:
+        variables["batch_stats"] = unflatten_tree(stats)
+    return variables
 
 
 def load_npz(path) -> "OrderedDict[str, torch.Tensor]":
-    """Read a flat ``.npz`` of flax params and convert it with
-    :func:`params_from_flax`."""
-    with np.load(path, allow_pickle=False) as data:
-        return params_from_flax(unflatten_tree({k: data[k] for k in data.files}))
+    """Read a flat ``.npz`` of ``EncoderDecoderConvLSTM``'s flax params and
+    convert it with :func:`params_from_flax`."""
+    return params_from_flax(read_npz(path))

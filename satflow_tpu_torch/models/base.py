@@ -17,6 +17,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.nn.parameter import is_lazy
 
 from satflow_tpu_torch.nn.losses import get_loss
 
@@ -59,6 +60,26 @@ class BaseModel(nn.Module):
         if isinstance(y, dict):
             y = y["sat_data"]
         return x, y
+
+    def state_dict_from_flax(self, variables) -> Dict[str, torch.Tensor]:
+        """The core's state_dict from the JAX model's flax variables (numpy
+        leaves); each model names its converter in
+        :mod:`satflow_tpu_torch.interop.jax_weights`."""
+        raise NotImplementedError(f"{type(self).__name__} has no flax weight converter")
+
+    def materialize(self, batch) -> None:
+        """Create the parameters whose shapes come from the data (lazy
+        modules) from one sample of ``batch``: one forward in eval mode
+        without grad, so that nothing is recorded and no running statistic
+        moves. A no-op when every parameter exists."""
+        if not any(is_lazy(p) for p in self.parameters()):
+            return
+        x, _ = self.prepare_batch(batch)
+        training = self.training
+        self.eval()
+        with torch.no_grad():
+            self(x[:1])
+        self.train(training)
 
     def forward(self, x: torch.Tensor, **kwargs) -> torch.Tensor:
         """Forward through the core; ``kwargs`` go to the core."""

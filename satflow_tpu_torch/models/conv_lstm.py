@@ -226,6 +226,11 @@ class EncoderDecoderConvLSTM(BaseModel):
             generator=self._generator,
         )
 
+    def state_dict_from_flax(self, variables):
+        from satflow_tpu_torch.interop.jax_weights import params_from_flax
+
+        return params_from_flax(variables)
+
     def prepare_batch(self, batch):
         x, y = super().prepare_batch(batch)
         # the model predicts out_channels: compare against the first ones

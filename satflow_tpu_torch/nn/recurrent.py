@@ -1,4 +1,9 @@
-"""The fused ConvLSTM cell (NHWC), counterpart of ``satflow_tpu/nn/recurrent.py``.
+"""ConvLSTM cells (NHWC), counterpart of ``satflow_tpu/nn/recurrent.py``.
+
+:class:`ConvLSTMCell` is the JAX ``ConvLSTMCell`` with its fused gate tail:
+one conv ``gates`` over ``[x | h]`` to 4C (a library conv), then the LSTM
+gate tail through :func:`satflow_tpu_torch.ops.fused_lstm.fused_lstm_gates`
+(kernel K3 on the card). MetNet's temporal encoder runs it.
 
 :class:`FusedConvLSTMCell` keeps the JAX cell's parameter names and layouts
 (``x_gates_kernel`` (3, 3, Cx, 4Ch), ``h_gates_kernel`` (3, 3, Ch, 4Ch),
@@ -16,7 +21,9 @@ from typing import Callable, Optional, Tuple
 import torch
 from torch import nn
 
+from satflow_tpu_torch.nn.misc import compute_dtype, conv2d_nhwc
 from satflow_tpu_torch.ops.fused_convlstm_step import fused_convlstm_step
+from satflow_tpu_torch.ops.fused_lstm import fused_lstm_gates
 
 Carry = Tuple[torch.Tensor, torch.Tensor]
 
@@ -62,6 +69,44 @@ class FusedConvLSTMCell(nn.Module):
             self.x_gates_kernel.to(cdtype), self.h_gates_kernel.to(cdtype),
             self.bias.to(cdtype),
         )
+        return (h_next, c_next), h_next
+
+    @staticmethod
+    def init_carry(batch: int, h: int, w: int, features: int,
+                   dtype=torch.float32, device=None) -> Carry:
+        return zeros_carry(batch, h, w, features, 2, dtype, device)
+
+
+class ConvLSTMCell(nn.Module):
+    """Fused-gate ConvLSTM cell: ``gates`` (an ``nn.Conv2d``, SAME padding)
+    over ``[x | h]`` to 4C in i, f, o, g order, then the gate tail with c cast
+    to the gates' dtype.
+
+    The compute dtype is ``dtype``, or with None what flax promotes to: the
+    input's, at least float32.
+    """
+
+    def __init__(self, in_features: int, features: int, kernel_size: int = 3,
+                 dtype: Optional[torch.dtype] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.features = features
+        self.dtype = dtype
+        self.gates = nn.Conv2d(in_features + features, 4 * features, kernel_size,
+                               padding="same")
+        lecun_normal_(self.gates.weight, (in_features + features) * kernel_size ** 2, generator)
+        nn.init.zeros_(self.gates.bias)
+
+    def forward(self, carry: Carry, x: torch.Tensor,
+                gate_tail: Callable = fused_lstm_gates) -> Tuple[Carry, torch.Tensor]:
+        """((h, c), x) -> ((h', c'), h'). ``gate_tail`` swaps in another
+        implementation of the gate tail (tests compare against the plain one)."""
+        h, c = carry
+        cdtype = compute_dtype(self.dtype, x)
+        conv = self.gates
+        gates = conv2d_nhwc(torch.cat([x, h], dim=-1).to(cdtype), conv.weight.to(cdtype),
+                            conv.bias.to(cdtype))
+        h_next, c_next = gate_tail(gates, c.to(gates.dtype))
         return (h_next, c_next), h_next
 
     @staticmethod

@@ -19,7 +19,7 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Sequence
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -95,6 +95,27 @@ def load(name: str) -> ctypes.CDLL:
         with _lock:
             _loaded[name] = lib
         return lib
+
+
+def load_typed(name: str, entries: Iterable[str], argtypes: Sequence) -> ctypes.CDLL:
+    """:func:`load`, with each entry point in ``entries`` typed ``argtypes``
+    -> int (the CUDA error code of its launch) and the library's
+    ``satflow_cuda_error_string`` typed for :func:`raise_on`."""
+    lib = load(name)
+    for entry in entries:
+        fn = getattr(lib, entry)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    lib.satflow_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.satflow_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def raise_on(err: int, lib: ctypes.CDLL, what: str) -> None:
+    """Raise if an entry point of ``lib`` returned a CUDA error."""
+    if err:
+        msg = lib.satflow_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
 
 
 def load_all(names: Iterable[str]) -> Dict[str, ctypes.CDLL]:

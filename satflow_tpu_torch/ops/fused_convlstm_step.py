@@ -139,26 +139,15 @@ def _check(x, h, c, wx, wh, b, **state_like) -> None:
 def _library(name: str, entries, n_pointers: int) -> ctypes.CDLL:
     """The built library ``csrc/<name>.cu`` with its entry points typed:
     ``n_pointers`` pointers, then (B, H, W, Cx, Ch, device), then the stream."""
-    lib = _build.load(name)
-    for entry in entries.values():
-        fn = getattr(lib, entry)
-        fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    lib.satflow_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.satflow_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    return _build.load_typed(
+        name, entries.values(),
+        [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 
 
 def build() -> None:
     """Build (or load) both kernels' libraries now, one nvcc each, run
     together, rather than at first launch."""
     _build.load_all(["fused_convlstm_step", "fused_convlstm_step_bwd"])
-
-
-def _raise_on(err: int, lib: ctypes.CDLL, what: str) -> None:
-    if err:
-        msg = lib.satflow_cuda_error_string(err).decode()
-        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
 
 
 def _step(x, h, c, wx, wh, b) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -176,7 +165,7 @@ def _step(x, h, c, wx, wh, b) -> Tuple[torch.Tensor, torch.Tensor]:
         b.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
         bsz, height, width, cx, h.shape[-1], x.device.index, stream,
     )
-    _raise_on(err, lib, "fused_convlstm_step")
+    _build.raise_on(err, lib, "fused_convlstm_step")
     fused_convlstm_step.launches += 1
     return h_out, c_out
 
@@ -201,7 +190,7 @@ def gate_bwd(x, h, c, wx, wh, b, dh_next, dc_next) -> Tuple[torch.Tensor, torch.
         *(t.data_ptr() for t in args), dgates.data_ptr(), dc_prev.data_ptr(),
         bsz, height, width, cx, ch, x.device.index, stream,
     )
-    _raise_on(err, lib, "gate_bwd")
+    _build.raise_on(err, lib, "gate_bwd")
     gate_bwd.launches += 1
     return dgates, dc_prev
 

@@ -12,10 +12,10 @@ Client faults answer 400, timeouts 503 and server faults 500.
 
 Run::
 
-    python -m satflow_tpu_torch.serve.server convlstm --weights params.npz \\
+    python -m satflow_tpu_torch.serve.server {convlstm,metnet} --weights params.npz \\
         [--bf16] [--out-f16] [--device cuda]
 
-``--weights`` is a flat ``.npz`` of the JAX model's flax params
+``--weights`` is a flat ``.npz`` of the JAX model's flax variables
 (:func:`satflow_tpu_torch.interop.jax_weights.save_npz` writes one).
 """
 
@@ -40,11 +40,16 @@ MODEL_CONFIGS = {
         hidden_dim=64, input_channels=12, out_channels=12, forecast_steps=24,
         lr=0.001, loss="mse", conv_type="standard",
     )),
+    "metnet": ("litmetnet", dict(
+        image_encoder="downsampler", input_channels=12, sat_channels=12, input_size=64,
+        output_channels=12, hidden_dim=64, kernel_size=3, num_layers=1, num_att_layers=1,
+        forecast_steps=24, temporal_dropout=0.2, lr=0.001, loss="mse",
+    )),
 }
 
 
 def build_model(name: str):
-    """A model by config name (``convlstm``) or registry name."""
+    """A model by config name (``convlstm``, ``metnet``) or registry name."""
     from satflow_tpu_torch.core.registry import create_model
     import satflow_tpu_torch.models  # noqa: F401 - populate the registry
 
@@ -191,11 +196,11 @@ def _make_handler(server: NowcastServer):
 def serve(model: str, weights: str, host: str = "0.0.0.0", port: int = 8500,
           max_batch: int = 8, window_ms: float = 5.0, dtype=None,
           out_dtype=None, device="cuda") -> None:
-    from satflow_tpu_torch.interop.jax_weights import load_npz
+    from satflow_tpu_torch.interop.jax_weights import read_npz
 
     srv = NowcastServer(build_model(model), host=host, port=port,
                         max_batch=max_batch, window_ms=window_ms,
-                        state_dict=load_npz(weights), dtype=dtype,
+                        variables=read_npz(weights), dtype=dtype,
                         out_dtype=out_dtype, device=device)
     print(f"serving {model} on {host}:{srv.port} (max_batch={max_batch}, "
           f"device={srv.session.device})")
@@ -210,9 +215,9 @@ def main(argv=None) -> None:
 
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("model", help="config name (convlstm) or registry name")
+    p.add_argument("model", help="config name (convlstm, metnet) or registry name")
     p.add_argument("--weights", required=True,
-                   help="flat .npz of flax params (interop.jax_weights.save_npz)")
+                   help="flat .npz of flax variables (interop.jax_weights.save_npz)")
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8500)
     p.add_argument("--max-batch", type=int, default=8)

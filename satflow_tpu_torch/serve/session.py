@@ -32,12 +32,14 @@ class InferenceSession:
     ----------
     model: a BaseModel instance, or a registry name.
     max_batch: the batch every forward runs at; requests are padded up to it.
-    variables: flax variables (``{"params": tree}`` with numpy leaves),
-        converted with :func:`~satflow_tpu_torch.interop.jax_weights.params_from_flax`.
-    state_dict: the core's state_dict, as that function returns it.
+    variables: flax variables (``{"params": tree}``, with ``"batch_stats"``
+        for a model that has them; numpy leaves), converted by the model's
+        own converter (``model.state_dict_from_flax``).
+    state_dict: the core's state_dict, as that converter returns it.
         Exactly one of ``variables`` and ``state_dict`` is required.
-    dtype: compute dtype the input is cast to (e.g. ``torch.bfloat16``);
-        None computes in float32.
+    dtype: compute dtype (e.g. ``torch.bfloat16``): the input is cast to it
+        and the model computes in it (``set_compute_dtype``; f32 weights
+        stay); None leaves the model's own and feeds float32.
     out_dtype: wire dtype of predictions (float32 or float16).
     device: where the model runs; None keeps the model's current device.
         ``"cuda"`` without a card raises.
@@ -76,15 +78,15 @@ class InferenceSession:
         if (variables is None) == (state_dict is None):
             raise ValueError("pass exactly one of variables= (flax) or state_dict=")
         if variables is not None:
-            from satflow_tpu_torch.interop.jax_weights import params_from_flax
-
-            state_dict = params_from_flax(variables)
+            state_dict = model.state_dict_from_flax(variables)
         out_dtype = out_dtype or torch.float32
         if out_dtype not in _OUT_DTYPES:
             raise ValueError(f"out_dtype must be one of {_OUT_DTYPES}, got {out_dtype}")
         self.device = (resolve_device(device) if device is not None
                        else next(model.parameters()).device)
         model.module.load_state_dict(state_dict)
+        if dtype is not None:
+            model.set_compute_dtype(dtype)
         self.model = model.to(self.device).eval()
         self.max_batch = int(max_batch)
         self.dtype = dtype

@@ -29,6 +29,7 @@ import time
 from typing import Any, Dict, List, Optional
 
 import torch
+from torch.nn.parameter import is_lazy
 
 from satflow_tpu_torch import resolve_device
 from satflow_tpu_torch.core.adapters import framework_free
@@ -125,8 +126,9 @@ class Trainer:
             lg.log_metrics(metrics, step)
 
     def current_lr(self) -> Optional[float]:
-        """The model's learning-rate schedule at this step; None without one,
-        as for every ported model (schedules: ROADMAP queue 1 item 4)."""
+        """The model's learning-rate schedule (``lr_schedule``, which its
+        optimizer follows) at this step; None for a model without one (the
+        ConvLSTM trains at a constant rate)."""
         schedule = getattr(self.model, "lr_schedule", None)
         return None if schedule is None else float(schedule(self.global_step))
 
@@ -267,6 +269,10 @@ class Trainer:
             model.set_compute_dtype(torch.bfloat16)
         if hasattr(datamodule, "device"):
             datamodule.device = self.device
+        # parameters whose shapes come from the data are created from the
+        # first batch, as the JAX Trainer initialises from it
+        if any(is_lazy(p) for p in model.parameters()):
+            model.materialize(to_device(next(iter(datamodule.train_dataloader())), self.device))
         self.state = TrainState(
             model=model,
             optimizer=model.make_optimizer(),

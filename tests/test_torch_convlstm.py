@@ -146,9 +146,9 @@ def test_hparams_match_jax():
 
 
 def test_registries_are_separate():
-    assert registry.list_models() == ["encoderdecoderconvlstm"]
-    assert registry.get_model("EncoderDecoderConvLSTM") is not jax_registry.get_model(
-        "encoderdecoderconvlstm")
+    assert registry.list_models() == ["encoderdecoderconvlstm", "litmetnet"]
+    for name in registry.list_models():
+        assert registry.get_model(name) is not jax_registry.get_model(name)
     for source in ("local:/ckpt", "torch:/m.ckpt", "hf_hub:org/repo"):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
             registry.create_model(source)

@@ -326,7 +326,7 @@ def test_unported_config_targets_raise():
 
     for target, item in (("satflow_tpu.train.callbacks.ModelCheckpoint", "item 6"),
                          ("satflow_tpu.train.callbacks.ModelArtifactLogger", "item 6"),
-                         ("satflow_tpu.models.metnet.MetNet", "item 9")):
+                         ("satflow_tpu.models.perceiver.Perceiver", "item 10")):
         with pytest.raises(NotImplementedError, match=item):
             instantiate({"_target_": target})
     cb = instantiate({"_target_": "satflow_tpu.train.callbacks.EarlyStopping", "patience": 3})
