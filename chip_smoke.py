@@ -8,9 +8,10 @@ Run from the root of the repository, with one card visible:
 Phases, in order; any failure exits non-zero before the last line:
 
 1. the card's name and power limit (nvidia-smi); a CUDA card is required;
-2. build the four kernels from ``satflow_tpu_torch/csrc`` (one nvcc each, run
-   together): K1, the fused ConvLSTM step; K2, its backward's gate chain;
-   K3, the LSTM gate tail; K4, the axial attention;
+2. build the kernels from ``satflow_tpu_torch/csrc`` (one nvcc per source,
+   run together): K1, the fused ConvLSTM step; K2, its backward's gate chain;
+   K3, the LSTM gate tail; K4, the axial attention; K5, the int8 step; K6a and
+   K6b, the channel-major step and 3x3 conv head (one source);
 3. K1 against its plain PyTorch version at the serving shapes (B=8,
    256x256, Cx 12 and 64, Ch 64), in float32 and bfloat16, with the image's
    first and last rows and columns checked on their own;
@@ -50,8 +51,25 @@ Phases, in order; any failure exits non-zero before the last line:
    finite, launches counted, every parameter's gradient nonzero and held
    against the same step through the plain versions, the step timed both
    ways and profiled;
-13. a JSON line of the kernels, and last a JSON line
-   ``{"ok": true, "device": {...}}``.
+13. K5 against its plain version at B=8, 256x256, Cx 12 and 64, c in bf16
+   and f32: the plain version's integer sums against an int32 conv on the
+   CPU (exact), h'q within one int8 step on at most 0.1 % of elements, c'
+   within one step of its dtype, edges on their own; K6a (Cx 64) and K6b
+   (64 -> 12 channels) against their plain versions, float32 and bfloat16;
+14. int8 serving: the full-width ConvLSTM behind ``NowcastServer`` with
+   ``quantize="int8"`` answers 5 concurrent requests and refuses a sixth,
+   out-of-range one with 400, alone; 62 K5 and 0 K1 launches per forward;
+   one reply held against the bf16 rollout and against the same int8
+   rollout through K5's plain version;
+15. channel-major serving: the same model with ``cell_impl="cmajor"``; 14 K1,
+   48 K6a and 24 K6b launches per forward; one reply held against the fused
+   rollout;
+16. timings: K5, K6a, K6b per call against their plain versions (K6b and K4
+   also against the one library call that computes the same function), the
+   b8 forward through the fused, int8 and channel-major rollouts in turns,
+   and one int8 and one channel-major forward profiled;
+17. a JSON line of the kernels with each one's bound on this card, and last
+   a JSON line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.
 """
@@ -139,6 +157,38 @@ TOL_MN_REPLY = 5e-2  # x max|plain|
 # softmax removes): both sides are rounding noise, held to be small against
 # the same layer's weight gradient instead.
 MN_ZERO_GRAD = ("image_encoder.c0.bias", "axial0.attn0.k.bias", "axial0.attn1.k.bias")
+
+
+# The int8 step (K5) against its plain version: the integer sums are exact on
+# both sides, so only exp/tanh differ, by an ulp, between ATen and CUDA. h'q =
+# rint(h' * 127) may then flip by one step at a rounding boundary, on at most
+# 0.1 % of elements; c' may differ by one step of its dtype (bf16: spacing <=
+# 2^-7 |c'|; f32: a few ulp).
+INT8_MAX_FLIP_SHARE = 1e-3
+TOL_INT8_C = {"bfloat16": dict(atol=2 ** -14, rtol=2 ** -7), "float32": dict(atol=1e-6, rtol=1e-6)}
+# - the int8 reply against the bf16 reply, and against the same int8 rollout
+#   through K5's plain version: the JAX package's own int8-vs-bf16 bar on the
+#   sigmoid outputs (tests/test_int8.py).
+TOL_INT8_REPLY = 2e-2
+# - K6b's outputs (the head, before the sigmoid) are not range-bound: bf16 is
+#   held to one bf16 step relative beyond K1's absolute slack.
+TOL_HEAD_BF16 = dict(atol=2e-2, rtol=2e-2)
+INT8_LAUNCHES_PER_FORWARD = LAUNCHES_PER_FORWARD      # every cell step is one K5 launch
+CMAJOR_LAUNCHES_PER_FORWARD = (2 * T, 2 * STEPS, STEPS)  # K1 (encoder), K6a, K6b
+
+# The card's published peaks (H100 SXM data sheet, dense): what a kernel's
+# bound is computed from.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+
+
+def bound_ms(tensors, ops: float, kind: str):
+    """The least time the card could take: (ms, "bytes" or "operations"), the
+    larger of every tensor in ``tensors`` (inputs and outputs) moved once at
+    the HBM rate and ``ops`` operations at the peak rate of ``kind``."""
+    by_bytes = sum(t.numel() * t.element_size() for t in tensors) / HBM_BYTES_PER_S
+    by_ops = ops / PEAK_OPS_PER_S[kind]
+    return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
 
 
 def fail(msg: str) -> None:
@@ -336,28 +386,19 @@ def post(port: int, x: np.ndarray, out: list, i: int) -> None:
         conn.close()
 
 
-def serve_slice(torch, card):
-    """Phase 6; returns (launches, forwards, rollout max|diff|, model)."""
-    from satflow_tpu_torch.interop.jax_weights import params_from_flax
-    from satflow_tpu_torch.models.conv_lstm import EncoderDecoderConvLSTM
-    from satflow_tpu_torch.ops.fused_convlstm_step import (
-        fused_convlstm_step,
-        fused_convlstm_step_ref,
-    )
-    from satflow_tpu_torch.serve import InferenceSession, NowcastServer
+def drive_server(session, requests, counters):
+    """Serve ``requests`` concurrently through ``NowcastServer(session)``; the
+    counters' launches are set to 0 just before the requests and read just
+    after. Returns (replies as (status, array or body), wall seconds,
+    forwards, launches per counter)."""
+    from satflow_tpu_torch.serve import NowcastServer
 
-    model = EncoderDecoderConvLSTM(hidden_dim=HIDDEN, input_channels=CIN,
-                                   out_channels=COUT, forecast_steps=STEPS)
-    session = InferenceSession(model, max_batch=B, state_dict=params_from_flax(flax_params(0)),
-                               dtype=torch.bfloat16, device=DEVICE)
     server = NowcastServer(session, port=0, window_ms=200.0)
     server.start()
-    rng = np.random.default_rng(1)
-    requests = [rng.random((T, H, W, CIN), dtype=np.float32) for _ in range(4)]
-    requests.append(rng.random((2, T, H, W, CIN), dtype=np.float32))
     replies = [None] * len(requests)
     try:
-        fused_convlstm_step.launches = 0
+        for counter in counters:
+            counter.launches = 0
         t0 = time.perf_counter()
         threads = [threading.Thread(target=post, args=(server.port, x, replies, i))
                    for i, x in enumerate(requests)]
@@ -366,20 +407,53 @@ def serve_slice(torch, card):
         for t in threads:
             t.join(timeout=900)
         wall = time.perf_counter() - t0
-        launches = fused_convlstm_step.launches
+        launches = tuple(counter.launches for counter in counters)
         forwards = server.batcher.batches_run
     finally:
         server.close()
     if any(t.is_alive() for t in threads):
         fail("a request did not finish")
+    return replies, wall, forwards, launches
+
+
+def check_frames(requests, replies, what: str) -> None:
+    """Every reply 200, of the ConvLSTM's shape, finite and in [0, 1]."""
     for x, (status, y) in zip(requests, replies):
         if status != 200:
-            fail(f"request of shape {x.shape} answered {status}: {y!r}"[:500])
+            fail(f"{what}: request of shape {x.shape} answered {status}: {y!r}"[:500])
         want = (STEPS, H, W, COUT) if x.ndim == 4 else (x.shape[0], STEPS, H, W, COUT)
         if y.shape != want:
-            fail(f"reply shape {y.shape}, expected {want}")
+            fail(f"{what}: reply shape {y.shape}, expected {want}")
         if not np.isfinite(y).all() or y.min() < 0 or y.max() > 1:
-            fail(f"reply not finite in [0, 1]: min {y.min()}, max {y.max()}")
+            fail(f"{what}: reply not finite in [0, 1]: min {y.min()}, max {y.max()}")
+
+
+def convlstm_requests(seed: int = 1):
+    """Four single samples and one micro-batch of two, in [0, 1]."""
+    rng = np.random.default_rng(seed)
+    requests = [rng.random((T, H, W, CIN), dtype=np.float32) for _ in range(4)]
+    requests.append(rng.random((2, T, H, W, CIN), dtype=np.float32))
+    return requests
+
+
+def serve_slice(torch, card):
+    """Phase 6; returns (launches, forwards, rollout max|diff|, model)."""
+    from satflow_tpu_torch.interop.jax_weights import params_from_flax
+    from satflow_tpu_torch.models.conv_lstm import EncoderDecoderConvLSTM
+    from satflow_tpu_torch.ops.fused_convlstm_step import (
+        fused_convlstm_step,
+        fused_convlstm_step_ref,
+    )
+    from satflow_tpu_torch.serve import InferenceSession
+
+    model = EncoderDecoderConvLSTM(hidden_dim=HIDDEN, input_channels=CIN,
+                                   out_channels=COUT, forecast_steps=STEPS)
+    session = InferenceSession(model, max_batch=B, state_dict=params_from_flax(flax_params(0)),
+                               dtype=torch.bfloat16, device=DEVICE)
+    requests = convlstm_requests()
+    replies, wall, forwards, (launches,) = drive_server(session, requests,
+                                                        [fused_convlstm_step])
+    check_frames(requests, replies, "bf16 serving")
     if forwards < 1 or launches != LAUNCHES_PER_FORWARD * forwards:
         fail(f"kernel launches {launches} != {LAUNCHES_PER_FORWARD} x {forwards} forwards")
     print(f"served {len(requests)} requests (6 samples) in {forwards} forward(s) of b{B}, "
@@ -397,15 +471,20 @@ def serve_slice(torch, card):
     return launches, forwards, diff, model
 
 
-def per_call_ms(torch, kernel, plain, args) -> dict:
-    """Mean ms per call of a kernel and its plain version, in turns."""
+def per_call_ms(torch, kernel, plain, args, library=None, n: int = 20) -> dict:
+    """Mean ms per call of a kernel and its plain version, in turns; with
+    ``library`` (one PyTorch call that computes the same function, a yardstick
+    that the port never calls) its time too, under "library"."""
+    fns = {"kernel": kernel, "plain": plain}
+    if library is not None:
+        fns["library"] = library
     with torch.no_grad():
-        for fn in (kernel, plain):
+        for fn in fns.values():
             cuda_ms(torch, lambda: fn(*args), 3)  # warm-up
-        runs = {"plain": [], "kernel": []}
-        for name in ("plain", "kernel", "kernel", "plain"):
-            fn = kernel if name == "kernel" else plain
-            runs[name].append(cuda_ms(torch, lambda: fn(*args), 20))
+        runs = {name: [] for name in fns}
+        order = list(fns)[::-1]
+        for name in order + order[::-1]:  # plain, kernel, kernel, plain
+            runs[name].append(cuda_ms(torch, lambda: fns[name](*args), n))
     return {k: sum(v) / len(v) for k, v in runs.items()}
 
 
@@ -417,13 +496,16 @@ def timings(torch, step, step_ref, bwd, bwd_ref, model, card):
         args = step_inputs(torch, cx, torch.bfloat16, seed=100 + cx)
         flop = 2 * B * H * W * 4 * HIDDEN * 9 * (cx + HIDDEN)  # the gate contraction
         per_call[cx] = per_call_ms(torch, step, step_ref, args)
-        per_call_bwd[cx] = per_call_ms(torch, bwd, bwd_ref,
-                                       args + cotangents(torch, torch.bfloat16, seed=150 + cx))
+        cots = cotangents(torch, torch.bfloat16, seed=150 + cx)
+        per_call_bwd[cx] = per_call_ms(torch, bwd, bwd_ref, args + cots)
+        state = args[2]  # K1 writes h' and c'; K2 dgates (4Ch wide) and dc_prev
+        per_call[cx]["bound"] = bound_ms(args + (state, state), flop, "bf16")
+        per_call_bwd[cx]["bound"] = bound_ms(args + cots + (state,) * 5, flop, "bf16")
         for name, t in (("K1 (step)", per_call[cx]), ("K2 (gate backward)", per_call_bwd[cx])):
             print(f"time per {name} call, bf16 B={B} {H}x{W} Cx={cx} Ch={HIDDEN}: "
                   f"kernel {t['kernel']:.4f} ms ({flop / t['kernel'] / 1e9:.1f} TFLOP/s), "
-                  f"plain {t['plain']:.4f} ms ({flop / t['plain'] / 1e9:.1f} TFLOP/s) "
-                  f"[{card}]", flush=True)
+                  f"plain {t['plain']:.4f} ms ({flop / t['plain'] / 1e9:.1f} TFLOP/s); bound "
+                  f"{t['bound'][0]:.4f} ms by {t['bound'][1]} [{card}]", flush=True)
 
     x = torch.from_numpy(np.random.default_rng(2).random((B, T, H, W, CIN), dtype=np.float32))
     x = x.to(DEVICE, torch.bfloat16)
@@ -734,33 +816,16 @@ def metnet_serve_slice(torch, card):
     """Phase 10; returns (K3 launches, K4 launches, model)."""
     from satflow_tpu_torch.ops.axial_attention import axial_attention, axial_attention_ref
     from satflow_tpu_torch.ops.fused_lstm import fused_lstm_gates, fused_lstm_gates_ref
-    from satflow_tpu_torch.serve import InferenceSession, NowcastServer
+    from satflow_tpu_torch.serve import InferenceSession
 
     model = _metnet(torch)
     session = InferenceSession(model, max_batch=B, variables=metnet_flax_variables(4 * MN_CIN + MN_F),
                                dtype=torch.bfloat16, device=DEVICE)
-    server = NowcastServer(session, port=0, window_ms=200.0)
-    server.start()
     rng = np.random.default_rng(3)
     requests = [rng.random((T, H, W, MN_CIN), dtype=np.float32) for _ in range(4)]
     requests.append(rng.random((2, T, H, W, MN_CIN), dtype=np.float32))
-    replies = [None] * len(requests)
-    try:
-        fused_lstm_gates.launches = axial_attention.launches = 0
-        t0 = time.perf_counter()
-        threads = [threading.Thread(target=post, args=(server.port, x, replies, i))
-                   for i, x in enumerate(requests)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=900)
-        wall = time.perf_counter() - t0
-        k3, k4 = fused_lstm_gates.launches, axial_attention.launches
-        forwards = server.batcher.batches_run
-    finally:
-        server.close()
-    if any(t.is_alive() for t in threads):
-        fail("a MetNet request did not finish")
+    replies, wall, forwards, (k3, k4) = drive_server(session, requests,
+                                                     [fused_lstm_gates, axial_attention])
     for x, (status, y) in zip(requests, replies):
         if status != 200:
             fail(f"MetNet request of shape {x.shape} answered {status}: {y!r}"[:500])
@@ -854,19 +919,30 @@ def metnet_timings(torch, model, card):
     c = _randn(torch, MN_ROWS, MN_HIDDEN, seed=51).to(torch.bfloat16)
     k3 = per_call_ms(torch, _gates, fused_lstm_gates_ref, (gates, c))
     k3_bytes = gates.numel() * 2 + c.numel() * 2 * 3
+    # ~30 f32 operations per state element: three sigmoids, two tanh, the sums
+    k3["bound"] = bound_ms((gates, c, c, c), 30 * c.numel(), "f32")
+
+    def sdpa(q, k, v):
+        return torch.nn.functional.scaled_dot_product_attention(q[:, None], k[:, None],
+                                                                v[:, None])[:, 0]
+
     print(f"time per K3 call, bf16 ({MN_ROWS}, {4 * MN_HIDDEN}): kernel {k3['kernel'] * 1e3:.2f} us "
-          f"({k3_bytes / k3['kernel'] / 1e6:.0f} GB/s), plain {k3['plain'] * 1e3:.2f} us [{card}]",
-          flush=True)
+          f"({k3_bytes / k3['kernel'] / 1e6:.0f} GB/s), plain {k3['plain'] * 1e3:.2f} us; bound "
+          f"{k3['bound'][0] * 1e3:.2f} us by {k3['bound'][1]} [{card}]", flush=True)
     k4 = {}
     for shape in K4_SHAPES:
         q, k, v = (_randn(torch, *shape, seed=60 + i).to(torch.bfloat16) for i in range(3))
-        k4[shape] = per_call_ms(torch, attention_kernel, axial_attention_ref, (q, k, v))
+        k4[shape] = per_call_ms(torch, attention_kernel, axial_attention_ref, (q, k, v),
+                                library=sdpa)
         n, length, d = shape
         flop = 4 * n * length * length * d
+        k4[shape]["bound"] = bound_ms((q, k, v, q), flop, "bf16")
         print(f"time per K4 call, bf16 (N, L, d) {shape}: kernel {k4[shape]['kernel'] * 1e3:.2f} us "
               f"({flop / k4[shape]['kernel'] / 1e9:.1f} TFLOP/s), plain "
-              f"{k4[shape]['plain'] * 1e3:.2f} us ({flop / k4[shape]['plain'] / 1e9:.1f} TFLOP/s) "
-              f"[{card}]", flush=True)
+              f"{k4[shape]['plain'] * 1e3:.2f} us ({flop / k4[shape]['plain'] / 1e9:.1f} TFLOP/s), "
+              f"library (scaled_dot_product_attention on (N, 1, L, d)) "
+              f"{k4[shape]['library'] * 1e3:.2f} us; bound {k4[shape]['bound'][0] * 1e3:.2f} us by "
+              f"{k4[shape]['bound'][1]} [{card}]", flush=True)
 
     x = torch.from_numpy(np.random.default_rng(4).random((B, T, H, W, MN_CIN), dtype=np.float32))
     x = x.to(DEVICE, torch.bfloat16)
@@ -1001,6 +1077,294 @@ def metnet_train_slice(torch, card):
     return k3, k4
 
 
+def int8_inputs(torch, cx: int, c_dtype, seed: int):
+    """(xq, hq, c, w3q, dequant, b, w_packed) at the serving shape."""
+    from satflow_tpu_torch.ops.fused_convlstm_int8 import (
+        pack_weights,
+        quantize_activations,
+        quantize_weights,
+    )
+
+    x, h, c, wx, wh, b = step_inputs(torch, cx, torch.float32, seed)
+    w3q, dequant, bias = quantize_weights(wx, wh, b)
+    return (quantize_activations(x), quantize_activations(h), c.to(c_dtype), w3q, dequant,
+            bias, pack_weights(w3q, cx))
+
+
+def check_int8_kernel(torch, card) -> float:
+    """Phase 13a: K5 vs its plain version; returns the largest |diff| of the
+    bf16 run in state units (c', and h'q / 127)."""
+    from satflow_tpu_torch.ops.fused_convlstm_int8 import (
+        fused_convlstm_step_int8,
+        fused_convlstm_step_int8_ref,
+        int8_accumulate,
+    )
+
+    worst = 0.0
+    for cx in (CIN, HIDDEN):
+        for c_dtype in (torch.bfloat16, torch.float32):
+            name = str(c_dtype)[6:]
+            args = int8_inputs(torch, cx, c_dtype, seed=400 + cx)
+            before = fused_convlstm_step_int8.launches
+            hq_k, c_k = fused_convlstm_step_int8(*args)
+            torch.cuda.synchronize()
+            if fused_convlstm_step_int8.launches != before + 1:
+                fail(f"K5 did not launch at Cx={cx}")
+            hq_p, c_p = fused_convlstm_step_int8_ref(*args)
+            if c_dtype == torch.bfloat16:
+                # the plain version's integer sums on the card (a float64 conv)
+                # against an int32 conv on the CPU, on a corner of the image
+                # against int64 window products on the host, on a corner of the image
+                n = 24
+                xq, hq, w3q = args[0][:1, :n, :n], args[1][:1, :n, :n], args[3]
+                acc = int8_accumulate(xq, hq, w3q).cpu().numpy()
+                xp, hp = (np.pad(a.cpu().numpy().astype(np.int64), ((0, 0), (1, 1), (1, 1), (0, 0)))
+                          for a in (xq, hq))
+                w3 = w3q.cpu().numpy().astype(np.int64)
+                want = np.zeros(acc.shape, np.int64)
+                for dy in range(3):
+                    win = np.concatenate([a[:, dy:dy + n, dx:dx + n] for a in (xp, hp)
+                                          for dx in range(3)], axis=-1)
+                    want += win @ w3[dy]
+                if not np.array_equal(acc, want):
+                    fail(f"the plain int8 step's integer sums are not exact at Cx={cx}")
+            flips, errs = {}, {}
+            for region, idx in REGIONS.items():
+                diff = (hq_k[idx].int() - hq_p[idx].int()).abs()
+                flips[region] = diff.float().mean().item()
+                if diff.max().item() > 1 or flips[region] > INT8_MAX_FLIP_SHARE:
+                    fail(f"K5 != plain: c {name} Cx={cx} h'q {region}: max|diff| "
+                         f"{diff.max().item()}, share differing {flips[region]:.3g}")
+                errs[region] = _max_err(torch, c_k[idx], c_p[idx], TOL_INT8_C[name],
+                                        f"K5 c' {name} Cx={cx} {region}")
+            flipped = int((hq_k != hq_p).sum().item())
+            if c_dtype == torch.bfloat16:
+                worst = max(worst, errs["all"], (1 if flipped else 0) / 127)
+            print(f"K5 vs plain: c {name} B={B} {H}x{W} Cx={cx} Ch={HIDDEN}: integer sums exact; "
+                  f"h'q max|diff| {1 if flipped else 0} step on {flipped} of {hq_k.numel()} "
+                  f"elements (share {flips['all']:.2g} <= {INT8_MAX_FLIP_SHARE}; edges: "
+                  + ", ".join(f"{k} {v:.2g}" for k, v in flips.items() if k != "all")
+                  + f"); c' max|diff| {errs['all']:.3g} (edges: "
+                  + ", ".join(f"{k} {v:.3g}" for k, v in errs.items() if k != "all")
+                  + f") tol {TOL_INT8_C[name]} ok [{card}]", flush=True)
+    return worst
+
+
+def cmajor_inputs(torch, dtype, seed: int):
+    """K6a's (x, h, c, wx, wh, b) and K6b's (w, b) at the decoder's shape."""
+    from satflow_tpu_torch.ops.cmajor_convlstm import to_cmajor
+
+    x, h, c, wx, wh, b = step_inputs(torch, HIDDEN, dtype, seed)
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+    head_w = (torch.randn(3, 3, HIDDEN, COUT, generator=g, device=DEVICE)
+              * (9 * HIDDEN) ** -0.5).to(dtype)
+    head_b = (torch.randn(COUT, generator=g, device=DEVICE) * 0.1).to(dtype)
+    return (to_cmajor(x), to_cmajor(h), to_cmajor(c), wx, wh, b), (head_w, head_b)
+
+
+def check_cmajor_kernels(torch, card):
+    """Phase 13b: K6a and K6b vs their plain versions; returns their largest
+    bf16 |kernel - plain|."""
+    from satflow_tpu_torch.ops.cmajor_convlstm import (
+        cmajor_conv3x3,
+        cmajor_conv3x3_ref,
+        cmajor_convlstm_step,
+        cmajor_convlstm_step_ref,
+        from_cmajor,
+    )
+
+    worst = {"K6a": 0.0, "K6b": 0.0}
+    for dtype, tol, head_tol in ((torch.float32, TOL_F32, TOL_F32),
+                                 (torch.bfloat16, TOL_BF16, TOL_HEAD_BF16)):
+        cell, head = cmajor_inputs(torch, dtype, seed=500)
+        before = cmajor_convlstm_step.launches, cmajor_conv3x3.launches
+        got = cmajor_convlstm_step(*cell, H, W) + (cmajor_conv3x3(cell[1], *head, H, W),)
+        torch.cuda.synchronize()
+        if (cmajor_convlstm_step.launches, cmajor_conv3x3.launches) != (before[0] + 1,
+                                                                        before[1] + 1):
+            fail("K6a or K6b did not launch")
+        want = cmajor_convlstm_step_ref(*cell, H, W) + (cmajor_conv3x3_ref(cell[1], *head, H, W),)
+        for kernel, outs, t in (("K6a", (("h", 0), ("c", 1)), tol), ("K6b", (("out", 2),), head_tol)):
+            errs = {}
+            for out_name, i in outs:
+                g_, w_ = from_cmajor(got[i], H, W), from_cmajor(want[i], H, W)
+                for region, idx in REGIONS.items():
+                    errs[f"{out_name}.{region}"] = _max_err(
+                        torch, g_[idx], w_[idx], t, f"{kernel} {str(dtype)[6:]} {out_name} {region}")
+            if dtype == torch.bfloat16:
+                worst[kernel] = max(errs.values())
+            cin = f"Cx={HIDDEN} Ch={HIDDEN}" if kernel == "K6a" else f"{HIDDEN} -> {COUT} channels"
+            print(f"{kernel} vs plain: {str(dtype)[6:]} B={B} {H}x{W} {cin}: max|diff| "
+                  f"{max(errs.values()):.3g} (edges: "
+                  + ", ".join(f"{k} {v:.3g}" for k, v in errs.items() if "all" not in k)
+                  + f") tol {t} ok [{card}]", flush=True)
+    return worst["K6a"], worst["K6b"]
+
+
+def int8_serve_slice(torch, card):
+    """Phase 14; returns (K5 launches, the int8 session's quantized params)."""
+    from satflow_tpu_torch.interop.jax_weights import params_from_flax
+    from satflow_tpu_torch.models.conv_lstm import EncoderDecoderConvLSTM
+    from satflow_tpu_torch.ops.fused_convlstm_int8 import (
+        fused_convlstm_step_int8,
+        fused_convlstm_step_int8_ref,
+        int8_rollout,
+    )
+    from satflow_tpu_torch.ops.fused_convlstm_step import fused_convlstm_step
+    from satflow_tpu_torch.serve import InferenceSession
+
+    model = EncoderDecoderConvLSTM(hidden_dim=HIDDEN, input_channels=CIN,
+                                   out_channels=COUT, forecast_steps=STEPS)
+    session = InferenceSession(model, max_batch=B, state_dict=params_from_flax(flax_params(0)),
+                               quantize="int8", device=DEVICE)
+    requests = convlstm_requests()
+    bad = requests[0] * 3.0  # standardized-radiance-like range: |x|max ~ 3
+    replies, wall, forwards, (k5, k1) = drive_server(
+        session, requests + [bad], [fused_convlstm_step_int8, fused_convlstm_step])
+    check_frames(requests, replies[:-1], "int8 serving")
+    status, body = replies[-1]
+    if status != 400 or b"int8" not in body:
+        fail(f"the out-of-range int8 request answered {status}: {body!r}"[:500])
+    if forwards < 1 or (k5, k1) != (INT8_LAUNCHES_PER_FORWARD * forwards, 0):
+        fail(f"int8 serving launched K5 {k5} and K1 {k1} times in {forwards} forwards, expected "
+             f"{INT8_LAUNCHES_PER_FORWARD} x {forwards} and 0")
+    print(f"int8 served {len(requests)} requests (6 samples) in {forwards} forward(s) of b{B}, "
+          f"{wall:.3f} s wall, and answered an out-of-range request 400 alone; launches K5 {k5} = "
+          f"{INT8_LAUNCHES_PER_FORWARD} x {forwards}, K1 {k1} [{card}]", flush=True)
+
+    with torch.inference_mode():
+        x0 = torch.from_numpy(requests[0][None]).to(DEVICE)
+        model.set_compute_dtype(torch.bfloat16)
+        bf16 = model(x0.to(torch.bfloat16)).float().cpu().numpy()[0]
+        plain = int8_rollout(session.qparams, x0, STEPS, step=fused_convlstm_step_int8_ref)
+        plain = plain.float().cpu().numpy()[0]
+    for what, ref in (("the bf16 rollout through K1", bf16),
+                      ("the int8 rollout through K5's plain version", plain)):
+        diff = float(np.abs(ref - replies[0][1]).max())
+        if not diff <= TOL_INT8_REPLY:
+            fail(f"int8 reply vs {what}: max|diff| {diff:.3g} > {TOL_INT8_REPLY}")
+        print(f"int8 reply vs {what} ({STEPS} steps): max|diff| {diff:.3g} <= {TOL_INT8_REPLY} "
+              f"ok [{card}]", flush=True)
+    return k5, session.qparams
+
+
+def cmajor_serve_slice(torch, card, fused_model):
+    """Phase 15; returns ((K1, K6a, K6b) launches, the channel-major model)."""
+    from satflow_tpu_torch.models.conv_lstm import EncoderDecoderConvLSTM
+    from satflow_tpu_torch.ops.cmajor_convlstm import cmajor_conv3x3, cmajor_convlstm_step
+    from satflow_tpu_torch.ops.fused_convlstm_step import fused_convlstm_step
+    from satflow_tpu_torch.serve import InferenceSession
+
+    model = EncoderDecoderConvLSTM(hidden_dim=HIDDEN, input_channels=CIN, out_channels=COUT,
+                                   forecast_steps=STEPS, cell_impl="cmajor")
+    session = InferenceSession(model, max_batch=B, state_dict=fused_model.module.state_dict(),
+                               dtype=torch.bfloat16, device=DEVICE)
+    requests = convlstm_requests()
+    replies, wall, forwards, launches = drive_server(
+        session, requests, [fused_convlstm_step, cmajor_convlstm_step, cmajor_conv3x3])
+    check_frames(requests, replies, "channel-major serving")
+    if forwards < 1 or launches != tuple(n * forwards for n in CMAJOR_LAUNCHES_PER_FORWARD):
+        fail(f"channel-major serving launched (K1, K6a, K6b) {launches} times in {forwards} "
+             f"forwards, expected {CMAJOR_LAUNCHES_PER_FORWARD} each")
+    print(f"cmajor served {len(requests)} requests (6 samples) in {forwards} forward(s) of b{B}, "
+          f"{wall:.3f} s wall; launches (K1, K6a, K6b) {launches} = "
+          f"{CMAJOR_LAUNCHES_PER_FORWARD} x {forwards} [{card}]", flush=True)
+    with torch.inference_mode():
+        x0 = torch.from_numpy(requests[0][None]).to(DEVICE, torch.bfloat16)
+        ref = fused_model(x0).float().cpu().numpy()[0]
+    diff = float(np.abs(ref - replies[0][1]).max())
+    if not diff <= TOL_ROLLOUT:
+        fail(f"channel-major reply vs the fused rollout: max|diff| {diff:.3g} > {TOL_ROLLOUT}")
+    print(f"cmajor reply vs the fused rollout (bf16, {STEPS} steps): max|diff| {diff:.3g} <= "
+          f"{TOL_ROLLOUT} ok [{card}]", flush=True)
+    return launches, model
+
+
+FORWARD_CLASSES = {"K1": ("fused_convlstm_step_kernel",),
+                   "K5": ("fused_convlstm_step_int8_kernel",),
+                   "K6a": ("cmajor_cell_kernel",), "K6b": ("cmajor_conv_kernel",),
+                   "library convs": LIBRARY_CONVS}
+
+
+def serving_timings(torch, fused_model, cmajor_model, qparams, card):
+    """Phase 16: K5, K6a and K6b per call, the b8 forward through the three
+    rollouts in turns, and the int8 and channel-major forwards profiled.
+    Returns {kernel: times with "bound"}."""
+    from satflow_tpu_torch.ops import cmajor_convlstm as CM
+    from satflow_tpu_torch.ops.fused_convlstm_int8 import (
+        fused_convlstm_step_int8,
+        fused_convlstm_step_int8_ref,
+        int8_rollout,
+    )
+
+    times = {}
+    ops = 2 * B * H * W * 4 * HIDDEN * 9 * (HIDDEN + HIDDEN)  # the gate contraction, Cx=64
+    for cx in (CIN, HIDDEN):
+        args = int8_inputs(torch, cx, torch.bfloat16, seed=600 + cx)
+        t = per_call_ms(torch, fused_convlstm_step_int8, fused_convlstm_step_int8_ref, args, n=5)
+        cx_ops = 2 * B * H * W * 4 * HIDDEN * 9 * (cx + HIDDEN)
+        # packed and unpacked weights are one tensor's worth of bytes; h'q, c' out
+        t["bound"] = bound_ms(args[:6] + (args[1], args[2]), cx_ops, "int8")
+        times[f"K5.{cx}"] = t
+        print(f"time per K5 (int8 step) call, int8 x/h and bf16 c, B={B} {H}x{W} Cx={cx} "
+              f"Ch={HIDDEN}: kernel {t['kernel']:.4f} ms ({cx_ops / t['kernel'] / 1e9:.1f} TOP/s), "
+              f"plain (float64 conv) {t['plain']:.4f} ms; bound {t['bound'][0]:.4f} ms by "
+              f"{t['bound'][1]} [{card}]", flush=True)
+    cell, head = cmajor_inputs(torch, torch.bfloat16, seed=700)
+    t = per_call_ms(torch, lambda *a: CM.cmajor_convlstm_step(*a, H, W),
+                    lambda *a: CM.cmajor_convlstm_step_ref(*a, H, W), cell)
+    t["bound"] = bound_ms(cell + (cell[1], cell[2]), ops, "bf16")
+    times["K6a"] = t
+    print(f"time per K6a (channel-major step) call, bf16 B={B} {H}x{W} Cx={HIDDEN} Ch={HIDDEN}: "
+          f"kernel {t['kernel']:.4f} ms ({ops / t['kernel'] / 1e9:.1f} TFLOP/s), plain "
+          f"{t['plain']:.4f} ms; bound {t['bound'][0]:.4f} ms by {t['bound'][1]} [{card}]",
+          flush=True)
+
+    def library_conv(x, w, b):  # one conv2d on views: the same function, same inputs
+        return torch.nn.functional.conv2d(x.view(B, HIDDEN, H, W), w.permute(3, 2, 0, 1), b,
+                                          padding=1).view(B, COUT, H * W)
+
+    head_args = (cell[1],) + head
+    t = per_call_ms(torch, lambda *a: CM.cmajor_conv3x3(*a, H, W),
+                    lambda *a: CM.cmajor_conv3x3_ref(*a, H, W), head_args, library=library_conv)
+    head_ops = 2 * B * H * W * COUT * 9 * HIDDEN
+    out = torch.empty(B, COUT, H * W, dtype=torch.bfloat16, device=DEVICE)
+    t["bound"] = bound_ms(head_args + (out,), head_ops, "bf16")
+    times["K6b"] = t
+    print(f"time per K6b (channel-major 3x3 head) call, bf16 B={B} {H}x{W} {HIDDEN} -> {COUT}: "
+          f"kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, library (conv2d on the same "
+          f"tensors) {t['library']:.4f} ms; bound {t['bound'][0]:.4f} ms by {t['bound'][1]} "
+          f"[{card}]", flush=True)
+
+    x = torch.from_numpy(np.random.default_rng(2).random((B, T, H, W, CIN), dtype=np.float32))
+    x = x.to(DEVICE)
+    x_bf16 = x.to(torch.bfloat16)
+    forwards = {"fused (K1, bf16)": lambda: fused_model(x_bf16),
+                "int8 (K5)": lambda: int8_rollout(qparams, x, STEPS),
+                "cmajor (K1 + K6a + K6b, bf16)": lambda: cmajor_model(x_bf16)}
+    runs = {name: [] for name in forwards}
+    peaks = {}
+    with torch.inference_mode():
+        for name, fn in forwards.items():
+            torch.cuda.reset_peak_memory_stats()
+            fn()  # warm-up
+            torch.cuda.synchronize()
+            peaks[name] = torch.cuda.max_memory_allocated() / 2**30
+        order = list(forwards)
+        for name in order + order[::-1]:
+            runs[name].append(cuda_ms(torch, forwards[name], 2))
+        for name, r in runs.items():
+            ms = sum(r) / len(r)
+            print(f"b{B} forward ({T} in, {STEPS} out, {H}x{W}x{CIN}) through the {name} rollout: "
+                  f"{ms:.2f} ms, {B * STEPS / (ms / 1e3):.1f} frames/s (runs "
+                  f"{', '.join(f'{v:.2f}' for v in r)} ms); peak device memory {peaks[name]:.2f} "
+                  f"GiB [{card}]", flush=True)
+        for name in ("int8 (K5)", "cmajor (K1 + K6a + K6b, bf16)"):
+            print_profile(f"b{B} forward through the {name} rollout",
+                          device_time_by_class(torch, forwards[name], FORWARD_CLASSES), card)
+    return times
+
+
 def main() -> None:
     try:
         import torch
@@ -1030,7 +1394,7 @@ def main() -> None:
     # phase 2
     t0 = time.perf_counter()
     _build.load_all(["fused_convlstm_step", "fused_convlstm_step_bwd", "fused_lstm_gates",
-                     "axial_attention"])
+                     "axial_attention", "fused_convlstm_int8", "cmajor_convlstm"])
     print(f"kernel build: {time.perf_counter() - t0:.2f} s wall, nvcc in parallel ("
           + ", ".join(f"{k} {v:.2f} s" for k, v in _build.build_seconds.items())
           + (")" if _build.build_seconds else "already built)"), flush=True)
@@ -1051,7 +1415,6 @@ def main() -> None:
     # phase 7
     per_call, per_call_bwd = timings(torch, fused_convlstm_step, fused_convlstm_step_ref,
                                      gate_bwd, gate_bwd_ref, model, card)
-    del model
     # phase 8: training (counts set to 0 inside, just before fit)
     train_k1, train_k2, _, _ = train_slice(torch, card)
 
@@ -1066,44 +1429,47 @@ def main() -> None:
     # phase 12: MetNet training (counts set to 0 inside, just before fit)
     train_k3, train_k4 = metnet_train_slice(torch, card)
 
-    # phase 13
-    print(json.dumps({"kernels": [{
-        "name": "fused_convlstm_step",
-        "route": "cuda",
-        "source": "satflow_tpu_torch/csrc/fused_convlstm_step.cu",
-        "replaces": "satflow_tpu/ops/pallas/fused_convlstm_step.py:453",
-        "launches": serve_k1 + train_k1,  # serving + training runs
-        "max_abs_err": k1_err,
-        "ms": per_call[HIDDEN]["kernel"],
-        "plain_ms": per_call[HIDDEN]["plain"],
-    }, {
-        "name": "gate_bwd",
-        "route": "cuda",
-        "source": "satflow_tpu_torch/csrc/fused_convlstm_step_bwd.cu",
-        "replaces": "satflow_tpu/ops/pallas/fused_convlstm_step.py:896",
-        "launches": train_k2,
-        "max_abs_err": k2_err,
-        "ms": per_call_bwd[HIDDEN]["kernel"],
-        "plain_ms": per_call_bwd[HIDDEN]["plain"],
-    }, {
-        "name": "fused_lstm_gates",
-        "route": "cuda",
-        "source": "satflow_tpu_torch/csrc/fused_lstm_gates.cu",
-        "replaces": "satflow_tpu/ops/pallas/fused_lstm.py:75",
-        "launches": serve_k3 + train_k3,  # MetNet serving + training runs
-        "max_abs_err": k3_err,
-        "ms": k3_ms["kernel"],
-        "plain_ms": k3_ms["plain"],
-    }, {
-        "name": "axial_attention",
-        "route": "cuda",
-        "source": "satflow_tpu_torch/csrc/axial_attention.cu",
-        "replaces": "satflow_tpu/ops/pallas/axial_attention.py:60",
-        "launches": serve_k4 + train_k4,
-        "max_abs_err": k4_err,
-        "ms": k4_ms[K4_SHAPES[0]]["kernel"],
-        "plain_ms": k4_ms[K4_SHAPES[0]]["plain"],
-    }]}), flush=True)
+    # phase 13: K5, K6a and K6b against their plain versions
+    k5_err = check_int8_kernel(torch, card)
+    k6a_err, k6b_err = check_cmajor_kernels(torch, card)
+    # phases 14-15: int8 and channel-major serving (counts set to 0 just before the requests)
+    serve_k5, qparams = int8_serve_slice(torch, card)
+    (cm_k1, serve_k6a, serve_k6b), cmajor_model = cmajor_serve_slice(torch, card, model)
+    # phase 16
+    serving = serving_timings(torch, model, cmajor_model, qparams, card)
+
+    # phase 17
+    def kernel(name, source, replaces, launches, err, t, library=None):
+        return {"name": name, "route": "cuda", "source": f"satflow_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches, "max_abs_err": err,
+                "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": t["bound"][0],
+                "bound_by": t["bound"][1], "library_ms": library}
+
+    k4_t = k4_ms[K4_SHAPES[0]]
+    print(json.dumps({"kernels": [
+        # K1: bf16 serving + training + the channel-major rollout's encoder
+        kernel("fused_convlstm_step", "fused_convlstm_step.cu",
+               "satflow_tpu/ops/pallas/fused_convlstm_step.py:453",
+               serve_k1 + train_k1 + cm_k1, k1_err, per_call[HIDDEN]),
+        kernel("gate_bwd", "fused_convlstm_step_bwd.cu",
+               "satflow_tpu/ops/pallas/fused_convlstm_step.py:833",
+               train_k2, k2_err, per_call_bwd[HIDDEN]),
+        kernel("fused_lstm_gates", "fused_lstm_gates.cu",
+               "satflow_tpu/ops/pallas/fused_lstm.py:75",
+               serve_k3 + train_k3, k3_err, k3_ms),  # MetNet serving + training
+        kernel("axial_attention", "axial_attention.cu",
+               "satflow_tpu/ops/pallas/axial_attention.py:60",
+               serve_k4 + train_k4, k4_err, k4_t, library=k4_t["library"]),
+        kernel("fused_convlstm_step_int8", "fused_convlstm_int8.cu",
+               "satflow_tpu/ops/pallas/fused_convlstm_int8.py:172",
+               serve_k5, k5_err, serving[f"K5.{HIDDEN}"]),
+        kernel("cmajor_convlstm_step", "cmajor_convlstm.cu",
+               "satflow_tpu/ops/pallas/cmajor_convlstm.py:232",
+               serve_k6a, k6a_err, serving["K6a"]),
+        kernel("cmajor_conv3x3", "cmajor_convlstm.cu",
+               "satflow_tpu/ops/pallas/cmajor_convlstm.py:257",
+               serve_k6b, k6b_err, serving["K6b"], library=serving["K6b"]["library"]),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,7 @@
 
 Counterpart of ``satflow_tpu/core/utils.py``, whose module imports jax; the
 pure-python parts are ported here and the batch-schema constants come from
-the framework-free ``satflow_tpu.data.consts``.
+this package's ``data/consts.py``.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from typing import Any, Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from satflow_tpu.data.consts import DATETIME_FEATURE_NAMES, MINUTES_PER_STEP
+from satflow_tpu_torch.data.consts import DATETIME_FEATURE_NAMES, MINUTES_PER_STEP
 
 
 def get_logger(name: str = __name__, level: int = logging.INFO) -> logging.Logger:

@@ -3,27 +3,23 @@
 Takes the config composed from the JAX package's own ``configs/`` tree,
 whose ``_target_`` paths name ``satflow_tpu`` classes, and builds each
 node's port counterpart (:func:`instantiate`): models from the port's
-registry, the datamodule as the torch adapter, loggers and the
-framework-free callbacks as they are. A target without a counterpart
-raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+registry, the datamodule, loggers and callbacks from the port's modules of
+the same names. A target without a counterpart raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
 
-import functools
+import importlib
 from typing import Any, Dict, List, Optional
 
 import torch
 
+from satflow_tpu_torch.core import config as config_lib
 from satflow_tpu_torch.core.utils import get_logger, log_hyperparameters, seed_everything
 
 log = get_logger(__name__)
 
-_PORTED_CALLBACKS = ("EarlyStopping", "LearningRateMonitor")
-_UNPORTED_CALLBACKS = {
-    "ModelCheckpoint": "ROADMAP queue 1 item 6 (checkpoints)",
-    "ModelArtifactLogger": "ROADMAP queue 1 item 6 (checkpoints)",
-}
 # JAX model modules without a port yet, by the ROADMAP item that ports them
 _UNPORTED_MODELS = {
     "perceiver": 10, "hf_perceiver": 10, "dgmr": 11, "cloudgan": 11,
@@ -34,9 +30,7 @@ _UNPORTED_MODELS = {
 def _counterpart(target: str):
     """The port's class for a ``_target_`` path of the JAX config tree."""
     if not target.startswith("satflow_tpu."):
-        from satflow_tpu.core.config import _locate
-
-        return _locate(target)
+        return config_lib._locate(target)
     *module, name = target.split(".")
     module = ".".join(module)
     if module.startswith("satflow_tpu.models."):
@@ -54,35 +48,17 @@ def _counterpart(target: str):
         from satflow_tpu_torch.data.datamodule import SatFlowDataModule
 
         return SatFlowDataModule
-    if module == "satflow_tpu.train.loggers" or (
-        module == "satflow_tpu.train.callbacks" and name in _PORTED_CALLBACKS
-    ):
-        from satflow_tpu_torch.core.adapters import framework_free
-
-        return getattr(framework_free(module), name)
-    if module == "satflow_tpu.train.callbacks" and name in _UNPORTED_CALLBACKS:
-        raise NotImplementedError(
-            f"callback {name} is not ported yet ({_UNPORTED_CALLBACKS[name]})"
-        )
+    if module in ("satflow_tpu.train.loggers", "satflow_tpu.train.callbacks"):
+        # the checkpoint callbacks raise NotImplementedError when built
+        ported = module.replace("satflow_tpu", "satflow_tpu_torch", 1)
+        return getattr(importlib.import_module(ported), name)
     raise NotImplementedError(f"{target!r} has no counterpart in the port yet (see ROADMAP.md)")
 
 
 def instantiate(cfg: Any, **kwargs) -> Any:
-    """``satflow_tpu.core.config.instantiate`` with each target mapped to
-    its port counterpart."""
-    if isinstance(cfg, list):
-        return [instantiate(v) for v in cfg]
-    if not isinstance(cfg, dict):
-        return cfg
-    if "_target_" not in cfg:
-        return {k: instantiate(v) for k, v in cfg.items()}
-    cfg = dict(cfg)
-    cls = _counterpart(cfg.pop("_target_"))
-    partial = cfg.pop("_partial_", False)
-    cfg.pop("_convert_", None)
-    built = {k: instantiate(v) for k, v in cfg.items()}
-    built.update(kwargs)
-    return functools.partial(cls, **built) if partial else cls(**built)
+    """:func:`satflow_tpu_torch.core.config.instantiate` with each target
+    mapped to its port counterpart."""
+    return config_lib.instantiate(cfg, _counterpart, **kwargs)
 
 
 def train(config: Dict[str, Any]) -> Optional[float]:

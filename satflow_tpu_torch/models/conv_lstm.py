@@ -5,12 +5,22 @@ of its second cell seeds a 2-cell decoder that rolls forward
 autoregressively (decoder cell 1 takes the previous step's output state h4),
 and a 3×3 conv head + sigmoid maps each h4 to an output frame.
 
-Only ``cell_impl="fused"`` with ``conv_type="standard"`` is ported: every
-cell step's forward is one call of the hand-written CUDA kernel K1 on the
-card and, under autograd, its backward one call of K2
-(``ops/fused_convlstm_step.py``). Layout is NHWC (B, T, H, W, C) at the
-public functions, as in the JAX package. The TPU's (W+2)-padded carry is
-dropped.
+Two cell formulations are ported, both with ``conv_type="standard"``:
+
+- ``cell_impl="fused"``: every cell step's forward is one call of the
+  hand-written CUDA kernel K1 on the card and, under autograd, its backward
+  one call of K2 (``ops/fused_convlstm_step.py``).
+- ``cell_impl="cmajor"``: the fused encoder, then a decoder whose carries stay
+  channel-major (B, C, H·W) across the whole rollout
+  (``ops/cmajor_convlstm.py``): one layout change in, two K6a cell steps and
+  one K6b head conv per step, one layout change back. As in the JAX model it
+  needs ``head_in_scan`` and ``cmajor_supported(H, W, hidden)``, is skipped
+  under the chunked remat layout, and runs the ``"fused"`` decoder elsewhere.
+  The parameters are the fused ones, so the same weights serve both. It is
+  the inference formulation: its backward goes through the plain NHWC step.
+
+Layout is NHWC (B, T, H, W, C) at the public functions, as in the JAX
+package. The TPU's (W+2)-padded carry is dropped.
 
 ``remat`` and ``remat_chunk`` are the JAX model's rematerialisation
 schedule, as ``torch.utils.checkpoint`` regions, active only while grad is
@@ -21,7 +31,8 @@ whole encoder once and the decoder in chunks of
 and recompute, never values. ``unroll`` and ``head_in_scan`` only shape
 JAX's scan and parameter nesting, so the port accepts them as
 hyperparameters and computes the same function for every value (the
-weight bridge normalises the nesting).
+weight bridge normalises the nesting), except that ``head_in_scan=False``
+keeps ``"cmajor"`` on the fused decoder.
 """
 
 from __future__ import annotations
@@ -36,6 +47,13 @@ from torch.utils.checkpoint import checkpoint
 from satflow_tpu_torch.core.registry import register_model
 from satflow_tpu_torch.models.base import BaseModel
 from satflow_tpu_torch.nn.recurrent import FusedConvLSTMCell, lecun_normal_
+from satflow_tpu_torch.ops.cmajor_convlstm import (
+    cmajor_conv3x3,
+    cmajor_convlstm_step,
+    cmajor_supported,
+    from_cmajor_seq,
+    to_cmajor,
+)
 from satflow_tpu_torch.ops.fused_convlstm_step import fused_convlstm_step
 
 
@@ -69,14 +87,16 @@ class ConvLSTMCore(nn.Module):
         cell_impl: str = "fused",
         remat: bool = False,
         remat_chunk: int = 0,
+        head_in_scan: bool = True,
         dtype: Optional[torch.dtype] = None,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if cell_impl != "fused":
+        if cell_impl not in ("fused", "cmajor"):
             raise NotImplementedError(
-                f"cell_impl={cell_impl!r} is not ported; only 'fused' is "
-                "(concat/split/hybrid need K3, cmajor K6: ROADMAP queue 2)"
+                f"cell_impl={cell_impl!r} is not ported; 'fused' and 'cmajor' are "
+                "(concat/split/hybrid reuse the LSTM gate tail K3 and need no new "
+                "kernel: ROADMAP 'Next, in order')"
             )
         if conv_type != "standard":
             raise NotImplementedError(
@@ -84,6 +104,8 @@ class ConvLSTMCore(nn.Module):
             )
         self.hidden_dim = hidden_dim
         self.forecast_steps = forecast_steps
+        self.cell_impl = cell_impl
+        self.head_in_scan = head_in_scan
         self.remat = remat
         self.remat_chunk = remat_chunk
         self.dtype = dtype
@@ -130,10 +152,38 @@ class ConvLSTMCore(nn.Module):
             frames.append(self._head(v, cdtype))
         return s3, s4, v, torch.stack(frames, dim=1)
 
+    def _decode_cmajor(self, s3, s4, v, n: int, cdtype, height: int, width: int):
+        """``n`` decoder steps on channel-major carries; the frames come back
+        stacked as (B, n, C_out, H·W)."""
+        cells = [tuple(p.to(cdtype) for p in (cell.x_gates_kernel, cell.h_gates_kernel,
+                                              cell.bias))
+                 for cell in (self.decoder["decoder_1"], self.decoder["decoder_2"])]
+        head = self.decoder["head"]
+        head_w = head.weight.permute(2, 3, 1, 0).to(cdtype).contiguous()  # OIHW -> HWIO
+        head_b = head.bias.to(cdtype)
+        frames: List[torch.Tensor] = []
+        for _ in range(n):
+            s3 = cmajor_convlstm_step(v, *s3, *cells[0], height, width)
+            s4 = cmajor_convlstm_step(s3[0], *s4, *cells[1], height, width)
+            v = s4[0]
+            frames.append(cmajor_conv3x3(v, head_w, head_b, height, width))
+        return s3, s4, v, torch.stack(frames, dim=1)
+
+    def runs_cmajor(self, height: int, width: int) -> bool:
+        """Whether a rollout at this geometry takes the channel-major decoder:
+        ``cell_impl="cmajor"`` outside the chunked remat layout (fixed by the
+        configuration, whatever the grad mode, as in the JAX model), with the head
+        in the scan and a geometry :func:`cmajor_supported` admits. Anything
+        else runs the fused decoder, as the JAX model does."""
+        chunked = (self.remat and self.remat_chunk > 1
+                   and _largest_divisor_at_most(self.forecast_steps, self.remat_chunk) > 1)
+        return (self.cell_impl == "cmajor" and not chunked and self.head_in_scan
+                and cmajor_supported(height, width, self.hidden_dim))
+
     def forward(self, x: torch.Tensor, forecast_steps: Optional[int] = None,
                 step: Callable = fused_convlstm_step) -> torch.Tensor:
-        """``step`` swaps the fused step's implementation for every cell (tests
-        and the chip smoke pass the plain version to compare against)."""
+        """``step`` swaps the fused step's implementation for every fused cell
+        (tests and the chip smoke pass the plain version to compare against)."""
         steps = forecast_steps if forecast_steps is not None else self.forecast_steps
         b, _, height, width, _ = x.shape
         cdtype = self.dtype or x.dtype
@@ -159,6 +209,21 @@ class ConvLSTMCore(nn.Module):
             s1, s2 = self._encode(zero_state, zero_state, frames_in, step)
 
         v = s2[0]  # the encoder vector seeds decoder cell 1; states start at zero
+        if self.runs_cmajor(height, width):
+            # one layout change per rollout; the zero carries are born in-layout
+            v = to_cmajor(v)
+            zero = torch.zeros_like(v)
+            s3 = s4 = (zero, zero)
+            if not remat:
+                *_, out = self._decode_cmajor(s3, s4, v, steps, cdtype, height, width)
+            else:
+                outs = []
+                for _ in range(steps):
+                    s3, s4, v, out = _remat(self._decode_cmajor, s3, s4, v, 1, cdtype,
+                                            height, width)
+                    outs.append(out)
+                out = torch.cat(outs, dim=1)
+            return torch.sigmoid(from_cmajor_seq(out, height, width))
         if not remat:
             *_, out = self._decode(zero_state, zero_state, v, steps, cdtype, step)
             return torch.sigmoid(out)
@@ -222,6 +287,7 @@ class EncoderDecoderConvLSTM(BaseModel):
             cell_impl=self.cell_impl,
             remat=self.remat,
             remat_chunk=self.remat_chunk,
+            head_in_scan=self.head_in_scan,
             dtype=self.dtype,
             generator=self._generator,
         )

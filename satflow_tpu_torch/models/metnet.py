@@ -321,7 +321,7 @@ class LitMetNet(BaseModel):
         )
 
     def prepare_batch(self, batch):
-        from satflow_tpu.data import consts
+        from satflow_tpu_torch.data import consts
 
         x, y = batch
         if isinstance(x, dict):

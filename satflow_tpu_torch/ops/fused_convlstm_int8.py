@@ -1,0 +1,325 @@
+"""int8 fused ConvLSTM step, the serving formulation: the CUDA kernel's
+wrapper, its plain PyTorch version, the quantizers and the int8 rollout.
+
+Counterpart of ``satflow_tpu/ops/pallas/fused_convlstm_int8.py``, whose TPU
+kernel ``fused_convlstm_step_int8`` is ported as K5
+(``csrc/fused_convlstm_int8.cu``). Quantization is static, with no
+calibration pass:
+
+- activations: ConvLSTM states are range-bound by construction
+  (h = σ(o)·tanh(c') in (−1, 1); nowcasting inputs are normalised to
+  [0, 1]), so one fixed scale quantizes everything: ``aq = rint(a·127)``,
+  halves to even. The h carry stays int8 across the rollout.
+- weights: per-output-channel symmetric int8 over the merged
+  (3, 3Cx+3Ch, 4Ch) gate tensor; ``dequant[col] = s_w[col] / 127`` scales
+  the int32 accumulator once per column.
+- one step: ``acc`` = the SAME 3×3 conv of [xq | hq] with the int8 weights,
+  summed exactly in int32; ``accf = acc·dequant + b`` in f32; the i, f, o, g
+  gate math in f32; c' stored in c's dtype (bf16 in the rollout);
+  ``h'q = rint(h'·127)`` stored as int8.
+
+The port's xq and hq are unpadded NHWC int8 (the TPU's (W+2)-padded carry
+is dropped; the kernel supplies the zeros of SAME padding). Inference only:
+nothing here takes part in autograd.
+
+Dispatch (:func:`kernel_takes`): K5 is built for hidden width 64 and takes
+Cx a multiple of 4 up to 256, any B, H, W >= 1. (The JAX rule, H % 8 == 0
+and Ch % 8 == 0, is the TPU kernel's block geometry and is not carried
+over.) :func:`fused_convlstm_step_int8` runs the plain version for CPU
+tensors and launches K5 for CUDA tensors, or raises: a CUDA tensor outside
+the kernel's domain is refused, never handed to the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from satflow_tpu_torch.ops import _build
+from satflow_tpu_torch.ops.fused_convlstm_step import lstm_gates
+
+ACT_SCALE = 127.0
+#: hidden width the kernel is compiled for
+KERNEL_HIDDEN = 64
+#: largest input width whose staged window the kernel takes
+KERNEL_MAX_CX = 256
+
+_SOURCE = "fused_convlstm_int8"
+_ENTRY = {
+    torch.float32: "satflow_fused_convlstm_step_int8_f32",
+    torch.bfloat16: "satflow_fused_convlstm_step_int8_bf16",
+}
+
+
+# ---------------------------------------------------------------------------
+# Quantization helpers
+# ---------------------------------------------------------------------------
+
+
+def quantize_weights(wx: torch.Tensor, wh: torch.Tensor, b: torch.Tensor):
+    """(wx, wh, b) -> (w3q int8 (3, 3Cx+3Ch, 4Ch), dequant f32 (1, 4Ch), b f32 (1, 4Ch)).
+
+    Per-output-channel symmetric scales over the merged gate tensor; the
+    returned ``dequant`` folds the activation scale: accf = acc_i32 * dequant.
+    """
+    cx, ch4 = wx.shape[2], wx.shape[3]
+    ch = wh.shape[2]
+    w3 = torch.cat([wx.reshape(3, 3 * cx, ch4), wh.reshape(3, 3 * ch, ch4)], dim=1).float()
+    s_w = w3.abs().amax(dim=(0, 1)) / 127.0  # (4Ch,)
+    s_w = s_w.clamp_min(1e-12)
+    w3q = torch.round(w3 / s_w).clamp(-127, 127).to(torch.int8)
+    dequant = (s_w / ACT_SCALE).reshape(1, ch4).float()
+    return w3q, dequant, b.reshape(1, ch4).float()
+
+
+def quantize_activations(a: torch.Tensor) -> torch.Tensor:
+    """f32/bf16 in (−1, 1) -> int8 at the fixed scale (halves to even)."""
+    return torch.round(a.float() * ACT_SCALE).clamp(-127, 127).to(torch.int8)
+
+
+def dequantize_activations(aq: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    return (aq.float() * (1.0 / ACT_SCALE)).to(dtype)
+
+
+def pack_weights(w3q: torch.Tensor, cx: int) -> torch.Tensor:
+    """``w3q`` in the layout K5 reads: int32 (9, K/4, 4Ch), K = Cx+Ch rounded
+    up to 8.
+
+    Tap (dy, dx) holds the rows of [x | h] channels of that tap (zero rows
+    pad K); each int32 packs the weights of four consecutive input channels
+    of one output column, lowest channel in the lowest byte, as ``__dp4a``
+    pairs them with four packed activations.
+    """
+    ch4 = w3q.shape[2]
+    ch = (w3q.shape[1] - 3 * cx) // 3
+    k_pad = -(-(cx + ch) // 8) * 8
+    wxq = w3q[:, : 3 * cx].reshape(3, 3, cx, ch4)
+    whq = w3q[:, 3 * cx:].reshape(3, 3, ch, ch4)
+    taps = torch.cat([wxq, whq, w3q.new_zeros(3, 3, k_pad - cx - ch, ch4)], dim=2)
+    packed = taps.reshape(9, k_pad // 4, 4, ch4).permute(0, 1, 3, 2).contiguous()
+    return packed.view(torch.int32).reshape(9, k_pad // 4, ch4)
+
+
+# ---------------------------------------------------------------------------
+# The step: plain version, dispatch rule, wrapper
+# ---------------------------------------------------------------------------
+
+
+def int8_accumulate(xq: torch.Tensor, hq: torch.Tensor, w3q: torch.Tensor) -> torch.Tensor:
+    """The integer gate sums of one step, exactly: (B, H, W, 4Ch) int32.
+
+    One formulation for both devices: a float64 library conv. Every product
+    (|·| <= 127²) and every partial sum (|·| <= 9·(Cx+Ch)·127² < 2^53) is an
+    integer that float64 holds exactly, in any summation order; float32
+    would not be (2^24 < 1152·127²), and CUDA has no integer conv.
+    """
+    cx, ch = xq.shape[-1], hq.shape[-1]
+    ch4 = w3q.shape[2]
+    w = torch.cat([w3q[:, : 3 * cx].reshape(3, 3, cx, ch4),
+                   w3q[:, 3 * cx:].reshape(3, 3, ch, ch4)], dim=2)  # HWIO over [x | h]
+    xh = torch.cat([xq, hq], dim=-1).permute(0, 3, 1, 2).double()
+    acc = F.conv2d(xh, w.permute(3, 2, 0, 1).double(), padding=1)
+    return acc.permute(0, 2, 3, 1).to(torch.int32)
+
+
+def fused_convlstm_step_int8_ref(xq, hq, c, w3q, dequant, b, w_packed=None
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version, ``_step_ref_int8`` on unpadded tensors: the exact
+    integer sums, then the kernel's f32 epilogue. Returns (h'q int8, c').
+    ``w_packed`` is the wrapper's argument and is not read here."""
+    acc = int8_accumulate(xq, hq, w3q)
+    accf = acc.float() * dequant.reshape(1, 1, 1, -1) + b.reshape(1, 1, 1, -1)
+    h_next, c_next = lstm_gates(accf, c)
+    hq_next = torch.round(h_next * ACT_SCALE).to(torch.int8)  # |h| < 1: in range
+    return hq_next.contiguous(), c_next.to(c.dtype).contiguous()
+
+
+def kernel_takes(cx: int, ch: int) -> bool:
+    """K5's domain: hidden width 64, Cx a multiple of 4 in [4, 256]."""
+    return ch == KERNEL_HIDDEN and cx % 4 == 0 and 0 < cx <= KERNEL_MAX_CX
+
+
+def _check(xq, hq, c, w3q, dequant, b, w_packed) -> None:
+    """Raise on anything the kernel does not take (the device type last, so
+    that the other checks can be exercised without a card)."""
+    named = dict(xq=xq, hq=hq, c=c, w3q=w3q, dequant=dequant, b=b, w_packed=w_packed)
+    for name, t in named.items():
+        if t.device != xq.device:
+            raise ValueError(f"{name} is on {t.device}, xq on {xq.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, t, dtype in (("xq", xq, torch.int8), ("hq", hq, torch.int8),
+                           ("w3q", w3q, torch.int8), ("w_packed", w_packed, torch.int32),
+                           ("dequant", dequant, torch.float32), ("b", b, torch.float32)):
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if c.dtype not in _ENTRY:
+        raise TypeError(f"c must be float32 or bfloat16, got {c.dtype}")
+    if xq.dim() != 4 or hq.dim() != 4:
+        raise ValueError(f"xq and hq must be NHWC, got {tuple(xq.shape)}, {tuple(hq.shape)}")
+    bsz, height, width, cx = xq.shape
+    ch = hq.shape[-1]
+    if hq.shape[:3] != xq.shape[:3] or c.shape != hq.shape:
+        raise ValueError(
+            f"xq {tuple(xq.shape)}, hq {tuple(hq.shape)} and c {tuple(c.shape)} "
+            "must share (B, H, W), and hq and c their shape"
+        )
+    if not kernel_takes(cx, ch):
+        raise ValueError(
+            f"the kernel is built for hidden width {KERNEL_HIDDEN} and takes Cx a multiple "
+            f"of 4 in [4, {KERNEL_MAX_CX}]; got Cx={cx}, Ch={ch}"
+        )
+    k_pad = -(-(cx + ch) // 8) * 8
+    if (tuple(w3q.shape) != (3, 3 * cx + 3 * ch, 4 * ch)
+            or tuple(w_packed.shape) != (9, k_pad // 4, 4 * ch)
+            or dequant.numel() != 4 * ch or b.numel() != 4 * ch):
+        raise ValueError(
+            f"weights must be w3q (3,{3 * cx + 3 * ch},{4 * ch}), w_packed "
+            f"(9,{k_pad // 4},{4 * ch}), dequant and b of {4 * ch} elements; got "
+            f"{tuple(w3q.shape)}, {tuple(w_packed.shape)}, {tuple(dequant.shape)}, {tuple(b.shape)}"
+        )
+    if min(bsz, height, width) <= 0 or bsz > 65535:
+        raise ValueError(f"the kernel takes 1 <= B <= 65535 and H, W >= 1, got {tuple(xq.shape)}")
+    if xq.device.type != "cuda":
+        raise ValueError(f"the int8 step runs on cpu or cuda tensors, not {xq.device}")
+
+
+def _library() -> ctypes.CDLL:
+    """K5's library, entry points typed: 8 pointers (xq, hq, c, packed
+    weights, dequant, b, h'q, c'), then (B, H, W, Cx, Ch, device), then the
+    stream."""
+    return _build.load_typed(
+        _SOURCE, _ENTRY.values(),
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+
+
+def build() -> None:
+    """Build (or load) the kernel's library now rather than at first launch."""
+    _build.load(_SOURCE)
+
+
+def fused_convlstm_step_int8(xq, hq, c, w3q, dequant, b,
+                             w_packed: Optional[torch.Tensor] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One int8 ConvLSTM step on unpadded NHWC int8 x and h.
+
+    xq (B, H, W, Cx) and hq (B, H, W, Ch) int8; c (B, H, W, Ch) bf16 or f32;
+    w3q, dequant, b from :func:`quantize_weights`. Returns (h'q int8, c').
+    CPU tensors take :func:`fused_convlstm_step_int8_ref`; CUDA tensors launch
+    K5 on the current stream, counted in ``fused_convlstm_step_int8.launches``.
+    ``w_packed`` is :func:`pack_weights` of ``w3q``, which a rollout makes
+    once per cell; left out, the wrapper packs on every call.
+    """
+    if all(t.device.type == "cpu" for t in (xq, hq, c, w3q, dequant, b)):
+        return fused_convlstm_step_int8_ref(xq, hq, c, w3q, dequant, b)
+    if w_packed is None:
+        w_packed = pack_weights(w3q, xq.shape[-1])
+    _check(xq, hq, c, w3q, dequant, b, w_packed)
+    lib = _library()
+    h_out = torch.empty_like(hq)
+    c_out = torch.empty_like(c)
+    bsz, height, width, cx = xq.shape
+    stream = torch.cuda.current_stream(xq.device).cuda_stream
+    err = getattr(lib, _ENTRY[c.dtype])(
+        xq.data_ptr(), hq.data_ptr(), c.data_ptr(), w_packed.data_ptr(),
+        dequant.data_ptr(), b.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
+        bsz, height, width, cx, hq.shape[-1], xq.device.index, stream,
+    )
+    _build.raise_on(err, lib, "fused_convlstm_step_int8")
+    fused_convlstm_step_int8.launches += 1
+    return h_out, c_out
+
+
+fused_convlstm_step_int8.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# int8 rollout over a fused ConvLSTMCore
+# ---------------------------------------------------------------------------
+
+
+class Int8Cell(NamedTuple):
+    """One cell's quantized weights: :func:`quantize_weights`' three tensors
+    and :func:`pack_weights` of the first."""
+
+    w3q: torch.Tensor
+    dequant: torch.Tensor
+    bias: torch.Tensor
+    w_packed: torch.Tensor
+
+
+def quantize_convlstm_params(core: torch.nn.Module) -> Dict:
+    """Quantize a fused-cell ``ConvLSTMCore`` for :func:`int8_rollout`.
+
+    Reads the core's four fused cells (``encoder.encoder_{1,2}``,
+    ``decoder.decoder_{1,2}``) and its head conv, as the JAX function reads
+    the flax tree that ``params_from_flax`` fills them from; tensors stay on
+    the core's device. Raises ``ValueError`` for a module without them.
+    """
+    def q(cell) -> Int8Cell:
+        wx, wh, bias = (getattr(cell, name, None)
+                        for name in ("x_gates_kernel", "h_gates_kernel", "bias"))
+        if wx is None or wh is None or bias is None:
+            raise ValueError(
+                "the int8 rollout reads fused-cell params (x_gates_kernel/"
+                "h_gates_kernel/bias); build the model with cell_impl='fused'"
+            )
+        w3q, dequant, b = quantize_weights(wx.detach(), wh.detach(), bias.detach())
+        return Int8Cell(w3q, dequant, b, pack_weights(w3q, wx.shape[2]))
+
+    try:
+        encoder, decoder = core.encoder, core.decoder
+        cells = {name: q(group[name])
+                 for group, names in ((encoder, ("encoder_1", "encoder_2")),
+                                      (decoder, ("decoder_1", "decoder_2")))
+                 for name in names}
+        head = decoder["head"]
+    except (AttributeError, KeyError) as e:
+        raise ValueError("the module is not a fused-cell ConvLSTMCore") from e
+    cells["head"] = {
+        "kernel": head.weight.detach().to(torch.bfloat16),  # OIHW
+        "bias": head.bias.detach().to(torch.bfloat16),
+    }
+    return cells
+
+
+def int8_rollout(qparams: Dict, x: torch.Tensor, forecast_steps: int,
+                 step=fused_convlstm_step_int8) -> torch.Tensor:
+    """(B, T, H, W, C) in [0, 1] -> (B, steps, H, W, out) bf16, the int8 path.
+
+    Matches ``ConvLSTMCore``'s rollout (encoder -> autoregressive decoder ->
+    per-step 3×3 head + sigmoid) with int8 cells: the inputs are quantized
+    once, the h carries stay int8 and the c carries bf16 throughout, and the
+    head runs in bf16 on the dequantized h4. ``step`` swaps the step's
+    implementation for every cell (the chip smoke passes
+    :func:`fused_convlstm_step_int8_ref`).
+    """
+    bsz, _, height, width, _ = x.shape
+    ch = qparams["encoder_1"].w3q.shape[-1] // 4
+    xq = quantize_activations(x).transpose(0, 1).contiguous()  # (T, B, H, W, C)
+    zq = torch.zeros(bsz, height, width, ch, dtype=torch.int8, device=x.device)
+    zc = torch.zeros(bsz, height, width, ch, dtype=torch.bfloat16, device=x.device)
+
+    def cell(name, inp, hq, c):
+        q = qparams[name]
+        return step(inp, hq, c, q.w3q, q.dequant, q.bias, q.w_packed)
+
+    (h1, c1), (h2, c2) = (zq, zc), (zq, zc)
+    for x_t in xq:
+        h1, c1 = cell("encoder_1", x_t, h1, c1)
+        h2, c2 = cell("encoder_2", h1, h2, c2)
+
+    head_k, head_b = qparams["head"]["kernel"], qparams["head"]["bias"]
+    (h3, c3), (h4, c4), v = (zq, zc), (zq, zc), h2
+    outs = []
+    for _ in range(forecast_steps):
+        h3, c3 = cell("decoder_1", v, h3, c3)
+        h4, c4 = cell("decoder_2", h3, h4, c4)
+        v = h4
+        h4f = dequantize_activations(h4).permute(0, 3, 1, 2)
+        # the bias is added to the conv's bf16 result, as the JAX rollout does
+        outs.append(F.conv2d(h4f, head_k, padding=1).permute(0, 2, 3, 1) + head_b)
+    return torch.sigmoid(torch.stack(outs, dim=1))

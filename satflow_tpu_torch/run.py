@@ -16,7 +16,7 @@ import os
 import sys
 from typing import List, Optional
 
-from satflow_tpu.core.config import compose, default_config_dir
+from satflow_tpu_torch.core.config import compose, default_config_dir
 from satflow_tpu_torch.core.utils import extras, get_logger, print_config
 
 log = get_logger(__name__)

@@ -41,6 +41,11 @@ class InferenceSession:
         and the model computes in it (``set_compute_dtype``; f32 weights
         stay); None leaves the model's own and feeds float32.
     out_dtype: wire dtype of predictions (float32 or float16).
+    quantize: ``"int8"`` serves a fused-cell ``EncoderDecoderConvLSTM``
+        through the int8 rollout (``ops/fused_convlstm_int8.py``: kernel K5
+        on the card): weights are quantized once here, the inputs of every
+        request must lie in [-1, 1] (:meth:`check_input_range`), and
+        ``dtype`` does not apply, since the rollout quantizes its own inputs.
     device: where the model runs; None keeps the model's current device.
         ``"cuda"`` without a card raises.
     """
@@ -57,11 +62,8 @@ class InferenceSession:
         mesh: Any = None,
         device: Any = None,
     ):
-        if quantize is not None:
-            raise NotImplementedError(
-                f"quantize={quantize!r} is not ported yet: int8 serving needs "
-                "kernel K5 (ROADMAP queue 1 item 8)"
-            )
+        if quantize not in (None, "int8"):
+            raise ValueError(f"unknown quantize mode {quantize!r}")
         if mesh is not None:
             raise NotImplementedError(
                 "mesh-sharded serving is not ported yet (ROADMAP queue 1 item 13)"
@@ -71,6 +73,13 @@ class InferenceSession:
             import satflow_tpu_torch.models  # noqa: F401 - populate the registry
 
             model = create_model(model)
+        if quantize and getattr(model, "is_gan", False):
+            raise ValueError("int8 serving supports forward models only")
+        if quantize and dtype is not None:
+            raise ValueError(
+                "dtype does not apply to quantize='int8' (the rollout quantizes "
+                "its own inputs)"
+            )
         if getattr(model, "is_gan", False):
             raise NotImplementedError(
                 "GAN sampling is not ported yet (ROADMAP queue 1 item 11)"
@@ -88,6 +97,17 @@ class InferenceSession:
         if dtype is not None:
             model.set_compute_dtype(dtype)
         self.model = model.to(self.device).eval()
+        self.quantize = quantize
+        self.qparams = None
+        if quantize == "int8":
+            from satflow_tpu_torch.ops.fused_convlstm_int8 import quantize_convlstm_params
+
+            if getattr(model, "cell_impl", None) != "fused":  # MetNet has none
+                raise ValueError(
+                    "int8 serving requires a fused-cell ConvLSTM model "
+                    "(EncoderDecoderConvLSTM with cell_impl='fused')"
+                )
+            self.qparams = quantize_convlstm_params(model.module)
         self.max_batch = int(max_batch)
         self.dtype = dtype
         self.out_dtype = out_dtype
@@ -100,12 +120,29 @@ class InferenceSession:
         return hp
 
     def check_input_range(self, x: np.ndarray) -> None:
-        """Per-request validation hook of the batcher (a no-op until the
-        int8 path, whose activation scale bounds the inputs, is ported)."""
+        """Reject out-of-range int8 inputs (a no-op for other sessions).
+
+        The int8 activation scale is fixed for [-1, 1] inputs;
+        ``quantize_activations`` would silently clip anything outside (e.g.
+        standardized radiances spanning +/-3). ``MicroBatcher`` calls this
+        per request before pooling, so one out-of-range client cannot fail
+        a coalesced batch for everyone else."""
+        if self.qparams is not None and x.size:
+            amax = float(np.max(np.abs(x)))
+            if amax > 1.0 + 1e-3:
+                raise ValueError(
+                    f"quantize='int8' expects inputs in [-1, 1]; got "
+                    f"|x|max={amax:.3g} — normalize inputs or use the bf16 path"
+                )
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
-            y = self.model(x.to(self.dtype or torch.float32))
+            if self.qparams is not None:
+                from satflow_tpu_torch.ops.fused_convlstm_int8 import int8_rollout
+
+                y = int8_rollout(self.qparams, x.float(), int(self.model.forecast_steps))
+            else:
+                y = self.model(x.to(self.dtype or torch.float32))
             return y.to(self.out_dtype)
 
     def predict(self, x: np.ndarray) -> np.ndarray:
@@ -120,6 +157,7 @@ class InferenceSession:
         cin = getattr(self.model, "input_channels", x.shape[-1])
         if x.ndim != 5 or x.shape[-1] != cin:
             raise ValueError(f"expected (B, T, H, W, {cin}) input, got {x.shape}")
+        self.check_input_range(x)
         b = x.shape[0]
         if b > self.max_batch:
             outs = [

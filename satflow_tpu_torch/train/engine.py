@@ -32,13 +32,11 @@ import torch
 from torch.nn.parameter import is_lazy
 
 from satflow_tpu_torch import resolve_device
-from satflow_tpu_torch.core.adapters import framework_free
 from satflow_tpu_torch.data.datamodule import to_device
 from satflow_tpu_torch.models.base import expand_frame_metrics
+from satflow_tpu_torch.train.loggers import HistoryLogger
 from satflow_tpu_torch.train.state import TrainState
 from satflow_tpu_torch.train.steps import make_eval_step, make_train_step
-
-HistoryLogger = framework_free("satflow_tpu.train.loggers").HistoryLogger
 
 log = logging.getLogger(__name__)
 

@@ -154,7 +154,7 @@ def test_registries_are_separate():
             registry.create_model(source)
 
 
-@pytest.mark.parametrize("kwargs", [dict(cell_impl="split"), dict(cell_impl="cmajor"),
+@pytest.mark.parametrize("kwargs", [dict(cell_impl="split"), dict(cell_impl="hybrid"),
                                     dict(conv_type="coord")])
 def test_unported_options_raise(kwargs):
     with pytest.raises(NotImplementedError):

@@ -1,7 +1,8 @@
 """PyTorch port, on a CUDA card only: the fused ConvLSTM-step kernel (K1),
-its backward's kernel (K2), the LSTM gate tail (K3) and the axial attention
-(K4), with their autograd Functions, against their plain versions, and a
-small MetNet through K3 and K4. It imports nothing of the JAX package, so it
+its backward's kernel (K2), the LSTM gate tail (K3), the axial attention
+(K4), the int8 step (K5) and the channel-major step and head (K6a, K6b),
+with their autograd Functions, against their plain versions, and a small
+MetNet through K3 and K4. It imports nothing of the JAX package, so it
 runs on a card's machine that has no flax: ``python -m pytest
 tests/test_torch_gpu.py``. Without a card it skips.
 
@@ -12,13 +13,19 @@ atol 1e-4 (x max|grad| for gradients); bf16: both store bf16 (step 2^-8)
 and the plain version rounds each conv's output to bf16, atol 3e-2. K3 and
 K4: f32 atol 1e-5 (the same f32 math; K4's online softmax sums in another
 order); bf16 atol 2e-2 + one bf16 step relative (both round only the
-stored output).
+stored output). K5: the integer sums are exact on both sides, so h'q
+differs by at most one int8 step on at most 0.1 % of elements (exp/tanh
+differ by an ulp between ATen and CUDA) and c' by one step of its dtype.
+K6a/K6b: as K1 (f32 1e-4; bf16 3e-2, the plain versions round each conv's
+output to bf16).
 """
 
 import pytest
 import torch
 
 from satflow_tpu_torch.ops import axial_attention as A
+from satflow_tpu_torch.ops import cmajor_convlstm as CM
+from satflow_tpu_torch.ops import fused_convlstm_int8 as Q
 from satflow_tpu_torch.ops import fused_convlstm_step as P
 from satflow_tpu_torch.ops import fused_lstm as G
 from satflow_tpu_torch.nn.recurrent import FusedConvLSTMCell
@@ -215,4 +222,171 @@ def test_metnet_forward_through_k3_and_k4_on_card():
         assert (G.fused_lstm_gates.launches - k3, A.axial_attention.launches - k4) == (3, 2)
         want = model(x, gate_tail=G.fused_lstm_gates_ref, attention=A.axial_attention_ref)
     assert y.shape == (2, 2, 4, 4, 3)
+    torch.testing.assert_close(y, want, atol=1e-4, rtol=0)
+
+
+def _int8_args(cx, c_dtype, shape=(2, 20, 36), seed=40):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(*s):
+        return torch.rand(*s, generator=g, device="cuda")
+
+    w3q, dequant, b = Q.quantize_weights((rand(3, 3, cx, 256) - 0.5) * 0.2,
+                                         (rand(3, 3, 64, 256) - 0.5) * 0.2,
+                                         (rand(256) - 0.5) * 0.2)
+    xq = Q.quantize_activations(rand(*shape, cx))
+    hq = Q.quantize_activations(rand(*shape, 64) * 2 - 1)
+    c = (rand(*shape, 64) * 2 - 1).to(c_dtype)
+    return xq, hq, c, w3q, dequant, b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c_dtype, c_step", [(torch.bfloat16, 2.0 ** -7), (torch.float32, 1e-6)])
+@pytest.mark.parametrize("cx", [12, 64])
+def test_int8_kernel_matches_plain_on_card(cx, c_dtype, c_step):
+    """K5 at a ragged size (the 8x16 tiles do not divide 20x36), packing its
+    weights itself or handed them packed."""
+    _card()
+    args = _int8_args(cx, c_dtype)
+    before = Q.fused_convlstm_step_int8.launches
+    hq_k, c_k = Q.fused_convlstm_step_int8(*args)
+    hq_k2, c_k2 = Q.fused_convlstm_step_int8(*args, Q.pack_weights(args[3], cx))
+    torch.cuda.synchronize()
+    assert Q.fused_convlstm_step_int8.launches == before + 2
+    assert hq_k.dtype == torch.int8 and c_k.dtype == c_dtype
+    assert torch.equal(hq_k, hq_k2) and torch.equal(c_k, c_k2)
+    hq_p, c_p = Q.fused_convlstm_step_int8_ref(*args)
+    diff = (hq_k.int() - hq_p.int()).abs()
+    assert int(diff.max()) <= 1 and float((diff != 0).float().mean()) <= 1e-3
+    torch.testing.assert_close(c_k.float(), c_p.float(), atol=c_step, rtol=0)
+
+
+@pytest.mark.gpu
+def test_int8_kernel_dispatch_rule_on_card():
+    """A CUDA tensor outside K5's domain is refused, not handed to the plain
+    version; no launch is counted."""
+    _card()
+    args = list(_int8_args(12, torch.bfloat16))
+    before = Q.fused_convlstm_step_int8.launches
+    with pytest.raises(ValueError, match="hidden width 64"):
+        Q.fused_convlstm_step_int8(args[0][..., :6].contiguous(), *args[1:])
+    with pytest.raises(TypeError, match="c must be"):
+        Q.fused_convlstm_step_int8(args[0], args[1], args[2].half(), *args[3:])
+    with pytest.raises(ValueError, match="is on cpu"):
+        Q.fused_convlstm_step_int8(args[0], args[1].cpu(), *args[2:])
+    assert Q.fused_convlstm_step_int8.launches == before
+
+
+@pytest.mark.gpu
+def test_int8_rollout_through_k5_on_card():
+    """A hidden-64 rollout (T=2, F=3, 24x40): 2T + 2F K5 launches, and the
+    rollout through the plain version within 2e-2 on the sigmoid outputs."""
+    _card()
+    from satflow_tpu_torch.models.conv_lstm import ConvLSTMCore
+
+    core = ConvLSTMCore(hidden_dim=64, in_channels=12, out_channels=12, forecast_steps=3,
+                        generator=torch.Generator().manual_seed(0)).cuda().eval()
+    qp = Q.quantize_convlstm_params(core)
+    x = torch.rand(2, 2, 24, 40, 12, device="cuda")
+    before = Q.fused_convlstm_step_int8.launches
+    with torch.inference_mode():
+        y = Q.int8_rollout(qp, x, 3)
+        torch.cuda.synchronize()
+        assert Q.fused_convlstm_step_int8.launches == before + 10
+        want = Q.int8_rollout(qp, x, 3, step=Q.fused_convlstm_step_int8_ref)
+    assert y.shape == (2, 3, 24, 40, 12) and y.dtype == torch.bfloat16
+    torch.testing.assert_close(y.float(), want.float(), atol=2e-2, rtol=0)
+
+
+def _cmajor_args(dtype, cx, shape=(2, 10, 70), seed=50):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    b, h, w = shape
+    shapes = (((b, cx, h * w), 1.0), ((b, 64, h * w), 1.0), ((b, 64, h * w), 1.0),
+              ((3, 3, cx, 256), 0.1), ((3, 3, 64, 256), 0.04), ((256,), 0.1))
+    return [(torch.randn(*s, generator=g, device="cuda") * sc).to(dtype) for s, sc in shapes]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype, atol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("cx", [64, 12])
+def test_cmajor_cell_kernel_matches_plain_on_card(dtype, atol, cx):
+    """K6a at a ragged size (the 4x32 tiles do not divide 10x70)."""
+    _card()
+    args = _cmajor_args(dtype, cx)
+    before = CM.cmajor_convlstm_step.launches
+    h_k, c_k = CM.cmajor_convlstm_step(*args, 10, 70)
+    torch.cuda.synchronize()
+    assert CM.cmajor_convlstm_step.launches == before + 1
+    h_p, c_p = CM.cmajor_convlstm_step_ref(*args, 10, 70)
+    torch.testing.assert_close(h_k.float(), h_p.float(), atol=atol, rtol=0)
+    torch.testing.assert_close(c_k.float(), c_p.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype, atol, rtol", [(torch.float32, 1e-4, 0),
+                                               (torch.bfloat16, 3e-2, 2.0 ** -7)])
+@pytest.mark.parametrize("cin, cout", [(64, 12), (8, 16), (24, 1)])
+def test_cmajor_conv_kernel_matches_plain_on_card(dtype, atol, rtol, cin, cout):
+    """K6b at a ragged size; the head's outputs are not range-bound, so bf16
+    is held to one bf16 step (2^-7 relative) beyond the absolute slack."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(60)
+    x = torch.randn(2, cin, 10 * 70, generator=g, device="cuda").to(dtype)
+    w = (torch.randn(3, 3, cin, cout, generator=g, device="cuda") * 0.05).to(dtype)
+    b = (torch.randn(cout, generator=g, device="cuda") * 0.1).to(dtype)
+    before = CM.cmajor_conv3x3.launches
+    out = CM.cmajor_conv3x3(x, w, b, 10, 70)
+    torch.cuda.synchronize()
+    assert CM.cmajor_conv3x3.launches == before + 1 and out.shape == (2, cout, 700)
+    torch.testing.assert_close(out.float(), CM.cmajor_conv3x3_ref(x, w, b, 10, 70).float(),
+                               atol=atol, rtol=rtol)
+
+
+@pytest.mark.gpu
+def test_cmajor_kernels_dispatch_rule_on_card():
+    """CUDA tensors outside the kernels' domain are refused; the Functions'
+    backward gives the plain step's gradients."""
+    _card()
+    args = _cmajor_args(torch.float32, 64)
+    before = CM.cmajor_convlstm_step.launches
+    with pytest.raises(ValueError, match="hidden width 64"):
+        CM.cmajor_convlstm_step(args[0], args[1][:, :8].contiguous(), args[2][:, :8].contiguous(),
+                                args[3][..., :32].contiguous(),
+                                args[4][:, :, :8, :32].contiguous(), args[5][:32].contiguous(),
+                                10, 70)
+    with pytest.raises(ValueError, match="Cout <= 16"):
+        CM.cmajor_conv3x3(args[0], torch.zeros(3, 3, 64, 24, device="cuda"),
+                          torch.zeros(24, device="cuda"), 10, 70)
+    assert CM.cmajor_convlstm_step.launches == before
+    leaves = [t.clone().requires_grad_() for t in args]
+    h2, c2 = CM.cmajor_convlstm_step(*leaves, 10, 70)
+    assert CM.cmajor_convlstm_step.launches == before + 1
+    got = torch.autograd.grad(h2.sum() + c2.square().sum(), leaves)
+    ref = [t.clone().requires_grad_() for t in args]
+    h2, c2 = CM.cmajor_convlstm_step_ref(*ref, 10, 70)
+    for a, b in zip(got, torch.autograd.grad(h2.sum() + c2.square().sum(), ref)):
+        torch.testing.assert_close(a, b, atol=1e-4 * float(b.abs().max()), rtol=0)
+
+
+@pytest.mark.gpu
+def test_cmajor_core_through_k6_on_card():
+    """A hidden-64 ``cell_impl="cmajor"`` core (T=2, F=3, 8x128): 2T K1, 2F
+    K6a and F K6b launches, and the fused rollout within 1e-4 (f32)."""
+    _card()
+    from satflow_tpu_torch.models.conv_lstm import ConvLSTMCore
+
+    kw = dict(hidden_dim=64, in_channels=12, out_channels=12, forecast_steps=3)
+    m_c = ConvLSTMCore(cell_impl="cmajor", generator=torch.Generator().manual_seed(0), **kw)
+    m_f = ConvLSTMCore(cell_impl="fused", **kw)
+    m_f.load_state_dict(m_c.state_dict())
+    m_c, m_f = m_c.cuda().eval(), m_f.cuda().eval()
+    x = torch.rand(2, 2, 8, 128, 12, device="cuda")
+    counts = lambda: (P.fused_convlstm_step.launches, CM.cmajor_convlstm_step.launches,  # noqa: E731
+                      CM.cmajor_conv3x3.launches)
+    before = counts()
+    with torch.inference_mode():
+        y = m_c(x)
+        torch.cuda.synchronize()
+        assert tuple(a - b for a, b in zip(counts(), before)) == (4, 6, 3)
+        want = m_f(x)
     torch.testing.assert_close(y, want, atol=1e-4, rtol=0)

@@ -6,6 +6,10 @@ channels the model infers) and the ``run`` CLI. Tolerance of the served
 forecasts against the JAX session: 1e-4, as for the f32 model forward."""
 
 import io
+import os
+import subprocess
+import sys
+import textwrap
 import urllib.request
 
 import jax
@@ -147,3 +151,25 @@ def test_cli_trains_metnet(tmp_path, monkeypatch):
     assert len(csvs) == 1
     header = csvs[0].read_text().splitlines()[0].split(",")
     assert {"train/loss", "val/loss", "test/loss"} <= set(header)
+
+
+def test_metnet_training_imports_no_jax(tmp_path):
+    """A process that runs the MetNet CLI example through the port imports
+    neither jax, flax or optax nor any module of the JAX package."""
+    code = textwrap.dedent(f"""
+        import sys
+        from satflow_tpu_torch.run import main
+        result = main(["model=metnet", "datamodule=fake", "trainer=minimal",
+                       "callbacks=none", "model.hidden_dim=8", "model.forecast_steps=2",
+                       "trainer.max_steps=2", "work_dir={tmp_path / 'runs'}",
+                       "print_config=false"])
+        assert result is not None
+        print(sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "flax", "optax", "satflow_tpu")))
+    """)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=tmp_path, env={**os.environ, "PYTHONPATH": repo}, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+    assert len(list((tmp_path / "runs").rglob("metrics.csv"))) == 1

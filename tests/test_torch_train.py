@@ -367,21 +367,23 @@ def test_cli_example_runs(tmp_path, monkeypatch):
 
 
 def test_training_imports_no_jax(tmp_path):
-    """A process that trains through the port on fake data never imports jax."""
+    """A process that runs the CLI example (compose the config tree, train on
+    the fake datamodule, test, write metrics.csv) through the port imports
+    neither jax, flax or optax nor any module of the JAX package."""
     code = textwrap.dedent(f"""
         import sys
-        from satflow_tpu_torch.core.registry import create_model
-        import satflow_tpu_torch.models
-        from satflow_tpu_torch.data import SatFlowDataModule
-        from satflow_tpu_torch.train import Trainer
-        model = create_model("encoderdecoderconvlstm", **{KW!r})
-        trainer = Trainer(max_steps=2, log_every_n_steps=1)
-        trainer.fit(model, SatFlowDataModule(**{DM_KW!r}))
-        assert trainer.global_step == 2
-        print("jax" in sys.modules, sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax")))
+        from satflow_tpu_torch.run import main
+        result = main(["model=convlstm", "datamodule=fake", "trainer=minimal",
+                       "callbacks=none", "model.hidden_dim=8", "model.forecast_steps=2",
+                       "trainer.max_steps=2", "work_dir={tmp_path / 'runs'}",
+                       "print_config=false"])
+        assert result is not None
+        print(sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "flax", "optax", "satflow_tpu")))
     """)
     env = {**os.environ, "PYTHONPATH": REPO}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=tmp_path, env=env, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
-    assert out.stdout.strip().splitlines()[-1] == "False []"
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+    assert len(list((tmp_path / "runs").rglob("metrics.csv"))) == 1
