@@ -68,7 +68,34 @@ Phases, in order; any failure exits non-zero before the last line:
    also against the one library call that computes the same function), the
    b8 forward through the fused, int8 and channel-major rollouts in turns,
    and one int8 and one channel-major forward profiled;
-17. a JSON line of the kernels with each one's bound on this card, and last
+17. K1h, the halo-tensor variant of the step, against its plain version and
+   against K1 at K1's shapes and tolerances, the image's first and last rows
+   and the rows on either side of every row-block boundary on their own, and
+   ``build_halo`` against slicing; T1 (tap-major step), T2 (no gate math)
+   and their yardstick K1p (K1 in their W-padded layout) against their plain
+   versions, the halo columns of h' exactly zero, T1 and K1p against K1 on
+   the interior, T2 relative to max|plain|;
+   T3 (the pad-row channel-major prototype) against its plain version and,
+   through the layout helpers, against K6a, its pad rows exactly zero and a
+   3-step chain equal to three K6a steps;
+18. the halo variant of the main path (``SATFLOW_STEP_VARIANT=halo``): the
+   fused model answers 5 concurrent requests (62 K1h and 0 K1 launches per
+   forward; reply held against the K1 rollout) and takes one Adam step with
+   ``remat_chunk=6`` through ``Trainer.fit`` (124 K1h + 62 K2 launches;
+   gradients held against the same step through the plain versions);
+19. the two study entry points, ``tools.exp_tap9.main`` and
+   ``tools.exp_cmajor.main``, in-process: each verifies, then times a chained
+   rollout of K1, K1p, T1, T2 and of K6a, T3; launches counted;
+20. the remaining cell formulations: ``cell_impl`` ``concat``, ``split`` and
+   ``hybrid`` each answer 5 concurrent requests (62 K3 launches per forward;
+   reply held against the same forward through K3's plain version), and
+   ``split`` takes one Adam step with ``remat_chunk=6`` (124 K3 launches;
+   gradients held against the plain version's);
+21. timings: K1h, K1p, T1, T2 and T3 per call against their plain versions, and the
+   halo gathers on their own; the b8 forward under ``3pass`` and ``halo`` in
+   turns; the b8 forward through ``concat``, ``split`` and ``hybrid``; the
+   ``split`` train step; one ``halo`` forward profiled;
+22. a JSON line of the kernels with each one's bound on this card, and last
    a JSON line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.
@@ -76,9 +103,11 @@ It imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import http.client
 import io
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -175,6 +204,19 @@ TOL_INT8_REPLY = 2e-2
 TOL_HEAD_BF16 = dict(atol=2e-2, rtol=2e-2)
 INT8_LAUNCHES_PER_FORWARD = LAUNCHES_PER_FORWARD      # every cell step is one K5 launch
 CMAJOR_LAUNCHES_PER_FORWARD = (2 * T, 2 * STEPS, STEPS)  # K1 (encoder), K6a, K6b
+
+# K1h, T1 and T3 compute K1's (K6a's) sums, in the same order per thread or
+# another: against K1 / K6a they are held to a few f32 rounding steps, and in
+# bf16 to one bf16 step of the stored outputs (h' in (-1, 1): 2^-8 relative
+# below 1, so 2^-7 absolute covers a flip of h' and rtol 2^-7 one of c').
+TOL_SAME_SUMS = {"float32": dict(atol=1e-5, rtol=1e-5), "bfloat16": dict(atol=2 ** -7, rtol=2 ** -7)}
+# - T2's outputs are unbounded sums (no sigmoid or tanh): held relative to
+#   max|plain|; float32: f32 rounding of sums of 1152 products; bfloat16: two
+#   bf16 steps (the stored c' and h' each round once, h' sums c').
+TOL_NOGATE_REL = {"float32": 1e-5, "bfloat16": 2 ** -7}
+HALO_BLOCK_H = 8   # rows per row block of K1h and block_h of T3's pad rows
+STUDY_STEPS = {"tap9": 20, "cmajor": 24}  # the chained rollouts of the two study tools
+K3_PER_FORWARD = LAUNCHES_PER_FORWARD     # concat/split/hybrid: one gate tail per cell step
 
 # The card's published peaks (H100 SXM data sheet, dense): what a kernel's
 # bound is computed from.
@@ -527,12 +569,12 @@ def timings(torch, step, step_ref, bwd, bwd_ref, model, card):
 
 
 class LaunchesPerStep:
-    """Trainer callback: the K1 and K2 launches of each train step."""
+    """Trainer callback: the launches of each train step, per counter."""
 
-    def __init__(self, k1, k2):
-        self.counters = (k1, k2)
+    def __init__(self, *counters):
+        self.counters = counters
         self.per_step = []
-        self._last = (0, 0)
+        self._last = (0,) * len(counters)
 
     def on_train_start(self, engine) -> None:
         self._last = tuple(c.launches for c in self.counters)
@@ -548,6 +590,25 @@ class LaunchesPerStep:
     def on_preemption(self, engine) -> None: ...
 
     def on_train_end(self, engine) -> None: ...
+
+
+def timed_train_steps(torch, steps: dict, state, batch):
+    """Host-clock ms of each train step in ``steps`` ({"kernel": fn, "plain":
+    fn}), after one warm-up each, in turns (plain, kernel, kernel, plain);
+    returns ({name: [ms, ms]}, {name: peak GiB})."""
+    for fn in steps.values():
+        fn(state, batch)  # warm-up
+    runs = {"plain": [], "kernel": []}
+    peaks = {"plain": 0.0, "kernel": 0.0}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        steps[name](state, batch)
+        torch.cuda.synchronize()
+        runs[name].append((time.perf_counter() - t0) * 1e3)
+        peaks[name] = max(peaks[name], torch.cuda.max_memory_allocated() / 2**30)
+    return runs, peaks
 
 
 def profile_step(torch, train_step, state, batch, card) -> None:
@@ -621,45 +682,13 @@ def train_slice(torch, card):
 
     batch = to_device(next(iter(dm.train_dataloader())), torch.device(DEVICE))
 
-    def step_grads(step):
-        model.zero_grad(set_to_none=True)
-        loss, _ = model.loss(batch, step=step)
-        loss.backward()
-        grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
-        model.zero_grad(set_to_none=True)
-        return grads
-
-    got, want = step_grads(fused_convlstm_step), step_grads(fused_convlstm_step_ref)
-    worst = 0.0
-    for name, g in got.items():
-        w = want[name]
-        if g is None or not bool(torch.isfinite(g).all()) or not g.abs().sum().item() > 0:
-            fail(f"parameter {name} has no finite nonzero gradient through the kernels")
-        rel = (g - w).abs().max().item() / w.abs().max().item()
-        cos = torch.nn.functional.cosine_similarity(g.flatten(), w.flatten(), dim=0).item()
-        worst = max(worst, rel)
-        if not (rel <= TOL_TRAIN_GRAD and cos >= MIN_TRAIN_GRAD_COS):
-            fail(f"gradient of {name} through K1+K2 vs plain: max|diff| / max|grad| {rel:.3g} "
-                 f"(tol {TOL_TRAIN_GRAD}), cosine {cos:.6f} (min {MIN_TRAIN_GRAD_COS})")
-    print(f"one train step's gradients through K1+K2 vs the plain step (bf16): all "
-          f"{len(got)} parameters nonzero; max|diff| / max|grad| {worst:.3g} <= "
-          f"{TOL_TRAIN_GRAD}, cosine >= {MIN_TRAIN_GRAD_COS} ok [{card}]", flush=True)
+    worst = compare_step_grads(torch, model, batch, dict(step=fused_convlstm_step),
+                               dict(step=fused_convlstm_step_ref), "K1+K2", card)
 
     state = trainer.state
     steps = {"kernel": make_train_step(model),
              "plain": make_train_step(model, step=fused_convlstm_step_ref)}
-    for fn in steps.values():
-        fn(state, batch)  # warm-up
-    runs = {"plain": [], "kernel": []}
-    peaks = {"plain": 0.0, "kernel": 0.0}
-    for name in ("plain", "kernel", "kernel", "plain"):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        steps[name](state, batch)
-        torch.cuda.synchronize()
-        runs[name].append((time.perf_counter() - t0) * 1e3)
-        peaks[name] = max(peaks[name], torch.cuda.max_memory_allocated() / 2**30)
+    runs, peaks = timed_train_steps(torch, steps, state, batch)
     step_ms = {k: sum(v) / len(v) for k, v in runs.items()}
     for name in ("kernel", "plain"):
         print(f"b{B} train step (bf16, {T} in / {STEPS} out, {H}x{W}x{CIN}, remat_chunk "
@@ -1053,18 +1082,7 @@ def metnet_train_slice(torch, card):
 
     state = trainer.state
     steps = {"kernel": make_train_step(model), "plain": make_train_step(model, **plain)}
-    for fn in steps.values():
-        fn(state, batch)  # warm-up
-    runs = {"plain": [], "kernel": []}
-    peaks = {"plain": 0.0, "kernel": 0.0}
-    for name in ("plain", "kernel", "kernel", "plain"):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        steps[name](state, batch)
-        torch.cuda.synchronize()
-        runs[name].append((time.perf_counter() - t0) * 1e3)
-        peaks[name] = max(peaks[name], torch.cuda.max_memory_allocated() / 2**30)
+    runs, peaks = timed_train_steps(torch, steps, state, batch)
     for name in ("kernel", "plain"):
         ms = sum(runs[name]) / len(runs[name])
         print(f"MetNet b{B} train step (bf16, {T} in / {MN_F} lead times, {H}x{W}x{MN_TRAIN_CIN}, "
@@ -1365,6 +1383,572 @@ def serving_timings(torch, fused_model, cmajor_model, qparams, card):
     return times
 
 
+@contextlib.contextmanager
+def step_variant(name: str):
+    """``SATFLOW_STEP_VARIANT=name`` for the duration."""
+    old = os.environ.get("SATFLOW_STEP_VARIANT")
+    os.environ["SATFLOW_STEP_VARIANT"] = name
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["SATFLOW_STEP_VARIANT"]
+        else:
+            os.environ["SATFLOW_STEP_VARIANT"] = old
+
+
+def boundary_rows(height: int, block_h: int):
+    """The image's first and last rows and the rows on either side of every
+    row-block boundary."""
+    return sorted({0, height - 1} | {r for b in range(block_h, height, block_h)
+                                     for r in (b - 1, b)})
+
+
+def check_halo_kernel(torch, card) -> float:
+    """Phase 17a: K1h vs its plain version and vs K1, and build_halo vs
+    slicing; returns the largest bf16 |K1h - plain|."""
+    from satflow_tpu_torch.ops import fused_convlstm_step as P
+
+    rows = boundary_rows(H, HALO_BLOCK_H)
+    worst_bf16 = 0.0
+    for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
+        name = str(dtype)[6:]
+        for cx in (CIN, HIDDEN):
+            args = step_inputs(torch, cx, dtype, seed=800 + cx)
+            before = P.fused_convlstm_step_halo.launches, P.fused_convlstm_step.launches
+            got = P.fused_convlstm_step_halo(*args)
+            torch.cuda.synchronize()
+            if (P.fused_convlstm_step_halo.launches, P.fused_convlstm_step.launches) != (
+                    before[0] + 1, before[1]):
+                fail(f"K1h did not launch alone at Cx={cx}")
+            want = P.fused_convlstm_step_halo_ref(*args)
+            k1 = P._step(*args)
+            errs, errs_k1 = {}, {}
+            regions = dict(REGIONS, **{"block rows": (slice(None), rows)})
+            for region, idx in regions.items():
+                for out, g_, w_, k_ in (("h", got[0], want[0], k1[0]), ("c", got[1], want[1], k1[1])):
+                    errs[f"{out}.{region}"] = _max_err(torch, g_[idx], w_[idx], tol,
+                                                       f"K1h vs plain {name} Cx={cx} {out} {region}")
+                    errs_k1[f"{out}.{region}"] = _max_err(
+                        torch, g_[idx], k_[idx], TOL_SAME_SUMS[name],
+                        f"K1h vs K1 {name} Cx={cx} {out} {region}")
+            if dtype == torch.bfloat16:
+                worst_bf16 = max(worst_bf16, max(errs.values()))
+            print(f"K1h vs plain: {name} B={B} {H}x{W} Cx={cx} Ch={HIDDEN}: max|diff| "
+                  f"{max(errs.values()):.3g} (edges and the {len(rows)} rows at block boundaries: "
+                  + ", ".join(f"{k} {v:.3g}" for k, v in errs.items() if "all" not in k)
+                  + f") tol {tol}; vs K1 max|diff| {max(errs_k1.values()):.3g} tol "
+                  f"{TOL_SAME_SUMS[name]} ok [{card}]", flush=True)
+    x = step_inputs(torch, CIN, torch.bfloat16, seed=812)[0]
+    halo = P.build_halo(x, HALO_BLOCK_H)
+    n = H // HALO_BLOCK_H
+    if tuple(halo.shape) != (B, n, 2, W, CIN) or not halo.is_contiguous():
+        fail(f"build_halo gave {tuple(halo.shape)}")
+    zero = torch.zeros_like(x[:, 0])
+    for r in range(n):
+        top = x[:, r * HALO_BLOCK_H - 1] if r else zero
+        bot = x[:, (r + 1) * HALO_BLOCK_H] if r + 1 < n else zero
+        if not (torch.equal(halo[:, r, 0], top) and torch.equal(halo[:, r, 1], bot)):
+            fail(f"build_halo != slicing at row block {r}")
+    print(f"build_halo vs slicing: ({B}, {H}, {W}, {CIN}) -> {tuple(halo.shape)}, every row "
+          f"block's two rows equal, zeros at the image's edges ok [{card}]", flush=True)
+    return worst_bf16
+
+
+def padded_inputs(torch, cx: int, dtype, seed: int):
+    """step_inputs with x and h W-padded by one zero column on either side."""
+    from satflow_tpu_torch.tools.exp_tap9 import pad_w
+
+    x, h, c, wx, wh, b = step_inputs(torch, cx, dtype, seed)
+    return pad_w(x).contiguous(), pad_w(h).contiguous(), c, wx, wh, b
+
+
+def check_study_steps(torch, card):
+    """Phase 17b: T1, K1p and T2 vs their plain versions in the padded layout;
+    returns their largest bf16 |kernel - plain| (T2's relative to max|plain|)
+    as (T1, T2, K1p)."""
+    from satflow_tpu_torch.ops import fused_convlstm_step as P
+    from satflow_tpu_torch.tools import exp_tap9 as XT
+
+    worst = {"T1": 0.0, "T2": 0.0, "K1p": 0.0}
+    for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
+        name = str(dtype)[6:]
+        for cx in (CIN, HIDDEN):
+            args = padded_inputs(torch, cx, dtype, seed=820 + cx)
+            counters = (XT.step_tap9, XT.step_padded, XT.step_nogate)
+            before = tuple(c_.launches for c_ in counters)
+            h9, c9 = XT.step_tap9(*args)
+            hk, ck = XT.step_padded(*args)
+            hn, cn = XT.step_nogate(*args)
+            torch.cuda.synchronize()
+            if tuple(c_.launches for c_ in counters) != tuple(n + 1 for n in before):
+                fail(f"T1, K1p or T2 did not launch at Cx={cx}")
+            for what, hp in (("T1", h9), ("K1p", hk), ("T2", hn)):
+                if tuple(hp.shape) != (B, H, W + 2, HIDDEN) or hp[:, :, (0, -1)].abs().max().item() != 0:
+                    fail(f"{what} {name} Cx={cx}: the halo columns of h' are not exactly zero")
+            k1 = P._step(args[0][:, :, 1:-1].contiguous(), args[1][:, :, 1:-1].contiguous(), *args[2:])
+            hk_p, ck_p = XT.step_padded_ref(*args)
+            errs_p, errs_pk1 = {}, {}
+            for region, idx in REGIONS.items():
+                for out, g_, w_, k_ in (("h", hk[:, :, 1:-1], hk_p[:, :, 1:-1], k1[0]),
+                                        ("c", ck, ck_p, k1[1])):
+                    errs_p[f"{out}.{region}"] = _max_err(
+                        torch, g_[idx], w_[idx], tol, f"K1p vs plain {name} Cx={cx} {out} {region}")
+                    errs_pk1[f"{out}.{region}"] = _max_err(
+                        torch, g_[idx], k_[idx], TOL_SAME_SUMS[name],
+                        f"K1p vs K1 {name} Cx={cx} {out} {region}")
+            h9_p, c9_p = XT.step_tap9_ref(*args)
+            errs, errs_k1 = {}, {}
+            for region, idx in REGIONS.items():
+                for out, g_, w_, k_ in (("h", h9[:, :, 1:-1], h9_p[:, :, 1:-1], k1[0]),
+                                        ("c", c9, c9_p, k1[1])):
+                    errs[f"{out}.{region}"] = _max_err(torch, g_[idx], w_[idx], tol,
+                                                       f"T1 vs plain {name} Cx={cx} {out} {region}")
+                    errs_k1[f"{out}.{region}"] = _max_err(
+                        torch, g_[idx], k_[idx], TOL_SAME_SUMS[name],
+                        f"T1 vs K1 {name} Cx={cx} {out} {region}")
+            hn_p, cn_p = XT.step_nogate_ref(*args)
+            rel = {}
+            for out, g_, w_ in (("h", hn, hn_p), ("c", cn, cn_p)):
+                scale = w_.float().abs().max().item()
+                rel[out] = (g_.float() - w_.float()).abs().max().item() / scale
+                if not rel[out] <= TOL_NOGATE_REL[name]:
+                    fail(f"T2 vs plain {name} Cx={cx} {out}: max|diff| / max|plain| {rel[out]:.3g} "
+                         f"> {TOL_NOGATE_REL[name]} (max|plain| {scale:.3g})")
+            if dtype == torch.bfloat16:
+                worst["T1"] = max(worst["T1"], max(errs.values()))
+                worst["T2"] = max(worst["T2"], max(rel.values()))
+                worst["K1p"] = max(worst["K1p"], max(errs_p.values()))
+            print(f"K1p vs plain: {name} B={B} {H}x{W}(+2) Cx={cx} Ch={HIDDEN}: max|diff| "
+                  f"{max(errs_p.values()):.3g} tol {tol}; vs K1 on the interior "
+                  f"{max(errs_pk1.values()):.3g} tol {TOL_SAME_SUMS[name]}; halo columns of h' "
+                  f"zero ok [{card}]", flush=True)
+            print(f"T1 vs plain: {name} B={B} {H}x{W}(+2) Cx={cx} Ch={HIDDEN}: max|diff| "
+                  f"{max(errs.values()):.3g} (edges: "
+                  + ", ".join(f"{k} {v:.3g}" for k, v in errs.items() if "all" not in k)
+                  + f") tol {tol}; vs K1 on the interior {max(errs_k1.values()):.3g} tol "
+                  f"{TOL_SAME_SUMS[name]}; halo columns of h' zero ok [{card}]", flush=True)
+            print(f"T2 vs plain: {name} B={B} {H}x{W}(+2) Cx={cx} Ch={HIDDEN}: max|diff| / max|plain| "
+                  f"h {rel['h']:.3g}, c {rel['c']:.3g} <= {TOL_NOGATE_REL[name]}; halo columns of "
+                  f"h' zero ok [{card}]", flush=True)
+    return worst["T1"], worst["T2"], worst["K1p"]
+
+
+def exp_cmajor_inputs(torch, dtype, seed: int):
+    """T3's (x, h, c, w9, b) in the pad-row layout and K6a's (x, h, c, wx,
+    wh, b) from the same NHWC tensors."""
+    from satflow_tpu_torch.ops import cmajor_convlstm as CM
+    from satflow_tpu_torch.tools import exp_cmajor as XC
+
+    x, h, c, wx, wh, b = step_inputs(torch, HIDDEN, dtype, seed)
+    t3 = tuple(XC.to_cmajor(t, HALO_BLOCK_H) for t in (x, h, c)) + (
+        XC.weights_cmajor(wx, wh), b.reshape(-1, 1).contiguous())
+    k6a = tuple(CM.to_cmajor(t) for t in (x, h, c)) + (wx, wh, b)
+    return t3, k6a
+
+
+def check_exp_cmajor(torch, card) -> float:
+    """Phase 17c: T3 vs its plain version and vs K6a; returns the largest
+    bf16 |T3 - plain|."""
+    from satflow_tpu_torch.ops import cmajor_convlstm as CM
+    from satflow_tpu_torch.tools import exp_cmajor as XC
+
+    bh = HALO_BLOCK_H
+    worst_bf16 = 0.0
+    for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
+        name = str(dtype)[6:]
+        t3, k6a = exp_cmajor_inputs(torch, dtype, seed=840)
+        before = XC.cmajor_step.launches
+        got = XC.cmajor_step(*t3, bh, H, W)
+        torch.cuda.synchronize()
+        if XC.cmajor_step.launches != before + 1:
+            fail("T3 did not launch")
+        want = XC.cmajor_step_ref(*t3, bh, H, W)
+        ref6 = CM.cmajor_convlstm_step(*k6a, H, W)
+        errs, errs_k6 = {}, {}
+        for out, g_, w_, k_ in (("h", got[0], want[0], ref6[0]), ("c", got[1], want[1], ref6[1])):
+            pad = g_.reshape(B, HIDDEN, H + 2 * bh, W)
+            if pad[:, :, :bh].abs().max().item() != 0 or pad[:, :, -bh:].abs().max().item() != 0:
+                fail(f"T3 {name}: the pad rows of {out}' are not exactly zero")
+            g_n, w_n = XC.from_cmajor(g_, H, W, bh), XC.from_cmajor(w_, H, W, bh)
+            k_n = CM.from_cmajor(k_, H, W)
+            for region, idx in REGIONS.items():
+                errs[f"{out}.{region}"] = _max_err(torch, g_n[idx], w_n[idx], tol,
+                                                   f"T3 vs plain {name} {out} {region}")
+                errs_k6[f"{out}.{region}"] = _max_err(torch, g_n[idx], k_n[idx],
+                                                      TOL_SAME_SUMS[name],
+                                                      f"T3 vs K6a {name} {out} {region}")
+        # a 3-step chain on its own outputs (x fed back from h') against three K6a steps
+        w9, b2 = t3[3:]
+        carry, carry6 = t3[:3], k6a[:3]
+        for _ in range(3):
+            h2, c2 = XC.cmajor_step(*carry, w9, b2, bh, H, W)
+            carry = (h2, h2, c2)
+            h6, c6 = CM.cmajor_convlstm_step(*carry6, *k6a[3:], H, W)
+            carry6 = (h6, h6, c6)
+        chain_tol = {k: 3 * v for k, v in TOL_SAME_SUMS[name].items()}
+        chain = max(_max_err(torch, XC.from_cmajor(a, H, W, bh), CM.from_cmajor(b_, H, W), chain_tol,
+                             f"T3 3-step chain vs K6a {name}")
+                    for a, b_ in ((carry[1], carry6[1]), (carry[2], carry6[2])))
+        if dtype == torch.bfloat16:
+            worst_bf16 = max(errs.values())
+        print(f"T3 vs plain: {name} B={B} {H}x{W} C={HIDDEN} block_h={bh}: max|diff| "
+              f"{max(errs.values()):.3g} (edges: "
+              + ", ".join(f"{k} {v:.3g}" for k, v in errs.items() if "all" not in k)
+              + f") tol {tol}; vs K6a {max(errs_k6.values()):.3g} tol {TOL_SAME_SUMS[name]}; pad "
+              f"rows of h' and c' zero; 3-step chain vs three K6a steps {chain:.3g} ok [{card}]",
+              flush=True)
+    return worst_bf16
+
+
+def fit_one_step(torch, model, counters, want_per_step, what: str, card):
+    """One Adam step (and the epoch's one validation forward) through
+    ``Trainer(precision="bf16").fit`` on fake b8 256x256 data. The counters'
+    launches are set to 0 just before ``fit`` and read just after; returns
+    (launches per counter, trainer, the train batch on the card)."""
+    from satflow_tpu_torch.data import SatFlowDataModule
+    from satflow_tpu_torch.data.datamodule import to_device
+    from satflow_tpu_torch.train import Trainer
+
+    dm = SatFlowDataModule(fake_data=True, num_workers=0, n_train_data=1, n_val_data=1,
+                           history_minutes=5 * (T - 1), forecast_minutes=5 * STEPS,
+                           fake_kwargs=dict(batch_size=B, width=W, height=H))
+    counter = LaunchesPerStep(*counters)
+    trainer = Trainer(max_steps=1, precision="bf16", log_every_n_steps=1, device=DEVICE,
+                      callbacks=[counter])
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    trainer.fit(model, dm)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = tuple(c.launches for c in counters)
+    losses = [e["train/loss"] for e in trainer.history.history if "train/loss" in e]
+    val_loss = trainer.callback_metrics.get("val/loss", float("nan"))
+    if trainer.global_step != 1 or len(losses) != 1 or not all(np.isfinite(losses + [val_loss])):
+        fail(f"{what}: fit took {trainer.global_step} steps; losses {losses}, val {val_loss}")
+    if counter.per_step != [tuple(want_per_step)]:
+        fail(f"{what}: launches in the train step {counter.per_step}, expected "
+             f"{tuple(want_per_step)}")
+    print(f"{what}: trained 1 step (bf16, b{B} {H}x{W}, {T} in / {STEPS} out, remat_chunk "
+          f"{REMAT_CHUNK}) in {wall:.2f} s wall with data generation: loss {losses[0]:.6f}, val "
+          f"{val_loss:.6f}; launches in the step {counter.per_step[0]}, fit total {launches} "
+          f"(with one validation forward) [{card}]", flush=True)
+    batch = to_device(next(iter(dm.train_dataloader())), torch.device(DEVICE))
+    return launches, trainer, batch
+
+
+def compare_step_grads(torch, model, batch, kernel_kw, plain_kw, what: str, card) -> float:
+    """Every parameter's gradient of one bf16 train step through the kernels
+    against the same step through the plain versions."""
+    def step_grads(**kw):
+        model.train()
+        model.zero_grad(set_to_none=True)
+        loss, _ = model.loss(batch, **kw)
+        loss.backward()
+        grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        return grads
+
+    got, want = step_grads(**kernel_kw), step_grads(**plain_kw)
+    worst = 0.0
+    for name, g in got.items():
+        w = want[name]
+        if g is None or not bool(torch.isfinite(g).all()) or not g.abs().sum().item() > 0:
+            fail(f"{what}: parameter {name} has no finite nonzero gradient through the kernels")
+        rel = (g - w).abs().max().item() / w.abs().max().item()
+        cos = torch.nn.functional.cosine_similarity(g.flatten(), w.flatten(), dim=0).item()
+        worst = max(worst, rel)
+        if not (rel <= TOL_TRAIN_GRAD and cos >= MIN_TRAIN_GRAD_COS):
+            fail(f"{what}: gradient of {name} vs plain: max|diff| / max|grad| {rel:.3g} (tol "
+                 f"{TOL_TRAIN_GRAD}), cosine {cos:.6f} (min {MIN_TRAIN_GRAD_COS})")
+    print(f"{what}: one train step's gradients through the kernels vs the plain versions (bf16): "
+          f"all {len(got)} parameters nonzero; max|diff| / max|grad| {worst:.3g} <= "
+          f"{TOL_TRAIN_GRAD}, cosine >= {MIN_TRAIN_GRAD_COS} ok [{card}]", flush=True)
+    return worst
+
+
+def halo_path(torch, card, fused_model):
+    """Phase 18, the halo variant of the main path; returns (K1h launches
+    serving, K1h launches training, K2 launches training)."""
+    from satflow_tpu_torch.interop.jax_weights import params_from_flax
+    from satflow_tpu_torch.models.conv_lstm import EncoderDecoderConvLSTM
+    from satflow_tpu_torch.ops import fused_convlstm_step as P
+    from satflow_tpu_torch.serve import InferenceSession
+
+    requests = convlstm_requests()
+    with torch.inference_mode():  # the K1 rollout (3pass) of the first request
+        x0 = torch.from_numpy(requests[0][None]).to(DEVICE, torch.bfloat16)
+        ref = fused_model(x0).float().cpu().numpy()[0]
+    with step_variant("halo"):
+        model = EncoderDecoderConvLSTM(hidden_dim=HIDDEN, input_channels=CIN,
+                                       out_channels=COUT, forecast_steps=STEPS)
+        session = InferenceSession(model, max_batch=B,
+                                   state_dict=params_from_flax(flax_params(0)),
+                                   dtype=torch.bfloat16, device=DEVICE)
+        replies, wall, forwards, (k1h, k1) = drive_server(
+            session, requests, [P.fused_convlstm_step_halo, P.fused_convlstm_step])
+        check_frames(requests, replies, "halo serving")
+        if forwards < 1 or (k1h, k1) != (LAUNCHES_PER_FORWARD * forwards, 0):
+            fail(f"halo serving launched K1h {k1h} and K1 {k1} times in {forwards} forwards, "
+                 f"expected {LAUNCHES_PER_FORWARD} x {forwards} and 0")
+        diff = float(np.abs(ref - replies[0][1]).max())
+        if not diff <= TOL_ROLLOUT:
+            fail(f"halo reply vs the K1 rollout: max|diff| {diff:.3g} > {TOL_ROLLOUT}")
+        print(f"halo variant served {len(requests)} requests (6 samples) in {forwards} forward(s) "
+              f"of b{B}, {wall:.3f} s wall; launches K1h {k1h} = {LAUNCHES_PER_FORWARD} x "
+              f"{forwards}, K1 {k1}; reply vs the K1 rollout max|diff| {diff:.3g} <= "
+              f"{TOL_ROLLOUT} ok [{card}]", flush=True)
+        del session, model
+
+        train_model = EncoderDecoderConvLSTM(
+            hidden_dim=HIDDEN, input_channels=CIN, out_channels=COUT, forecast_steps=STEPS,
+            remat=True, remat_chunk=REMAT_CHUNK)
+        train_model.module.load_state_dict(params_from_flax(flax_params(0)))
+        (t_k1h, t_k1, t_k2), _, batch = fit_one_step(
+            torch, train_model, [P.fused_convlstm_step_halo, P.fused_convlstm_step, P.gate_bwd],
+            (K1_PER_TRAIN_STEP, 0, K2_PER_TRAIN_STEP), "halo variant", card)
+        if (t_k1h, t_k1, t_k2) != (K1_PER_TRAIN_STEP + LAUNCHES_PER_FORWARD, 0,
+                                   K2_PER_TRAIN_STEP):
+            fail(f"halo fit launched (K1h, K1, K2) {(t_k1h, t_k1, t_k2)} times")
+        compare_step_grads(torch, train_model, batch, {},
+                           dict(step=P.fused_convlstm_step_ref), "halo variant", card)
+    return k1h, t_k1h, t_k2
+
+
+def study_tools(torch, card):
+    """Phase 19: the two study entry points in-process. Returns ((K1, K1p, T1,
+    T2, K6a, T3) launches, the tools' ms per step)."""
+    from satflow_tpu_torch.ops import cmajor_convlstm as CM
+    from satflow_tpu_torch.ops import fused_convlstm_step as P
+    from satflow_tpu_torch.tools import exp_cmajor as XC
+    from satflow_tpu_torch.tools import exp_tap9 as XT
+
+    counters = [P.fused_convlstm_step, XT.step_padded, XT.step_tap9, XT.step_nogate,
+                CM.cmajor_convlstm_step, XC.cmajor_step]
+    for c in counters:
+        c.launches = 0
+    ms = XT.main(bsz=B, size=H, ch=HIDDEN, block_h=HALO_BLOCK_H, steps=STUDY_STEPS["tap9"])
+    ms.update(XC.main(bsz=B, height=H, width=W, ch=HIDDEN, block_h=HALO_BLOCK_H,
+                      steps=STUDY_STEPS["cmajor"]))
+    torch.cuda.synchronize()
+    launches = tuple(c.launches for c in counters)
+    # each tool verifies first (K1p, T1, T2: one launch; T3: three), then runs
+    # its chain once to warm up and three times under the clock
+    n9, nc = 4 * STUDY_STEPS["tap9"], 4 * STUDY_STEPS["cmajor"]
+    want = (n9, n9 + 1, n9 + 1, n9 + 1, nc, nc + 3)
+    if launches != want:
+        fail(f"the study tools launched (K1, K1p, T1, T2, K6a, T3) {launches} times, expected "
+             f"{want}")
+    if set(ms) != {"k1", "k1_padded", "tap9", "nogate", "k6a", "t3"} or not all(
+            np.isfinite(v) and v > 0 for v in ms.values()):
+        fail(f"the study tools returned {ms}")
+    print(f"study tools (exp_tap9, exp_cmajor) at B={B} {H}x{W} C={HIDDEN} bf16, chained rollouts "
+          f"of {STUDY_STEPS['tap9']} and {STUDY_STEPS['cmajor']} steps: ms per step "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+          + f"; against K1p: the gate math (K1p - T2) {100 * (1 - ms['nogate'] / ms['k1_padded']):.1f} "
+          f"%, tap-major order (K1p - T1) {100 * (1 - ms['tap9'] / ms['k1_padded']):.1f} %; the "
+          f"W-padded staging (K1 - K1p) {100 * (1 - ms['k1_padded'] / ms['k1']):.1f} % of K1; launches "
+          f"(K1, K1p, T1, T2, K6a, T3) {launches} [{card}]", flush=True)
+    return launches, ms
+
+
+def cell_flax_params(cell_impl: str, seed: int = 0) -> dict:
+    """Random weights in the JAX model's flax tree for ``cell_impl`` concat,
+    split or hybrid: lecun-normal kernels, zero biases."""
+    rng = np.random.default_rng(seed)
+    split_enc, split_dec = cell_impl in ("split", "hybrid"), cell_impl == "split"
+
+    def conv(cin, cout, bias=True):
+        out = {"kernel": lecun_normal(rng, (3, 3, cin, cout))}
+        if bias:
+            out["bias"] = np.zeros(cout, np.float32)
+        return out
+
+    def cell(cx, split, x_gates=True):
+        if not split:
+            return {"gates": conv(cx + HIDDEN, 4 * HIDDEN)}
+        out = {"h_gates": conv(HIDDEN, 4 * HIDDEN, bias=False)}
+        if x_gates:
+            out["x_gates"] = conv(cx, 4 * HIDDEN)
+        return out
+
+    params = {
+        "encoder": {"encoder_1": cell(CIN, split_enc, x_gates=False),
+                    "encoder_2": cell(HIDDEN, split_enc)},
+        "decoder": {"decoder_1": cell(HIDDEN, split_dec), "decoder_2": cell(HIDDEN, split_dec),
+                    "head": conv(HIDDEN, COUT)},
+    }
+    if split_enc:
+        params["encoder_input_gates"] = {"x_gates": conv(CIN, 4 * HIDDEN)}
+    return {"params": params}
+
+
+def cells_path(torch, card):
+    """Phase 20: concat, split and hybrid served, split trained. Returns ({
+    cell_impl: K3 launches serving}, K3 launches training, {cell_impl: model},
+    the split train model, its trainer and batch)."""
+    from satflow_tpu_torch.interop.jax_weights import params_from_flax
+    from satflow_tpu_torch.models.conv_lstm import EncoderDecoderConvLSTM
+    from satflow_tpu_torch.ops.fused_convlstm_step import fused_convlstm_step
+    from satflow_tpu_torch.ops.fused_lstm import fused_lstm_gates, fused_lstm_gates_ref
+    from satflow_tpu_torch.serve import InferenceSession
+
+    served, models = {}, {}
+    requests = convlstm_requests()
+    for impl in ("concat", "split", "hybrid"):
+        model = EncoderDecoderConvLSTM(hidden_dim=HIDDEN, input_channels=CIN, out_channels=COUT,
+                                       forecast_steps=STEPS, cell_impl=impl)
+        session = InferenceSession(model, max_batch=B, variables=cell_flax_params(impl),
+                                   dtype=torch.bfloat16, device=DEVICE)
+        replies, wall, forwards, (k3, k1) = drive_server(session, requests,
+                                                         [fused_lstm_gates, fused_convlstm_step])
+        check_frames(requests, replies, f"{impl} serving")
+        if forwards < 1 or (k3, k1) != (K3_PER_FORWARD * forwards, 0):
+            fail(f"{impl} serving launched K3 {k3} and K1 {k1} times in {forwards} forwards, "
+                 f"expected {K3_PER_FORWARD} x {forwards} and 0")
+        with torch.inference_mode():
+            x0 = torch.from_numpy(requests[0][None]).to(DEVICE, torch.bfloat16)
+            ref = model(x0, gate_tail=fused_lstm_gates_ref).float().cpu().numpy()[0]
+        diff = float(np.abs(ref - replies[0][1]).max())
+        if not diff <= TOL_ROLLOUT:
+            fail(f"{impl} reply vs the forward through K3's plain version: max|diff| {diff:.3g} "
+                 f"> {TOL_ROLLOUT}")
+        print(f"cell_impl={impl} served {len(requests)} requests (6 samples) in {forwards} "
+              f"forward(s) of b{B}, {wall:.3f} s wall; launches K3 {k3} = {K3_PER_FORWARD} x "
+              f"{forwards}, K1 {k1}; reply vs the same forward through K3's plain version "
+              f"max|diff| {diff:.3g} <= {TOL_ROLLOUT} ok [{card}]", flush=True)
+        served[impl], models[impl] = k3, model
+        del session
+
+    train_model = EncoderDecoderConvLSTM(
+        hidden_dim=HIDDEN, input_channels=CIN, out_channels=COUT, forecast_steps=STEPS,
+        cell_impl="split", remat=True, remat_chunk=REMAT_CHUNK)
+    train_model.module.load_state_dict(params_from_flax(cell_flax_params("split")))
+    # forward + the remat recompute; the gate tail's backward is the f32 chain, no kernel
+    (t_k3,), trainer, batch = fit_one_step(torch, train_model, [fused_lstm_gates],
+                                           (2 * K3_PER_FORWARD,), "cell_impl=split", card)
+    if t_k3 != 3 * K3_PER_FORWARD:
+        fail(f"the split fit launched K3 {t_k3} times")
+    compare_step_grads(torch, train_model, batch, {}, dict(gate_tail=fused_lstm_gates_ref),
+                       "cell_impl=split", card)
+    return served, t_k3, models, train_model, trainer, batch
+
+
+CELL_CLASSES = {"K3": ("fused_lstm_gates_kernel",), "library convs": LIBRARY_CONVS,
+                "optimizer": OPTIMIZER}
+HALO_CLASSES = {"K1h": ("fused_convlstm_step_halo_kernel",),
+                "halo gathers (cat / stack copies)": ("catarray",),
+                "library convs": LIBRARY_CONVS}
+
+
+def new_kernel_timings(torch, fused_model, cell_models, split_train, card):
+    """Phase 21; returns {kernel: times with "bound"}."""
+    from satflow_tpu_torch.ops import fused_convlstm_step as P
+    from satflow_tpu_torch.ops.fused_lstm import fused_lstm_gates_ref
+    from satflow_tpu_torch.tools import exp_cmajor as XC
+    from satflow_tpu_torch.tools import exp_tap9 as XT
+    from satflow_tpu_torch.train.steps import make_train_step
+
+    times = {}
+    ops = 2 * B * H * W * 4 * HIDDEN * 9 * (HIDDEN + HIDDEN)  # the gate contraction, Cx=64
+
+    def report(name, what, t, flop, extra=""):
+        print(f"time per {name} ({what}) call, bf16 B={B} {H}x{W} Cx={HIDDEN} Ch={HIDDEN}: kernel "
+              f"{t['kernel']:.4f} ms ({flop / t['kernel'] / 1e9:.1f} TFLOP/s), plain "
+              f"{t['plain']:.4f} ms; bound {t['bound'][0]:.4f} ms by {t['bound'][1]}{extra} "
+              f"[{card}]", flush=True)
+
+    # K1h: the wrapper's call is the two gathers plus the kernel
+    args = step_inputs(torch, HIDDEN, torch.bfloat16, seed=900)
+    t = per_call_ms(torch, P.fused_convlstm_step_halo, P.fused_convlstm_step_halo_ref, args, n=10)
+    with torch.no_grad():
+        gathers = lambda: (P.build_halo(args[0], HALO_BLOCK_H),  # noqa: E731
+                           P.build_halo(args[1], HALO_BLOCK_H))
+        cuda_ms(torch, gathers, 3)
+        t["gather"] = cuda_ms(torch, gathers, 20)
+        halos = gathers()
+    t["bound"] = bound_ms(args + halos + (args[2], args[2]), ops, "bf16")
+    times["K1h"] = t
+    report("K1h", "halo-tensor step, with its two gathers", t, ops,
+           f"; the two build_halo gathers alone {t['gather']:.4f} ms")
+
+    pargs = padded_inputs(torch, HIDDEN, torch.bfloat16, seed=901)
+    for name, what, fn, ref in (("K1p", "K1's order and epilogue", XT.step_padded,
+                                 XT.step_padded_ref),
+                                ("T1", "tap-major step", XT.step_tap9, XT.step_tap9_ref),
+                                ("T2", "step without gate math", XT.step_nogate,
+                                 XT.step_nogate_ref)):
+        t = per_call_ms(torch, fn, ref, pargs, n=5)
+        # one weight tensor's worth of bytes (w9 or w3 is a re-laid copy of wx, wh)
+        t["bound"] = bound_ms(pargs + (pargs[1], pargs[2]), ops, "bf16")
+        times[name] = t
+        report(name, what + ", W-padded I/O", t, ops)
+
+    t3, _ = exp_cmajor_inputs(torch, torch.bfloat16, seed=902)
+    t = per_call_ms(torch, lambda *a: XC.cmajor_step(*a, HALO_BLOCK_H, H, W),
+                    lambda *a: XC.cmajor_step_ref(*a, HALO_BLOCK_H, H, W), t3, n=5)
+    t["bound"] = bound_ms(t3 + (t3[1], t3[2]), ops, "bf16")  # the carries with their pad rows
+    times["T3"] = t
+    report("T3", f"pad-row channel-major step, block_h {HALO_BLOCK_H}", t, ops)
+
+    x = torch.from_numpy(np.random.default_rng(2).random((B, T, H, W, CIN), dtype=np.float32))
+    x = x.to(DEVICE, torch.bfloat16)
+
+    def forward_under(variant):
+        def run():
+            with step_variant(variant):
+                return fused_model(x)
+        return run
+
+    forwards = {"fused, 3pass (K1)": forward_under("3pass"),
+                "fused, halo (K1h)": forward_under("halo")}
+    for impl, model in cell_models.items():
+        forwards[f"{impl} (K3)"] = lambda model=model: model(x)
+        forwards[f"{impl} (K3's plain version)"] = (
+            lambda model=model: model(x, gate_tail=fused_lstm_gates_ref))
+    runs = {name: [] for name in forwards}
+    peaks = {}
+    with torch.inference_mode():
+        for name, fn in forwards.items():
+            torch.cuda.reset_peak_memory_stats()
+            fn()  # warm-up
+            torch.cuda.synchronize()
+            peaks[name] = torch.cuda.max_memory_allocated() / 2**30
+        order = list(forwards)
+        for name in order + order[::-1]:
+            runs[name].append(cuda_ms(torch, forwards[name], 2))
+        for name, r in runs.items():
+            ms = sum(r) / len(r)
+            print(f"b{B} forward ({T} in, {STEPS} out, {H}x{W}x{CIN}, bf16) through the {name} "
+                  f"rollout: {ms:.2f} ms, {B * STEPS / (ms / 1e3):.1f} frames/s (runs "
+                  f"{', '.join(f'{v:.2f}' for v in r)} ms); peak device memory {peaks[name]:.2f} "
+                  f"GiB [{card}]", flush=True)
+        print_profile(f"b{B} forward through the fused, halo (K1h) rollout",
+                      device_time_by_class(torch, forwards["fused, halo (K1h)"], HALO_CLASSES),
+                      card)
+        for impl in ("concat", "split"):
+            print_profile(f"b{B} forward through the {impl} (K3) rollout",
+                          device_time_by_class(torch, forwards[f"{impl} (K3)"], CELL_CLASSES),
+                          card)
+
+    model, trainer, batch = split_train
+    steps = {"kernel": make_train_step(model),
+             "plain": make_train_step(model, gate_tail=fused_lstm_gates_ref)}
+    step_runs, step_peaks = timed_train_steps(torch, steps, trainer.state, batch)
+    for name, through in (("kernel", "K3"), ("plain", "K3's plain version")):
+        ms = sum(step_runs[name]) / len(step_runs[name])
+        print(f"b{B} train step, cell_impl=split (bf16, {T} in / {STEPS} out, {H}x{W}x{CIN}, "
+              f"remat_chunk {REMAT_CHUNK}, Adam) through {through}: "
+              f"{ms:.2f} ms, {B * STEPS / (ms / 1e3):.1f} frames/s (runs "
+              f"{', '.join(f'{r:.2f}' for r in step_runs[name])} ms); peak device memory "
+              f"{step_peaks[name]:.2f} GiB [{card}]", flush=True)
+    print_profile(f"b{B} train step, cell_impl=split",
+                  device_time_by_class(torch, lambda: steps["kernel"](trainer.state, batch),
+                                       CELL_CLASSES), card)
+    return times
+
+
 def main() -> None:
     try:
         import torch
@@ -1394,7 +1978,8 @@ def main() -> None:
     # phase 2
     t0 = time.perf_counter()
     _build.load_all(["fused_convlstm_step", "fused_convlstm_step_bwd", "fused_lstm_gates",
-                     "axial_attention", "fused_convlstm_int8", "cmajor_convlstm"])
+                     "axial_attention", "fused_convlstm_int8", "cmajor_convlstm",
+                     "fused_convlstm_step_halo", "exp_tap9", "exp_cmajor"])
     print(f"kernel build: {time.perf_counter() - t0:.2f} s wall, nvcc in parallel ("
           + ", ".join(f"{k} {v:.2f} s" for k, v in _build.build_seconds.items())
           + (")" if _build.build_seconds else "already built)"), flush=True)
@@ -1438,7 +2023,18 @@ def main() -> None:
     # phase 16
     serving = serving_timings(torch, model, cmajor_model, qparams, card)
 
-    # phase 17
+    # phase 17: K1h, T1, T2 and T3 against their plain versions
+    k1h_err = check_halo_kernel(torch, card)
+    t1_err, t2_err, k1p_err = check_study_steps(torch, card)
+    t3_err = check_exp_cmajor(torch, card)
+    # phases 18-20 (counts set to 0 inside, just before each path is driven)
+    halo_serve, halo_train_k1h, halo_train_k2 = halo_path(torch, card, model)
+    (st_k1, st_k1p, st_t1, st_t2, st_k6a, st_t3), _ = study_tools(torch, card)
+    cells_k3, cells_train_k3, cell_models, *split_train = cells_path(torch, card)
+    # phase 21
+    study = new_kernel_timings(torch, model, cell_models, split_train, card)
+
+    # phase 22
     def kernel(name, source, replaces, launches, err, t, library=None):
         return {"name": name, "route": "cuda", "source": f"satflow_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -1447,16 +2043,26 @@ def main() -> None:
 
     k4_t = k4_ms[K4_SHAPES[0]]
     print(json.dumps({"kernels": [
-        # K1: bf16 serving + training + the channel-major rollout's encoder
+        # K1: bf16 serving + training + the channel-major rollout's encoder +
+        # the yardstick of the tap9 study tool
         kernel("fused_convlstm_step", "fused_convlstm_step.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_step.py:453",
-               serve_k1 + train_k1 + cm_k1, k1_err, per_call[HIDDEN]),
+               serve_k1 + train_k1 + cm_k1 + st_k1, k1_err, per_call[HIDDEN]),
+        # the TPU's unpadded sibling of K1: the port's K1 is that kernel (its
+        # tensors are unpadded NHWC), so this row repeats K1's numbers
+        kernel("fused_convlstm_step (unpadded NHWC)", "fused_convlstm_step.cu",
+               "satflow_tpu/ops/pallas/fused_convlstm_step.py:380",
+               serve_k1 + train_k1 + cm_k1 + st_k1, k1_err, per_call[HIDDEN]),
+        kernel("fused_convlstm_step_halo", "fused_convlstm_step_halo.cu",
+               "satflow_tpu/ops/pallas/fused_convlstm_step.py:266",
+               halo_serve + halo_train_k1h, k1h_err, study["K1h"]),
         kernel("gate_bwd", "fused_convlstm_step_bwd.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_step.py:833",
-               train_k2, k2_err, per_call_bwd[HIDDEN]),
+               train_k2 + halo_train_k2, k2_err, per_call_bwd[HIDDEN]),
         kernel("fused_lstm_gates", "fused_lstm_gates.cu",
                "satflow_tpu/ops/pallas/fused_lstm.py:75",
-               serve_k3 + train_k3, k3_err, k3_ms),  # MetNet serving + training
+               # MetNet serving + training, the concat/split/hybrid cells
+               serve_k3 + train_k3 + sum(cells_k3.values()) + cells_train_k3, k3_err, k3_ms),
         kernel("axial_attention", "axial_attention.cu",
                "satflow_tpu/ops/pallas/axial_attention.py:60",
                serve_k4 + train_k4, k4_err, k4_t, library=k4_t["library"]),
@@ -1465,10 +2071,20 @@ def main() -> None:
                serve_k5, k5_err, serving[f"K5.{HIDDEN}"]),
         kernel("cmajor_convlstm_step", "cmajor_convlstm.cu",
                "satflow_tpu/ops/pallas/cmajor_convlstm.py:232",
-               serve_k6a, k6a_err, serving["K6a"]),
+               serve_k6a + st_k6a, k6a_err, serving["K6a"]),  # + the cmajor study's yardstick
         kernel("cmajor_conv3x3", "cmajor_convlstm.cu",
                "satflow_tpu/ops/pallas/cmajor_convlstm.py:257",
                serve_k6b, k6b_err, serving["K6b"], library=serving["K6b"]["library"]),
+        # K1 once more, in the W-padded layout of the TPU kernel it replaces: the
+        # tap9 study tool's yardstick
+        kernel("step_padded", "exp_tap9.cu",
+               "satflow_tpu/ops/pallas/fused_convlstm_step.py:453", st_k1p, k1p_err,
+               study["K1p"]),
+        kernel("step_tap9", "exp_tap9.cu", "tools/exp_tap9.py:85", st_t1, t1_err, study["T1"]),
+        # max_abs_err of T2 is relative to max|plain|: its outputs are unbounded sums
+        kernel("step_nogate", "exp_tap9.cu", "tools/exp_tap9.py:260", st_t2, t2_err, study["T2"]),
+        kernel("cmajor_step", "exp_cmajor.cu", "tools/exp_cmajor.py:154", st_t3, t3_err,
+               study["T3"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,7 +1,8 @@
 // The gate contraction of a ConvLSTM step on one 8x16-pixel tile, shared by
-// the fused step (fused_convlstm_step.cu, K1) and its backward
-// (fused_convlstm_step_bwd.cu, K2), so that both compute the gates with one
-// definition.
+// the fused step (fused_convlstm_step.cu, K1), its backward
+// (fused_convlstm_step_bwd.cu, K2), the halo-tensor variant of the step
+// (fused_convlstm_step_halo.cu, K1h) and the two study kernels of
+// exp_tap9.cu (T1, T2), so that all compute the gates with one definition.
 //
 //   gates = conv3x3_SAME(x, Wx) + conv3x3_SAME(h, Wh) + b     (f32 accumulate)
 //
@@ -99,6 +100,49 @@ __device__ __forceinline__ void accumulate(float (&acc)[kTileW][4][kLaneCh],
   }
 }
 
+// acc[p][g][j] = bias of gate g, hidden channel co + j, for every pixel p.
+template <typename T>
+__device__ __forceinline__ void init_with_bias(float (&acc)[kTileW][4][kLaneCh],
+                                               const T* __restrict__ bias, int co) {
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+#pragma unroll
+    for (int j = 0; j < kLaneCh; ++j) {
+      const float bv = to_f32(bias[g * kCh + co + j]);
+#pragma unroll
+      for (int p = 0; p < kTileW; ++p) acc[p][g][j] = bv;
+    }
+  }
+}
+
+// The contraction over a staged window: on return, acc[p][g][j] holds gate g
+// of hidden channel (threadIdx.x % 32) * 2 + j at the tile's pixel
+// (threadIdx.x / 32, p). `window` holds the tile's (kTileH+2) x (kTileW+2)
+// pixels of [x | h] as f32, cx + kCh values a pixel, and must be complete
+// (a __syncthreads() after the last write) before the call.
+template <typename T>
+__device__ __forceinline__ void contract_window(
+    float (&acc)[kTileW][4][kLaneCh], const float* __restrict__ window,
+    const T* __restrict__ wx, const T* __restrict__ wh, const T* __restrict__ bias,
+    int cx) {
+  const int cin = cx + kCh;
+  const int row = threadIdx.x / 32;
+  const int co = (threadIdx.x % 32) * kLaneCh;
+
+  init_with_bias(acc, bias, co);
+
+#pragma unroll 1
+  for (int ky = 0; ky < 3; ++ky) {
+#pragma unroll 1
+    for (int kx = 0; kx < 3; ++kx) {
+      const int tap = ky * 3 + kx;
+      const float* s = window + ((row + ky) * kHaloW + kx) * cin;
+      accumulate(acc, s, cin, wx + size_t(tap) * cx * (4 * kCh) + co, cx);
+      accumulate(acc, s + cx, cin, wh + size_t(tap) * kCh * (4 * kCh) + co, kCh);
+    }
+  }
+}
+
 // The gate pre-activations of the block's tile: on return, acc[p][g][j] holds
 // gate g of hidden channel (threadIdx.x % 32) * 2 + j at pixel
 // (y0 + threadIdx.x / 32, x0 + p) of image b. `window` is the block's dynamic
@@ -128,29 +172,14 @@ __device__ __forceinline__ void gate_preactivations(
   }
   __syncthreads();
 
-  const int row = threadIdx.x / 32;
-  const int co = (threadIdx.x % 32) * kLaneCh;
+  contract_window(acc, window, wx, wh, bias, cx);
+}
 
-#pragma unroll
-  for (int g = 0; g < 4; ++g) {
-#pragma unroll
-    for (int j = 0; j < kLaneCh; ++j) {
-      const float bv = to_f32(bias[g * kCh + co + j]);
-#pragma unroll
-      for (int p = 0; p < kTileW; ++p) acc[p][g][j] = bv;
-    }
-  }
-
-#pragma unroll 1
-  for (int ky = 0; ky < 3; ++ky) {
-#pragma unroll 1
-    for (int kx = 0; kx < 3; ++kx) {
-      const int tap = ky * 3 + kx;
-      const float* s = window + ((row + ky) * kHaloW + kx) * cin;
-      accumulate(acc, s, cin, wx + size_t(tap) * cx * (4 * kCh) + co, cx);
-      accumulate(acc, s + cx, cin, wh + size_t(tap) * kCh * (4 * kCh) + co, kCh);
-    }
-  }
+// The LSTM state update of one element, f32: gates i, f, o, g and c -> c', h'.
+__device__ __forceinline__ void lstm_update(float gi, float gf, float go, float gg,
+                                            float c_prev, float& c_next, float& h_next) {
+  c_next = sigmoid(gf) * c_prev + sigmoid(gi) * tanhf(gg);
+  h_next = sigmoid(go) * tanhf(c_next);
 }
 
 // What the tile takes; the wrappers check the same before a launch.

@@ -5,11 +5,18 @@ layout rule, read backwards: a flax conv kernel (kh, kw, I, O) becomes an
 ``nn.Conv2d`` weight (O, I, kh, kw). The fused cells keep the flax HWIO
 layout as they are (the CUDA kernel takes it).
 
-The flax tree of ``EncoderDecoderConvLSTM`` is::
+The flax tree of ``EncoderDecoderConvLSTM`` is, by ``cell_impl``::
 
-    encoder/encoder_{1,2}/{x_gates_kernel, h_gates_kernel, bias}
-    decoder/decoder_{1,2}/{x_gates_kernel, h_gates_kernel, bias}
-    decoder/head/{kernel, bias}
+    fused, cmajor:  {encoder/encoder_N, decoder/decoder_N}/{x_gates_kernel,
+                    h_gates_kernel, bias}
+    concat:         …/gates/{kernel, bias}; with ``conv_type`` "coord" or
+                    "antialiased" …/gates/Conv_0/{kernel, bias}
+    split:          encoder_input_gates/x_gates/{kernel, bias};
+                    encoder/encoder_1/h_gates/kernel; every other cell
+                    …/x_gates/{kernel, bias} and …/h_gates/kernel
+    hybrid:         the split encoder (with encoder_input_gates) and the
+                    concat decoder
+    all:            decoder/head/{kernel, bias}
 
 with two other nestings that the JAX model's ``adapt_restored_params``
 relocates and this bridge normalises the same way: ``encoder/steps/…`` and
@@ -36,8 +43,10 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-_CELL_LEAVES = ("x_gates_kernel", "h_gates_kernel", "bias")
+_FUSED_LEAVES = ("x_gates_kernel", "h_gates_kernel", "bias")
 _CELLS = {"encoder": ("encoder_1", "encoder_2"), "decoder": ("decoder_1", "decoder_2")}
+# a cell's conv modules by formulation, and what may nest below one
+_CONVS = ("gates", "x_gates", "h_gates")
 
 
 def flatten_tree(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
@@ -75,6 +84,8 @@ def _normalise(tree: Mapping[str, Any]) -> Dict[str, Any]:
         if "steps" in sub:
             sub = dict(sub.pop("steps"))
         out[block] = sub
+    if "encoder_input_gates" in params:
+        out["encoder_input_gates"] = params.pop("encoder_input_gates")
     if "head" in params:
         if "head" in out["decoder"]:
             raise KeyError("flax params hold two heads (top level and decoder/head)")
@@ -84,25 +95,57 @@ def _normalise(tree: Mapping[str, Any]) -> Dict[str, Any]:
     return out
 
 
+def _f32(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _conv_leaves(prefix: str, conv: Mapping[str, Any], where: str):
+    """A flax conv's ``kernel`` (kh, kw, I, O) and optional ``bias`` as the
+    port's ``weight`` (O, I, kh, kw) and ``bias``; a ``Conv_0`` level (the
+    coord and antialiased convs) is kept."""
+    conv = dict(conv)
+    if "Conv_0" in conv:
+        yield from _conv_leaves(f"{prefix}.Conv_0", conv.pop("Conv_0"), f"{where}/Conv_0")
+    else:
+        kernel = np.asarray(conv.pop("kernel"), dtype=np.float32)
+        yield f"{prefix}.weight", torch.from_numpy(
+            np.ascontiguousarray(kernel.transpose(3, 2, 0, 1)))
+        if "bias" in conv:
+            yield f"{prefix}.bias", _f32(conv.pop("bias"))
+    if conv:
+        raise KeyError(f"unexpected flax params in {where}: {sorted(conv)}")
+
+
+def _cell_leaves(prefix: str, cell: Mapping[str, Any], where: str):
+    """One cell's leaves: the fused cell's three arrays as they are (the CUDA
+    kernel takes the flax HWIO layout), or the concat and split cells' convs."""
+    cell = dict(cell)
+    if any(leaf in cell for leaf in _FUSED_LEAVES):
+        for leaf in _FUSED_LEAVES:
+            yield f"{prefix}.{leaf}", _f32(cell.pop(leaf))
+    else:
+        for name in _CONVS:
+            if name in cell:
+                yield from _conv_leaves(f"{prefix}.{name}", cell.pop(name), f"{where}/{name}")
+    if cell:
+        raise KeyError(f"unexpected flax params in {where}: {sorted(cell)}")
+
+
 def params_from_flax(tree: Mapping[str, Any]) -> "OrderedDict[str, torch.Tensor]":
-    """Flax params of ``EncoderDecoderConvLSTM`` (numpy leaves, with or without
-    the top ``params`` key) -> state_dict of the port's ``ConvLSTMCore``."""
+    """Flax params of ``EncoderDecoderConvLSTM``, whatever its ``cell_impl``
+    and ``conv_type`` (numpy leaves, with or without the top ``params`` key)
+    -> state_dict of the port's ``ConvLSTMCore`` of the same configuration."""
     params = _normalise(tree)
     sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
     for block, cells in _CELLS.items():
         for cell in cells:
-            leaves = dict(params[block].pop(cell))
-            for leaf in _CELL_LEAVES:
-                sd[f"{block}.{cell}.{leaf}"] = torch.from_numpy(
-                    np.array(leaves.pop(leaf), dtype=np.float32))
-            if leaves:
-                raise KeyError(f"unexpected flax params in {block}/{cell}: {sorted(leaves)}")
-    head = dict(params["decoder"].pop("head"))
-    kernel = np.asarray(head.pop("kernel"), dtype=np.float32)  # (3, 3, I, O)
-    sd["decoder.head.weight"] = torch.from_numpy(np.ascontiguousarray(kernel.transpose(3, 2, 0, 1)))
-    sd["decoder.head.bias"] = torch.from_numpy(np.array(head.pop("bias"), dtype=np.float32))
+            sd.update(_cell_leaves(f"{block}.{cell}", params[block].pop(cell),
+                                   f"{block}/{cell}"))
+        if block == "encoder" and "encoder_input_gates" in params:
+            sd.update(_cell_leaves("encoder_input_gates", params.pop("encoder_input_gates"),
+                                   "encoder_input_gates"))
+    sd.update(_conv_leaves("decoder.head", params["decoder"].pop("head"), "decoder/head"))
     extra = [f"{block}/{k}" for block, sub in params.items() for k in sub]
-    extra += [f"decoder/head/{k}" for k in head]
     if extra:
         raise KeyError(f"unexpected flax params: {sorted(extra)}")
     return sd

@@ -5,8 +5,17 @@ of its second cell seeds a 2-cell decoder that rolls forward
 autoregressively (decoder cell 1 takes the previous step's output state h4),
 and a 3×3 conv head + sigmoid maps each h4 to an output frame.
 
-Two cell formulations are ported, both with ``conv_type="standard"``:
+The JAX model's five cell formulations (identical math, different op
+schedules) and four conv types are ported:
 
+- ``cell_impl="concat"``: one conv over ``[x | h]`` per cell
+  (:class:`~satflow_tpu_torch.nn.recurrent.ConvLSTMCell`), then the LSTM gate
+  tail through the hand-written kernel K3 (``ops/fused_lstm.py``).
+- ``cell_impl="split"``: ``conv_x(x) + conv_h(h)`` per cell
+  (:class:`~satflow_tpu_torch.nn.recurrent.SplitConvLSTMCell`), the encoder's
+  input-side convs hoisted out of the loop as one conv over the folded B·T
+  batch (``encoder_input_gates``, outside the encoder's remat), then K3.
+- ``cell_impl="hybrid"``: the split encoder and the concat decoder.
 - ``cell_impl="fused"``: every cell step's forward is one call of the
   hand-written CUDA kernel K1 on the card and, under autograd, its backward
   one call of K2 (``ops/fused_convlstm_step.py``).
@@ -18,6 +27,10 @@ Two cell formulations are ported, both with ``conv_type="standard"``:
   under the chunked remat layout, and runs the ``"fused"`` decoder elsewhere.
   The parameters are the fused ones, so the same weights serve both. It is
   the inference formulation: its backward goes through the plain NHWC step.
+
+``conv_type`` is ``"standard"``, ``"coord"``, ``"antialiased"`` or ``"3d"``
+(``nn/conv.py``); any but ``"standard"`` runs the concat cells with that conv
+whatever ``cell_impl`` says, as in the JAX model.
 
 Layout is NHWC (B, T, H, W, C) at the public functions, as in the JAX
 package. The TPU's (W+2)-padded carry is dropped.
@@ -46,7 +59,13 @@ from torch.utils.checkpoint import checkpoint
 
 from satflow_tpu_torch.core.registry import register_model
 from satflow_tpu_torch.models.base import BaseModel
-from satflow_tpu_torch.nn.recurrent import FusedConvLSTMCell, lecun_normal_
+from satflow_tpu_torch.nn.recurrent import (
+    ConvLSTMCell,
+    FusedConvLSTMCell,
+    InputGateConv,
+    SplitConvLSTMCell,
+    lecun_normal_,
+)
 from satflow_tpu_torch.ops.cmajor_convlstm import (
     cmajor_conv3x3,
     cmajor_convlstm_step,
@@ -55,6 +74,10 @@ from satflow_tpu_torch.ops.cmajor_convlstm import (
     to_cmajor,
 )
 from satflow_tpu_torch.ops.fused_convlstm_step import fused_convlstm_step
+from satflow_tpu_torch.ops.fused_lstm import fused_lstm_gates
+
+CELL_IMPLS = ("concat", "split", "hybrid", "fused", "cmajor")
+CONV_TYPES = ("standard", "coord", "antialiased", "3d")
 
 
 def _largest_divisor_at_most(n: int, k: int) -> int:
@@ -73,8 +96,9 @@ class ConvLSTMCore(nn.Module):
     """(B, T, H, W, C_in) -> (B, forecast_steps, H, W, C_out).
 
     Parameters sit where the flax tree has them: ``encoder.encoder_{1,2}``,
-    ``decoder.decoder_{1,2}`` (fused cells) and ``decoder.head`` (an
-    ``nn.Conv2d``).
+    ``decoder.decoder_{1,2}`` (the cells of the configured formulation),
+    ``decoder.head`` (an ``nn.Conv2d``) and, with a split encoder,
+    ``encoder_input_gates``.
     """
 
     def __init__(
@@ -92,45 +116,68 @@ class ConvLSTMCore(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if cell_impl not in ("fused", "cmajor"):
-            raise NotImplementedError(
-                f"cell_impl={cell_impl!r} is not ported; 'fused' and 'cmajor' are "
-                "(concat/split/hybrid reuse the LSTM gate tail K3 and need no new "
-                "kernel: ROADMAP 'Next, in order')"
-            )
-        if conv_type != "standard":
-            raise NotImplementedError(
-                f"conv_type={conv_type!r} is not ported; only 'standard' is"
-            )
+        if cell_impl not in CELL_IMPLS:
+            raise ValueError(f"Unknown cell_impl {cell_impl!r}: expected one of {CELL_IMPLS}")
+        if conv_type not in CONV_TYPES:
+            raise ValueError(f"Unknown conv_type {conv_type!r}: expected one of {CONV_TYPES}")
         self.hidden_dim = hidden_dim
         self.forecast_steps = forecast_steps
         self.cell_impl = cell_impl
+        self.conv_type = conv_type
         self.head_in_scan = head_in_scan
         self.remat = remat
         self.remat_chunk = remat_chunk
         self.dtype = dtype
+        std = conv_type == "standard"
+        fused = cell_impl in ("fused", "cmajor") and std
+        split_enc = cell_impl in ("split", "hybrid") and std
+        split_dec = cell_impl == "split" and std
+        kw = dict(dtype=dtype, generator=generator)
 
-        def cell(cin):
-            return FusedConvLSTMCell(cin, hidden_dim, dtype=dtype, generator=generator)
+        def concat(cin):
+            return ConvLSTMCell(cin, hidden_dim, conv_type=conv_type, **kw)
 
-        self.encoder = nn.ModuleDict(
-            {"encoder_1": cell(in_channels), "encoder_2": cell(hidden_dim)}
-        )
+        if fused:
+            enc = [FusedConvLSTMCell(in_channels, hidden_dim, **kw),
+                   FusedConvLSTMCell(hidden_dim, hidden_dim, **kw)]
+        elif split_enc:
+            enc = [SplitConvLSTMCell(in_channels, hidden_dim, x_precomputed=True, **kw),
+                   SplitConvLSTMCell(hidden_dim, hidden_dim, **kw)]
+        else:
+            enc = [concat(in_channels), concat(hidden_dim)]
+        self.encoder = nn.ModuleDict({"encoder_1": enc[0], "encoder_2": enc[1]})
+        if split_enc:
+            self.encoder_input_gates = InputGateConv(in_channels, hidden_dim, **kw)
         head = nn.Conv2d(hidden_dim, out_channels, 3, padding=1)
         lecun_normal_(head.weight, 9 * hidden_dim, generator)
         nn.init.zeros_(head.bias)
-        self.decoder = nn.ModuleDict(
-            {"decoder_1": cell(hidden_dim), "decoder_2": cell(hidden_dim), "head": head}
-        )
+        if fused:
+            dec = [FusedConvLSTMCell(hidden_dim, hidden_dim, **kw) for _ in range(2)]
+        elif split_dec:
+            dec = [SplitConvLSTMCell(hidden_dim, hidden_dim, **kw) for _ in range(2)]
+        else:
+            dec = [concat(hidden_dim), concat(hidden_dim)]
+        self.decoder = nn.ModuleDict({"decoder_1": dec[0], "decoder_2": dec[1], "head": head})
+
+    def _cells(self):
+        yield from (self.encoder["encoder_1"], self.encoder["encoder_2"],
+                    self.decoder["decoder_1"], self.decoder["decoder_2"])
+        if hasattr(self, "encoder_input_gates"):
+            yield self.encoder_input_gates
+
+    @property
+    def is_fused(self) -> bool:
+        """Whether the cells are the fused ones (``fused`` or ``cmajor`` with
+        the standard conv): what int8 serving and the channel-major decoder
+        need."""
+        return isinstance(self.encoder["encoder_1"], FusedConvLSTMCell)
 
     def set_compute_dtype(self, dtype: Optional[torch.dtype]) -> None:
         """Compute in ``dtype`` from now on (None: the input's), keeping the
         f32 weights as they are."""
         self.dtype = dtype
-        for name in ("encoder_1", "encoder_2"):
-            self.encoder[name].dtype = dtype
-        for name in ("decoder_1", "decoder_2"):
-            self.decoder[name].dtype = dtype
+        for cell in self._cells():
+            cell.dtype = dtype
 
     def _head(self, h4: torch.Tensor, cdtype: torch.dtype) -> torch.Tensor:
         head = self.decoder["head"]
@@ -138,17 +185,22 @@ class ConvLSTMCore(nn.Module):
                      head.bias.to(cdtype), padding=1)
         return y.permute(0, 2, 3, 1)
 
-    def _encode(self, s1, s2, frames, step):
+    def _encode(self, s1, s2, frames, impl):
+        """The encoder over ``frames`` (T, B, H, W, ·): the input frames, or
+        with a split encoder their precomputed input gates. ``impl`` is what
+        the cells of this core take: the fused step, or the gate tail."""
+        e1, e2 = self.encoder["encoder_1"], self.encoder["encoder_2"]
         for x_t in frames:
-            s1, h1 = self.encoder["encoder_1"](s1, x_t, step)
-            s2, _ = self.encoder["encoder_2"](s2, h1, step)
+            s1, h1 = e1(s1, x_t, impl)
+            s2, _ = e2(s2, h1, impl)
         return s1, s2
 
-    def _decode(self, s3, s4, v, n: int, cdtype, step):
+    def _decode(self, s3, s4, v, n: int, cdtype, impl):
+        d1, d2 = self.decoder["decoder_1"], self.decoder["decoder_2"]
         frames: List[torch.Tensor] = []
         for _ in range(n):
-            s3, h3 = self.decoder["decoder_1"](s3, v, step)
-            s4, v = self.decoder["decoder_2"](s4, h3, step)
+            s3, h3 = d1(s3, v, impl)
+            s4, v = d2(s4, h3, impl)
             frames.append(self._head(v, cdtype))
         return s3, s4, v, torch.stack(frames, dim=1)
 
@@ -177,18 +229,27 @@ class ConvLSTMCore(nn.Module):
         else runs the fused decoder, as the JAX model does."""
         chunked = (self.remat and self.remat_chunk > 1
                    and _largest_divisor_at_most(self.forecast_steps, self.remat_chunk) > 1)
-        return (self.cell_impl == "cmajor" and not chunked and self.head_in_scan
-                and cmajor_supported(height, width, self.hidden_dim))
+        return (self.cell_impl == "cmajor" and self.is_fused and not chunked
+                and self.head_in_scan and cmajor_supported(height, width, self.hidden_dim))
 
     def forward(self, x: torch.Tensor, forecast_steps: Optional[int] = None,
-                step: Callable = fused_convlstm_step) -> torch.Tensor:
+                step: Callable = fused_convlstm_step,
+                gate_tail: Callable = fused_lstm_gates) -> torch.Tensor:
         """``step`` swaps the fused step's implementation for every fused cell
-        (tests and the chip smoke pass the plain version to compare against)."""
+        and ``gate_tail`` the LSTM gate tail's for every concat or split cell
+        (tests and the chip smoke pass the plain versions to compare against)."""
         steps = forecast_steps if forecast_steps is not None else self.forecast_steps
         b, _, height, width, _ = x.shape
         cdtype = self.dtype or x.dtype
-        # (T, B, H, W, C): each step's frame is one contiguous tensor
-        frames_in = x.to(cdtype).transpose(0, 1).contiguous()
+        x = x.to(cdtype)
+        if hasattr(self, "encoder_input_gates"):
+            # every encoder step's input-side gate conv as one folded conv,
+            # outside the encoder's remat; (T, B, H, W, 4C) as a view
+            frames_in = self.encoder_input_gates(x).transpose(0, 1)
+        else:
+            # (T, B, H, W, C): each step's frame is one contiguous tensor
+            frames_in = x.transpose(0, 1).contiguous()
+        impl = step if self.is_fused else gate_tail
         zero_state = FusedConvLSTMCell.init_carry(b, height, width, self.hidden_dim,
                                                   cdtype, x.device)
         remat = self.remat and torch.is_grad_enabled()
@@ -200,13 +261,13 @@ class ConvLSTMCore(nn.Module):
 
         # states are read-only: every step writes fresh outputs
         if chunked:  # whole-encoder remat: its carries die before the decoder's backward
-            s1, s2 = _remat(self._encode, zero_state, zero_state, frames_in, step)
+            s1, s2 = _remat(self._encode, zero_state, zero_state, frames_in, impl)
         elif remat:
             s1 = s2 = zero_state
             for x_t in frames_in:
-                s1, s2 = _remat(self._encode, s1, s2, x_t[None], step)
+                s1, s2 = _remat(self._encode, s1, s2, x_t[None], impl)
         else:
-            s1, s2 = self._encode(zero_state, zero_state, frames_in, step)
+            s1, s2 = self._encode(zero_state, zero_state, frames_in, impl)
 
         v = s2[0]  # the encoder vector seeds decoder cell 1; states start at zero
         if self.runs_cmajor(height, width):
@@ -225,12 +286,12 @@ class ConvLSTMCore(nn.Module):
                 out = torch.cat(outs, dim=1)
             return torch.sigmoid(from_cmajor_seq(out, height, width))
         if not remat:
-            *_, out = self._decode(zero_state, zero_state, v, steps, cdtype, step)
+            *_, out = self._decode(zero_state, zero_state, v, steps, cdtype, impl)
             return torch.sigmoid(out)
         s3 = s4 = zero_state
         outs = []
         for _ in range(steps // chunk):
-            s3, s4, v, out = _remat(self._decode, s3, s4, v, chunk, cdtype, step)
+            s3, s4, v, out = _remat(self._decode, s3, s4, v, chunk, cdtype, impl)
             outs.append(out)
         return torch.sigmoid(torch.cat(outs, dim=1))
 

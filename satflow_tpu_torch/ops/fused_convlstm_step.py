@@ -19,11 +19,22 @@ runs its plain version for CPU tensors and launches its hand-written kernel
 CUDA tensors, or raises; nothing falls back from one to the other. Under
 autograd the step is :class:`FusedConvLSTMStep`, whose backward is K2 plus
 the merged linear grads as library convs, as ``_bwd`` leaves them to XLA.
+
+The halo-tensor variant ``_step_pallas_halo`` is ported as K1h
+(``csrc/fused_convlstm_step_halo.cu``, :func:`fused_convlstm_step_halo`): the
+same step, but the image is cut into row blocks of ``block_h`` rows and the
+row above and below each block is gathered outside the kernel by
+:func:`build_halo` into a side tensor with the image's edge zeros in it, so
+the kernel tests no row index. As in the JAX dispatcher the environment
+variable ``SATFLOW_STEP_VARIANT``, read at call time, chooses the forward of
+:func:`fused_convlstm_step`: unset or ``3pass`` is K1, ``halo`` is K1h, any
+other value raises. The backward is K2 whatever the variant.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import Tuple
 
 import torch
@@ -44,6 +55,14 @@ _BWD_ENTRY = {
     torch.float32: "satflow_gate_bwd_f32",
     torch.bfloat16: "satflow_gate_bwd_bf16",
 }
+_HALO_ENTRY = {
+    torch.float32: "satflow_fused_convlstm_step_halo_f32",
+    torch.bfloat16: "satflow_fused_convlstm_step_halo_bf16",
+}
+#: rows per row block the halo kernel is compiled for
+HALO_BLOCK_H = 8
+#: the values of SATFLOW_STEP_VARIANT
+STEP_VARIANTS = ("3pass", "halo")
 
 
 def conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -63,6 +82,49 @@ def lstm_gates(gates: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Tensor, torc
 def fused_convlstm_step_ref(x, h, c, wx, wh, b) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version: two library convs in the input dtype, f32 gate math."""
     gates = conv3x3(x, wx).float() + conv3x3(h, wh).float() + b.float()
+    h_next, c_next = lstm_gates(gates, c)
+    return (h_next.to(x.dtype).contiguous(memory_format=torch.contiguous_format),
+            c_next.to(x.dtype).contiguous(memory_format=torch.contiguous_format))
+
+
+def build_halo(a: torch.Tensor, block_h: int) -> torch.Tensor:
+    """(B, H, W, C) -> (B, H/block_h, 2, W, C), ``_build_halo`` on the port's
+    unpadded layout: ``[:, r, 0]`` is the row above row block r (zeros for
+    r = 0) and ``[:, r, 1]`` the row below it (zeros for the last block)."""
+    bsz, height, width, ch = a.shape
+    if block_h <= 0 or height % block_h:
+        raise ValueError(f"the halo variant needs H % block_h == 0, got H={height}, "
+                         f"block_h={block_h}")
+    zero = a.new_zeros(bsz, 1, width, ch)
+    # row above block r = image row r*bh - 1; row below = image row (r+1)*bh
+    tops = torch.cat([zero, a[:, block_h - 1::block_h][:, :-1]], dim=1)
+    bots = torch.cat([a[:, block_h::block_h], zero], dim=1)
+    return torch.stack([tops, bots], dim=2)
+
+
+def _slabs(a: torch.Tensor, halo: torch.Tensor, block_h: int) -> torch.Tensor:
+    """Each row block of ``a`` between its two halo rows, the blocks folded
+    into the batch: (B·H/block_h, block_h + 2, W, C)."""
+    bsz, height, width, ch = a.shape
+    blocks = a.reshape(bsz, height // block_h, block_h, width, ch)
+    slab = torch.cat([halo[:, :, 0:1], blocks, halo[:, :, 1:2]], dim=2)
+    return slab.reshape(-1, block_h + 2, width, ch)
+
+
+def _conv3x3_valid_h(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """3×3 conv of NHWC ``x`` with an HWIO kernel, VALID on H and SAME on W."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), padding=(0, 1))
+    return y.permute(0, 2, 3, 1)
+
+
+def fused_convlstm_step_halo_ref(x, h, c, wx, wh, b, block_h: int = HALO_BLOCK_H
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1h's plain version: every row block's slab is put together from the
+    block and :func:`build_halo`'s side tensor, and convolved VALID on H, as
+    the kernel reads it; then the f32 gate math."""
+    gates = (_conv3x3_valid_h(_slabs(x, build_halo(x, block_h), block_h), wx).float()
+             + _conv3x3_valid_h(_slabs(h, build_halo(h, block_h), block_h), wh).float()
+             + b.float()).reshape(*c.shape[:3], -1)
     h_next, c_next = lstm_gates(gates, c)
     return (h_next.to(x.dtype).contiguous(memory_format=torch.contiguous_format),
             c_next.to(x.dtype).contiguous(memory_format=torch.contiguous_format))
@@ -145,13 +207,62 @@ def _library(name: str, entries, n_pointers: int) -> ctypes.CDLL:
 
 
 def build() -> None:
-    """Build (or load) both kernels' libraries now, one nvcc each, run
+    """Build (or load) the three kernels' libraries now, one nvcc each, run
     together, rather than at first launch."""
-    _build.load_all(["fused_convlstm_step", "fused_convlstm_step_bwd"])
+    _build.load_all(["fused_convlstm_step", "fused_convlstm_step_bwd",
+                     "fused_convlstm_step_halo"])
+
+
+def step_variant() -> str:
+    """``SATFLOW_STEP_VARIANT`` as it stands now: ``"3pass"`` (also when
+    unset) or ``"halo"``; any other value raises."""
+    variant = os.environ.get("SATFLOW_STEP_VARIANT") or "3pass"
+    if variant not in STEP_VARIANTS:
+        raise ValueError(f"SATFLOW_STEP_VARIANT={variant!r}: expected one of {STEP_VARIANTS}")
+    return variant
+
+
+def fused_convlstm_step_halo(x, h, c, wx, wh, b, block_h: int = HALO_BLOCK_H
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1h: one ConvLSTM step through the halo-tensor variant, without autograd.
+
+    CPU tensors take :func:`fused_convlstm_step_halo_ref`; CUDA tensors gather
+    the two side tensors with :func:`build_halo` and launch the kernel on the
+    current stream, counted in ``fused_convlstm_step_halo.launches``. A geometry
+    the kernel does not take (H % block_h != 0, block_h != 8, Ch != 64) raises.
+    """
+    if all(t.device.type == "cpu" for t in (x, h, c, wx, wh, b)):
+        return fused_convlstm_step_halo_ref(x, h, c, wx, wh, b, block_h)
+    # the geometry first: _check ends with the device type
+    if x.dim() == 4 and (block_h != HALO_BLOCK_H or x.shape[1] % block_h):
+        raise ValueError(
+            f"the halo kernel is built for row blocks of {HALO_BLOCK_H} rows and needs "
+            f"H % block_h == 0, got block_h={block_h}, H={x.shape[1]}")
+    _check(x, h, c, wx, wh, b)
+    lib = _library("fused_convlstm_step_halo", _HALO_ENTRY, 10)
+    x_halo, h_halo = build_halo(x, block_h), build_halo(h, block_h)
+    h_out = torch.empty_like(h)
+    c_out = torch.empty_like(c)
+    bsz, height, width, cx = x.shape
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = getattr(lib, _HALO_ENTRY[x.dtype])(
+        x.data_ptr(), x_halo.data_ptr(), h.data_ptr(), h_halo.data_ptr(), c.data_ptr(),
+        wx.data_ptr(), wh.data_ptr(), b.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
+        bsz, height, width, cx, h.shape[-1], x.device.index, stream,
+    )
+    _build.raise_on(err, lib, "fused_convlstm_step_halo")
+    fused_convlstm_step_halo.launches += 1
+    return h_out, c_out
+
+
+fused_convlstm_step_halo.launches = 0
 
 
 def _step(x, h, c, wx, wh, b) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1 without autograd: the plain version for CPU tensors, else the kernel."""
+    """The step without autograd, by ``SATFLOW_STEP_VARIANT``: K1h under
+    ``halo``, else K1, the plain version for CPU tensors, else the kernel."""
+    if step_variant() == "halo":
+        return fused_convlstm_step_halo(x, h, c, wx, wh, b)
     if all(t.device.type == "cpu" for t in (x, h, c, wx, wh, b)):
         return fused_convlstm_step_ref(x, h, c, wx, wh, b)
     _check(x, h, c, wx, wh, b)
@@ -205,8 +316,9 @@ def _nchw(t: torch.Tensor) -> torch.Tensor:
 class FusedConvLSTMStep(torch.autograd.Function):
     """The step under autograd, ``fused_convlstm_step``'s ``custom_vjp``.
 
-    Forward: K1 (its plain version on the CPU); saves ``(x, h, c, wx, wh,
-    b)``. Backward, as ``_bwd`` with its default merged linear grads: K2
+    Forward: K1, or K1h under ``SATFLOW_STEP_VARIANT=halo`` (their plain
+    versions on the CPU); saves ``(x, h, c, wx, wh, b)``. Backward, whatever
+    the variant, as ``_bwd`` with its default merged linear grads: K2
     recomputes the gates and gives (dgates, dc_prev); one data-grad conv over
     ``[x | h]`` with ``[wx | wh]`` gives dx and dh, one weight-grad conv dWx
     and dWh (both library convs); db sums dgates.
@@ -248,7 +360,9 @@ def fused_convlstm_step(x, h, c, wx, wh, b) -> Tuple[torch.Tensor, torch.Tensor]
     """One ConvLSTM step: (x, h, c, Wx, Wh, b) -> (h', c'), NHWC.
 
     CPU tensors take :func:`fused_convlstm_step_ref`; CUDA tensors launch K1
-    on the current stream, counted in ``fused_convlstm_step.launches``. With
+    on the current stream, counted in ``fused_convlstm_step.launches``. Under
+    ``SATFLOW_STEP_VARIANT=halo`` the forward is :func:`fused_convlstm_step_halo`
+    instead (K1h, counted there). With
     grad mode on and an input that requires grad, the step runs as
     :class:`FusedConvLSTMStep`, whose backward launches K2; otherwise
     (``no_grad``, ``inference_mode``) it is the bare K1 launch and saves

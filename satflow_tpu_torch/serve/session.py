@@ -102,7 +102,10 @@ class InferenceSession:
         if quantize == "int8":
             from satflow_tpu_torch.ops.fused_convlstm_int8 import quantize_convlstm_params
 
-            if getattr(model, "cell_impl", None) != "fused":  # MetNet has none
+            # MetNet has no cell_impl; a conv type other than "standard" runs
+            # the concat cells whatever cell_impl says
+            if (getattr(model, "cell_impl", None) != "fused"
+                    or not getattr(model.module, "is_fused", False)):
                 raise ValueError(
                     "int8 serving requires a fused-cell ConvLSTM model "
                     "(EncoderDecoderConvLSTM with cell_impl='fused')"

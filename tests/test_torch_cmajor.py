@@ -314,6 +314,8 @@ def test_model_hparam_reaches_the_core():
                          head_in_scan=False)
     assert model.module.cell_impl == "cmajor" and model.module.head_in_scan is False
     assert model.hparams()["cell_impl"] == "cmajor"
-    for impl in ("concat", "split", "hybrid"):
-        with pytest.raises(NotImplementedError, match="K3"):
-            ConvLSTMCore(cell_impl=impl)
+    for impl in ("concat", "split", "hybrid"):  # ported since: they reach the core too
+        core = create_model("encoderdecoderconvlstm", hidden_dim=8, cell_impl=impl).module
+        assert core.cell_impl == impl and not core.is_fused
+    with pytest.raises(ValueError, match="Unknown cell_impl"):
+        ConvLSTMCore(cell_impl="cmajor2")

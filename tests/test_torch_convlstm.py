@@ -154,10 +154,12 @@ def test_registries_are_separate():
             registry.create_model(source)
 
 
-@pytest.mark.parametrize("kwargs", [dict(cell_impl="split"), dict(cell_impl="hybrid"),
-                                    dict(conv_type="coord")])
+@pytest.mark.parametrize("kwargs", [dict(cell_impl="splitt"), dict(cell_impl="FUSED"),
+                                    dict(conv_type="coordconv")])
 def test_unported_options_raise(kwargs):
-    with pytest.raises(NotImplementedError):
+    """Every cell_impl and conv_type of the JAX model is ported; a name that
+    neither package knows raises ``ValueError``, as the JAX conv factory does."""
+    with pytest.raises(ValueError, match="Unknown"):
         ConvLSTMCore(**kwargs)
 
 

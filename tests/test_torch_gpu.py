@@ -17,7 +17,8 @@ stored output). K5: the integer sums are exact on both sides, so h'q
 differs by at most one int8 step on at most 0.1 % of elements (exp/tanh
 differ by an ulp between ATen and CUDA) and c' by one step of its dtype.
 K6a/K6b: as K1 (f32 1e-4; bf16 3e-2, the plain versions round each conv's
-output to bf16).
+output to bf16). K1h, T1 and T3: as K1. T2's outputs are unbounded sums, so
+bf16 is held to 3e-2 x max|plain|.
 """
 
 import pytest
@@ -29,6 +30,8 @@ from satflow_tpu_torch.ops import fused_convlstm_int8 as Q
 from satflow_tpu_torch.ops import fused_convlstm_step as P
 from satflow_tpu_torch.ops import fused_lstm as G
 from satflow_tpu_torch.nn.recurrent import FusedConvLSTMCell
+from satflow_tpu_torch.tools import exp_cmajor as XC
+from satflow_tpu_torch.tools import exp_tap9 as XT
 
 SHAPES = (((2, 20, 36, 12), 1.0), ((2, 20, 36, 64), 1.0), ((2, 20, 36, 64), 1.0),
           ((3, 3, 12, 256), 0.1), ((3, 3, 64, 256), 0.04), ((256,), 0.1))
@@ -390,3 +393,207 @@ def test_cmajor_core_through_k6_on_card():
         assert tuple(a - b for a, b in zip(counts(), before)) == (4, 6, 3)
         want = m_f(x)
     torch.testing.assert_close(y, want, atol=1e-4, rtol=0)
+
+
+def _halo_args(dtype, cx, seed=70):
+    """K1's arguments at 24x36: three row blocks of 8, ragged in W."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shapes = (((2, 24, 36, cx), 1.0), ((2, 24, 36, 64), 1.0), ((2, 24, 36, 64), 1.0),
+              ((3, 3, cx, 256), 0.1), ((3, 3, 64, 256), 0.04), ((256,), 0.1))
+    return [(torch.randn(*s, generator=g, device="cuda") * sc).to(dtype) for s, sc in shapes]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype, atol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("cx", [12, 64])
+def test_halo_kernel_matches_plain_and_k1_on_card(dtype, atol, cx):
+    """K1h against its plain version and against K1 (same sums, same order:
+    f32 1e-5), K1's counter untouched."""
+    _card()
+    args = _halo_args(dtype, cx)
+    before = P.fused_convlstm_step_halo.launches, P.fused_convlstm_step.launches
+    h_k, c_k = P.fused_convlstm_step_halo(*args)
+    torch.cuda.synchronize()
+    assert (P.fused_convlstm_step_halo.launches, P.fused_convlstm_step.launches) == (
+        before[0] + 1, before[1])
+    h_p, c_p = P.fused_convlstm_step_halo_ref(*args)
+    torch.testing.assert_close(h_k.float(), h_p.float(), atol=atol, rtol=0)
+    torch.testing.assert_close(c_k.float(), c_p.float(), atol=atol, rtol=0)
+    h_1, c_1 = P._step(*args)
+    k1_atol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(h_k.float(), h_1.float(), atol=k1_atol, rtol=0)
+    torch.testing.assert_close(c_k.float(), c_1.float(), atol=k1_atol, rtol=2.0 ** -7)
+
+
+@pytest.mark.gpu
+def test_halo_variant_switch_and_dispatch_rule_on_card(monkeypatch):
+    """``SATFLOW_STEP_VARIANT=halo`` sends the step, bare and under autograd,
+    through K1h (backward: K2); a geometry K1h does not take raises."""
+    _card()
+    args = _halo_args(torch.float32, 12, seed=71)
+    counts = lambda: (P.fused_convlstm_step.launches, P.fused_convlstm_step_halo.launches,  # noqa: E731
+                      P.gate_bwd.launches)
+    want = P.fused_convlstm_step_ref(*args)
+    monkeypatch.setenv("SATFLOW_STEP_VARIANT", "halo")
+    before = counts()
+    with torch.no_grad():
+        got = P.fused_convlstm_step(*args)
+    leaves = [a.clone().requires_grad_() for a in args]
+    h2, c2 = P.fused_convlstm_step(*leaves)
+    (h2.sum() + c2.square().sum()).backward()
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(counts(), before)) == (0, 2, 1)
+    torch.testing.assert_close(got[0], want[0], atol=1e-4, rtol=0)
+    assert all(t.grad is not None and bool(torch.isfinite(t.grad).all()) for t in leaves)
+    with pytest.raises(ValueError, match="H % block_h"):
+        P.fused_convlstm_step(*[a[:, :20].contiguous() if a.dim() == 4 and a.shape[0] == 2 else a
+                                for a in args])
+    with pytest.raises(ValueError, match="row blocks of 8"):
+        P.fused_convlstm_step_halo(*args, block_h=4)
+    monkeypatch.setenv("SATFLOW_STEP_VARIANT", "3pass")
+    before = counts()
+    with torch.no_grad():
+        P.fused_convlstm_step(*args)
+    assert tuple(a - b for a, b in zip(counts(), before)) == (1, 0, 0)
+
+
+def _padded_args(dtype, cx, seed=80):
+    """(xp, hp, c, wx, wh, b) at 20x36 (+2), ragged in H and W, zero halo columns."""
+    x, h, c, wx, wh, b = _args(dtype, seed=seed) if cx == 12 else _cmajor_like(dtype, seed)
+    return XT.pad_w(x).contiguous(), XT.pad_w(h).contiguous(), c, wx, wh, b
+
+
+def _cmajor_like(dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shapes = (((2, 20, 36, 64), 1.0),) * 3 + (((3, 3, 64, 256), 0.04),) * 2 + (((256,), 0.1),)
+    return [(torch.randn(*s, generator=g, device="cuda") * sc).to(dtype) for s, sc in shapes]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype, atol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("cx", [12, 64])
+@pytest.mark.parametrize("name", ["tap9", "padded"])
+def test_tap9_kernel_matches_plain_and_k1_on_card(dtype, atol, cx, name):
+    """T1, and the study's yardstick K1p, against their plain versions and,
+    on the interior, against K1; the halo columns of h' exactly zero."""
+    _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = _padded_args(dtype, cx)
+    step, ref = getattr(XT, f"step_{name}"), getattr(XT, f"step_{name}_ref")
+    before = step.launches
+    h_k, c_k = step(*args, block_h=4)
+    torch.cuda.synchronize()
+    assert step.launches == before + 1 and h_k.shape == args[1].shape
+    h_p, c_p = ref(*args)
+    torch.testing.assert_close(h_k.float(), h_p.float(), atol=atol, rtol=0)
+    torch.testing.assert_close(c_k.float(), c_p.float(), atol=atol, rtol=0)
+    assert float(h_k[:, :, (0, -1)].abs().max()) == 0
+    h_1, c_1 = P._step(args[0][:, :, 1:-1].contiguous(), args[1][:, :, 1:-1].contiguous(), *args[2:])
+    k1_atol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(h_k[:, :, 1:-1].float(), h_1.float(), atol=k1_atol, rtol=0)
+    torch.testing.assert_close(c_k.float(), c_1.float(), atol=k1_atol, rtol=2.0 ** -7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype, rel", [(torch.float32, 1e-5), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("cx", [12, 64])
+def test_nogate_kernel_matches_plain_on_card(dtype, rel, cx):
+    """T2 against its plain version, relative to max|plain| (its outputs are
+    unbounded sums); the halo columns of h' exactly zero."""
+    _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = _padded_args(dtype, cx, seed=81)
+    before = XT.step_nogate.launches
+    h_k, c_k = XT.step_nogate(*args, block_h=4)
+    torch.cuda.synchronize()
+    assert XT.step_nogate.launches == before + 1
+    h_p, c_p = XT.step_nogate_ref(*args)
+    for got, want in ((h_k, h_p), (c_k, c_p)):
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=rel * float(want.float().abs().max()), rtol=0)
+    assert float(h_k[:, :, (0, -1)].abs().max()) == 0
+
+
+@pytest.mark.gpu
+def test_study_steps_dispatch_rule_on_card():
+    """CUDA tensors outside the study kernels' domain are refused."""
+    _card()
+    args = _padded_args(torch.float32, 12)
+    before = XT.step_tap9.launches, XT.step_nogate.launches
+    with pytest.raises(ValueError, match="H % block_h"):
+        XT.step_tap9(*args, block_h=8)
+    with pytest.raises(ValueError, match="is on cpu"):
+        XT.step_nogate(args[0], args[1].cpu(), *args[2:])
+    with pytest.raises(ValueError, match="contiguous"):
+        XT.step_tap9(args[0].transpose(1, 2), *args[1:])
+    assert (XT.step_tap9.launches, XT.step_nogate.launches) == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype, atol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("height, width, block_h", [(12, 70, 4), (16, 33, 8)])
+def test_exp_cmajor_kernel_matches_plain_and_k6a_on_card(dtype, atol, height, width, block_h):
+    """T3 at ragged widths against its plain version and, through the layout
+    helpers, against K6a; pad rows exactly zero, and a second step on its own
+    outputs stays equal to two K6a steps."""
+    _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(90)
+    shapes = (((2, height, width, 64), 1.0),) * 3 + (((3, 3, 64, 256), 0.04),) * 2 + (((256,), 0.1),)
+    x, h, c, wx, wh, b = [(torch.randn(*s, generator=g, device="cuda") * sc).to(dtype)
+                          for s, sc in shapes]
+    carry = [XC.to_cmajor(t, block_h) for t in (x, h, c)]
+    w9, b2 = XC.weights_cmajor(wx, wh), b.reshape(-1, 1)
+    before = XC.cmajor_step.launches
+    h_k, c_k = XC.cmajor_step(*carry, w9, b2, block_h, height, width)
+    torch.cuda.synchronize()
+    assert XC.cmajor_step.launches == before + 1
+    h_p, c_p = XC.cmajor_step_ref(*carry, w9, b2, block_h, height, width)
+    torch.testing.assert_close(h_k.float(), h_p.float(), atol=atol, rtol=0)
+    torch.testing.assert_close(c_k.float(), c_p.float(), atol=atol, rtol=0)
+    for t in (h_k, c_k):
+        rows = t.reshape(2, 64, height + 2 * block_h, width)
+        assert float(rows[:, :, :block_h].abs().max()) == 0
+        assert float(rows[:, :, -block_h:].abs().max()) == 0
+    k6 = CM.cmajor_convlstm_step(CM.to_cmajor(x), CM.to_cmajor(h), CM.to_cmajor(c), wx, wh, b,
+                                 height, width)
+    k6_atol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    for got, want in zip((h_k, c_k), k6):
+        torch.testing.assert_close(XC.from_cmajor(got, height, width, block_h).float(),
+                                   CM.from_cmajor(want, height, width).float(),
+                                   atol=k6_atol, rtol=2.0 ** -7)
+    h_k2, _ = XC.cmajor_step(h_k, h_k, c_k, w9, b2, block_h, height, width)
+    k6_2, _ = CM.cmajor_convlstm_step(k6[0], k6[0], k6[1], wx, wh, b, height, width)
+    torch.testing.assert_close(XC.from_cmajor(h_k2, height, width, block_h).float(),
+                               CM.from_cmajor(k6_2, height, width).float(),
+                               atol=10 * k6_atol, rtol=2.0 ** -6)
+
+
+@pytest.mark.gpu
+def test_exp_cmajor_dispatch_rule_on_card():
+    _card()
+    z = torch.zeros(1, 64, (8 + 2 * 2) * 32, device="cuda")
+    w9, b2 = torch.zeros(9, 256, 128, device="cuda"), torch.zeros(256, 1, device="cuda")
+    before = XC.cmajor_step.launches
+    with pytest.raises(ValueError, match="block_h % 4"):
+        XC.cmajor_step(z, z, z, w9, b2, 2, 8, 32)
+    z8 = torch.zeros(1, 8, (8 + 8) * 32, device="cuda")
+    with pytest.raises(ValueError, match="64 channels"):
+        XC.cmajor_step(z8, z8, z8, torch.zeros(9, 32, 16, device="cuda"),
+                       torch.zeros(32, 1, device="cuda"), 4, 8, 32)
+    assert XC.cmajor_step.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tool", ["tap9", "cmajor"])
+def test_study_tool_mains_run_on_card(tool, capsys):
+    """The two study entry points verify and time at a small size."""
+    _card()
+    if tool == "tap9":
+        out = XT.main(bsz=1, size=32, ch=64, steps=2)
+        assert set(out) == {"k1", "k1_padded", "tap9", "nogate"}
+    else:
+        out = XC.main(bsz=1, height=32, width=32, ch=64, block_h=8, steps=2)
+        assert set(out) == {"k6a", "t3"}
+    assert all(v > 0 for v in out.values())
+    assert "ms" in capsys.readouterr().out
