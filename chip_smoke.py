@@ -11,20 +11,26 @@ Phases, in order; any failure exits non-zero before the last line:
 2. build the kernels from ``satflow_tpu_torch/csrc`` (one nvcc per source,
    run together): K1, the fused ConvLSTM step; K2, its backward's gate chain;
    K3, the LSTM gate tail; K4, the axial attention; K5, the int8 step; K6a and
-   K6b, the channel-major step and 3x3 conv head (one source);
+   K6b, the channel-major step and 3x3 conv head (one source); K1h; T1, T2 and
+   K1p; T3. ptxas' registers and spills of every kernel are printed, and the
+   SASS of K1 and K2 is read with ``cuobjdump``: every bfloat16 instantiation
+   must hold HMMA (tensor-core) instructions and no float32 one may;
 3. K1 against its plain PyTorch version at the serving shapes (B=8,
    256x256, Cx 12 and 64, Ch 64), in float32 and bfloat16, with the image's
    first and last rows and columns checked on their own;
 4. K2 against its plain version at the same shapes, dh' and dc' random;
 5. the six gradients of ``FusedConvLSTMStep`` (K1 forward, K2 backward)
-   against torch autograd of the plain step, float32, same shapes;
+   against torch autograd of the plain step, float32, same shapes; then
+   phases 3-5 once more at Ch 8, 16, 32 and 128 with Cx 1, 12, 20 and Ch,
+   float32 and bfloat16, at B=2, 50x70 (a multiple of no tile), launches counted;
 6. serving: the full-width ``EncoderDecoderConvLSTM`` (hidden 64, 12
    channels in and out, 24 forecast steps, weights from numpy seed 0 in the
    flax layout) behind ``NowcastServer`` answers 5 concurrent requests; the
    replies are checked, K1's launches counted, and one reply held against
    the same rollout through the plain step;
 7. timings with CUDA events: K1 and K2 against their plain versions per
-   call, and the b8 forward through each step;
+   call, with their TFLOP/s against the bf16 tensor cores' peak, and the b8
+   forward through each step;
 8. training: the same model trains 3 Adam steps through
    ``Trainer(precision="bf16").fit`` on fake b8 256x256 data with sqrt remat
    (``remat_chunk=6``); the losses are checked, the K1 and K2 launches of
@@ -95,7 +101,14 @@ Phases, in order; any failure exits non-zero before the last line:
    halo gathers on their own; the b8 forward under ``3pass`` and ``halo`` in
    turns; the b8 forward through ``concat``, ``split`` and ``hybrid``; the
    ``split`` train step; one ``halo`` forward profiled;
-22. a JSON line of the kernels with each one's bound on this card, and last
+22. the default ``cell_impl="fused"`` model at hidden 16 in float32 (the
+   Trainer's default ``precision: 32``) and at hidden 32 in bf16, 64x64 pixels,
+   7 frames in and 24 out: each answers 5 concurrent requests (62 K1 launches
+   per forward) and takes one Adam step with ``remat_chunk=6`` through
+   ``Trainer.fit`` (124 K1 + 62 K2 launches), every cell step a launch;
+   replies and gradients held against the same path through the plain
+   versions;
+23. a JSON line of the kernels with each one's bound on this card, and last
    a JSON line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.
@@ -108,6 +121,7 @@ import http.client
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -261,23 +275,23 @@ def lecun_normal(rng: np.random.Generator, shape) -> np.ndarray:
     return (z * np.sqrt(1.0 / fan_in) / 0.87962566103423978).astype(np.float32)
 
 
-def flax_params(seed: int = 0) -> dict:
+def flax_params(seed: int = 0, hidden: int = HIDDEN) -> dict:
     """Random weights in the JAX model's flax tree: lecun-normal kernels,
     zero biases."""
     rng = np.random.default_rng(seed)
 
     def cell(cx):
         return {
-            "x_gates_kernel": lecun_normal(rng, (3, 3, cx, 4 * HIDDEN)),
-            "h_gates_kernel": lecun_normal(rng, (3, 3, HIDDEN, 4 * HIDDEN)),
-            "bias": np.zeros(4 * HIDDEN, np.float32),
+            "x_gates_kernel": lecun_normal(rng, (3, 3, cx, 4 * hidden)),
+            "h_gates_kernel": lecun_normal(rng, (3, 3, hidden, 4 * hidden)),
+            "bias": np.zeros(4 * hidden, np.float32),
         }
 
     return {"params": {
-        "encoder": {"encoder_1": cell(CIN), "encoder_2": cell(HIDDEN)},
+        "encoder": {"encoder_1": cell(CIN), "encoder_2": cell(hidden)},
         "decoder": {
-            "decoder_1": cell(HIDDEN), "decoder_2": cell(HIDDEN),
-            "head": {"kernel": lecun_normal(rng, (3, 3, HIDDEN, COUT)),
+            "decoder_1": cell(hidden), "decoder_2": cell(hidden),
+            "head": {"kernel": lecun_normal(rng, (3, 3, hidden, COUT)),
                      "bias": np.zeros(COUT, np.float32)},
         },
     }}
@@ -300,19 +314,19 @@ def within(torch, got, want, tol) -> bool:
     return bool((diff <= tol["atol"] + tol["rtol"] * want.float().abs()).all())
 
 
-def step_inputs(torch, cx: int, dtype, seed: int):
+def step_inputs(torch, cx: int, dtype, seed: int, ch: int = HIDDEN, bhw=(B, H, W)):
     g = torch.Generator(device=DEVICE).manual_seed(seed)
 
     def rand(*shape, scale=1.0, normal=False):
         f = torch.randn if normal else torch.rand
         return (f(*shape, generator=g, device=DEVICE) * scale).to(dtype)
 
-    x = rand(B, H, W, cx)                               # frames in [0, 1]
-    h = rand(B, H, W, HIDDEN) * 2 - 1                   # h in (-1, 1)
-    c = rand(B, H, W, HIDDEN, normal=True)
-    wx = rand(3, 3, cx, 4 * HIDDEN, normal=True, scale=(9 * cx) ** -0.5)
-    wh = rand(3, 3, HIDDEN, 4 * HIDDEN, normal=True, scale=(9 * HIDDEN) ** -0.5)
-    b = rand(4 * HIDDEN, normal=True, scale=0.1)
+    x = rand(*bhw, cx)                                  # frames in [0, 1]
+    h = rand(*bhw, ch) * 2 - 1                          # h in (-1, 1)
+    c = rand(*bhw, ch, normal=True)
+    wx = rand(3, 3, cx, 4 * ch, normal=True, scale=(9 * cx) ** -0.5)
+    wh = rand(3, 3, ch, 4 * ch, normal=True, scale=(9 * ch) ** -0.5)
+    b = rand(4 * ch, normal=True, scale=0.1)
     return x, h, c, wx, wh, b
 
 
@@ -322,6 +336,24 @@ REGIONS = {
     "col0": (slice(None), slice(None), 0),
     "colW-1": (slice(None), slice(None), -1),
 }
+
+
+def within_one_bf16_step(torch, got, exact_f32, what: str) -> str:
+    """Holds a bf16 kernel's outputs against the plain version run in float32
+    on the same bf16 values (f32 sums, the exact f32 gate math) and rounded to
+    bf16 once: the kernel keeps f32 sums and exact gate math too, so the two
+    differ by f32 rounding before the one rounding to bf16, at most one bf16
+    step (TOL_SAME_SUMS), tighter than the bf16 plain version allows. Returns
+    the text for the phase's line."""
+    tol = TOL_SAME_SUMS["bfloat16"]
+    worst = 0.0
+    for g_, w_ in zip(got, exact_f32):
+        w_ = w_.to(torch.bfloat16)
+        worst = max(worst, (g_.float() - w_.float()).abs().max().item())
+        if not within(torch, g_, w_, tol):
+            fail(f"{what}: bf16 kernel vs the f32 plain version on the same values, rounded "
+                 f"to bf16: max|diff| {worst:.3g} beyond one bf16 step {tol}")
+    return f"; vs the f32 plain version rounded to bf16 max|diff| {worst:.3g} (one bf16 step)"
 
 
 def check_kernel(torch, step, step_ref, card) -> float:
@@ -341,18 +373,21 @@ def check_kernel(torch, step, step_ref, card) -> float:
                         fail(f"kernel != plain: {dtype} Cx={cx} {out_name} {name} "
                              f"max|diff|={errs[f'{out_name}.{name}']:.3g} tol={tol}")
             max_err = max(errs.values())
+            exact = ""
             if dtype == torch.bfloat16:
                 worst_bf16 = max(worst_bf16, max_err)
+                exact = within_one_bf16_step(torch, got, step_ref(*(a.float() for a in args)),
+                                             f"K1 Cx={cx}")
             print(f"kernel vs plain: {str(dtype)[6:]} B={B} {H}x{W} Cx={cx} Ch={HIDDEN}: "
                   f"max|diff| {max_err:.3g} (edges: "
                   + ", ".join(f"{k} {v:.3g}" for k, v in errs.items() if "all" not in k)
-                  + f") tol {tol} ok [{card}]", flush=True)
+                  + f") tol {tol} ok{exact} [{card}]", flush=True)
     return worst_bf16
 
 
-def cotangents(torch, dtype, seed: int):
+def cotangents(torch, dtype, seed: int, ch: int = HIDDEN, bhw=(B, H, W)):
     g = torch.Generator(device=DEVICE).manual_seed(seed)
-    return tuple(torch.randn(B, H, W, HIDDEN, generator=g, device=DEVICE).to(dtype)
+    return tuple(torch.randn(*bhw, ch, generator=g, device=DEVICE).to(dtype)
                  for _ in range(2))
 
 
@@ -373,12 +408,15 @@ def check_gate_bwd(torch, gate_bwd, gate_bwd_ref, card) -> float:
                     if not within(torch, g_[idx], w_[idx], tol):
                         fail(f"K2 != plain: {dtype} Cx={cx} {key} max|diff|={errs[key]:.3g} tol={tol}")
             max_err = max(errs.values())
+            exact = ""
             if dtype == torch.bfloat16:
                 worst_bf16 = max(worst_bf16, max_err)
+                exact = within_one_bf16_step(torch, got, gate_bwd_ref(*(a.float() for a in args)),
+                                             f"K2 Cx={cx}")
             print(f"K2 vs plain: {str(dtype)[6:]} B={B} {H}x{W} Cx={cx} Ch={HIDDEN}: "
                   f"max|diff| {max_err:.3g} (edges: "
                   + ", ".join(f"{k} {v:.3g}" for k, v in errs.items() if "all" not in k)
-                  + f") tol {tol} ok [{card}]", flush=True)
+                  + f") tol {tol} ok{exact} [{card}]", flush=True)
     return worst_bf16
 
 
@@ -410,6 +448,65 @@ def check_function_grads(torch, step, step_ref, card) -> None:
         print(f"step gradients through K1+K2 vs plain autograd, float32 B={B} {H}x{W} Cx={cx}: "
               "max|diff| / max|grad| " + ", ".join(f"{k} {v:.2g}" for k, v in rel.items())
               + f" <= {TOL_GRAD_F32} ok [{card}]", flush=True)
+
+
+# Phases 3-5 once more at the other hidden widths K1 and K2 are built for, on
+# an image that is a multiple of neither tile (8 x 16 pixels; 4 x 16 at Ch=128).
+WIDTHS_CH = (8, 16, 32, 128)
+WIDTHS_BHW = (2, 50, 70)
+
+
+def check_widths(torch, P, card) -> None:
+    """K1, K2 and the six gradients of ``FusedConvLSTMStep`` against their
+    plain versions at Ch 8, 16, 32, 128 with Cx 1, 12, 20 (padded to 32 in
+    the staged window, its rows no whole 16-byte pieces) and Ch, float32 and
+    bfloat16, the edge regions on their own, the launches counted. The
+    gradients are held relative to max|grad|: float32 to TOL_GRAD_F32,
+    bfloat16 to the bf16 train step's TOL_TRAIN_GRAD and cosine."""
+    names = ("dx", "dh", "dc", "dWx", "dWh", "db")
+    for ch in WIDTHS_CH:
+        for cx in (1, 12, 20, ch):
+            for dtype, tol, grad_tol in ((torch.float32, TOL_F32, TOL_GRAD_F32),
+                                         (torch.bfloat16, TOL_BF16, TOL_TRAIN_GRAD)):
+                name = str(dtype)[6:]
+                what = f"{name} Cx={cx} Ch={ch}"
+                args = step_inputs(torch, cx, dtype, seed=1000 + ch + cx, ch=ch, bhw=WIDTHS_BHW)
+                cots = cotangents(torch, dtype, seed=2000 + ch + cx, ch=ch, bhw=WIDTHS_BHW)
+                before = P.fused_convlstm_step.launches, P.gate_bwd.launches
+                got = P.fused_convlstm_step(*args) + P.gate_bwd(*args, *cots)
+                torch.cuda.synchronize()
+                if (P.fused_convlstm_step.launches, P.gate_bwd.launches) != (before[0] + 1,
+                                                                            before[1] + 1):
+                    fail(f"K1 or K2 did not launch at {what}")
+                want = P.fused_convlstm_step_ref(*args) + P.gate_bwd_ref(*args, *cots)
+                errs = {out: max(_max_err(torch, g_[idx], w_[idx], tol,
+                                          f"{'K1' if i < 2 else 'K2'} vs plain {what} {out} {region}")
+                                 for region, idx in REGIONS.items())
+                        for i, (out, g_, w_) in enumerate(zip(("h", "c", "dgates", "dc_prev"),
+                                                              got, want))}
+
+                def grads(fn):
+                    ts = [a.clone().requires_grad_() for a in args]
+                    h_next, c_next = fn(*ts)
+                    ((h_next * cots[0]).sum() + (c_next * cots[1]).sum()).backward()
+                    return [t.grad.float() for t in ts]
+
+                rel = {}
+                for n, g_, w_ in zip(names, grads(P.fused_convlstm_step),
+                                     grads(P.fused_convlstm_step_ref)):
+                    rel[n] = (g_ - w_).abs().max().item() / w_.abs().max().item()
+                    cos = torch.nn.functional.cosine_similarity(g_.flatten(), w_.flatten(),
+                                                                dim=0).item()
+                    if not (rel[n] <= grad_tol and cos >= MIN_TRAIN_GRAD_COS):
+                        fail(f"step gradient {n} through K1+K2 vs plain autograd at {what}: "
+                             f"max|diff| / max|grad| {rel[n]:.3g} > {grad_tol} or cosine "
+                             f"{cos:.6f} < {MIN_TRAIN_GRAD_COS}")
+                print(f"K1, K2 vs plain: {name} B={WIDTHS_BHW[0]} {WIDTHS_BHW[1]}x{WIDTHS_BHW[2]} "
+                      f"Cx={cx} Ch={ch}: max|diff| (edges held on their own) "
+                      + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + f" tol {tol}; "
+                      "gradients max|diff| / max|grad| "
+                      + ", ".join(f"{k} {v:.2g}" for k, v in rel.items())
+                      + f" <= {grad_tol} ok [{card}]", flush=True)
 
 
 def post(port: int, x: np.ndarray, out: list, i: int) -> None:
@@ -463,18 +560,18 @@ def check_frames(requests, replies, what: str) -> None:
     for x, (status, y) in zip(requests, replies):
         if status != 200:
             fail(f"{what}: request of shape {x.shape} answered {status}: {y!r}"[:500])
-        want = (STEPS, H, W, COUT) if x.ndim == 4 else (x.shape[0], STEPS, H, W, COUT)
+        want = x.shape[:-4] + (STEPS,) + x.shape[-3:-1] + (COUT,)
         if y.shape != want:
             fail(f"{what}: reply shape {y.shape}, expected {want}")
         if not np.isfinite(y).all() or y.min() < 0 or y.max() > 1:
             fail(f"{what}: reply not finite in [0, 1]: min {y.min()}, max {y.max()}")
 
 
-def convlstm_requests(seed: int = 1):
+def convlstm_requests(seed: int = 1, hw=(H, W)):
     """Four single samples and one micro-batch of two, in [0, 1]."""
     rng = np.random.default_rng(seed)
-    requests = [rng.random((T, H, W, CIN), dtype=np.float32) for _ in range(4)]
-    requests.append(rng.random((2, T, H, W, CIN), dtype=np.float32))
+    requests = [rng.random((T, *hw, CIN), dtype=np.float32) for _ in range(4)]
+    requests.append(rng.random((2, T, *hw, CIN), dtype=np.float32))
     return requests
 
 
@@ -545,9 +642,28 @@ def timings(torch, step, step_ref, bwd, bwd_ref, model, card):
         per_call_bwd[cx]["bound"] = bound_ms(args + cots + (state,) * 5, flop, "bf16")
         for name, t in (("K1 (step)", per_call[cx]), ("K2 (gate backward)", per_call_bwd[cx])):
             print(f"time per {name} call, bf16 B={B} {H}x{W} Cx={cx} Ch={HIDDEN}: "
-                  f"kernel {t['kernel']:.4f} ms ({flop / t['kernel'] / 1e9:.1f} TFLOP/s), "
+                  f"kernel {t['kernel']:.4f} ms ({flop / t['kernel'] / 1e9:.1f} TFLOP/s, "
+                  f"{100 * flop / (t['kernel'] * 1e-3) / PEAK_OPS_PER_S['bf16']:.1f} % of the bf16 "
+                  f"tensor cores' {PEAK_OPS_PER_S['bf16'] / 1e12:.0f}), "
                   f"plain {t['plain']:.4f} ms ({flop / t['plain'] / 1e9:.1f} TFLOP/s); bound "
                   f"{t['bound'][0]:.4f} ms by {t['bound'][1]} [{card}]", flush=True)
+
+    # the float32 instantiations (f32 FMAs on the CUDA cores) and the other
+    # hidden widths, Cx = Ch, at the same geometry
+    for dtype, ch in ((torch.float32, HIDDEN), (torch.float32, 16), (torch.bfloat16, 16),
+                      (torch.bfloat16, 32), (torch.bfloat16, 128)):
+        kind = "bf16" if dtype == torch.bfloat16 else "f32"
+        args = step_inputs(torch, ch, dtype, seed=170 + ch, ch=ch)
+        cots = cotangents(torch, dtype, seed=180 + ch, ch=ch)
+        flop = 2 * B * H * W * 4 * ch * 9 * (ch + ch)
+        t1 = per_call_ms(torch, step, step_ref, args, n=10)
+        t2 = per_call_ms(torch, bwd, bwd_ref, args + cots, n=10)
+        bound = bound_ms(args + (args[2],) * 2, flop, kind)
+        print(f"time per call, {str(dtype)[6:]} B={B} {H}x{W} Cx=Ch={ch}: K1 {t1['kernel']:.4f} ms "
+              f"({flop / t1['kernel'] / 1e9:.1f} TFLOP/s, {100 * flop / (t1['kernel'] * 1e-3) / PEAK_OPS_PER_S[kind]:.1f} "
+              f"% of the {kind} peak), plain {t1['plain']:.4f} ms; K2 {t2['kernel']:.4f} ms "
+              f"({flop / t2['kernel'] / 1e9:.1f} TFLOP/s), plain {t2['plain']:.4f} ms; K1's bound "
+              f"{bound[0]:.4f} ms by {bound[1]} [{card}]", flush=True)
 
     x = torch.from_numpy(np.random.default_rng(2).random((B, T, H, W, CIN), dtype=np.float32))
     x = x.to(DEVICE, torch.bfloat16)
@@ -565,6 +681,9 @@ def timings(torch, step, step_ref, bwd, bwd_ref, model, card):
         print(f"b{B} forward ({T} in, {STEPS} out, {H}x{W}x{CIN}, bf16) through the {name} step: "
               f"{ms:.2f} ms, {B * STEPS / (ms / 1e3):.1f} frames/s (runs {', '.join(f'{r:.2f}' for r in runs)} ms); "
               f"peak device memory {peak_gib:.2f} GiB [{card}]", flush=True)
+    with torch.inference_mode():
+        print_profile(f"b{B} forward through the fused (K1, bf16) rollout",
+                      device_time_by_class(torch, lambda: model(x), FORWARD_CLASSES), card)
     return per_call, per_call_bwd
 
 
@@ -1601,20 +1720,21 @@ def check_exp_cmajor(torch, card) -> float:
     return worst_bf16
 
 
-def fit_one_step(torch, model, counters, want_per_step, what: str, card):
+def fit_one_step(torch, model, counters, want_per_step, what: str, card, hw=(H, W),
+                 precision="bf16"):
     """One Adam step (and the epoch's one validation forward) through
-    ``Trainer(precision="bf16").fit`` on fake b8 256x256 data. The counters'
-    launches are set to 0 just before ``fit`` and read just after; returns
-    (launches per counter, trainer, the train batch on the card)."""
+    ``Trainer(precision=precision).fit`` on fake b8 data of ``hw`` pixels. The
+    counters' launches are set to 0 just before ``fit`` and read just after;
+    returns (launches per counter, trainer, the train batch on the card)."""
     from satflow_tpu_torch.data import SatFlowDataModule
     from satflow_tpu_torch.data.datamodule import to_device
     from satflow_tpu_torch.train import Trainer
 
     dm = SatFlowDataModule(fake_data=True, num_workers=0, n_train_data=1, n_val_data=1,
                            history_minutes=5 * (T - 1), forecast_minutes=5 * STEPS,
-                           fake_kwargs=dict(batch_size=B, width=W, height=H))
+                           fake_kwargs=dict(batch_size=B, width=hw[1], height=hw[0]))
     counter = LaunchesPerStep(*counters)
-    trainer = Trainer(max_steps=1, precision="bf16", log_every_n_steps=1, device=DEVICE,
+    trainer = Trainer(max_steps=1, precision=precision, log_every_n_steps=1, device=DEVICE,
                       callbacks=[counter])
     for c in counters:
         c.launches = 0
@@ -1630,7 +1750,7 @@ def fit_one_step(torch, model, counters, want_per_step, what: str, card):
     if counter.per_step != [tuple(want_per_step)]:
         fail(f"{what}: launches in the train step {counter.per_step}, expected "
              f"{tuple(want_per_step)}")
-    print(f"{what}: trained 1 step (bf16, b{B} {H}x{W}, {T} in / {STEPS} out, remat_chunk "
+    print(f"{what}: trained 1 step (precision {precision}, b{B} {hw[0]}x{hw[1]}, {T} in / {STEPS} out, remat_chunk "
           f"{REMAT_CHUNK}) in {wall:.2f} s wall with data generation: loss {losses[0]:.6f}, val "
           f"{val_loss:.6f}; launches in the step {counter.per_step[0]}, fit total {launches} "
           f"(with one validation forward) [{card}]", flush=True)
@@ -1638,9 +1758,11 @@ def fit_one_step(torch, model, counters, want_per_step, what: str, card):
     return launches, trainer, batch
 
 
-def compare_step_grads(torch, model, batch, kernel_kw, plain_kw, what: str, card) -> float:
-    """Every parameter's gradient of one bf16 train step through the kernels
-    against the same step through the plain versions."""
+def compare_step_grads(torch, model, batch, kernel_kw, plain_kw, what: str, card,
+                       tol: float = TOL_TRAIN_GRAD) -> float:
+    """Every parameter's gradient of one train step through the kernels
+    against the same step through the plain versions, within ``tol`` x
+    max|grad| of each tensor (the default is the bf16 step's)."""
     def step_grads(**kw):
         model.train()
         model.zero_grad(set_to_none=True)
@@ -1659,12 +1781,12 @@ def compare_step_grads(torch, model, batch, kernel_kw, plain_kw, what: str, card
         rel = (g - w).abs().max().item() / w.abs().max().item()
         cos = torch.nn.functional.cosine_similarity(g.flatten(), w.flatten(), dim=0).item()
         worst = max(worst, rel)
-        if not (rel <= TOL_TRAIN_GRAD and cos >= MIN_TRAIN_GRAD_COS):
+        if not (rel <= tol and cos >= MIN_TRAIN_GRAD_COS):
             fail(f"{what}: gradient of {name} vs plain: max|diff| / max|grad| {rel:.3g} (tol "
-                 f"{TOL_TRAIN_GRAD}), cosine {cos:.6f} (min {MIN_TRAIN_GRAD_COS})")
-    print(f"{what}: one train step's gradients through the kernels vs the plain versions (bf16): "
+                 f"{tol}), cosine {cos:.6f} (min {MIN_TRAIN_GRAD_COS})")
+    print(f"{what}: one train step's gradients through the kernels vs the plain versions: "
           f"all {len(got)} parameters nonzero; max|diff| / max|grad| {worst:.3g} <= "
-          f"{TOL_TRAIN_GRAD}, cosine >= {MIN_TRAIN_GRAD_COS} ok [{card}]", flush=True)
+          f"{tol}, cosine >= {MIN_TRAIN_GRAD_COS} ok [{card}]", flush=True)
     return worst
 
 
@@ -1716,6 +1838,83 @@ def halo_path(torch, card, fused_model):
     return k1h, t_k1h, t_k2
 
 
+# The default (``cell_impl="fused"``) model at the hidden widths of the shipped
+# experiments: hidden 16 at the Trainer's default ``precision: 32``, hidden 32
+# in bf16; 64 x 64 pixels, 7 frames in, 24 out, b8.
+WIDTH_PATHS = ((16, "32"), (32, "bf16"))
+PATH_HW = (64, 64)
+# - one float32 train step's parameter gradients through K1 + K2 against the
+#   same step through the plain versions: f32 sums in another order (TOL_F32 a
+#   cell step), carried through the 62 steps of the rollout and its backward.
+TOL_TRAIN_GRAD_F32 = 1e-3  # x max|grad| of each tensor
+
+
+def widths_path(torch, card):
+    """Phase 22, the main path at hidden 16 (float32) and hidden 32 (bf16): 5 concurrent
+    requests through ``NowcastServer`` and one Adam step through
+    ``Trainer.fit``, every cell step a counted launch (on the card the wrappers
+    launch or raise; they have no plain route), replies and gradients held
+    against the same path through the plain versions. Returns
+    the (K1, K2) launches of both models together."""
+    from satflow_tpu_torch.interop.jax_weights import params_from_flax
+    from satflow_tpu_torch.models.conv_lstm import EncoderDecoderConvLSTM
+    from satflow_tpu_torch.ops import fused_convlstm_step as P
+    from satflow_tpu_torch.serve import InferenceSession
+
+    total_k1 = total_k2 = 0
+    requests = convlstm_requests(seed=5, hw=PATH_HW)
+    for hidden, precision in WIDTH_PATHS:
+        bf16 = precision == "bf16"
+        what = f"hidden {hidden}, precision {precision}"
+        weights = params_from_flax(flax_params(0, hidden=hidden))
+        model = EncoderDecoderConvLSTM(hidden_dim=hidden, input_channels=CIN,
+                                       out_channels=COUT, forecast_steps=STEPS)
+        session = InferenceSession(model, max_batch=B, state_dict=weights,
+                                   dtype=torch.bfloat16 if bf16 else None, device=DEVICE)
+        train_model = EncoderDecoderConvLSTM(
+            hidden_dim=hidden, input_channels=CIN, out_channels=COUT, forecast_steps=STEPS,
+            remat=True, remat_chunk=REMAT_CHUNK)
+        train_model.module.load_state_dict(weights)
+        replies, wall, forwards, (k1,) = drive_server(session, requests,
+                                                      [P.fused_convlstm_step])
+        (t_k1, t_k2), _, batch = fit_one_step(
+            torch, train_model, [P.fused_convlstm_step, P.gate_bwd],
+            (K1_PER_TRAIN_STEP, K2_PER_TRAIN_STEP), what, card, hw=PATH_HW,
+            precision=precision)
+        check_frames(requests, replies, what)
+        if forwards < 1 or k1 != LAUNCHES_PER_FORWARD * forwards:
+            fail(f"{what}: K1 launches {k1} != {LAUNCHES_PER_FORWARD} x {forwards} forwards")
+        if (t_k1, t_k2) != (K1_PER_TRAIN_STEP + LAUNCHES_PER_FORWARD, K2_PER_TRAIN_STEP):
+            fail(f"{what}: fit launched (K1, K2) {(t_k1, t_k2)} times")
+        with torch.inference_mode():
+            x0 = torch.from_numpy(requests[0][None]).to(
+                DEVICE, torch.bfloat16 if bf16 else torch.float32)
+            ref = model(x0, step=P.fused_convlstm_step_ref).float().cpu().numpy()[0]
+        diff = float(np.abs(ref - replies[0][1]).max())
+        tol = TOL_ROLLOUT if bf16 else TOL_F32["atol"]
+        if not diff <= tol:
+            fail(f"{what}: served rollout vs plain-step rollout: max|diff| {diff:.3g} > {tol}")
+        print(f"{what}: served {len(requests)} requests (6 samples) of {PATH_HW[0]}x{PATH_HW[1]} in "
+              f"{forwards} forward(s) of b{B}, {wall:.3f} s wall; K1 launches {k1} = "
+              f"{LAUNCHES_PER_FORWARD} x {forwards}, every cell step a launch; reply vs the plain-step "
+              f"rollout max|diff| {diff:.3g} <= {tol} ok [{card}]", flush=True)
+        compare_step_grads(torch, train_model, batch, {}, dict(step=P.fused_convlstm_step_ref),
+                           what, card, tol=TOL_TRAIN_GRAD if bf16 else TOL_TRAIN_GRAD_F32)
+        with torch.inference_mode():  # after the launches were read: these are not the path's
+            xb = x0.expand(B, *x0.shape[1:]).contiguous()
+            ms = {}
+            for name in ("plain", "kernel", "kernel", "plain"):
+                kw = dict(step=P.fused_convlstm_step_ref) if name == "plain" else {}
+                model(xb, **kw)  # warm-up
+                ms.setdefault(name, []).append(cuda_ms(torch, lambda: model(xb, **kw), 3))
+        print(f"{what}: b{B} forward ({T} in, {STEPS} out, {PATH_HW[0]}x{PATH_HW[1]}x{CIN}) through "
+              f"the kernel step {sum(ms['kernel']) / 2:.2f} ms, through the plain step "
+              f"{sum(ms['plain']) / 2:.2f} ms [{card}]", flush=True)
+        total_k1 += k1 + t_k1
+        total_k2 += t_k2
+    return total_k1, total_k2
+
+
 def study_tools(torch, card):
     """Phase 19: the two study entry points in-process. Returns ((K1, K1p, T1,
     T2, K6a, T3) launches, the tools' ms per step)."""
@@ -1747,8 +1946,8 @@ def study_tools(torch, card):
           f"of {STUDY_STEPS['tap9']} and {STUDY_STEPS['cmajor']} steps: ms per step "
           + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
           + f"; against K1p: the gate math (K1p - T2) {100 * (1 - ms['nogate'] / ms['k1_padded']):.1f} "
-          f"%, tap-major order (K1p - T1) {100 * (1 - ms['tap9'] / ms['k1_padded']):.1f} %; the "
-          f"W-padded staging (K1 - K1p) {100 * (1 - ms['k1_padded'] / ms['k1']):.1f} % of K1; launches "
+          f"%, tap-major order (K1p - T1) {100 * (1 - ms['tap9'] / ms['k1_padded']):.1f} %; K1 on "
+          f"the tensor cores against K1p's CUDA-core contraction {ms['k1_padded'] / ms['k1']:.2f}x; launches "
           f"(K1, K1p, T1, T2, K6a, T3) {launches} [{card}]", flush=True)
     return launches, ms
 
@@ -1949,6 +2148,45 @@ def new_kernel_timings(torch, fused_model, cell_models, split_train, card):
     return times
 
 
+# a kernel template's instantiation in a mangled name: (type, hidden width)
+INSTANCE = re.compile(r"kernelI(13__nv_bfloat16|f)Li(\d+)E")
+
+
+def check_sass(_build, card) -> dict:
+    """Phase 2, the machine code of K1 and K2: every bfloat16 instantiation
+    contracts on the tensor cores (HMMA instructions in its SASS) and no
+    float32 one does. Returns {(library, hidden width): HMMA count} of the
+    bfloat16 kernels."""
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    counts = {}
+    for name in ("fused_convlstm_step", "fused_convlstm_step_bwd"):
+        out = subprocess.run([cuobjdump, "-sass", _build.load(name)._name],
+                             capture_output=True, text=True, timeout=300)
+        if out.returncode != 0:
+            fail(f"cuobjdump -sass of {name} failed: {out.stderr.strip()[:500]}")
+        per_function, function = {}, None
+        for line in out.stdout.splitlines():
+            if "Function :" in line:
+                function = INSTANCE.search(line)
+                function = function and (function.group(1) != "f", int(function.group(2)))
+                if function:
+                    per_function[function] = {"HMMA": 0, "LDSM": 0, "LDGSTS": 0, "FFMA": 0}
+            elif function:
+                for op in per_function[function]:
+                    if f" {op}" in line:
+                        per_function[function][op] += 1
+        if len(per_function) != 10:
+            fail(f"{name}: expected 10 instantiations in the SASS, found {sorted(per_function)}")
+        for (bf16, ch), ops in sorted(per_function.items()):
+            if bf16 != (ops["HMMA"] > 0):
+                fail(f"{name} {'bf16' if bf16 else 'f32'} Ch={ch}: {ops['HMMA']} HMMA instructions")
+            if bf16:
+                counts[name, ch] = ops["HMMA"]
+            print(f"  SASS {name} ({'bf16' if bf16 else 'f32'}, Ch={ch}): "
+                  + ", ".join(f"{op} {n}" for op, n in ops.items()) + f" [{card}]", flush=True)
+    return counts
+
+
 def main() -> None:
     try:
         import torch
@@ -1958,6 +2196,7 @@ def main() -> None:
         fail("torch.cuda.is_available() is False: this smoke needs a CUDA card")
     try:
         from satflow_tpu_torch.ops import _build
+        from satflow_tpu_torch.ops import fused_convlstm_step as P
         from satflow_tpu_torch.ops.fused_convlstm_step import (
             fused_convlstm_step,
             fused_convlstm_step_ref,
@@ -1988,13 +2227,21 @@ def main() -> None:
         for line in log.splitlines():
             if "Compiling entry function" in line:  # the mangled name carries the type
                 dtype = "bf16" if "bfloat16" in line else "f32"
+                width = INSTANCE.search(line)  # and, of K1 and K2, the hidden width
+                dtype += f", Ch={width.group(2)}" if width else ""
             elif "registers" in line or "spill" in line or "smem" in line:
                 print(f"  {name} ({dtype}): {line.strip()}", flush=True)
+
+    hmma = check_sass(_build, card)
+    print(f"HMMA instructions in the bf16 K1: {sum(n for (lib, _), n in hmma.items() if lib == 'fused_convlstm_step')}"
+          f" ({hmma['fused_convlstm_step', HIDDEN]} at Ch={HIDDEN}), in the bf16 K2: "
+          f"{sum(n for (lib, _), n in hmma.items() if lib == 'fused_convlstm_step_bwd')}", flush=True)
 
     # phases 3-5: each kernel against its plain version
     k1_err = check_kernel(torch, fused_convlstm_step, fused_convlstm_step_ref, card)
     k2_err = check_gate_bwd(torch, gate_bwd, gate_bwd_ref, card)
     check_function_grads(torch, fused_convlstm_step, fused_convlstm_step_ref, card)
+    check_widths(torch, P, card)
     # phase 6: serving (counts set to 0 inside, just before the requests)
     serve_k1, _, _, model = serve_slice(torch, card)
     # phase 7
@@ -2034,7 +2281,10 @@ def main() -> None:
     # phase 21
     study = new_kernel_timings(torch, model, cell_models, split_train, card)
 
-    # phase 22
+    # phase 22 (counts set to 0 inside, just before each path is driven)
+    widths_k1, widths_k2 = widths_path(torch, card)
+
+    # phase 23
     def kernel(name, source, replaces, launches, err, t, library=None):
         return {"name": name, "route": "cuda", "source": f"satflow_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -2044,21 +2294,21 @@ def main() -> None:
     k4_t = k4_ms[K4_SHAPES[0]]
     print(json.dumps({"kernels": [
         # K1: bf16 serving + training + the channel-major rollout's encoder +
-        # the yardstick of the tap9 study tool
+        # the yardstick of the tap9 study tool + the hidden 16 and 32 models
         kernel("fused_convlstm_step", "fused_convlstm_step.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_step.py:453",
-               serve_k1 + train_k1 + cm_k1 + st_k1, k1_err, per_call[HIDDEN]),
+               serve_k1 + train_k1 + cm_k1 + st_k1 + widths_k1, k1_err, per_call[HIDDEN]),
         # the TPU's unpadded sibling of K1: the port's K1 is that kernel (its
         # tensors are unpadded NHWC), so this row repeats K1's numbers
         kernel("fused_convlstm_step (unpadded NHWC)", "fused_convlstm_step.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_step.py:380",
-               serve_k1 + train_k1 + cm_k1 + st_k1, k1_err, per_call[HIDDEN]),
+               serve_k1 + train_k1 + cm_k1 + st_k1 + widths_k1, k1_err, per_call[HIDDEN]),
         kernel("fused_convlstm_step_halo", "fused_convlstm_step_halo.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_step.py:266",
                halo_serve + halo_train_k1h, k1h_err, study["K1h"]),
         kernel("gate_bwd", "fused_convlstm_step_bwd.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_step.py:833",
-               train_k2 + halo_train_k2, k2_err, per_call_bwd[HIDDEN]),
+               train_k2 + halo_train_k2 + widths_k2, k2_err, per_call_bwd[HIDDEN]),
         kernel("fused_lstm_gates", "fused_lstm_gates.cu",
                "satflow_tpu/ops/pallas/fused_lstm.py:75",
                # MetNet serving + training, the concat/split/hybrid cells

@@ -7,17 +7,22 @@ Pallas kernel on a ported path with a hand-written CUDA kernel
 
 Subpackages
 -----------
-- ``core``:        the model registry, config surgery and logging utilities,
-                   and the loader of the JAX package's framework-free modules.
-- ``ops``:         CUDA kernels, their nvcc build and their plain PyTorch
-                   versions; the fused step's autograd Function.
-- ``nn``:          layers (the fused ConvLSTM cell) and losses.
-- ``models``:      the model zoo (``EncoderDecoderConvLSTM``).
-- ``interop``:     the flax -> PyTorch weight bridge.
-- ``data``:        a torch adapter over the JAX package's datasets and loaders.
-- ``train``:       train state, train/eval steps and the ``Trainer``.
+- ``core``:        the model registry, config composition and surgery, and
+                   logging utilities (the port's own copies of the JAX
+                   package's framework-free modules).
+- ``ops``:         CUDA kernels' wrappers, their nvcc build and their plain
+                   PyTorch versions; the autograd Functions that join them.
+- ``nn``:          layers (the five ConvLSTM cell formulations, the conv
+                   types, axial attention, MetNet's blocks) and losses.
+- ``models``:      the model zoo: ``EncoderDecoderConvLSTM`` and ``LitMetNet``.
+- ``interop``:     the flax -> PyTorch weight bridge and the ``.npz`` format.
+- ``data``:        the datasets, the fake data and the data module, the
+                   port's own (numpy and torch loaders; nothing of JAX).
+- ``train``:       train state, schedules, train/eval steps, callbacks,
+                   loggers and the ``Trainer``.
 - ``experiments``: the experiment entry point behind ``python -m satflow_tpu_torch.run``.
 - ``serve``:       inference sessions, micro-batching and the HTTP server.
+- ``tools``:       the two kernel-study entry points (``exp_tap9``, ``exp_cmajor``).
 """
 
 from __future__ import annotations

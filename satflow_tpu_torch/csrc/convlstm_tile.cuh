@@ -1,25 +1,39 @@
-// The gate contraction of a ConvLSTM step on one 8x16-pixel tile, shared by
-// the fused step (fused_convlstm_step.cu, K1), its backward
-// (fused_convlstm_step_bwd.cu, K2), the halo-tensor variant of the step
-// (fused_convlstm_step_halo.cu, K1h) and the two study kernels of
-// exp_tap9.cu (T1, T2), so that all compute the gates with one definition.
+// The gate contraction of a ConvLSTM step on one tile of pixels as f32 FMAs on
+// the CUDA cores, and the pieces every ConvLSTM kernel here shares (type
+// conversions, the LSTM update, the tile's geometry).
 //
 //   gates = conv3x3_SAME(x, Wx) + conv3x3_SAME(h, Wh) + b     (f32 accumulate)
 //
 // on unpadded NHWC tensors, weights in the JAX HWIO layout: Wx (3, 3, Cx, 4Ch),
-// Wh (3, 3, Ch, 4Ch), b (4Ch), gate order i, f, o, g. Ch is fixed at 64 (the
-// shipped model's hidden width); Cx is any multiple of 4 up to 256.
+// Wh (3, 3, Ch, 4Ch), b (4Ch), gate order i, f, o, g.
 //
-// Tile. A block owns 8 rows x 16 columns of one image and all 64 hidden
-// channels: 8 warps, warp w computes tile row w, lane l owns hidden channels
-// 2l and 2l+1. The block stages the tile's 10 x 18 window of [x | h] (a
-// one-pixel halo) in shared memory as f32, with the zeros of SAME padding
-// written there, so the inner loop has no bounds checks. Each thread then
-// holds the four gate pre-activations (i, f, o, g) of its 16 pixels x 2
-// channels in 128 f32 registers, so an epilogue over the LSTM gates needs no
-// exchange between threads. Pixel values are shared-memory broadcasts (every
-// lane of a warp reads the same address); weights come through the read-only
-// cache as coalesced pairs.
+// Used by the float32 instantiations of the fused step (K1) and its backward
+// (K2) through convlstm_gates.cuh, at every hidden width CH they are built
+// for, and at CH = 64 by the halo-tensor variant of the step
+// (fused_convlstm_step_halo.cu, K1h) and the study kernels of exp_tap9.cu
+// (T1, T2, K1p) in both float32 and bfloat16. The bfloat16 K1 and K2 contract
+// on the tensor cores instead (convlstm_mma.cuh).
+//
+// Tile. A block of 8 warps owns kTileW = 16 columns of tile_rows<CH>() rows
+// and all CH hidden channels. It stages the tile's window of [x | h] (a
+// one-pixel halo) in shared memory as f32, x's channels padded with zeros to a
+// multiple of 4, with the zeros of SAME padding written there, so the inner
+// loop has no bounds checks. A warp computes one tile row for one block of up
+// to 64 hidden channels; Lanes<CH> says how its 32 lanes share that row:
+//
+//   CH    lanes across channel pairs x pixel groups   pixels a thread owns
+//   8       4 x 8                                      2
+//   16      8 x 4                                      4
+//   32     16 x 2                                      8
+//   64     32 x 1                                     16
+//   128    32 x 1, and the block owns 4 rows, not 8:  16
+//          warps 0-3 take channels 0-63, warps 4-7 channels 64-127
+//
+// A thread holds the four gate pre-activations (i, f, o, g) of its pixels x 2
+// adjacent channels in at most 128 f32 registers, so an epilogue over the LSTM
+// gates needs no exchange between threads. Pixel values are shared-memory
+// broadcasts (the lanes of a pixel group read one address); weights come
+// through the read-only cache as coalesced pairs.
 
 #pragma once
 
@@ -30,15 +44,35 @@
 
 namespace convlstm_tile {
 
-constexpr int kCh = 64;             // hidden channels
-constexpr int kTileH = 8;           // output rows per block, one per warp
+constexpr int kCh = 64;             // the hidden width of K1h, T1, T2 and K1p
+constexpr int kTileH = 8;           // output rows per block at CH <= 64, one per warp
 constexpr int kTileW = 16;          // output columns per block (per warp)
-constexpr int kLaneCh = kCh / 32;   // hidden channels per lane
-constexpr int kThreads = 32 * kTileH;
+constexpr int kLaneCh = 2;          // adjacent hidden channels a thread owns
+constexpr int kThreads = 256;       // 8 warps
 constexpr int kHaloH = kTileH + 2;
 constexpr int kHaloW = kTileW + 2;
 constexpr int kMaxCx = 256;         // keeps the staged window within 227 KB
-static_assert(kLaneCh == 2, "load_pair reads two adjacent channels per lane");
+
+// Output rows a block owns: 8, or 4 at CH = 128, where 8 warps are 4 rows x 2
+// channel blocks of 64 and the staged window stays within shared memory.
+template <int CH>
+__host__ __device__ constexpr int tile_rows() { return CH > 64 ? kTileH * 64 / CH : kTileH; }
+
+// How the lanes of a warp share one tile row (see the table above).
+template <int CH>
+struct Lanes {
+  static_assert(CH == 8 || CH == 16 || CH == 32 || CH == 64 || CH == 128,
+                "hidden widths the tile is written for");
+  static constexpr int kPairs = CH < 64 ? CH / 2 : 32;   // lanes across channel pairs
+  static constexpr int kGroups = 32 / kPairs;            // lanes across pixel groups
+  static constexpr int kPix = kTileW / kGroups;          // pixels a thread owns
+  __device__ static int row() { return (threadIdx.x / 32) % tile_rows<CH>(); }
+  __device__ static int pixel0() { return (threadIdx.x % 32) / kPairs * kPix; }
+  // the first of the thread's two hidden channels
+  __device__ static int channel() {
+    return (threadIdx.x / 32) / tile_rows<CH>() * 64 + (threadIdx.x % 32) % kPairs * kLaneCh;
+  }
+};
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -52,7 +86,7 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
-// Two adjacent weights (channels co and co+1 of one gate) as f32.
+// Two adjacent values (channels co and co+1) as f32; p is aligned to the pair.
 __device__ __forceinline__ float2 load_pair(const float* p) {
   return __ldg(reinterpret_cast<const float2*>(p));
 }
@@ -61,118 +95,149 @@ __device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
   const unsigned int u = __ldg(reinterpret_cast<const unsigned int*>(p));
   return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
 }
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
 
 __device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
 
-// acc[p][g][j] += sum_{ci < n} s[p * stride + ci] * w[ci * 4Ch + g * Ch + j]
-// for the 16 pixels p of one tile row; w already points at the lane's channel.
-template <typename T>
-__device__ __forceinline__ void accumulate(float (&acc)[kTileW][4][kLaneCh],
-                                           const float* __restrict__ s, int stride,
-                                           const T* __restrict__ w, int n) {
-#pragma unroll 1
-  for (int ci = 0; ci < n; ci += 4) {
-    float wr[4][4][kLaneCh];
+// acc[p][g][j] += sum_{k < 4} s[p * stride + k] * w[k * 4CH + g * CH + j] for
+// the thread's pixels p: four rows of the weights against four staged values
+// a pixel. With kTail only the first `rows` of the four weight rows exist and
+// are read; the staged values past them are zeros.
+template <int CH, bool kTail, typename T>
+__device__ __forceinline__ void accumulate_4(float (&acc)[Lanes<CH>::kPix][4][kLaneCh],
+                                             const float* __restrict__ s, int stride,
+                                             const T* __restrict__ w, int rows) {
+  float wr[4][4][kLaneCh];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const float2 v = !kTail || k < rows ? load_pair(w + k * (4 * CH) + g * CH)
+                                          : make_float2(0.f, 0.f);
+      wr[k][g][0] = v.x;
+      wr[k][g][1] = v.y;
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < Lanes<CH>::kPix; ++p) {
+    const float4 v4 = *reinterpret_cast<const float4*>(s + p * stride);
+    const float v[4] = {v4.x, v4.y, v4.z, v4.w};
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
 #pragma unroll
       for (int g = 0; g < 4; ++g) {
-        const float2 v = load_pair(w + (ci + k) * (4 * kCh) + g * kCh);
-        wr[k][g][0] = v.x;
-        wr[k][g][1] = v.y;
-      }
-    }
 #pragma unroll
-    for (int p = 0; p < kTileW; ++p) {
-      const float4 v4 = *reinterpret_cast<const float4*>(s + p * stride + ci);
-      const float v[4] = {v4.x, v4.y, v4.z, v4.w};
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-#pragma unroll
-        for (int g = 0; g < 4; ++g) {
-#pragma unroll
-          for (int j = 0; j < kLaneCh; ++j) {
-            acc[p][g][j] = fmaf(v[k], wr[k][g][j], acc[p][g][j]);
-          }
+        for (int j = 0; j < kLaneCh; ++j) {
+          acc[p][g][j] = fmaf(v[k], wr[k][g][j], acc[p][g][j]);
         }
       }
     }
   }
 }
 
+// acc[p][g][j] += sum_{ci < n} s[p * stride + ci] * w[ci * 4CH + g * CH + j]
+// for the thread's pixels p; s points at its first pixel, w at its channel.
+// The staged values s[.. + ci] for n <= ci < round_up(n, 4) are zeros; the
+// weight rows there do not exist and are not read: the loop over whole fours
+// tests nothing, and the last one to three rows take the tail's form.
+template <int CH, typename T>
+__device__ __forceinline__ void accumulate(float (&acc)[Lanes<CH>::kPix][4][kLaneCh],
+                                           const float* __restrict__ s, int stride,
+                                           const T* __restrict__ w, int n) {
+  const int whole = n & ~3;
+#pragma unroll 1
+  for (int ci = 0; ci < whole; ci += 4) {
+    accumulate_4<CH, false>(acc, s + ci, stride, w + ci * (4 * CH), 4);
+  }
+  if (n & 3) accumulate_4<CH, true>(acc, s + whole, stride, w + whole * (4 * CH), n & 3);
+}
+
 // acc[p][g][j] = bias of gate g, hidden channel co + j, for every pixel p.
-template <typename T>
-__device__ __forceinline__ void init_with_bias(float (&acc)[kTileW][4][kLaneCh],
+template <int CH, typename T>
+__device__ __forceinline__ void init_with_bias(float (&acc)[Lanes<CH>::kPix][4][kLaneCh],
                                                const T* __restrict__ bias, int co) {
 #pragma unroll
   for (int g = 0; g < 4; ++g) {
 #pragma unroll
     for (int j = 0; j < kLaneCh; ++j) {
-      const float bv = to_f32(bias[g * kCh + co + j]);
+      const float bv = to_f32(bias[g * CH + co + j]);
 #pragma unroll
-      for (int p = 0; p < kTileW; ++p) acc[p][g][j] = bv;
+      for (int p = 0; p < Lanes<CH>::kPix; ++p) acc[p][g][j] = bv;
     }
   }
 }
 
 // The contraction over a staged window: on return, acc[p][g][j] holds gate g
-// of hidden channel (threadIdx.x % 32) * 2 + j at the tile's pixel
-// (threadIdx.x / 32, p). `window` holds the tile's (kTileH+2) x (kTileW+2)
-// pixels of [x | h] as f32, cx + kCh values a pixel, and must be complete
-// (a __syncthreads() after the last write) before the call.
-template <typename T>
+// of hidden channel Lanes<CH>::channel() + j at the tile's pixel
+// (Lanes<CH>::row(), Lanes<CH>::pixel0() + p). `window` holds the tile's
+// (tile_rows<CH>() + 2) x (kTileW + 2) pixels of [x | h] as f32, cxp + CH
+// = cin values a pixel, cxp = cx rounded up to a multiple of 4 with zeros between,
+// and must be complete (a __syncthreads() after the last write) before the call.
+template <int CH, typename T>
 __device__ __forceinline__ void contract_window(
-    float (&acc)[kTileW][4][kLaneCh], const float* __restrict__ window,
+    float (&acc)[Lanes<CH>::kPix][4][kLaneCh], const float* __restrict__ window,
     const T* __restrict__ wx, const T* __restrict__ wh, const T* __restrict__ bias,
-    int cx) {
-  const int cin = cx + kCh;
-  const int row = threadIdx.x / 32;
-  const int co = (threadIdx.x % 32) * kLaneCh;
+    int cx, int cxp, int cin) {
+  const int row = Lanes<CH>::row();
+  const int p0 = Lanes<CH>::pixel0();
+  const int co = Lanes<CH>::channel();
 
-  init_with_bias(acc, bias, co);
+  init_with_bias<CH>(acc, bias, co);
 
 #pragma unroll 1
   for (int ky = 0; ky < 3; ++ky) {
 #pragma unroll 1
     for (int kx = 0; kx < 3; ++kx) {
       const int tap = ky * 3 + kx;
-      const float* s = window + ((row + ky) * kHaloW + kx) * cin;
-      accumulate(acc, s, cin, wx + size_t(tap) * cx * (4 * kCh) + co, cx);
-      accumulate(acc, s + cx, cin, wh + size_t(tap) * kCh * (4 * kCh) + co, kCh);
+      const float* s = window + ((row + ky) * kHaloW + kx + p0) * cin;
+      accumulate<CH>(acc, s, cin, wx + size_t(tap) * cx * (4 * CH) + co, cx);
+      accumulate<CH>(acc, s + cxp, cin, wh + size_t(tap) * CH * (4 * CH) + co, CH);
     }
   }
 }
 
-// The gate pre-activations of the block's tile: on return, acc[p][g][j] holds
-// gate g of hidden channel (threadIdx.x % 32) * 2 + j at pixel
-// (y0 + threadIdx.x / 32, x0 + p) of image b. `window` is the block's dynamic
-// shared memory, window_bytes(cx) long. Every thread of the block must call it.
-template <typename T>
+// The gate pre-activations of the block's tile: stages the window of image b
+// at (y0, x0) and contracts it (see contract_window for what acc holds).
+// `window` is the block's dynamic shared memory, window_bytes<CH>(cx) long.
+// Every thread of the block must call it.
+template <int CH, typename T>
 __device__ __forceinline__ void gate_preactivations(
-    float (&acc)[kTileW][4][kLaneCh], float* __restrict__ window,
+    float (&acc)[Lanes<CH>::kPix][4][kLaneCh], float* __restrict__ window,
     const T* __restrict__ x, const T* __restrict__ h, const T* __restrict__ wx,
     const T* __restrict__ wh, const T* __restrict__ bias, int b, int y0, int x0,
     int height, int width, int cx) {
-  const int cin = cx + kCh;  // per staged pixel: x channels, then h channels
+  const int cxp = (cx + 3) & ~3;
+  const int cin = cxp + CH;  // per staged pixel: x channels, zeros, then h channels
 
-  // Stage the (kTileH+2) x (kTileW+2) window of [x | h] as f32; pixels
-  // outside the image are the zeros of SAME padding.
-  const int n_stage = kHaloH * kHaloW * cin;
+  // Stage the window of [x | h] as f32; pixels outside the image are the
+  // zeros of SAME padding.
+  const int n_stage = (tile_rows<CH>() + 2) * kHaloW * cin;
   for (int i = threadIdx.x; i < n_stage; i += kThreads) {
     const int ci = i % cin;
     const int pix = i / cin;
     const int gy = y0 - 1 + pix / kHaloW;
     const int gx = x0 - 1 + pix % kHaloW;
     float v = 0.f;
-    if (gy >= 0 && gy < height && gx >= 0 && gx < width) {
+    if (gy >= 0 && gy < height && gx >= 0 && gx < width && (ci < cx || ci >= cxp)) {
       const size_t base = (size_t(b) * height + gy) * width + gx;
-      v = ci < cx ? to_f32(x[base * cx + ci]) : to_f32(h[base * kCh + (ci - cx)]);
+      v = ci < cx ? to_f32(x[base * cx + ci]) : to_f32(h[base * CH + (ci - cxp)]);
     }
     window[i] = v;
   }
+  __shared__ int pitch;
+  if (threadIdx.x == 0) pitch = cin;
   __syncthreads();
 
-  contract_window(acc, window, wx, wh, bias, cx);
+  // The contraction takes the pixel pitch from shared memory, not as the sum
+  // above: where ptxas sees cin = cxp + CH it rebuilds every pixel's address
+  // from that sum, two address instructions a pixel where one does (3 % of the
+  // inner loop's issue slots).
+  contract_window<CH>(acc, window, wx, wh, bias, cx, cxp, pitch);
 }
 
 // The LSTM state update of one element, f32: gates i, f, o, g and c -> c', h'.
@@ -182,16 +247,22 @@ __device__ __forceinline__ void lstm_update(float gi, float gf, float go, float 
   h_next = sigmoid(go) * tanhf(c_next);
 }
 
-// What the tile takes; the wrappers check the same before a launch.
+// What the fixed-width users (K1h, T1, T2, K1p) take; their wrappers check
+// the same before a launch.
 inline bool shape_ok(int batch, int height, int width, int cx, int ch) {
   return ch == kCh && cx > 0 && cx % 4 == 0 && cx <= kMaxCx && batch > 0 &&
          batch <= 65535 && height > 0 && width > 0;
 }
 
-inline int window_bytes(int cx) { return kHaloH * kHaloW * (cx + kCh) * int(sizeof(float)); }
+template <int CH = kCh>
+inline int window_bytes(int cx) {
+  return (tile_rows<CH>() + 2) * kHaloW * (((cx + 3) & ~3) + CH) * int(sizeof(float));
+}
 
+template <int CH = kCh>
 inline dim3 tile_grid(int batch, int height, int width) {
-  return dim3((width + kTileW - 1) / kTileW, (height + kTileH - 1) / kTileH, batch);
+  return dim3((width + kTileW - 1) / kTileW, (height + tile_rows<CH>() - 1) / tile_rows<CH>(),
+              batch);
 }
 
 }  // namespace convlstm_tile

@@ -31,11 +31,12 @@
 // K1p: w3 as T2, the LSTM epilogue as T1.
 //
 // Ch is fixed at 64 and Cx is a multiple of 4 up to 256. The tile, the thread
-// layout and the inner product are those of convlstm_tile.cuh (8 x 16 pixels a
-// block, a thread owns the four gates of 16 pixels x 2 channels). What bounds
-// them on this card: operations, as K1 (0.31 TFLOP against ~0.34 GB at B=8,
-// 256x256, Cx=Ch=64); the contraction is f32 FMAs on the CUDA cores and leaves
-// the tensor cores unused, as K1's does.
+// layout and the inner product are those of convlstm_tile.cuh at CH = 64 (8 x
+// 16 pixels a block, a thread owns the four gates of 16 pixels x 2 channels).
+// What bounds them on this card: operations (0.31 TFLOP against ~0.34 GB at
+// B=8, 256x256, Cx=Ch=64); the contraction is f32 FMAs on the CUDA cores in
+// both dtypes and leaves the tensor cores unused: the three are measurements
+// of that contraction, which the float32 K1 still runs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -91,7 +92,7 @@ padded_step_kernel(const T* __restrict__ xp, const T* __restrict__ hp,
   const int row = threadIdx.x / 32;
   const int co = (threadIdx.x % 32) * kLaneCh;
   float acc[kTileW][4][kLaneCh];
-  init_with_bias(acc, bias, co);
+  init_with_bias<kCh>(acc, bias, co);
 
 #pragma unroll 1
   for (int ky = 0; ky < 3; ++ky) {
@@ -99,11 +100,11 @@ padded_step_kernel(const T* __restrict__ xp, const T* __restrict__ hp,
     for (int kx = 0; kx < 3; ++kx) {
       const float* s = window + ((row + ky) * kHaloW + kx) * cin;
       if constexpr (kTapMajor) {
-        accumulate(acc, s, cin, w + size_t(ky * 3 + kx) * cin * (4 * kCh) + co, cin);
+        accumulate<kCh>(acc, s, cin, w + size_t(ky * 3 + kx) * cin * (4 * kCh) + co, cin);
       } else {
         const T* w_dy = w + size_t(ky) * (3 * cin) * (4 * kCh) + co;
-        accumulate(acc, s, cin, w_dy + size_t(kx) * cx * (4 * kCh), cx);
-        accumulate(acc, s + cx, cin, w_dy + (size_t(3) * cx + size_t(kx) * kCh) * (4 * kCh), kCh);
+        accumulate<kCh>(acc, s, cin, w_dy + size_t(kx) * cx * (4 * kCh), cx);
+        accumulate<kCh>(acc, s + cx, cin, w_dy + (size_t(3) * cx + size_t(kx) * kCh) * (4 * kCh), kCh);
       }
     }
   }

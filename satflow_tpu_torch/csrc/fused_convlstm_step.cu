@@ -10,37 +10,46 @@
 //
 // with f32 gate math, and h', c' stored in the input type (float or bf16).
 // The weights keep the JAX HWIO layout: Wx (3, 3, Cx, 4Ch), Wh (3, 3, Ch, 4Ch),
-// b (4Ch). Ch is fixed at 64 (the shipped model's hidden width); Cx is any
-// multiple of 4 up to 256.
+// b (4Ch). Ch is 8, 16, 32, 64 or 128; Cx is any width from 1 to 256.
 //
 // What bounds it on this card. At the serving shape (B=8, 256x256, Cx=Ch=64)
 // one call is 2 * B*H*W * 4Ch * 9(Cx+Ch) = 0.31 TFLOP against ~0.34 GB of
 // x, h, c in and h', c' out: ~900 FLOP/byte, three times the ~295 FLOP/byte
-// at which an H100 stops being bound by its memory. The call is compute-bound.
+// at which an H100 stops being bound by its memory. The call is bound by
+// operations: 0.31 ms at the bf16 tensor cores' 989 TFLOP/s.
 //
-// Design (simple and right first): the 8x16-pixel tile of convlstm_tile.cuh
-// (shared with the backward, K2) computes the gate pre-activations into
-// registers; the LSTM epilogue here turns them into h' and c'.
+// Design. bfloat16 contracts on the tensor cores: an implicit GEMM per block
+// of 8 x 16 pixels, mma.sync m16n8k16 on a window staged once as bf16 and
+// weight slabs in a cp.async ring (convlstm_mma.cuh). float32 keeps its f32
+// FMAs on the CUDA cores (convlstm_tile.cuh; 67 TFLOP/s peak), so that it
+// agrees with an f32 reference to f32 rounding. Both leave all four gates of a
+// (pixel, channel pair) in one thread (convlstm_gates.cuh, shared with the
+// backward, K2), and the LSTM epilogue here turns them into h' and c' with one
+// 4- or 8-byte load of c and two such stores, no exchange between threads. Its
+// sigmoids and tanhs are expf and tanhf in both types, as in the reference's
+// f32 gate math; with one block per SM nothing overlaps them.
 //
-// What this design leaves on the table: the contraction runs as f32 FMAs on
-// the CUDA cores (67 TFLOP/s peak) instead of the tensor cores (989 TFLOP/s
-// bf16, via mma.sync or wgmma); weights are re-read from L1/L2 by every block
-// instead of being staged once per SM with TMA; one block per SM (register
-// bound) leaves staging and compute unoverlapped; and the halo window re-reads
-// 1.4x the tile's inputs.
+// What this design leaves on the table: mma.sync feeds the tensor cores from
+// registers, and the ldmatrix loads that fill them take shared memory's whole
+// bandwidth at about half of the tensor cores' peak; wgmma reads its operands
+// from shared memory and lifts that. Every block copies all the weights from
+// L2 (0.6 MB at Cx=Ch=64); the window is staged before the first product and
+// not under the previous tile's, and the exact epilogue (expf, tanhf and a
+// division: ~150 instructions an element) runs after the last; and h', c' leave
+// as 4-byte stores, 16 bytes of each 32-byte sector per warp store.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
-#include "convlstm_tile.cuh"
+#include "convlstm_gates.cuh"
 
 namespace {
 
-using namespace convlstm_tile;
+using namespace convlstm_gates;
 
-template <typename T>
+template <typename T, int CH>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_convlstm_step_kernel(const T* __restrict__ x, const T* __restrict__ h,
                            const T* __restrict__ c, const T* __restrict__ wx,
@@ -48,52 +57,50 @@ fused_convlstm_step_kernel(const T* __restrict__ x, const T* __restrict__ h,
                            T* __restrict__ h_out, T* __restrict__ c_out,
                            int height, int width, int cx) {
   extern __shared__ float4 smem4[];  // float4: 16-byte aligned rows
-  const int b = blockIdx.z;
-  const int y0 = blockIdx.y * kTileH;
-  const int x0 = blockIdx.x * kTileW;
-  float acc[kTileW][4][kLaneCh];
-  gate_preactivations(acc, reinterpret_cast<float*>(smem4), x, h, wx, wh, bias, b, y0,
-                      x0, height, width, cx);
-
-  const int row = threadIdx.x / 32;
-  const int co = (threadIdx.x % 32) * kLaneCh;
-  const int gy = y0 + row;
-  if (gy >= height) return;
-#pragma unroll
-  for (int p = 0; p < kTileW; ++p) {
-    const int gx = x0 + p;
-    if (gx < width) {
-      const size_t o = ((size_t(b) * height + gy) * width + gx) * kCh + co;
-#pragma unroll
-      for (int j = 0; j < kLaneCh; ++j) {
-        const float c_prev = to_f32(c[o + j]);
-        const float c_next = sigmoid(acc[p][1][j]) * c_prev +
-                             sigmoid(acc[p][0][j]) * tanhf(acc[p][3][j]);
-        const float h_next = sigmoid(acc[p][2][j]) * tanhf(c_next);
-        c_out[o + j] = from_f32<T>(c_next);
-        h_out[o + j] = from_f32<T>(h_next);
-      }
-    }
-  }
+  for_each_gate_pair<T, CH>(
+      smem4, x, h, wx, wh, bias, height, width, cx,
+      [&](size_t pixel, int channel, float2 gi, float2 gf, float2 go, float2 gg) {
+        const size_t o = pixel * CH + channel;
+        const float2 c_prev = load_pair(c + o);
+        float2 c_next, h_next;
+        lstm_update(gi.x, gf.x, go.x, gg.x, c_prev.x, c_next.x, h_next.x);
+        lstm_update(gi.y, gf.y, go.y, gg.y, c_prev.y, c_next.y, h_next.y);
+        store_pair(c_out + o, c_next.x, c_next.y);
+        store_pair(h_out + o, h_next.x, h_next.y);
+      });
 }
+
+template <typename T, int CH>
+struct Step {
+  static int run(const void* x, const void* h, const void* c, const void* wx,
+                 const void* wh, const void* b, void* h_out, void* c_out, int batch,
+                 int height, int width, int cx, int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return int(err);
+    const int smem = smem_bytes<T, CH>(cx);
+    err = cudaFuncSetAttribute(fused_convlstm_step_kernel<T, CH>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return int(err);
+    fused_convlstm_step_kernel<T, CH><<<tile_grid<CH>(batch, height, width), kThreads, smem,
+                                        static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(x), static_cast<const T*>(h), static_cast<const T*>(c),
+        static_cast<const T*>(wx), static_cast<const T*>(wh), static_cast<const T*>(b),
+        static_cast<T*>(h_out), static_cast<T*>(c_out), height, width, cx);
+    return int(cudaGetLastError());
+  }
+};
 
 template <typename T>
 int launch(const void* x, const void* h, const void* c, const void* wx,
            const void* wh, const void* b, void* h_out, void* c_out, int batch,
            int height, int width, int cx, int ch, int device, void* stream) {
-  if (!shape_ok(batch, height, width, cx, ch)) return int(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return int(err);
-  const int smem = window_bytes(cx);
-  err = cudaFuncSetAttribute(fused_convlstm_step_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return int(err);
-  fused_convlstm_step_kernel<T><<<tile_grid(batch, height, width), kThreads, smem,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const T*>(h), static_cast<const T*>(c),
-      static_cast<const T*>(wx), static_cast<const T*>(wh), static_cast<const T*>(b),
-      static_cast<T*>(h_out), static_cast<T*>(c_out), height, width, cx);
-  return int(cudaGetLastError());
+  if (!geometry_ok(batch, height, width, cx)) return int(cudaErrorInvalidValue);
+  for (const void* p : {h, c, wx, wh, static_cast<const void*>(h_out),
+                        static_cast<const void*>(c_out)}) {
+    if (!aligned<T>(p)) return int(cudaErrorMisalignedAddress);
+  }
+  return launch_for_width<Step, T>(ch, x, h, c, wx, wh, b, h_out, c_out, batch, height,
+                                   width, cx, device, stream);
 }
 
 }  // namespace

@@ -20,32 +20,52 @@
 // are not this kernel's: the wrapper takes them from library convs of dgates,
 // as the JAX package leaves them to XLA.
 //
+// Ch is 8, 16, 32, 64 or 128; Cx is any width from 1 to 256.
+//
 // What bounds it on this card: the recompute is K1's contraction, 2 * B*H*W *
 // 4Ch * 9(Cx+Ch) FLOP = 0.31 TFLOP at B=8, 256x256, Cx=Ch=64, against ~0.67 GB
 // (bf16) of x, h, c, dh', dc' in and dgates, dc_prev out: ~460 FLOP/byte, above
 // the ~295 FLOP/byte where an H100 stops being bound by its memory, so the
-// call is compute-bound like K1.
+// call is bound by operations like K1: 0.31 ms at the bf16 tensor cores' peak.
 //
-// Design (simple and right first): K1's 8x16-pixel tile (convlstm_tile.cuh,
-// one definition of the contraction for both) with a new epilogue. Each
-// thread already holds all four gates of its 16 pixels x 2 channels in
-// registers, so the chain needs no exchange between threads; it reads c, dh'
-// and dc' and writes five values per (pixel, channel). What it leaves on the
-// table is K1's: f32 FMAs on the CUDA cores instead of the tensor cores, and
-// weights re-read from L1/L2 by every block.
+// Design: K1's gate pre-activations (convlstm_gates.cuh, one definition for
+// both: the tensor cores' mma.sync in bfloat16, f32 FMAs on the CUDA cores in
+// float32) with another epilogue. Each thread already holds all four gates of
+// each (pixel, channel pair) it owns, so the chain needs no exchange between
+// threads; it reads c, dh' and dc' and writes five values per (pixel, channel),
+// as pairs. What it leaves on the table is K1's (mma.sync at about half of the
+// tensor cores' peak, the weights copied by every block), and its epilogue
+// moves twice K1's bytes in 4-byte pieces: staging dgates through the window's
+// shared memory would make them 16-byte stores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
-#include "convlstm_tile.cuh"
+#include "convlstm_gates.cuh"
 
 namespace {
 
-using namespace convlstm_tile;
+using namespace convlstm_gates;
 
-template <typename T>
+// One element of the chain: writes dgates' four values and returns dc_prev.
+__device__ __forceinline__ float gate_chain(float gi, float gf, float go, float gg, float cv,
+                                            float dh, float dc, float (&dgate)[4]) {
+  const float si = sigmoid(gi);
+  const float sf = sigmoid(gf);
+  const float so = sigmoid(go);
+  const float tg = tanhf(gg);
+  const float tc = tanhf(sf * cv + si * tg);
+  const float dct = dc + dh * so * (1.f - tc * tc);
+  dgate[0] = dct * tg * si * (1.f - si);
+  dgate[1] = dct * cv * sf * (1.f - sf);
+  dgate[2] = dh * tc * so * (1.f - so);
+  dgate[3] = dct * si * (1.f - tg * tg);
+  return dct * sf;
+}
+
+template <typename T, int CH>
 __global__ void __launch_bounds__(kThreads, 1)
 gate_bwd_kernel(const T* __restrict__ x, const T* __restrict__ h,
                 const T* __restrict__ c, const T* __restrict__ wx,
@@ -54,64 +74,57 @@ gate_bwd_kernel(const T* __restrict__ x, const T* __restrict__ h,
                 T* __restrict__ dgates, T* __restrict__ dc_prev, int height,
                 int width, int cx) {
   extern __shared__ float4 smem4[];  // float4: 16-byte aligned rows
-  const int b = blockIdx.z;
-  const int y0 = blockIdx.y * kTileH;
-  const int x0 = blockIdx.x * kTileW;
-  float acc[kTileW][4][kLaneCh];
-  gate_preactivations(acc, reinterpret_cast<float*>(smem4), x, h, wx, wh, bias, b, y0,
-                      x0, height, width, cx);
-
-  const int row = threadIdx.x / 32;
-  const int co = (threadIdx.x % 32) * kLaneCh;
-  const int gy = y0 + row;
-  if (gy >= height) return;
+  for_each_gate_pair<T, CH>(
+      smem4, x, h, wx, wh, bias, height, width, cx,
+      [&](size_t pixel, int channel, float2 gi, float2 gf, float2 go, float2 gg) {
+        const size_t o = pixel * CH + channel;
+        const size_t o4 = pixel * (4 * CH) + channel;
+        const float2 cv = load_pair(c + o);
+        const float2 dh = load_pair(dh_next + o);
+        const float2 dc = load_pair(dc_next + o);
+        float d0[4], d1[4];
+        const float dc0 = gate_chain(gi.x, gf.x, go.x, gg.x, cv.x, dh.x, dc.x, d0);
+        const float dc1 = gate_chain(gi.y, gf.y, go.y, gg.y, cv.y, dh.y, dc.y, d1);
 #pragma unroll
-  for (int p = 0; p < kTileW; ++p) {
-    const int gx = x0 + p;
-    if (gx < width) {
-      const size_t pix = (size_t(b) * height + gy) * width + gx;
-      const size_t o = pix * kCh + co;
-      const size_t o4 = pix * (4 * kCh) + co;
-#pragma unroll
-      for (int j = 0; j < kLaneCh; ++j) {
-        const float cv = to_f32(c[o + j]);
-        const float dh = to_f32(dh_next[o + j]);
-        const float dc = to_f32(dc_next[o + j]);
-        const float si = sigmoid(acc[p][0][j]);
-        const float sf = sigmoid(acc[p][1][j]);
-        const float so = sigmoid(acc[p][2][j]);
-        const float tg = tanhf(acc[p][3][j]);
-        const float tc = tanhf(sf * cv + si * tg);
-        const float dct = dc + dh * so * (1.f - tc * tc);
-        dgates[o4 + 0 * kCh + j] = from_f32<T>(dct * tg * si * (1.f - si));
-        dgates[o4 + 1 * kCh + j] = from_f32<T>(dct * cv * sf * (1.f - sf));
-        dgates[o4 + 2 * kCh + j] = from_f32<T>(dh * tc * so * (1.f - so));
-        dgates[o4 + 3 * kCh + j] = from_f32<T>(dct * si * (1.f - tg * tg));
-        dc_prev[o + j] = from_f32<T>(dct * sf);
-      }
-    }
-  }
+        for (int g = 0; g < 4; ++g) store_pair(dgates + o4 + g * CH, d0[g], d1[g]);
+        store_pair(dc_prev + o, dc0, dc1);
+      });
 }
+
+template <typename T, int CH>
+struct GateBwd {
+  static int run(const void* x, const void* h, const void* c, const void* wx,
+                 const void* wh, const void* b, const void* dh_next, const void* dc_next,
+                 void* dgates, void* dc_prev, int batch, int height, int width, int cx,
+                 int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return int(err);
+    const int smem = smem_bytes<T, CH>(cx);
+    err = cudaFuncSetAttribute(gate_bwd_kernel<T, CH>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return int(err);
+    gate_bwd_kernel<T, CH><<<tile_grid<CH>(batch, height, width), kThreads, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(x), static_cast<const T*>(h), static_cast<const T*>(c),
+        static_cast<const T*>(wx), static_cast<const T*>(wh), static_cast<const T*>(b),
+        static_cast<const T*>(dh_next), static_cast<const T*>(dc_next),
+        static_cast<T*>(dgates), static_cast<T*>(dc_prev), height, width, cx);
+    return int(cudaGetLastError());
+  }
+};
 
 template <typename T>
 int launch(const void* x, const void* h, const void* c, const void* wx,
            const void* wh, const void* b, const void* dh_next, const void* dc_next,
            void* dgates, void* dc_prev, int batch, int height, int width, int cx,
            int ch, int device, void* stream) {
-  if (!shape_ok(batch, height, width, cx, ch)) return int(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return int(err);
-  const int smem = window_bytes(cx);
-  err = cudaFuncSetAttribute(gate_bwd_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return int(err);
-  gate_bwd_kernel<T><<<tile_grid(batch, height, width), kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const T*>(h), static_cast<const T*>(c),
-      static_cast<const T*>(wx), static_cast<const T*>(wh), static_cast<const T*>(b),
-      static_cast<const T*>(dh_next), static_cast<const T*>(dc_next),
-      static_cast<T*>(dgates), static_cast<T*>(dc_prev), height, width, cx);
-  return int(cudaGetLastError());
+  if (!geometry_ok(batch, height, width, cx)) return int(cudaErrorInvalidValue);
+  for (const void* p : {h, c, wx, wh, dh_next, dc_next, static_cast<const void*>(dgates),
+                        static_cast<const void*>(dc_prev)}) {
+    if (!aligned<T>(p)) return int(cudaErrorMisalignedAddress);
+  }
+  return launch_for_width<GateBwd, T>(ch, x, h, c, wx, wh, b, dh_next, dc_next, dgates,
+                                      dc_prev, batch, height, width, cx, device, stream);
 }
 
 }  // namespace

@@ -21,13 +21,15 @@
 //
 // Weights keep the JAX HWIO layout, Wx (3, 3, Cx, 4Ch), Wh (3, 3, Ch, 4Ch),
 // b (4Ch); Ch is fixed at 64, Cx is a multiple of 4 up to 256. The contraction
-// and the thread layout are those of convlstm_tile.cuh, shared with K1 and K2.
+// and the thread layout are those of convlstm_tile.cuh at CH = 64, the f32
+// CUDA-core contraction that the float32 K1 and K2 use at every width.
 //
 // What bounds it on this card: as K1, operations (0.31 TFLOP against ~0.34 GB
 // of state at B=8, 256x256, Cx=Ch=64; the side tensors add 2/8 of x and h).
 // The variant exists to measure what the row-boundary tests and the
-// out-of-kernel gather cost on this card; the contraction is K1's f32 FMAs on
-// the CUDA cores and leaves the same on the table.
+// out-of-kernel gather cost on this card; the contraction stays f32 FMAs on
+// the CUDA cores in both dtypes (the bfloat16 K1 moved to the tensor cores,
+// convlstm_mma.cuh), so it is held against K1 for its sums, not for its time.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -85,7 +87,7 @@ fused_convlstm_step_halo_kernel(const T* __restrict__ x, const T* __restrict__ x
   __syncthreads();
 
   float acc[kTileW][4][kLaneCh];
-  contract_window(acc, window, wx, wh, bias, cx);
+  contract_window<kCh>(acc, window, wx, wh, bias, cx, cx, cin);
 
   const int row = threadIdx.x / 32;
   const int co = (threadIdx.x % 32) * kLaneCh;

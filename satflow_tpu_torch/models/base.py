@@ -61,6 +61,16 @@ class BaseModel(nn.Module):
             y = y["sat_data"]
         return x, y
 
+    def eval_batch(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(x, y) for metric evaluation: y must be time-major (B, T, H, W, C).
+        Defaults to :meth:`prepare_batch`; a model whose training target is
+        laid out otherwise overrides it."""
+        return self.prepare_batch(batch)
+
+    @classmethod
+    def from_config(cls, config: Dict[str, Any]):
+        return cls(**config)
+
     def state_dict_from_flax(self, variables) -> Dict[str, torch.Tensor]:
         """The core's state_dict from the JAX model's flax variables (numpy
         leaves); each model names its converter in

@@ -365,6 +365,18 @@ class EncoderDecoderConvLSTM(BaseModel):
             y = y[..., : self.output_channels]
         return x, y
 
+    @classmethod
+    def from_config(cls, config):
+        """From the reference's config keys (``num_hidden``, ``in_channels``),
+        as the JAX model reads them."""
+        return cls(
+            hidden_dim=config.get("num_hidden", 64),
+            input_channels=config.get("in_channels", 12),
+            out_channels=config.get("out_channels", 1),
+            forecast_steps=config.get("forecast_steps", 1),
+            lr=config.get("lr", 1e-3),
+        )
+
     def enable_spatial(self, mesh, axis: str = "model") -> None:
         raise NotImplementedError(
             "spatial (H-sharded) rollout is not ported yet (ROADMAP queue 1 item 13)"

@@ -16,16 +16,32 @@ and returns ``(h', c')`` in the input dtype. Weights keep the JAX layout:
 Each wrapper (:func:`fused_convlstm_step` for K1, :func:`gate_bwd` for K2)
 runs its plain version for CPU tensors and launches its hand-written kernel
 (``csrc/fused_convlstm_step.cu``, ``csrc/fused_convlstm_step_bwd.cu``) for
-CUDA tensors, or raises; nothing falls back from one to the other. Under
-autograd the step is :class:`FusedConvLSTMStep`, whose backward is K2 plus
-the merged linear grads as library convs, as ``_bwd`` leaves them to XLA.
+CUDA tensors, or raises; nothing falls back on a failure. Under autograd the
+step is :class:`FusedConvLSTMStep`, whose backward is K2 plus the merged
+linear grads as library convs, as ``_bwd`` leaves them to XLA.
+
+Dispatch (:func:`kernel_takes`), the counterpart of the JAX dispatcher's
+``c.shape[-1] % 8 == 0``: K1 and K2 are built for the hidden widths
+``KERNEL_HIDDEN_WIDTHS`` = 8, 16, 32, 64, 128 and any input width Cx from 1
+to ``KERNEL_MAX_CX`` = 256, in float32 (f32 FMAs on the CUDA cores) and in
+bfloat16 (the tensor cores, ``csrc/convlstm_mma.cuh``). CUDA tensors of those
+widths launch the kernels. CUDA tensors of any other width (the other
+multiples of 8, which the JAX kernel takes and these are not built for, a Ch
+with Ch % 8 != 0, which the JAX dispatcher sends to its XLA step, or Cx above
+256) raise: on the card a wrapper launches its kernel or raises, and a caller
+who wants the plain step there names it (the models take
+``step=fused_convlstm_step_ref``). Anything else the kernels do not take (a
+dtype that is not float32 or bfloat16, tensors on different devices, wrong
+shapes, non-contiguous or misaligned tensors) raises too, as does a failed
+build or launch.
 
 The halo-tensor variant ``_step_pallas_halo`` is ported as K1h
 (``csrc/fused_convlstm_step_halo.cu``, :func:`fused_convlstm_step_halo`): the
 same step, but the image is cut into row blocks of ``block_h`` rows and the
 row above and below each block is gathered outside the kernel by
 :func:`build_halo` into a side tensor with the image's edge zeros in it, so
-the kernel tests no row index. As in the JAX dispatcher the environment
+the kernel tests no row index; it is built for hidden width 64 and Cx a
+multiple of 4 only. As in the JAX dispatcher the environment
 variable ``SATFLOW_STEP_VARIANT``, read at call time, chooses the forward of
 :func:`fused_convlstm_step`: unset or ``3pass`` is K1, ``halo`` is K1h, any
 other value raises. The backward is K2 whatever the variant.
@@ -42,7 +58,10 @@ import torch.nn.functional as F
 
 from satflow_tpu_torch.ops import _build
 
-#: hidden width the kernel is compiled for
+#: hidden widths K1 and K2 are compiled for
+KERNEL_HIDDEN_WIDTHS = (8, 16, 32, 64, 128)
+#: the one hidden width K1h and the study kernels (T1, T2, K1p) are compiled
+#: for; they also need Cx % 4 == 0
 KERNEL_HIDDEN = 64
 #: largest input width whose staged window fits the block's shared memory
 KERNEL_MAX_CX = 256
@@ -156,10 +175,17 @@ def gate_bwd_ref(x, h, c, wx, wh, b, dh_next, dc_next) -> Tuple[torch.Tensor, to
             dc_prev.to(x.dtype).contiguous(memory_format=torch.contiguous_format))
 
 
+def kernel_takes(cx: int, ch: int) -> bool:
+    """The dispatch rule of K1 and K2 on CUDA tensors: the widths the kernels
+    are built for launch them, any other raises."""
+    return ch in KERNEL_HIDDEN_WIDTHS and 0 < cx <= KERNEL_MAX_CX
+
+
 def _check(x, h, c, wx, wh, b, **state_like) -> None:
-    """Raise on anything the kernels do not take (the device type last, so
-    that the shape checks can be exercised without a card). ``state_like``
-    are further tensors of c's shape (the backward's dh' and dc')."""
+    """Raise on anything the kernels do not take (the device type and the
+    alignment last, so that the shape checks can be exercised without a
+    card). ``state_like`` are further tensors of c's shape (the backward's
+    dh' and dc')."""
     named = dict(x=x, h=h, c=c, wx=wx, wh=wh, b=b, **state_like)
     for name, t in named.items():
         if t.device != x.device:
@@ -188,14 +214,21 @@ def _check(x, h, c, wx, wh, b, **state_like) -> None:
             f"weights must be wx (3,3,{cx},{4 * ch}), wh (3,3,{ch},{4 * ch}), "
             f"b ({4 * ch},); got {tuple(wx.shape)}, {tuple(wh.shape)}, {tuple(b.shape)}"
         )
-    if ch != KERNEL_HIDDEN:
-        raise ValueError(f"the kernel is built for hidden width {KERNEL_HIDDEN}, got {ch}")
-    if cx % 4 or not 0 < cx <= KERNEL_MAX_CX:
-        raise ValueError(f"the kernel takes Cx a multiple of 4 in [4, {KERNEL_MAX_CX}], got {cx}")
+    if not kernel_takes(cx, ch):
+        raise ValueError(
+            f"the kernels are built for the hidden widths {KERNEL_HIDDEN_WIDTHS} and "
+            f"1 <= Cx <= {KERNEL_MAX_CX}, got Ch={ch}, Cx={cx}; the plain step "
+            "(fused_convlstm_step_ref) takes any width")
     if min(bsz, height, width) <= 0 or bsz > 65535:
         raise ValueError(f"the kernel takes 1 <= B <= 65535 and H, W >= 1, got {tuple(x.shape)}")
     if x.device.type != "cuda":
         raise ValueError(f"the fused step runs on cpu or cuda tensors, not {x.device}")
+    # bfloat16 is copied 16 bytes at a time, float32 read and written as pairs;
+    # x and b are read by the element
+    align = 16 if x.dtype == torch.bfloat16 else 8
+    for name, t in named.items():
+        if name not in ("x", "b") and t.data_ptr() % align:
+            raise ValueError(f"{name} must be {align}-byte aligned")
 
 
 def _library(name: str, entries, n_pointers: int) -> ctypes.CDLL:
@@ -229,15 +262,23 @@ def fused_convlstm_step_halo(x, h, c, wx, wh, b, block_h: int = HALO_BLOCK_H
     CPU tensors take :func:`fused_convlstm_step_halo_ref`; CUDA tensors gather
     the two side tensors with :func:`build_halo` and launch the kernel on the
     current stream, counted in ``fused_convlstm_step_halo.launches``. A geometry
-    the kernel does not take (H % block_h != 0, block_h != 8, Ch != 64) raises.
+    the kernel does not take (H % block_h != 0, block_h != 8, Ch != 64,
+    Cx % 4 != 0) raises.
     """
     if all(t.device.type == "cpu" for t in (x, h, c, wx, wh, b)):
         return fused_convlstm_step_halo_ref(x, h, c, wx, wh, b, block_h)
-    # the geometry first: _check ends with the device type
-    if x.dim() == 4 and (block_h != HALO_BLOCK_H or x.shape[1] % block_h):
-        raise ValueError(
-            f"the halo kernel is built for row blocks of {HALO_BLOCK_H} rows and needs "
-            f"H % block_h == 0, got block_h={block_h}, H={x.shape[1]}")
+    # the kernel's own geometry and widths first: _check ends with the device type
+    if x.dim() == 4 and h.dim() == 4:
+        if block_h != HALO_BLOCK_H or x.shape[1] % block_h:
+            raise ValueError(
+                f"the halo kernel is built for row blocks of {HALO_BLOCK_H} rows and needs "
+                f"H % block_h == 0, got block_h={block_h}, H={x.shape[1]}")
+        if h.shape[-1] != KERNEL_HIDDEN:
+            raise ValueError(f"the halo kernel is built for hidden width {KERNEL_HIDDEN}, "
+                             f"got {h.shape[-1]}")
+        if x.shape[-1] % 4:
+            raise ValueError(f"the halo kernel takes Cx a multiple of 4 in [4, {KERNEL_MAX_CX}], "
+                             f"got {x.shape[-1]}")
     _check(x, h, c, wx, wh, b)
     lib = _library("fused_convlstm_step_halo", _HALO_ENTRY, 10)
     x_halo, h_halo = build_halo(x, block_h), build_halo(h, block_h)
@@ -260,7 +301,7 @@ fused_convlstm_step_halo.launches = 0
 
 def _step(x, h, c, wx, wh, b) -> Tuple[torch.Tensor, torch.Tensor]:
     """The step without autograd, by ``SATFLOW_STEP_VARIANT``: K1h under
-    ``halo``, else K1, the plain version for CPU tensors, else the kernel."""
+    ``halo``, else K1: the plain version for CPU tensors, else the kernel."""
     if step_variant() == "halo":
         return fused_convlstm_step_halo(x, h, c, wx, wh, b)
     if all(t.device.type == "cpu" for t in (x, h, c, wx, wh, b)):
@@ -285,7 +326,7 @@ def gate_bwd(x, h, c, wx, wh, b, dh_next, dc_next) -> Tuple[torch.Tensor, torch.
     """K2: (x, h, c, Wx, Wh, b, dh', dc') -> (dgates, dc_prev), NHWC.
 
     CPU tensors take :func:`gate_bwd_ref`; CUDA tensors launch the kernel on
-    the current stream, counted in ``gate_bwd.launches``.
+    the current stream, counted in ``gate_bwd.launches``, or raise.
     """
     args = (x, h, c, wx, wh, b, dh_next, dc_next)
     if all(t.device.type == "cpu" for t in args):
@@ -359,8 +400,9 @@ class FusedConvLSTMStep(torch.autograd.Function):
 def fused_convlstm_step(x, h, c, wx, wh, b) -> Tuple[torch.Tensor, torch.Tensor]:
     """One ConvLSTM step: (x, h, c, Wx, Wh, b) -> (h', c'), NHWC.
 
-    CPU tensors take :func:`fused_convlstm_step_ref`; CUDA tensors launch K1
-    on the current stream, counted in ``fused_convlstm_step.launches``. Under
+    CPU tensors take :func:`fused_convlstm_step_ref`; CUDA tensors of the
+    widths in :func:`kernel_takes` launch K1 on the current stream, counted in
+    ``fused_convlstm_step.launches``, and of any other width raise. Under
     ``SATFLOW_STEP_VARIANT=halo`` the forward is :func:`fused_convlstm_step_halo`
     instead (K1h, counted there). With
     grad mode on and an input that requires grad, the step runs as

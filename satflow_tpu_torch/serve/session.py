@@ -48,6 +48,9 @@ class InferenceSession:
         ``dtype`` does not apply, since the rollout quantizes its own inputs.
     device: where the model runs; None keeps the model's current device.
         ``"cuda"`` without a card raises.
+    donate: accepted for the JAX session's signature and ignored: there it
+        hands the padded input's buffer to XLA, which has no counterpart in
+        an eager forward. With ``quantize="int8"`` it raises, as there.
     """
 
     def __init__(
@@ -61,6 +64,7 @@ class InferenceSession:
         quantize: Optional[str] = None,
         mesh: Any = None,
         device: Any = None,
+        donate: bool = False,
     ):
         if quantize not in (None, "int8"):
             raise ValueError(f"unknown quantize mode {quantize!r}")
@@ -75,10 +79,10 @@ class InferenceSession:
             model = create_model(model)
         if quantize and getattr(model, "is_gan", False):
             raise ValueError("int8 serving supports forward models only")
-        if quantize and dtype is not None:
+        if quantize and (dtype is not None or donate):
             raise ValueError(
-                "dtype does not apply to quantize='int8' (the rollout quantizes "
-                "its own inputs)"
+                f"{'dtype' if dtype is not None else 'donate'} does not apply to "
+                "quantize='int8' (the rollout quantizes its own inputs)"
             )
         if getattr(model, "is_gan", False):
             raise NotImplementedError(
@@ -115,6 +119,10 @@ class InferenceSession:
         self.dtype = dtype
         self.out_dtype = out_dtype
         self._lock = threading.Lock()  # one in-flight forward per session
+
+    @property
+    def forecast_steps(self) -> int:
+        return int(getattr(self.model, "forecast_steps", 0))
 
     def info(self) -> dict:
         hp = dict(self.model.hparams())

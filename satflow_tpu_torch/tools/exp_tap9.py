@@ -13,8 +13,14 @@ kernels (``csrc/exp_tap9.cu``):
 - :func:`step_padded` (K1p), their yardstick, as the JAX tool's is its main
   kernel in the same layout: K1's contraction order on ``w3`` and K1's LSTM
   epilogue behind the same staging as T1 and T2. K1p's time minus T2's is
-  what the transcendental epilogue costs, K1p against T1 what the tap order
-  does, and K1p against K1 what the W-padded staging does.
+  what the transcendental epilogue costs and K1p against T1 what the tap
+  order does.
+
+The three contract with f32 FMAs on the CUDA cores in float32 and bfloat16
+alike: they measure that contraction, which the float32 K1 still runs. The
+bfloat16 K1 contracts on the tensor cores (``csrc/convlstm_mma.cuh``), so its
+row in the timing table is the main path's step beside the study, and K1p
+against K1 is what the tensor cores are worth, not what the staging costs.
 
 All three keep the JAX main path's W-padded I/O: ``xp`` (B, H, W+2, Cx) and ``hp``
 (B, H, W+2, Ch) come with one halo column on either side, which the kernel
@@ -348,7 +354,7 @@ def time_steps(device: str, bsz: int, size: int, ch: int, block_h: int, steps: i
         out["k1_padded"] = time_chain(
             lambda x, h, c_: step_padded(x, h, c_, wx, wh, b, block_h=block_h), (xp, hp, c),
             steps)
-        _report("K1p (K1, W-padded I/O)", out["k1_padded"], flops)
+        _report("K1p (CUDA-core K1, padded)", out["k1_padded"], flops)
     if "tap9" in which:
         out["tap9"] = time_chain(
             lambda x, h, c_: step_tap9(x, h, c_, wx, wh, b, block_h=block_h), (xp, hp, c), steps)

@@ -35,6 +35,9 @@ setup(
     ],
     extras_require={
         "dev": ["pytest", "tensorboardX"],
+        # satflow_tpu_torch imports torch and none of the JAX stack; its CUDA
+        # kernels also need nvcc (the CUDA toolkit) on the machine with the card
+        "torch": ["torch", "numpy", "pyyaml"],
     },
     entry_points={
         "console_scripts": ["satflow-tpu = satflow_tpu.run:main"],

@@ -195,8 +195,9 @@ def _meta(cx=12, ch=64, dtype=torch.float32, b=2, hgt=8, wdt=8):
 @pytest.mark.parametrize(
     "args, error, match",
     [
-        (_meta(ch=8), ValueError, "hidden width 64"),
-        (_meta(cx=6), ValueError, "multiple of 4"),
+        # widths outside kernel_takes (the widths it takes: test_torch_widths.py)
+        (_meta(ch=24), ValueError, "hidden widths"),
+        (_meta(cx=260), ValueError, "1 <= Cx <= 256"),
         (_meta(dtype=torch.float16), TypeError, "float32 or bfloat16"),
         (_meta()[:6] + (torch.empty(2, 8, 9, 64, device="meta"),) + _meta()[7:],
          ValueError, "dh_next"),

@@ -6,7 +6,8 @@ MetNet through K3 and K4. It imports nothing of the JAX package, so it
 runs on a card's machine that has no flax: ``python -m pytest
 tests/test_torch_gpu.py``. Without a card it skips.
 
-K1/K2 at a ragged size (the 8x16 tiles do not divide 20x36) with Cx=12.
+K1/K2 at a ragged size (the 8x16 tiles do not divide 20x36) with Cx=12, and
+at every hidden width they are built for (8 to 128; Cx 1, 12, 256) at 21x37.
 Tolerances: float32 with TF32 off, the same f32 sums in another order (and
 for the step's gradients the same cuDNN linear grads fed agreeing dgates):
 atol 1e-4 (x max|grad| for gradients); bf16: both store bf16 (step 2^-8)
@@ -116,6 +117,120 @@ def test_every_cell_parameter_gets_a_gradient_on_card(dtype):
     for name, p in cell.named_parameters():
         assert p.grad is not None and p.grad.dtype == torch.float32, name
         assert bool(torch.isfinite(p.grad).all()) and p.grad.abs().sum().item() > 0, name
+
+
+def _width_args(cx, ch, dtype, seed=5, shape=(2, 21, 37)):
+    """K1's and K2's arguments at a ragged size: 21x37 is a multiple of neither
+    the 8x16 tile nor Ch=128's 4x16."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shapes = (((*shape, cx), 1.0), ((*shape, ch), 1.0), ((*shape, ch), 1.0),
+              ((3, 3, cx, 4 * ch), (9 * cx) ** -0.5), ((3, 3, ch, 4 * ch), (9 * ch) ** -0.5),
+              ((4 * ch,), 0.1), ((*shape, ch), 1.0), ((*shape, ch), 1.0))
+    return [(torch.randn(*s, generator=g, device="cuda") * sc).to(dtype) for s, sc in shapes]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype, atol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("ch", P.KERNEL_HIDDEN_WIDTHS)
+@pytest.mark.parametrize("cx", [1, 12, 20, 256])
+def test_kernels_match_plain_at_every_width_on_card(cx, ch, dtype, atol):
+    """K1 and K2 at every hidden width they are built for, with a 1-channel,
+    a 12-channel, a 20-channel (padded to 32, rows of no whole 16-byte
+    pieces) and the widest input, each launch counted."""
+    _card()
+    args = _width_args(cx, ch, dtype)
+    before = P.fused_convlstm_step.launches, P.gate_bwd.launches
+    got = P.fused_convlstm_step(*args[:6]) + P.gate_bwd(*args)
+    torch.cuda.synchronize()
+    assert (P.fused_convlstm_step.launches, P.gate_bwd.launches) == (before[0] + 1, before[1] + 1)
+    want = P.fused_convlstm_step_ref(*args[:6]) + P.gate_bwd_ref(*args)
+    for name, a, b in zip(("h", "c", "dgates", "dc_prev"), got, want):
+        assert a.shape == b.shape and a.dtype == dtype, name
+        torch.testing.assert_close(a.float(), b.float(), atol=atol, rtol=atol, msg=name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype, atol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("cx", [1, 12, 16, 20])
+def test_kernels_take_an_unaligned_input_on_card(cx, dtype, atol):
+    """x alone may start off a 16-byte boundary (a contiguous slice of a
+    larger batch): the kernels stage it with plain loads."""
+    _card()
+    args = _width_args(cx, 32, dtype, seed=8)
+    pad = torch.zeros(1 if dtype == torch.float32 else 3, dtype=dtype, device="cuda")
+    x = torch.cat([pad, args[0].flatten()])[pad.numel():].view_as(args[0])
+    assert x.is_contiguous() and x.data_ptr() % 16 and torch.equal(x, args[0])
+    before = P.fused_convlstm_step.launches, P.gate_bwd.launches
+    got = P.fused_convlstm_step(x, *args[1:6]) + P.gate_bwd(x, *args[1:])
+    torch.cuda.synchronize()
+    assert (P.fused_convlstm_step.launches, P.gate_bwd.launches) == (before[0] + 1, before[1] + 1)
+    want = P.fused_convlstm_step_ref(*args[:6]) + P.gate_bwd_ref(*args)
+    for name, a, b in zip(("h", "c", "dgates", "dc_prev"), got, want):
+        torch.testing.assert_close(a.float(), b.float(), atol=atol, rtol=atol, msg=name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ch", [8, 16, 32, 128])
+def test_function_grads_at_every_width_on_card(ch):
+    """The six float32 gradients through K1 + K2 at the other widths."""
+    _card()
+    *args, dh, dc = _width_args(12, ch, torch.float32, seed=6)
+
+    def grads(step):
+        ts = [a.clone().requires_grad_() for a in args]
+        h_next, c_next = step(*ts)
+        ((h_next * dh).sum() + (c_next * dc).sum()).backward()
+        return [t.grad for t in ts]
+
+    before = P.fused_convlstm_step.launches, P.gate_bwd.launches
+    got = grads(P.fused_convlstm_step)
+    assert (P.fused_convlstm_step.launches, P.gate_bwd.launches) == (before[0] + 1, before[1] + 1)
+    for name, a, b in zip(("dx", "dh", "dc", "dwx", "dwh", "db"), got,
+                          grads(P.fused_convlstm_step_ref)):
+        torch.testing.assert_close(a, b, atol=1e-4 * b.abs().max().item(), rtol=0, msg=name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cx, ch", [(12, 24), (12, 48), (300, 64)])
+def test_width_outside_the_rule_is_refused_on_card(cx, ch):
+    """A width the kernels are not built for raises on the card and names the
+    rule: nothing launches, and no wrapper gives way to the plain version,
+    which a caller names itself (``step=fused_convlstm_step_ref``)."""
+    _card()
+    assert not P.kernel_takes(cx, ch)
+    args = _width_args(cx, ch, torch.float32, seed=7)
+    before = P.fused_convlstm_step.launches, P.gate_bwd.launches
+    for call in (lambda: P.fused_convlstm_step(*args[:6]), lambda: P.gate_bwd(*args)):
+        with pytest.raises(ValueError, match="hidden widths .* and 1 <= Cx <= 256"):
+            call()
+    assert (P.fused_convlstm_step.launches, P.gate_bwd.launches) == before
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        P.fused_convlstm_step(*(a.half() for a in args[:6]))
+    with pytest.raises(ValueError, match="is on cpu"):
+        P.fused_convlstm_step(args[0], args[1].cpu(), *args[2:6])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hidden, dtype, atol", [(8, torch.float32, 1e-4), (16, torch.float32, 1e-4),
+                                                 (32, torch.bfloat16, 2e-2)])
+def test_fused_core_at_small_widths_on_card(hidden, dtype, atol):
+    """The default ``cell_impl="fused"`` core at the shipped experiments'
+    hidden widths (T=2, F=3, 20x36): 2T + 2F K1 launches a forward, and the
+    rollout through the plain step within the step's tolerance."""
+    _card()
+    from satflow_tpu_torch.models.conv_lstm import ConvLSTMCore
+
+    core = ConvLSTMCore(hidden_dim=hidden, in_channels=12, out_channels=12, forecast_steps=3,
+                        dtype=dtype, generator=torch.Generator().manual_seed(0)).cuda().eval()
+    x = torch.rand(2, 2, 20, 36, 12, device="cuda")
+    before = P.fused_convlstm_step.launches
+    with torch.inference_mode():
+        y = core(x)
+        torch.cuda.synchronize()
+        assert P.fused_convlstm_step.launches == before + 10
+        want = core(x, step=P.fused_convlstm_step_ref)
+    assert y.shape == (2, 3, 20, 36, 12)
+    torch.testing.assert_close(y.float(), want.float(), atol=atol, rtol=0)
 
 
 def _randn(*shape, seed, scale=1.0):
