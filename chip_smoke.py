@@ -13,8 +13,9 @@ Phases, in order; any failure exits non-zero before the last line:
    K3, the LSTM gate tail; K4, the axial attention; K5, the int8 step; K6a and
    K6b, the channel-major step and 3x3 conv head (one source); K1h; T1, T2 and
    K1p; T3. ptxas' registers and spills of every kernel are printed, and the
-   SASS of K1 and K2 is read with ``cuobjdump``: every bfloat16 instantiation
-   must hold HMMA (tensor-core) instructions and no float32 one may;
+   SASS of K1, K2, K4 and K6b is read with ``cuobjdump``: every bfloat16
+   instantiation of K1, K2, K4's tensor-core kernel and K6b's must hold HMMA
+   (tensor-core) instructions and no float32 one may;
 3. K1 against its plain PyTorch version at the serving shapes (B=8,
    256x256, Cx 12 and 64, Ch 64), in float32 and bfloat16, with the image's
    first and last rows and columns checked on their own;
@@ -41,8 +42,12 @@ Phases, in order; any failure exits non-zero before the last line:
 9. K3 against its plain version at MetNet's shape (49 152 rows x C=64) and
    at an odd one, float32 and bfloat16, and ``FusedLSTMGates``' two
    gradients against autograd of the plain version; K4 against its plain
-   version at (24 576, 16, 8), (2048, 128, 64), (2048, 256, 64) and (256,
-   512, 256), float32 and bfloat16, and ``AxialAttention``'s three gradients;
+   version at (24 576, 16, 8), (16 384, 64, 32), (4096, 64, 64), (2048, 128,
+   64), (2048, 256, 64) and (256, 512, 256) and at the edges of each of its
+   three kernels' regimes (L = 1, 17, 32, 33, 100, 512; D = 1, 8, 24, 32, 33,
+   100, 256; N = 1 and an N that is no multiple of the rows per block),
+   float32 and bfloat16, every call a counted launch, and ``AxialAttention``'s
+   three gradients;
 10. MetNet serving: the full-width ``LitMetNet`` (metnet.yaml: hidden 64, one
    axial-attention layer of 8 heads, kernel 3, 24 lead times, 12 channels;
    bf16 compute on f32 weights; weights from numpy seed 0 in the flax
@@ -61,7 +66,9 @@ Phases, in order; any failure exits non-zero before the last line:
    and f32: the plain version's integer sums against an int32 conv on the
    CPU (exact), h'q within one int8 step on at most 0.1 % of elements, c'
    within one step of its dtype, edges on their own; K6a (Cx 64) and K6b
-   (64 -> 12 channels) against their plain versions, float32 and bfloat16;
+   (64 -> 12 channels) against their plain versions, float32 and bfloat16,
+   K6b also at Cin 1, 12 and 128, Cout 1 and 16 and on images whose height and
+   width are multiples of no tile;
 14. int8 serving: the full-width ConvLSTM behind ``NowcastServer`` with
    ``quantize="int8"`` answers 5 concurrent requests and refuses a sixth,
    out-of-range one with 400, alone; 62 K5 and 0 K1 launches per forward;
@@ -108,6 +115,12 @@ Phases, in order; any failure exits non-zero before the last line:
    ``Trainer.fit`` (124 K1 + 62 K2 launches), every cell step a launch;
    replies and gradients held against the same path through the plain
    versions;
+22b. the same model at hidden widths K1 and K2 are not built for, hidden 24
+   in bf16 and hidden 12 in float32: each width is zero-padded to the next one
+   that is built (32, 16) inside the wrappers, so every cell step is still a
+   counted K1 / K2 launch; replies and gradients held against the plain step
+   at the unpadded width at phase 22's tolerances; hidden 136 raises and
+   names the rule; K1 and K2 per call at hidden 24 beside hidden 32;
 23. a JSON line of the kernels with each one's bound on this card, and last
    a JSON line ``{"ok": true, "device": {...}}``.
 
@@ -182,7 +195,19 @@ MN_ROWS = MN_F * B * MN_EH * MN_EH  # K3's rows per call: 49 152
 MN_K3_PER_FORWARD = T  # one gate tail per history frame
 MN_K4_PER_FORWARD = 2  # one attention along H, one along W
 K4_SHAPES = ((MN_F * B * MN_EH * MN_HEADS, MN_EH, MN_HIDDEN // MN_HEADS),  # MetNet's
+             (16384, 64, 32), (4096, 64, 64),  # between the short-axis and the long-axis regime
              (2048, 128, 64), (2048, 256, 64), (256, 512, 256))  # the long-axis regime
+# the edges of K4's three kernels (rows: L <= 32 and D <= 32; else mma in
+# bfloat16, tile in float32): L = 1, 17, 32, 33, 100, 512; D = 1, 8, 24, 32, 33,
+# 100, 256; N = 1 and N that are no multiple of the batch rows a block takes
+K4_EDGES = ((1, 1, 1), (7, 17, 8), (33, 17, 24), (5, 32, 32), (3, 33, 32), (3, 32, 33),
+            (3, 100, 100), (2, 512, 1), (1, 512, 256), (37, 16, 8), (4, 100, 24), (3, 130, 24),
+            (1001, 1, 8), (2, 64, 256), (5, 65, 16))
+# K6b's edges, (B, H, W, Cin, Cout): one and many channels in and out, images
+# that are a multiple of no tile (8 x 32 in bfloat16, 16 x 32 in float32), a
+# width that is no multiple of 8 (the staging by the element)
+K6B_EDGES = ((2, 10, 18, 1, 1), (2, 10, 18, 12, 16), (1, 50, 72, 12, 1), (2, 33, 40, 128, 16),
+             (1, 7, 5, 64, 12), (3, 16, 64, 20, 5))
 # Tolerances, |kernel - plain| <= atol + rtol * |plain|:
 # - K3 and K4, float32: the same f32 arithmetic (K4's online softmax sums the
 #   keys in tiles, in another order): a few f32 rounding steps.
@@ -874,10 +899,15 @@ def check_attention(torch, card) -> float:
     """Phase 9b: K4 vs its plain version at every listed shape and
     AxialAttention's gradients; returns the largest bf16 |K4 - plain| at
     MetNet's shape."""
-    from satflow_tpu_torch.ops.axial_attention import axial_attention, axial_attention_ref
+    from satflow_tpu_torch.ops.axial_attention import (
+        axial_attention,
+        axial_attention_ref,
+        regime,
+    )
 
     worst = 0.0
-    for shape in K4_SHAPES:
+    seen = set()
+    for shape in K4_SHAPES + K4_EDGES:
         for dtype, tol in ((torch.float32, TOL_K34_F32), (torch.bfloat16, TOL_K34_BF16)):
             q, k, v = (_randn(torch, *shape, seed=shape[1] + i).to(dtype) for i in range(3))
             before = axial_attention.launches
@@ -889,8 +919,12 @@ def check_attention(torch, card) -> float:
                            f"K4 {str(dtype)[6:]} {shape}")
             if dtype == torch.bfloat16 and shape == K4_SHAPES[0]:
                 worst = err
-            print(f"K4 vs plain: {str(dtype)[6:]} (N, L, d) {shape}: max|diff| {err:.3g} "
-                  f"tol {tol} ok [{card}]", flush=True)
+            which = regime(shape[1], shape[2], dtype)
+            seen.add(which)
+            print(f"K4 vs plain: {str(dtype)[6:]} (N, L, d) {shape}, the {which} kernel: "
+                  f"max|diff| {err:.3g} tol {tol} ok [{card}]", flush=True)
+    if seen != {"rows", "mma", "tile"}:
+        fail(f"the K4 shapes reached only the kernels {sorted(seen)}")
     q, k, v, g = (_randn(torch, *K4_SHAPES[0], seed=40 + i) for i in range(4))
 
     def grads(fn):
@@ -1039,7 +1073,9 @@ LIBRARY_CONVS = ("conv", "cudnn", "xmma", "dgrad", "wgrad", "cutlass", "implicit
 OPTIMIZER = ("adam", "multi_tensor")
 CONVLSTM_CLASSES = {"K1": ("fused_convlstm_step_kernel",), "K2": ("gate_bwd_kernel",),
                     "library convs": LIBRARY_CONVS, "optimizer": OPTIMIZER}
-MN_CLASSES = {"K3": ("fused_lstm_gates_kernel",), "K4": ("axial_attention_kernel",),
+K4_KERNELS = ("axial_attention_rows_kernel", "axial_attention_mma_kernel",
+              "axial_attention_tile_kernel")
+MN_CLASSES = {"K3": ("fused_lstm_gates_kernel",), "K4": K4_KERNELS,
               "library convs": LIBRARY_CONVS, "optimizer": OPTIMIZER}
 
 
@@ -1335,6 +1371,23 @@ def check_cmajor_kernels(torch, card):
                   f"{max(errs.values()):.3g} (edges: "
                   + ", ".join(f"{k} {v:.3g}" for k, v in errs.items() if "all" not in k)
                   + f") tol {t} ok [{card}]", flush=True)
+    for bsz, hgt, wdt, cin, cout in K6B_EDGES:
+        for dtype, head_tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_HEAD_BF16)):
+            x = _randn(torch, bsz, cin, hgt * wdt, seed=510 + cin).to(dtype)
+            w = _randn(torch, 3, 3, cin, cout, seed=511 + cin, scale=(9 * cin) ** -0.5).to(dtype)
+            b = _randn(torch, cout, seed=512 + cin, scale=0.1).to(dtype)
+            before = cmajor_conv3x3.launches
+            got = cmajor_conv3x3(x, w, b, hgt, wdt)
+            torch.cuda.synchronize()
+            if cmajor_conv3x3.launches != before + 1:
+                fail(f"K6b did not launch at B={bsz} {hgt}x{wdt} {cin} -> {cout}")
+            what = f"K6b {str(dtype)[6:]} B={bsz} {hgt}x{wdt} {cin} -> {cout}"
+            g_ = from_cmajor(got, hgt, wdt)
+            w_ = from_cmajor(cmajor_conv3x3_ref(x, w, b, hgt, wdt), hgt, wdt)
+            err = max(_max_err(torch, g_[idx], w_[idx], head_tol, f"{what} {region}")
+                      for region, idx in REGIONS.items())
+            print(f"K6b vs plain: {what[4:]}: max|diff| {err:.3g} (edges held on their own) tol "
+                  f"{head_tol} ok [{card}]", flush=True)
     return worst["K6a"], worst["K6b"]
 
 
@@ -1419,7 +1472,8 @@ def cmajor_serve_slice(torch, card, fused_model):
 
 FORWARD_CLASSES = {"K1": ("fused_convlstm_step_kernel",),
                    "K5": ("fused_convlstm_step_int8_kernel",),
-                   "K6a": ("cmajor_cell_kernel",), "K6b": ("cmajor_conv_kernel",),
+                   "K6a": ("cmajor_cell_kernel",),
+                   "K6b": ("cmajor_conv_mma_kernel", "cmajor_conv_kernel"),
                    "library convs": LIBRARY_CONVS}
 
 
@@ -1842,6 +1896,9 @@ def halo_path(torch, card, fused_model):
 # experiments: hidden 16 at the Trainer's default ``precision: 32``, hidden 32
 # in bf16; 64 x 64 pixels, 7 frames in, 24 out, b8.
 WIDTH_PATHS = ((16, "32"), (32, "bf16"))
+# Phase 22b: hidden widths K1 and K2 are not built for, zero-padded inside the
+# wrappers to 32 and to 16 (12 is also a Ch % 8 != 0).
+PADDED_PATHS = ((24, "bf16"), (12, "32"))
 PATH_HW = (64, 64)
 # - one float32 train step's parameter gradients through K1 + K2 against the
 #   same step through the plain versions: f32 sums in another order (TOL_F32 a
@@ -1849,8 +1906,9 @@ PATH_HW = (64, 64)
 TOL_TRAIN_GRAD_F32 = 1e-3  # x max|grad| of each tensor
 
 
-def widths_path(torch, card):
-    """Phase 22, the main path at hidden 16 (float32) and hidden 32 (bf16): 5 concurrent
+def widths_path(torch, card, paths=WIDTH_PATHS):
+    """Phases 22 and 22b, the main path at the (hidden, precision) of ``paths``,
+    by default hidden 16 (float32) and hidden 32 (bf16): 5 concurrent
     requests through ``NowcastServer`` and one Adam step through
     ``Trainer.fit``, every cell step a counted launch (on the card the wrappers
     launch or raise; they have no plain route), replies and gradients held
@@ -1863,7 +1921,7 @@ def widths_path(torch, card):
 
     total_k1 = total_k2 = 0
     requests = convlstm_requests(seed=5, hw=PATH_HW)
-    for hidden, precision in WIDTH_PATHS:
+    for hidden, precision in paths:
         bf16 = precision == "bf16"
         what = f"hidden {hidden}, precision {precision}"
         weights = params_from_flax(flax_params(0, hidden=hidden))
@@ -1913,6 +1971,43 @@ def widths_path(torch, card):
         total_k1 += k1 + t_k1
         total_k2 += t_k2
     return total_k1, total_k2
+
+
+def padded_widths(torch, card):
+    """The rest of phase 22b: a hidden width above 128 is refused on the card
+    with the rule named, nothing launched; and what the padding costs a call:
+    K1 and K2 at hidden 24 (padded to 32 in the wrapper: two pad and two slice
+    copies of the state) beside hidden 32, bf16, B=8, 256x256, Cx=12."""
+    from satflow_tpu_torch.ops import fused_convlstm_step as P
+
+    args = step_inputs(torch, CIN, torch.float32, seed=77, ch=136, bhw=(1, 8, 16))
+    cots = cotangents(torch, torch.float32, seed=78, ch=136, bhw=(1, 8, 16))
+    before = P.fused_convlstm_step.launches, P.gate_bwd.launches
+    for name, call in (("K1", lambda: P.fused_convlstm_step(*args)),
+                       ("K2", lambda: P.gate_bwd(*args, *cots))):
+        try:
+            call()
+        except ValueError as e:
+            if "1 <= Ch <= 128" not in str(e):
+                fail(f"{name} at hidden 136 raised without naming the rule: {e}")
+        else:
+            fail(f"{name} at hidden 136 did not raise")
+    if (P.fused_convlstm_step.launches, P.gate_bwd.launches) != before:
+        fail("a refused width was counted as a launch")
+    print(f"hidden 136: K1 and K2 raise and name the rule (1 <= Ch <= 128), nothing launched "
+          f"[{card}]", flush=True)
+    ms = {}
+    for ch in (24, 32):
+        args = step_inputs(torch, CIN, torch.bfloat16, seed=79 + ch, ch=ch)
+        cots = cotangents(torch, torch.bfloat16, seed=80 + ch, ch=ch)
+        ms[ch] = (per_call_ms(torch, P.fused_convlstm_step, P.fused_convlstm_step_ref, args, n=10),
+                  per_call_ms(torch, P.gate_bwd, P.gate_bwd_ref, args + cots, n=10))
+    print(f"time per call, bf16 B={B} {H}x{W} Cx={CIN}: hidden 24 (padded to 32 in the wrapper) K1 "
+          f"{ms[24][0]['kernel']:.4f} ms (plain {ms[24][0]['plain']:.4f}), K2 "
+          f"{ms[24][1]['kernel']:.4f} ms (plain {ms[24][1]['plain']:.4f}); hidden 32 K1 "
+          f"{ms[32][0]['kernel']:.4f} ms, K2 {ms[32][1]['kernel']:.4f} ms: the padding costs "
+          f"{ms[24][0]['kernel'] - ms[32][0]['kernel']:.4f} / "
+          f"{ms[24][1]['kernel'] - ms[32][1]['kernel']:.4f} ms a call [{card}]", flush=True)
 
 
 def study_tools(torch, card):
@@ -2152,29 +2247,39 @@ def new_kernel_timings(torch, fused_model, cell_models, split_train, card):
 INSTANCE = re.compile(r"kernelI(13__nv_bfloat16|f)Li(\d+)E")
 
 
+def sass_ops(_build, name: str, key) -> dict:
+    """{key(header line): {op: count}} over the functions in library ``name``'s
+    SASS (``cuobjdump``) whose ``Function :`` line ``key`` maps to something true."""
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    out = subprocess.run([cuobjdump, "-sass", _build.load(name)._name],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        fail(f"cuobjdump -sass of {name} failed: {out.stderr.strip()[:500]}")
+    per_function, function = {}, None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            function = key(line)
+            if function:
+                per_function[function] = {"HMMA": 0, "LDSM": 0, "LDGSTS": 0, "FFMA": 0}
+        elif function:
+            for op in per_function[function]:
+                if f" {op}" in line:
+                    per_function[function][op] += 1
+    return per_function
+
+
 def check_sass(_build, card) -> dict:
     """Phase 2, the machine code of K1 and K2: every bfloat16 instantiation
     contracts on the tensor cores (HMMA instructions in its SASS) and no
     float32 one does. Returns {(library, hidden width): HMMA count} of the
     bfloat16 kernels."""
-    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    def instance(line):
+        m = INSTANCE.search(line)
+        return m and (m.group(1) != "f", int(m.group(2)))
+
     counts = {}
     for name in ("fused_convlstm_step", "fused_convlstm_step_bwd"):
-        out = subprocess.run([cuobjdump, "-sass", _build.load(name)._name],
-                             capture_output=True, text=True, timeout=300)
-        if out.returncode != 0:
-            fail(f"cuobjdump -sass of {name} failed: {out.stderr.strip()[:500]}")
-        per_function, function = {}, None
-        for line in out.stdout.splitlines():
-            if "Function :" in line:
-                function = INSTANCE.search(line)
-                function = function and (function.group(1) != "f", int(function.group(2)))
-                if function:
-                    per_function[function] = {"HMMA": 0, "LDSM": 0, "LDGSTS": 0, "FFMA": 0}
-            elif function:
-                for op in per_function[function]:
-                    if f" {op}" in line:
-                        per_function[function][op] += 1
+        per_function = sass_ops(_build, name, instance)
         if len(per_function) != 10:
             fail(f"{name}: expected 10 instantiations in the SASS, found {sorted(per_function)}")
         for (bf16, ch), ops in sorted(per_function.items()):
@@ -2185,6 +2290,32 @@ def check_sass(_build, card) -> dict:
             print(f"  SASS {name} ({'bf16' if bf16 else 'f32'}, Ch={ch}): "
                   + ", ".join(f"{op} {n}" for op, n in ops.items()) + f" [{card}]", flush=True)
     return counts
+
+
+def check_sass_redesign(_build, card) -> dict:
+    """Phase 2, the machine code of K4 and K6b: the bfloat16 tensor-core
+    kernels (``axial_attention_mma_kernel``, ``cmajor_conv_mma_kernel``) hold
+    HMMA and LDSM instructions, and no other kernel of K4 or K6b (the rows and
+    tile kernels, the float32 head) holds an HMMA. Returns {library: HMMA count}."""
+    totals = {}
+    for name, fragment in (("axial_attention", "axial_attention_"),
+                           ("cmajor_convlstm", "cmajor_conv_")):
+        def kernel_name(line):
+            m = re.search(rf"\d+({fragment}\w*?kernel)(\w*)", line)
+            return m and m.group(1) + " " + m.group(2)[:40]
+
+        per_function = sass_ops(_build, name, kernel_name)
+        mma = [f for f in per_function if "_mma_kernel" in f]
+        if not mma:
+            fail(f"{name}: no tensor-core kernel in the SASS: {sorted(per_function)}")
+        for function, ops in sorted(per_function.items()):
+            if ("_mma_kernel" in function) != (ops["HMMA"] > 0) or (
+                    "_mma_kernel" in function and ops["LDSM"] == 0):
+                fail(f"{name} {function}: {ops['HMMA']} HMMA and {ops['LDSM']} LDSM instructions")
+            print(f"  SASS {name} {function}: "
+                  + ", ".join(f"{op} {n}" for op, n in ops.items()) + f" [{card}]", flush=True)
+        totals[name] = sum(per_function[f]["HMMA"] for f in mma)
+    return totals
 
 
 def main() -> None:
@@ -2236,6 +2367,10 @@ def main() -> None:
     print(f"HMMA instructions in the bf16 K1: {sum(n for (lib, _), n in hmma.items() if lib == 'fused_convlstm_step')}"
           f" ({hmma['fused_convlstm_step', HIDDEN]} at Ch={HIDDEN}), in the bf16 K2: "
           f"{sum(n for (lib, _), n in hmma.items() if lib == 'fused_convlstm_step_bwd')}", flush=True)
+    hmma_new = check_sass_redesign(_build, card)
+    print(f"HMMA instructions in K4's tensor-core kernel (all D buckets): "
+          f"{hmma_new['axial_attention']}, in the bf16 K6b: {hmma_new['cmajor_convlstm']}",
+          flush=True)
 
     # phases 3-5: each kernel against its plain version
     k1_err = check_kernel(torch, fused_convlstm_step, fused_convlstm_step_ref, card)
@@ -2283,6 +2418,9 @@ def main() -> None:
 
     # phase 22 (counts set to 0 inside, just before each path is driven)
     widths_k1, widths_k2 = widths_path(torch, card)
+    # phase 22b: hidden widths that are zero-padded to a built one
+    padded_k1, padded_k2 = widths_path(torch, card, PADDED_PATHS)
+    padded_widths(torch, card)
 
     # phase 23
     def kernel(name, source, replaces, launches, err, t, library=None):
@@ -2294,21 +2432,23 @@ def main() -> None:
     k4_t = k4_ms[K4_SHAPES[0]]
     print(json.dumps({"kernels": [
         # K1: bf16 serving + training + the channel-major rollout's encoder +
-        # the yardstick of the tap9 study tool + the hidden 16 and 32 models
+        # the yardstick of the tap9 study tool + the hidden 16, 32, 24 and 12 models
         kernel("fused_convlstm_step", "fused_convlstm_step.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_step.py:453",
-               serve_k1 + train_k1 + cm_k1 + st_k1 + widths_k1, k1_err, per_call[HIDDEN]),
+               serve_k1 + train_k1 + cm_k1 + st_k1 + widths_k1 + padded_k1, k1_err,
+               per_call[HIDDEN]),
         # the TPU's unpadded sibling of K1: the port's K1 is that kernel (its
         # tensors are unpadded NHWC), so this row repeats K1's numbers
         kernel("fused_convlstm_step (unpadded NHWC)", "fused_convlstm_step.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_step.py:380",
-               serve_k1 + train_k1 + cm_k1 + st_k1 + widths_k1, k1_err, per_call[HIDDEN]),
+               serve_k1 + train_k1 + cm_k1 + st_k1 + widths_k1 + padded_k1, k1_err,
+               per_call[HIDDEN]),
         kernel("fused_convlstm_step_halo", "fused_convlstm_step_halo.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_step.py:266",
                halo_serve + halo_train_k1h, k1h_err, study["K1h"]),
         kernel("gate_bwd", "fused_convlstm_step_bwd.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_step.py:833",
-               train_k2 + halo_train_k2 + widths_k2, k2_err, per_call_bwd[HIDDEN]),
+               train_k2 + halo_train_k2 + widths_k2 + padded_k2, k2_err, per_call_bwd[HIDDEN]),
         kernel("fused_lstm_gates", "fused_lstm_gates.cu",
                "satflow_tpu/ops/pallas/fused_lstm.py:75",
                # MetNet serving + training, the concat/split/hybrid cells

@@ -38,21 +38,59 @@
 //   Per input channel and dx it reads 6 window values, which serve the three
 //   dy taps; the weights of a tap are the same for the whole warp (one
 //   address, served as a broadcast from the read-only cache).
-//   K6b: 4 warps, one per tile row; a thread holds all Cout (<= 16) outputs
-//   of one pixel; the weights sit in shared memory padded to 16 columns.
+//
+// K6b is two kernels, by type. Both are persistent: a grid of as many blocks
+// as fit the card, each staging the weights in shared memory once (Cout padded
+// to 16 columns with zeros) and then walking its share of the tiles.
+//   bfloat16, cmajor_conv_mma_kernel: the head as an implicit GEMM on the
+//   tensor cores, mma.sync m16n8k16 with f32 sums (the helpers of
+//   convlstm_mma.cuh): M = pixels, K = 9 taps x Cin (padded to a multiple of
+//   16), N = 16 (two n8 tiles). In this layout pixels are contiguous and
+//   channels are not, so an ldmatrix row of 8 neighbouring pixels would lose
+//   its 16-byte alignment at the dx = +-1 taps. Of the two ways out (three
+//   dx-shifted copies of the window, or a transposed window) this kernel takes
+//   the transposed one: a thread reads 8 pixels x 8 channels as eight 16-byte
+//   loads (neighbouring lanes on neighbouring pieces of one plane), transposes
+//   them in registers with byte permutes and writes eight 16-byte rows of a
+//   [pixel][channel] bf16 window whose pitch carries 16 bytes of padding; a
+//   tap is then a row offset and every ldmatrix row is aligned, as in K1, at
+//   one third of the shifted copies' shared memory. The two halo columns (and
+//   the whole window where W % 8 != 0) are staged by the element. A block of 8
+//   warps owns 8 rows x 32 columns, a warp one row: two m16 tiles that share
+//   the weights' B fragments (one ldmatrix.trans a k16 step for both n8
+//   tiles). The sums leave through a per-warp [co][pixel] buffer in shared
+//   memory, so that a warp's stores to one co plane are 64 contiguous bytes.
+//   float32, cmajor_conv_kernel: f32 FMAs on the CUDA cores (the float32
+//   tolerance allows no bf16 products). A block of 4 warps owns 16 rows x 32
+//   columns and stages the window 8 input channels at a time; lane l owns
+//   column l of 4 rows, so per input channel and dx it reads 6 window values
+//   for the three dy taps of its 4 pixels, and one read of a tap's 16 weights
+//   serves 4 pixels.
 //
 // What this design leaves on the table: the contraction of K6a runs as f32
 // FMAs on the CUDA cores instead of the tensor cores; its weights are re-read
 // from L2 by every block; the 6 x 34 window re-reads 1.6x the tile's inputs.
-// K6b reads x once per block row of four and spends its time on shared-memory
-// reads, not on the HBM traffic that bounds it.
+// The bf16 K6b stages a tile's window with plain loads before its first
+// product (two blocks on an SM overlap each other, nothing overlaps within a
+// block), its halo columns cost a 32-byte sector per 2-byte element, and N =
+// 16 leaves the tensor cores mostly idle: it is bound by staging, not by the
+// 24 us its bytes need.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
+
+#include "convlstm_mma.cuh"
 
 namespace {
+
+using convlstm_mma::ldmatrix_x4;
+using convlstm_mma::ldmatrix_x4_trans;
+using convlstm_mma::mma_bf16;
+using convlstm_mma::round_up_16;
+using convlstm_mma::smem_addr;
 
 constexpr int kTileH = 4;
 constexpr int kTileW = 32;          // one column per lane
@@ -66,9 +104,22 @@ constexpr int kWarpCh = 8;          // hidden channels per warp
 constexpr int kCellThreads = 32 * (kCh / kWarpCh);
 constexpr int kMaxCx = 128;         // keeps the staged window within 227 KB
 // K6b
-constexpr int kConvThreads = 32 * kTileH;
 constexpr int kMaxCin = 128;
 constexpr int kMaxCout = 16;
+// bfloat16: 8 warps, a warp one row of 32 pixels
+constexpr int kMmaTileH = 8;
+constexpr int kMmaThreads = 32 * kMmaTileH;
+constexpr int kMmaWindow = (kMmaTileH + 2) * kHaloW;  // pixels of a staged window
+constexpr int kWeightPitch = 48;   // bytes a staged weight row (16 bf16 and padding: the
+                                   // 8 rows of an ldmatrix fall in different banks)
+constexpr int kOutPitch = 80;      // bytes a co row of a warp's output buffer (32 bf16 + padding)
+// float32: 4 warps, a warp 4 rows of 32 pixels, the window staged 8 channels at a time
+constexpr int kConvRows = 4;       // rows a thread owns
+constexpr int kConvWarps = 4;
+constexpr int kConvTileH = kConvRows * kConvWarps;
+constexpr int kConvThreads = 32 * kConvWarps;
+constexpr int kConvChunk = 8;
+constexpr int kConvPlane = (kConvTileH + 2) * kHaloW;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -216,56 +267,302 @@ cmajor_cell_kernel(const T* __restrict__ x, const T* __restrict__ h, const T* __
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kConvThreads)
-cmajor_conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                   const T* __restrict__ bias, T* __restrict__ out, int height, int width,
-                   int cin, int cout) {
+// The tile a persistent block takes at step `tile` of its walk: image b, first
+// row y0, first column x0.
+struct Tile {
+  int b, y0, x0;
+};
+__device__ __forceinline__ Tile tile_at(int tile, int tiles_x, int tiles_y, int tile_h) {
+  const int tx = tile % tiles_x;
+  const int ty = (tile / tiles_x) % tiles_y;
+  return Tile{tile / (tiles_x * tiles_y), ty * tile_h, tx * kTileW};
+}
+
+__device__ __forceinline__ int mma_window_pitch(int cinp) { return cinp * 2 + 16; }
+
+inline int mma_conv_smem(int cin) {
+  const int cinp = round_up_16(cin);
+  return 9 * cinp * kWeightPitch + kMmaWindow * (cinp * 2 + 16) +
+         kMmaTileH * kMaxCout * kOutPitch;
+}
+
+__global__ void __launch_bounds__(kMmaThreads)
+cmajor_conv_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+                       const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ out,
+                       int batch, int height, int width, int cin, int cout) {
   extern __shared__ float4 smem4[];
-  float* window = reinterpret_cast<float*>(smem4);       // cin planes
-  float* ws = window + ((cin * kPlane + 3) / 4) * 4;     // (9, cin, 16), 16-byte aligned
-  const int b = blockIdx.z;
-  const int y0 = blockIdx.y * kTileH;
-  const int x0 = blockIdx.x * kTileW;
-  stage_planes<T, kConvThreads>(window, x, cin, b, y0, x0, height, width);
-  for (int i = threadIdx.x; i < 9 * cin * kMaxCout; i += kConvThreads) {
-    const int co = i % kMaxCout;
-    ws[i] = co < cout ? to_f32(w[size_t(i / kMaxCout) * cout + co]) : 0.f;
-  }
-  __syncthreads();
+  const int cinp = round_up_16(cin);
+  const int pitch = mma_window_pitch(cinp);
+  unsigned char* ws = reinterpret_cast<unsigned char*>(smem4);  // (9 * cinp) rows of 16 co
+  unsigned char* window = ws + 9 * cinp * kWeightPitch;         // [pixel][channel]
+  unsigned char* outs = window + kMmaWindow * pitch;            // per warp [co][pixel]
 
-  const int row = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  float acc[kMaxCout];
-#pragma unroll
-  for (int co = 0; co < kMaxCout; ++co) acc[co] = co < cout ? to_f32(bias[co]) : 0.f;
+  const int warp = threadIdx.x / 32;
+  const size_t hw = size_t(height) * width;
+  const __nv_bfloat16 zero = __float2bfloat16(0.f);
 
-#pragma unroll 1
-  for (int ci = 0; ci < cin; ++ci) {
-    const float* plane = window + ci * kPlane + row * kHaloW + lane;
+  // the weights, once: row tap * cinp + ci holds w[tap][ci][0:cout] and zeros
+  for (int i = threadIdx.x; i < 9 * cinp * kMaxCout; i += kMmaThreads) {
+    const int co = i % kMaxCout;
+    const int row = i / kMaxCout;
+    const int ci = row % cinp;
+    const int tap = row / cinp;
+    reinterpret_cast<__nv_bfloat16*>(ws + row * kWeightPitch)[co] =
+        ci < cin && co < cout ? w[(size_t(tap) * cin + ci) * cout + co] : zero;
+  }
+  // this thread's bias: accumulator e of n8 tile nt is co = 8 nt + 2 (lane % 4) + (e & 1)
+  float bv[2][2];
 #pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const float v = plane[(tap / 3) * kHaloW + tap % 3];
-      const float4* w4 = reinterpret_cast<const float4*>(ws + (tap * cin + ci) * kMaxCout);
+  for (int nt = 0; nt < 2; ++nt) {
 #pragma unroll
-      for (int q = 0; q < kMaxCout / 4; ++q) {
-        const float4 wv = w4[q];
-        acc[4 * q + 0] = fmaf(v, wv.x, acc[4 * q + 0]);
-        acc[4 * q + 1] = fmaf(v, wv.y, acc[4 * q + 1]);
-        acc[4 * q + 2] = fmaf(v, wv.z, acc[4 * q + 2]);
-        acc[4 * q + 3] = fmaf(v, wv.w, acc[4 * q + 3]);
-      }
+    for (int e = 0; e < 2; ++e) {
+      const int co = nt * 8 + (lane % 4) * 2 + e;
+      bv[nt][e] = co < cout ? __bfloat162float(bias[co]) : 0.f;
     }
   }
 
-  const int gy = y0 + row;
-  const int gx = x0 + lane;
-  if (gy >= height || gx >= width) return;
-  const size_t hw = size_t(height) * width;
+  const int tiles_x = (width + kTileW - 1) / kTileW;
+  const int tiles_y = (height + kMmaTileH - 1) / kMmaTileH;
+  const int n_tiles = tiles_x * tiles_y * batch;
+  // whole 16-byte pieces of 8 pixels: every row starts aligned and holds no partial piece
+  const bool vec = width % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const int ncg = cinp / 8;  // groups of 8 channels
+
+  // ldmatrix row addresses of this lane. A: matrices (pixels 0-7, k 0-7),
+  // (pixels 8-15, k 0-7), (pixels 0-7, k 8-15), (pixels 8-15, k 8-15) of the
+  // warp's row at tap (0, 0). B (transposed on load): (k 0-7, co 0-7), (k 8-15,
+  // co 0-7), (k 0-7, co 8-15), (k 8-15, co 8-15).
+  const uint32_t a_lane = smem_addr(window) +
+                          (warp * kHaloW + (lane & 7) + ((lane >> 3) & 1) * 8) * pitch +
+                          (lane >> 4) * 16;
+  const uint32_t b_lane = smem_addr(ws) + ((lane & 7) + ((lane >> 3) & 1) * 8) * kWeightPitch +
+                          (lane >> 4) * 16;
+  unsigned char* out_w = outs + warp * kMaxCout * kOutPitch;
+
+#pragma unroll 1
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const Tile t = tile_at(tile, tiles_x, tiles_y, kMmaTileH);
+    const __nv_bfloat16* xb = x + size_t(t.b) * cin * hw;
+    __syncthreads();  // the previous tile's window has been read by every warp
+
+    // by the element: channel ci of window pixel (r, col); zeros outside the
+    // image and past cin
+    auto stage_elements = [&](int col_first, int col_step, int cols) {
+      for (int i = threadIdx.x; i < (kMmaTileH + 2) * cols * cinp; i += kMmaThreads) {
+        const int ci = i % cinp;
+        const int pix = i / cinp;
+        const int col = col_first + (pix % cols) * col_step;
+        const int r = pix / cols;
+        const int gy = t.y0 - 1 + r;
+        const int gx = t.x0 - 1 + col;
+        const bool in = ci < cin && gy >= 0 && gy < height && gx >= 0 && gx < width;
+        reinterpret_cast<__nv_bfloat16*>(window + (r * kHaloW + col) * pitch)[ci] =
+            in ? xb[size_t(ci) * hw + size_t(gy) * width + gx] : zero;
+      }
+    };
+    if (vec) {
+      // the 32 interior columns: 8 pixels x 8 channels a thread, transposed in registers
+      for (int i = threadIdx.x; i < (kMmaTileH + 2) * 4 * ncg; i += kMmaThreads) {
+        const int cg = i % ncg;
+        const int pg = (i / ncg) % 4;
+        const int r = i / (ncg * 4);
+        const int gy = t.y0 - 1 + r;
+        const int gx = t.x0 + pg * 8;
+        const bool in = gy >= 0 && gy < height && gx < width;
+        unsigned int v[8][4];
 #pragma unroll
-  for (int co = 0; co < kMaxCout; ++co) {
-    if (co < cout) {
-      out[(size_t(b) * cout + co) * hw + size_t(gy) * width + gx] = from_f32<T>(acc[co]);
+        for (int c = 0; c < 8; ++c) {
+          uint4 u = make_uint4(0u, 0u, 0u, 0u);
+          if (in && cg * 8 + c < cin) {
+            u = __ldg(reinterpret_cast<const uint4*>(xb + size_t(cg * 8 + c) * hw +
+                                                     size_t(gy) * width + gx));
+          }
+          v[c][0] = u.x; v[c][1] = u.y; v[c][2] = u.z; v[c][3] = u.w;
+        }
+        unsigned char* dst = window + (r * kHaloW + 1 + pg * 8) * pitch + cg * 16;
+#pragma unroll
+        for (int p = 0; p < 8; ++p) {
+          // pixel p is the low (p even) or high half of word p / 2 of every channel
+          const unsigned int sel = (p & 1) ? 0x7632u : 0x5410u;
+          uint4 o;
+          o.x = __byte_perm(v[0][p / 2], v[1][p / 2], sel);
+          o.y = __byte_perm(v[2][p / 2], v[3][p / 2], sel);
+          o.z = __byte_perm(v[4][p / 2], v[5][p / 2], sel);
+          o.w = __byte_perm(v[6][p / 2], v[7][p / 2], sel);
+          *reinterpret_cast<uint4*>(dst + p * pitch) = o;
+        }
+      }
+      stage_elements(0, kHaloW - 1, 2);  // the two halo columns
+    } else {
+      stage_elements(0, 1, kHaloW);
+    }
+    __syncthreads();
+
+    float acc[2][2][4];  // [m16 tile][n8 tile]
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        acc[mt][nt][0] = acc[mt][nt][2] = bv[nt][0];
+        acc[mt][nt][1] = acc[mt][nt][3] = bv[nt][1];
+      }
+    }
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const uint32_t a_tap = a_lane + ((tap / 3) * kHaloW + tap % 3) * pitch;
+      const uint32_t b_tap = b_lane + tap * cinp * kWeightPitch;
+#pragma unroll 2
+      for (int kc = 0; kc < cinp / 16; ++kc) {
+        uint32_t b[4], a0[4], a1[4];
+        ldmatrix_x4_trans(b, b_tap + kc * 16 * kWeightPitch);
+        ldmatrix_x4(a0, a_tap + kc * 32);
+        ldmatrix_x4(a1, a_tap + 16 * pitch + kc * 32);
+        mma_bf16(acc[0][0], a0, b[0], b[1]);
+        mma_bf16(acc[0][1], a0, b[2], b[3]);
+        mma_bf16(acc[1][0], a1, b[0], b[1]);
+        mma_bf16(acc[1][1], a1, b[2], b[3]);
+      }
+    }
+
+    // accumulator e of (mt, nt): pixel 16 mt + lane / 4 + 8 (e >> 1), co as above
+    __syncwarp();  // the warp's previous tile has left its buffer
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int co = nt * 8 + (lane % 4) * 2 + (e & 1);
+          const int px = mt * 16 + lane / 4 + 8 * (e >> 1);
+          reinterpret_cast<__nv_bfloat16*>(out_w + co * kOutPitch)[px] =
+              __float2bfloat16(acc[mt][nt][e]);
+        }
+      }
+    }
+    __syncwarp();
+    const int gy = t.y0 + warp;
+    if (gy < height) {
+      __nv_bfloat16* ob = out + size_t(t.b) * cout * hw + size_t(gy) * width + t.x0;
+      if (vec) {
+#pragma unroll
+        for (int it = 0; it < 2; ++it) {
+          const int co = it * 8 + lane / 4;
+          const int piece = lane % 4;
+          if (co < cout && t.x0 + piece * 8 < width) {
+            *reinterpret_cast<uint4*>(ob + size_t(co) * hw + piece * 8) =
+                *reinterpret_cast<const uint4*>(out_w + co * kOutPitch + piece * 16);
+          }
+        }
+      } else {
+        for (int i = lane; i < kMaxCout * kTileW; i += 32) {
+          const int co = i / kTileW;
+          const int px = i % kTileW;
+          if (co < cout && t.x0 + px < width) {
+            ob[size_t(co) * hw + px] =
+                reinterpret_cast<const __nv_bfloat16*>(out_w + co * kOutPitch)[px];
+          }
+        }
+      }
+    }
+  }
+}
+
+inline int conv_smem(int cin) {
+  return (9 * cin * kMaxCout + kConvChunk * kConvPlane) * int(sizeof(float));
+}
+
+__global__ void __launch_bounds__(kConvThreads)
+cmajor_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                   const float* __restrict__ bias, float* __restrict__ out, int batch,
+                   int height, int width, int cin, int cout) {
+  extern __shared__ float4 smem4[];
+  float* ws = reinterpret_cast<float*>(smem4);  // (9, cin, 16), 16-byte aligned rows
+  float* window = ws + 9 * cin * kMaxCout;      // kConvChunk planes of 18 x 34
+  for (int i = threadIdx.x; i < 9 * cin * kMaxCout; i += kConvThreads) {
+    const int co = i % kMaxCout;
+    ws[i] = co < cout ? w[size_t(i / kMaxCout) * cout + co] : 0.f;
+  }
+
+  const int lane = threadIdx.x % 32;
+  const int row0 = (threadIdx.x / 32) * kConvRows;  // the warp's first row of the tile
+  const size_t hw = size_t(height) * width;
+  const int tiles_x = (width + kTileW - 1) / kTileW;
+  const int tiles_y = (height + kConvTileH - 1) / kConvTileH;
+  const int n_tiles = tiles_x * tiles_y * batch;
+
+#pragma unroll 1
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const Tile t = tile_at(tile, tiles_x, tiles_y, kConvTileH);
+    const float* xb = x + size_t(t.b) * cin * hw;
+    float acc[kConvRows][kMaxCout];
+#pragma unroll
+    for (int co = 0; co < kMaxCout; ++co) {
+      const float bvv = co < cout ? bias[co] : 0.f;
+#pragma unroll
+      for (int r = 0; r < kConvRows; ++r) acc[r][co] = bvv;
+    }
+
+#pragma unroll 1
+    for (int c0 = 0; c0 < cin; c0 += kConvChunk) {
+      const int nc = min(kConvChunk, cin - c0);
+      __syncthreads();  // the previous chunk has been read (and, the first time, ws written)
+      for (int i = threadIdx.x; i < nc * kConvPlane; i += kConvThreads) {
+        const int col = i % kHaloW;
+        const int r = (i / kHaloW) % (kConvTileH + 2);
+        const int ci = i / kConvPlane;
+        const int gy = t.y0 - 1 + r;
+        const int gx = t.x0 - 1 + col;
+        float v = 0.f;
+        if (gy >= 0 && gy < height && gx >= 0 && gx < width) {
+          v = xb[size_t(c0 + ci) * hw + size_t(gy) * width + gx];
+        }
+        window[i] = v;
+      }
+      __syncthreads();
+#pragma unroll 1
+      for (int ci = 0; ci < nc; ++ci) {
+        const float* plane = window + ci * kConvPlane + row0 * kHaloW + lane;
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) {
+          float v[kConvRows + 2];
+#pragma unroll
+          for (int r = 0; r < kConvRows + 2; ++r) v[r] = plane[r * kHaloW + dx];
+#pragma unroll
+          for (int dy = 0; dy < 3; ++dy) {
+            const float4* w4 = reinterpret_cast<const float4*>(
+                ws + ((dy * 3 + dx) * cin + c0 + ci) * kMaxCout);
+#pragma unroll
+            for (int q = 0; q < kMaxCout / 4; ++q) {
+              const float4 wv = w4[q];
+#pragma unroll
+              for (int r = 0; r < kConvRows; ++r) {
+                acc[r][4 * q + 0] = fmaf(v[r + dy], wv.x, acc[r][4 * q + 0]);
+                acc[r][4 * q + 1] = fmaf(v[r + dy], wv.y, acc[r][4 * q + 1]);
+                acc[r][4 * q + 2] = fmaf(v[r + dy], wv.z, acc[r][4 * q + 2]);
+                acc[r][4 * q + 3] = fmaf(v[r + dy], wv.w, acc[r][4 * q + 3]);
+              }
+            }
+          }
+        }
+      }
+    }
+
+    const int gx = t.x0 + lane;
+    if (gx < width) {
+#pragma unroll
+      for (int r = 0; r < kConvRows; ++r) {
+        const int gy = t.y0 + row0 + r;
+        if (gy < height) {
+#pragma unroll
+          for (int co = 0; co < kMaxCout; ++co) {
+            if (co < cout) {
+              out[(size_t(t.b) * cout + co) * hw + size_t(gy) * width + gx] = acc[r][co];
+            }
+          }
+        }
+      }
     }
   }
 }
@@ -300,24 +597,68 @@ int launch_cell(const void* x, const void* h, const void* c, const void* wx, con
   return int(cudaGetLastError());
 }
 
-template <typename T>
-int launch_conv(const void* x, const void* w, const void* b, void* out, int batch,
-                int height, int width, int cin, int cout, int device, void* stream) {
-  if (!image_ok(batch, height, width) || cin <= 0 || cin > kMaxCin || cout <= 0 ||
+// A persistent grid: as many blocks as the card holds at once, at most one a tile.
+template <typename Kernel>
+int persistent_grid(Kernel kernel, int threads, int smem, int device, long long n_tiles,
+                    int* grid) {
+  int sms = 0, per_sm = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return int(err);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return int(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return int(err);
+  if (per_sm < 1) return int(cudaErrorLaunchOutOfResources);
+  *grid = int(n_tiles < (long long)sms * per_sm ? n_tiles : (long long)sms * per_sm);
+  return 0;
+}
+
+inline bool conv_ok(int batch, int height, int width, int cin, int cout, int tile_h,
+                    long long* n_tiles) {
+  if (batch <= 0 || height <= 0 || width <= 0 || cin <= 0 || cin > kMaxCin || cout <= 0 ||
       cout > kMaxCout) {
+    return false;
+  }
+  *n_tiles = (long long)((width + kTileW - 1) / kTileW) * ((height + tile_h - 1) / tile_h) *
+             batch;
+  return *n_tiles <= 0x7fffffff;
+}
+
+int launch_conv_f32(const void* x, const void* w, const void* b, void* out, int batch,
+                    int height, int width, int cin, int cout, int device, void* stream) {
+  long long n_tiles = 0;
+  if (!conv_ok(batch, height, width, cin, cout, kConvTileH, &n_tiles)) {
     return int(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
-  const int smem =
-      (((cin * kPlane + 3) / 4) * 4 + 9 * cin * kMaxCout) * int(sizeof(float));
-  err = cudaFuncSetAttribute(cmajor_conv_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int smem = conv_smem(cin);
+  int grid = 0;
+  const int rc = persistent_grid(cmajor_conv_kernel, kConvThreads, smem, device, n_tiles, &grid);
+  if (rc != 0) return rc;
+  cmajor_conv_kernel<<<grid, kConvThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w), static_cast<const float*>(b),
+      static_cast<float*>(out), batch, height, width, cin, cout);
+  return int(cudaGetLastError());
+}
+
+int launch_conv_bf16(const void* x, const void* w, const void* b, void* out, int batch,
+                     int height, int width, int cin, int cout, int device, void* stream) {
+  long long n_tiles = 0;
+  if (!conv_ok(batch, height, width, cin, cout, kMmaTileH, &n_tiles)) {
+    return int(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
-  cmajor_conv_kernel<T><<<tile_grid(batch, height, width), kConvThreads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(b),
-      static_cast<T*>(out), height, width, cin, cout);
+  const int smem = mma_conv_smem(cin);
+  int grid = 0;
+  const int rc =
+      persistent_grid(cmajor_conv_mma_kernel, kMmaThreads, smem, device, n_tiles, &grid);
+  if (rc != 0) return rc;
+  cmajor_conv_mma_kernel<<<grid, kMmaThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
+      static_cast<const __nv_bfloat16*>(b), static_cast<__nv_bfloat16*>(out), batch, height,
+      width, cin, cout);
   return int(cudaGetLastError());
 }
 
@@ -347,14 +688,13 @@ int satflow_cmajor_cell_bf16(const void* x, const void* h, const void* c, const 
 int satflow_cmajor_conv_f32(const void* x, const void* w, const void* b, void* out,
                             int batch, int height, int width, int cin, int cout, int device,
                             void* stream) {
-  return launch_conv<float>(x, w, b, out, batch, height, width, cin, cout, device, stream);
+  return launch_conv_f32(x, w, b, out, batch, height, width, cin, cout, device, stream);
 }
 
 int satflow_cmajor_conv_bf16(const void* x, const void* w, const void* b, void* out,
                              int batch, int height, int width, int cin, int cout,
                              int device, void* stream) {
-  return launch_conv<__nv_bfloat16>(x, w, b, out, batch, height, width, cin, cout, device,
-                                    stream);
+  return launch_conv_bf16(x, w, b, out, batch, height, width, cin, cout, device, stream);
 }
 
 const char* satflow_cuda_error_string(int err) {

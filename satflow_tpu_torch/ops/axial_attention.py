@@ -13,6 +13,20 @@ a CUDA tensor every such shape launches it. The JAX package's further rule
 carried over. Shapes outside the domain take the plain version on every
 device. Under autograd the op is :class:`AxialAttention`, whose backward
 recomputes through the plain version, as the JAX ``_bwd`` does.
+
+K4 is three kernels in one source, chosen by :func:`regime` on (L, D, dtype);
+the source's entry points apply the same rule:
+
+- ``"rows"``, L <= 32 and D <= 32, float32 and bfloat16 (MetNet's (24 576,
+  16, 8)): a block takes 256 // L consecutive batch rows and one thread owns
+  one (n, query row), scores in registers, one-pass softmax;
+- ``"mma"``, bfloat16 outside ``"rows"``: both products on the tensor cores
+  (``mma.sync`` m16n8k16), online softmax on the accumulator fragments, D
+  padded to 16, 32, 64, 128 or 256;
+- ``"tile"``, float32 outside ``"rows"``: f32 FMAs on the CUDA cores (the
+  float32 tolerance, 1e-5, allows nothing else) as two register-tiled
+  products: a block takes 64 query rows against staged tiles of 64 keys, a
+  thread 4 x 4 scores and 4 x 4 outputs of each 64-column chunk of D.
 """
 
 from __future__ import annotations
@@ -31,6 +45,9 @@ _ENTRY = {
 #: the kernel's domain: the JAX dispatcher's caps
 MAX_LEN = 512
 MAX_DIM = 256
+#: the "rows" regime: a query row's scores and a head's width fit in registers
+ROWS_MAX_LEN = 32
+ROWS_MAX_DIM = 32
 
 
 def axial_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -47,6 +64,20 @@ def kernel_takes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
     q, k and v, 1 <= L <= 512, 1 <= D <= 256 (the JAX package's caps)."""
     return (q.dim() == 3 and q.shape == k.shape == v.shape and q.numel() > 0
             and q.shape[1] <= MAX_LEN and q.shape[2] <= MAX_DIM)
+
+
+def regime(length: int, dim: int, dtype: torch.dtype) -> str:
+    """Which of K4's kernels an (N, L, D) call of ``dtype`` launches: ``"rows"``
+    for L <= 32 and D <= 32, else ``"mma"`` for bfloat16 and ``"tile"`` for
+    float32. Outside the domain (or another dtype) it raises."""
+    if not (1 <= length <= MAX_LEN and 1 <= dim <= MAX_DIM):
+        raise ValueError(f"L={length}, D={dim} lie outside the kernel's domain "
+                         f"(1 <= L <= {MAX_LEN}, 1 <= D <= {MAX_DIM})")
+    if dtype not in _ENTRY:
+        raise TypeError(f"the kernel takes float32 or bfloat16, not {dtype}")
+    if length <= ROWS_MAX_LEN and dim <= ROWS_MAX_DIM:
+        return "rows"
+    return "mma" if dtype == torch.bfloat16 else "tile"
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -74,7 +105,8 @@ def _library() -> ctypes.CDLL:
 
 
 def attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """K4 on CUDA tensors in its domain, counted in ``axial_attention.launches``."""
+    """K4 on CUDA tensors in its domain (the kernel :func:`regime` names),
+    counted in ``axial_attention.launches``."""
     if not kernel_takes(q, k, v):
         raise ValueError(
             f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} lie outside the "

@@ -24,12 +24,17 @@ Dispatch (:func:`kernel_takes`), the counterpart of the JAX dispatcher's
 ``c.shape[-1] % 8 == 0``: K1 and K2 are built for the hidden widths
 ``KERNEL_HIDDEN_WIDTHS`` = 8, 16, 32, 64, 128 and any input width Cx from 1
 to ``KERNEL_MAX_CX`` = 256, in float32 (f32 FMAs on the CUDA cores) and in
-bfloat16 (the tensor cores, ``csrc/convlstm_mma.cuh``). CUDA tensors of those
-widths launch the kernels. CUDA tensors of any other width (the other
-multiples of 8, which the JAX kernel takes and these are not built for, a Ch
-with Ch % 8 != 0, which the JAX dispatcher sends to its XLA step, or Cx above
-256) raise: on the card a wrapper launches its kernel or raises, and a caller
-who wants the plain step there names it (the models take
+bfloat16 (the tensor cores, ``csrc/convlstm_mma.cuh``). CUDA tensors of any
+hidden width from 1 to 128 launch the kernels: a width the kernels are not
+built for is zero-padded to the next one that is (:func:`padded_hidden`,
+:func:`pad_step_operands`) and the outputs are sliced back. That is exact: a
+padded channel's gate sums are all zero, so its c' = σ(0)·0 + σ(0)·tanh(0) = 0
+and h' = σ(0)·tanh(0) = 0, and it reaches the real channels only through zero
+rows of ``wh``. The padded call is a counted launch of K1 / K2 like any
+other (a Ch with Ch % 8 != 0, which the JAX dispatcher sends to its XLA step,
+is padded like the rest). CUDA tensors with Ch above 128 (the JAX kernel takes any multiple of
+8) or Cx above 256 raise: on the card a wrapper launches its kernel or raises,
+and a caller who wants the plain step there names it (the models take
 ``step=fused_convlstm_step_ref``). Anything else the kernels do not take (a
 dtype that is not float32 or bfloat16, tensors on different devices, wrong
 shapes, non-contiguous or misaligned tensors) raises too, as does a failed
@@ -176,9 +181,50 @@ def gate_bwd_ref(x, h, c, wx, wh, b, dh_next, dc_next) -> Tuple[torch.Tensor, to
 
 
 def kernel_takes(cx: int, ch: int) -> bool:
-    """The dispatch rule of K1 and K2 on CUDA tensors: the widths the kernels
-    are built for launch them, any other raises."""
-    return ch in KERNEL_HIDDEN_WIDTHS and 0 < cx <= KERNEL_MAX_CX
+    """The dispatch rule of K1 and K2 on CUDA tensors: 1 <= Ch <= 128 and
+    1 <= Cx <= 256 launch the kernels (a Ch they are not built for padded to
+    :func:`padded_hidden`), any other width raises."""
+    return 1 <= ch <= KERNEL_HIDDEN_WIDTHS[-1] and 1 <= cx <= KERNEL_MAX_CX
+
+
+def padded_hidden(ch: int) -> int:
+    """The hidden width the kernels run ``ch`` at: the smallest of
+    ``KERNEL_HIDDEN_WIDTHS`` that is >= ch."""
+    for width in KERNEL_HIDDEN_WIDTHS:
+        if ch <= width:
+            return width
+    raise ValueError(f"hidden width {ch} is above the kernels' largest, "
+                     f"{KERNEL_HIDDEN_WIDTHS[-1]}")
+
+
+def pad_channels(t: torch.Tensor, ch_to: int) -> torch.Tensor:
+    """(..., Ch) -> (..., ch_to): zeros appended to the last axis."""
+    return F.pad(t, (0, ch_to - t.shape[-1]))
+
+
+def pad_gate_columns(t: torch.Tensor, ch_to: int) -> torch.Tensor:
+    """(..., 4Ch) -> (..., 4·ch_to): each of the four gate blocks (i, f, o, g)
+    padded from Ch to ch_to columns with zeros."""
+    ch = t.shape[-1] // 4
+    return F.pad(t.reshape(*t.shape[:-1], 4, ch), (0, ch_to - ch)).reshape(
+        *t.shape[:-1], 4 * ch_to)
+
+
+def slice_gate_columns(t: torch.Tensor, ch: int) -> torch.Tensor:
+    """(..., 4·Ch') -> (..., 4Ch): the first ``ch`` columns of each gate block,
+    the inverse of :func:`pad_gate_columns`."""
+    ch_from = t.shape[-1] // 4
+    return t.reshape(*t.shape[:-1], 4, ch_from)[..., :ch].reshape(*t.shape[:-1], 4 * ch)
+
+
+def pad_step_operands(h, c, wx, wh, b, ch_to: int):
+    """The step's (h, c, wx, wh, b) at hidden width ``ch_to`` >= Ch: h and c
+    get zero channels, ``wx`` and ``b`` zero gate columns, ``wh`` zero input
+    rows and zero gate columns. The step on these computes the unpadded
+    step's (h', c') in its first Ch channels and exact zeros in the rest."""
+    return (pad_channels(h, ch_to), pad_channels(c, ch_to), pad_gate_columns(wx, ch_to),
+            F.pad(pad_gate_columns(wh, ch_to), (0, 0, 0, ch_to - wh.shape[2])),
+            pad_gate_columns(b, ch_to))
 
 
 def _check(x, h, c, wx, wh, b, **state_like) -> None:
@@ -216,7 +262,8 @@ def _check(x, h, c, wx, wh, b, **state_like) -> None:
         )
     if not kernel_takes(cx, ch):
         raise ValueError(
-            f"the kernels are built for the hidden widths {KERNEL_HIDDEN_WIDTHS} and "
+            f"the kernels take 1 <= Ch <= {KERNEL_HIDDEN_WIDTHS[-1]} (built for "
+            f"{KERNEL_HIDDEN_WIDTHS}, other widths zero-padded to the next of them) and "
             f"1 <= Cx <= {KERNEL_MAX_CX}, got Ch={ch}, Cx={cx}; the plain step "
             "(fused_convlstm_step_ref) takes any width")
     if min(bsz, height, width) <= 0 or bsz > 65535:
@@ -224,10 +271,11 @@ def _check(x, h, c, wx, wh, b, **state_like) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"the fused step runs on cpu or cuda tensors, not {x.device}")
     # bfloat16 is copied 16 bytes at a time, float32 read and written as pairs;
-    # x and b are read by the element
+    # x and b are read by the element; at a width that is padded first the
+    # kernel sees the padded copies, which are fresh allocations
     align = 16 if x.dtype == torch.bfloat16 else 8
     for name, t in named.items():
-        if name not in ("x", "b") and t.data_ptr() % align:
+        if ch in KERNEL_HIDDEN_WIDTHS and name not in ("x", "b") and t.data_ptr() % align:
             raise ValueError(f"{name} must be {align}-byte aligned")
 
 
@@ -307,6 +355,9 @@ def _step(x, h, c, wx, wh, b) -> Tuple[torch.Tensor, torch.Tensor]:
     if all(t.device.type == "cpu" for t in (x, h, c, wx, wh, b)):
         return fused_convlstm_step_ref(x, h, c, wx, wh, b)
     _check(x, h, c, wx, wh, b)
+    ch = h.shape[-1]
+    if ch not in KERNEL_HIDDEN_WIDTHS:
+        h, c, wx, wh, b = pad_step_operands(h, c, wx, wh, b, padded_hidden(ch))
     lib = _library("fused_convlstm_step", _ENTRY, 8)
     h_out = torch.empty_like(h)
     c_out = torch.empty_like(c)
@@ -319,6 +370,8 @@ def _step(x, h, c, wx, wh, b) -> Tuple[torch.Tensor, torch.Tensor]:
     )
     _build.raise_on(err, lib, "fused_convlstm_step")
     fused_convlstm_step.launches += 1
+    if ch != h.shape[-1]:
+        return h_out[..., :ch].contiguous(), c_out[..., :ch].contiguous()
     return h_out, c_out
 
 
@@ -332,11 +385,15 @@ def gate_bwd(x, h, c, wx, wh, b, dh_next, dc_next) -> Tuple[torch.Tensor, torch.
     if all(t.device.type == "cpu" for t in args):
         return gate_bwd_ref(*args)
     _check(x, h, c, wx, wh, b, dh_next=dh_next, dc_next=dc_next)
-    lib = _library("fused_convlstm_step_bwd", _BWD_ENTRY, 10)
     bsz, height, width, cx = x.shape
-    ch = h.shape[-1]
+    ch = ch_in = h.shape[-1]
+    if ch not in KERNEL_HIDDEN_WIDTHS:  # the padded cotangents are zeros
+        ch = padded_hidden(ch_in)
+        args = (x, *pad_step_operands(h, c, wx, wh, b, ch),
+                pad_channels(dh_next, ch), pad_channels(dc_next, ch))
+    lib = _library("fused_convlstm_step_bwd", _BWD_ENTRY, 10)
     dgates = torch.empty(bsz, height, width, 4 * ch, dtype=x.dtype, device=x.device)
-    dc_prev = torch.empty_like(c)
+    dc_prev = torch.empty(bsz, height, width, ch, dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = getattr(lib, _BWD_ENTRY[x.dtype])(
         *(t.data_ptr() for t in args), dgates.data_ptr(), dc_prev.data_ptr(),
@@ -344,6 +401,9 @@ def gate_bwd(x, h, c, wx, wh, b, dh_next, dc_next) -> Tuple[torch.Tensor, torch.
     )
     _build.raise_on(err, lib, "gate_bwd")
     gate_bwd.launches += 1
+    if ch != ch_in:
+        return (slice_gate_columns(dgates, ch_in).contiguous(),
+                dc_prev[..., :ch_in].contiguous())
     return dgates, dc_prev
 
 
@@ -401,7 +461,8 @@ def fused_convlstm_step(x, h, c, wx, wh, b) -> Tuple[torch.Tensor, torch.Tensor]
     """One ConvLSTM step: (x, h, c, Wx, Wh, b) -> (h', c'), NHWC.
 
     CPU tensors take :func:`fused_convlstm_step_ref`; CUDA tensors of the
-    widths in :func:`kernel_takes` launch K1 on the current stream, counted in
+    widths in :func:`kernel_takes` launch K1 on the current stream (a hidden
+    width it is not built for zero-padded to the next one that is), counted in
     ``fused_convlstm_step.launches``, and of any other width raise. Under
     ``SATFLOW_STEP_VARIANT=halo`` the forward is :func:`fused_convlstm_step_halo`
     instead (K1h, counted there). With

@@ -191,17 +191,18 @@ def test_function_grads_at_every_width_on_card(ch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("cx, ch", [(12, 24), (12, 48), (300, 64)])
+@pytest.mark.parametrize("cx, ch", [(12, 136), (12, 192), (300, 64)])
 def test_width_outside_the_rule_is_refused_on_card(cx, ch):
-    """A width the kernels are not built for raises on the card and names the
-    rule: nothing launches, and no wrapper gives way to the plain version,
-    which a caller names itself (``step=fused_convlstm_step_ref``)."""
+    """A width above the kernels' largest (hidden 128, Cx 256) raises on the
+    card and names the rule: nothing launches, and no wrapper gives way to the
+    plain version, which a caller names itself
+    (``step=fused_convlstm_step_ref``)."""
     _card()
     assert not P.kernel_takes(cx, ch)
     args = _width_args(cx, ch, torch.float32, seed=7)
     before = P.fused_convlstm_step.launches, P.gate_bwd.launches
     for call in (lambda: P.fused_convlstm_step(*args[:6]), lambda: P.gate_bwd(*args)):
-        with pytest.raises(ValueError, match="hidden widths .* and 1 <= Cx <= 256"):
+        with pytest.raises(ValueError, match="1 <= Ch <= 128 .* and 1 <= Cx <= 256"):
             call()
     assert (P.fused_convlstm_step.launches, P.gate_bwd.launches) == before
     with pytest.raises(TypeError, match="float32 or bfloat16"):
@@ -211,8 +212,55 @@ def test_width_outside_the_rule_is_refused_on_card(cx, ch):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype, atol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("ch", [24, 40, 12, 1, 96, 127])
+@pytest.mark.parametrize("cx", [1, 12])
+def test_kernels_match_plain_at_padded_widths_on_card(cx, ch, dtype, atol):
+    """K1 and K2 at hidden widths they are not built for: zero-padded to the
+    next built width inside the wrapper, still one counted launch each, the
+    outputs of the unpadded shape and within the step's tolerance of the plain
+    versions at the unpadded width."""
+    _card()
+    assert ch not in P.KERNEL_HIDDEN_WIDTHS and P.kernel_takes(cx, ch)
+    args = _width_args(cx, ch, dtype)
+    before = P.fused_convlstm_step.launches, P.gate_bwd.launches
+    got = P.fused_convlstm_step(*args[:6]) + P.gate_bwd(*args)
+    torch.cuda.synchronize()
+    assert (P.fused_convlstm_step.launches, P.gate_bwd.launches) == (before[0] + 1, before[1] + 1)
+    want = P.fused_convlstm_step_ref(*args[:6]) + P.gate_bwd_ref(*args)
+    for name, a, b in zip(("h", "c", "dgates", "dc_prev"), got, want):
+        assert a.shape == b.shape and a.dtype == dtype and a.is_contiguous(), name
+        torch.testing.assert_close(a.float(), b.float(), atol=atol, rtol=atol, msg=name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ch", [24, 12])
+def test_function_grads_at_padded_widths_on_card(ch):
+    """The six gradients through K1 + K2 at a padded width, float32."""
+    _card()
+    args = _width_args(12, ch, torch.float32, seed=9)
+    dh, dc = args[6:]
+
+    def grads(fn):
+        ts = [a.clone().requires_grad_() for a in args[:6]]
+        h_next, c_next = fn(*ts)
+        ((h_next * dh).sum() + (c_next * dc).sum()).backward()
+        return [t.grad for t in ts]
+
+    before = P.fused_convlstm_step.launches, P.gate_bwd.launches
+    got = grads(P.fused_convlstm_step)
+    assert (P.fused_convlstm_step.launches, P.gate_bwd.launches) == (before[0] + 1, before[1] + 1)
+    for name, a, b in zip(("dx", "dh", "dc", "dwx", "dwh", "db"), got,
+                          grads(P.fused_convlstm_step_ref)):
+        assert a.shape == b.shape, name
+        torch.testing.assert_close(a, b, atol=1e-4 * b.abs().max().item(), rtol=0, msg=name)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("hidden, dtype, atol", [(8, torch.float32, 1e-4), (16, torch.float32, 1e-4),
-                                                 (32, torch.bfloat16, 2e-2)])
+                                                 (32, torch.bfloat16, 2e-2),
+                                                 (24, torch.bfloat16, 2e-2),
+                                                 (12, torch.float32, 1e-4)])
 def test_fused_core_at_small_widths_on_card(hidden, dtype, atol):
     """The default ``cell_impl="fused"`` core at the shipped experiments'
     hidden widths (T=2, F=3, 20x36): 2T + 2F K1 launches a forward, and the
@@ -278,13 +326,32 @@ def test_gate_tail_function_grads_on_card():
 @pytest.mark.parametrize("n, length, d", [(300, 16, 8), (5, 33, 3), (7, 1, 1), (64, 128, 64),
                                           (4, 512, 256), (3, 77, 200)])
 def test_attention_kernel_matches_plain_on_card(dtype, atol, n, length, d):
+    _check_attention(dtype, atol, n, length, d)
+
+
+# the edges of K4's three kernels (rows: L <= 32 and D <= 32; else mma in
+# bfloat16, tile in float32), N = 1 and N that are no multiple of the batch
+# rows a block of the rows kernel takes, and the shapes between the regimes
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype, atol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("n, length, d", [
+    (1, 1, 1), (7, 17, 8), (33, 17, 24), (5, 32, 32), (3, 33, 32), (3, 32, 33), (3, 100, 100),
+    (2, 512, 1), (1, 512, 256), (37, 16, 8), (4, 100, 24), (3, 130, 24), (1001, 1, 8),
+    (2, 64, 256), (5, 65, 16), (64, 64, 32), (16, 64, 64), (8, 256, 64)])
+def test_attention_kernels_at_the_regimes_edges_on_card(dtype, atol, n, length, d):
+    assert A.regime(length, d, dtype) in ("rows", "mma", "tile")
+    _check_attention(dtype, atol, n, length, d, rtol=1e-5 if dtype == torch.float32 else 2 ** -7)
+
+
+def _check_attention(dtype, atol, n, length, d, rtol=None):
     _card()
     q, k, v = (_randn(n, length, d, seed=length + i).to(dtype) for i in range(3))
     before = A.axial_attention.launches
     out = A.axial_attention(q, k, v)
     torch.cuda.synchronize()
     assert A.axial_attention.launches == before + 1 and out.dtype == dtype
-    rtol = 0 if dtype == torch.float32 else 2 ** -8
+    if rtol is None:
+        rtol = 0 if dtype == torch.float32 else 2 ** -8
     torch.testing.assert_close(out.float(), A.axial_attention_ref(q, k, v).float(),
                                atol=atol, rtol=rtol)
 
@@ -457,6 +524,29 @@ def test_cmajor_conv_kernel_matches_plain_on_card(dtype, atol, rtol, cin, cout):
     torch.cuda.synchronize()
     assert CM.cmajor_conv3x3.launches == before + 1 and out.shape == (2, cout, 700)
     torch.testing.assert_close(out.float(), CM.cmajor_conv3x3_ref(x, w, b, 10, 70).float(),
+                               atol=atol, rtol=rtol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype, atol, rtol", [(torch.float32, 1e-4, 1e-5),
+                                               (torch.bfloat16, 2e-2, 2e-2)])
+@pytest.mark.parametrize("bsz, hgt, wdt, cin, cout", [
+    (2, 10, 18, 1, 1), (2, 10, 18, 12, 16), (1, 50, 72, 12, 1), (2, 33, 40, 128, 16),
+    (1, 7, 5, 64, 12), (3, 16, 64, 20, 5), (1, 64, 256, 64, 12)])
+def test_cmajor_conv_kernels_at_the_edges_on_card(dtype, atol, rtol, bsz, hgt, wdt, cin, cout):
+    """K6b (the tensor-core kernel in bfloat16, the CUDA-core one in float32) at
+    one and many channels in and out, on images that are a multiple of no tile
+    and of widths that are and are not multiples of 8."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(61)
+    x = torch.randn(bsz, cin, hgt * wdt, generator=g, device="cuda").to(dtype)
+    w = (torch.randn(3, 3, cin, cout, generator=g, device="cuda") * (9 * cin) ** -0.5).to(dtype)
+    b = (torch.randn(cout, generator=g, device="cuda") * 0.1).to(dtype)
+    before = CM.cmajor_conv3x3.launches
+    out = CM.cmajor_conv3x3(x, w, b, hgt, wdt)
+    torch.cuda.synchronize()
+    assert CM.cmajor_conv3x3.launches == before + 1 and out.shape == (bsz, cout, hgt * wdt)
+    torch.testing.assert_close(out.float(), CM.cmajor_conv3x3_ref(x, w, b, hgt, wdt).float(),
                                atol=atol, rtol=rtol)
 
 

@@ -46,16 +46,24 @@ WIDTHS = [(cx, ch) for ch in (8, 16, 32) for cx in (1, 12)]
 @pytest.mark.parametrize(
     "cx, ch, takes",
     [(cx, ch, True) for ch in (8, 16, 32, 64, 128) for cx in (1, 12, ch, 256)]
-    + [(12, 24, False), (12, 48, False), (12, 12, False), (12, 4, False), (12, 256, False),
-       (257, 64, False), (0, 64, False)],
+    + [(12, 24, True), (12, 48, True), (12, 12, True), (12, 4, True), (1, 1, True),
+       (12, 96, True), (12, 127, True), (12, 129, False), (12, 136, False), (12, 256, False),
+       (257, 64, False), (0, 64, False), (12, 0, False)],
 )
 def test_kernel_takes(cx, ch, takes):
-    """The widths K1 and K2 are instantiated for launch them; any other is
-    refused on the card. Every width the rule takes is one the JAX dispatcher
-    sends to its kernel (Ch % 8 == 0)."""
+    """Every hidden width from 1 to 128 launches K1 and K2 (one they are not
+    instantiated for at the next width that is, zero-padded); a wider one is
+    refused on the card. The padded width is the least instantiated one that
+    holds Ch."""
     assert P.kernel_takes(cx, ch) is takes
     if takes:
-        assert ch % 8 == 0 and ch in P.KERNEL_HIDDEN_WIDTHS
+        chp = P.padded_hidden(ch)
+        assert chp in P.KERNEL_HIDDEN_WIDTHS and chp >= ch
+        assert all(w < ch for w in P.KERNEL_HIDDEN_WIDTHS if w < chp)
+        assert (chp == ch) == (ch in P.KERNEL_HIDDEN_WIDTHS)
+    elif ch > 128:
+        with pytest.raises(ValueError, match="above the kernels' largest, 128"):
+            P.padded_hidden(ch)
 
 
 def test_dispatch_rule_is_stated():
@@ -75,7 +83,8 @@ def _meta(cx=12, ch=64, dtype=torch.float32, b=2, hgt=8, wdt=8, backward=False):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("cx, ch", [(1, 8), (12, 8), (6, 16), (12, 16), (1, 32), (12, 32),
-                                    (128, 128), (256, 64), (255, 8), (3, 128)])
+                                    (128, 128), (256, 64), (255, 8), (3, 128),
+                                    (12, 24), (12, 48), (12, 12), (12, 4), (1, 1), (64, 96)])
 def test_wrappers_accept_every_width(cx, ch, dtype):
     """The widths of the rule are refused no more: tensors off the CPU pass
     every check up to the device type (meta tensors stand in for a card)."""
@@ -85,15 +94,18 @@ def test_wrappers_accept_every_width(cx, ch, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("cx, ch", [(12, 24), (12, 48), (12, 12), (12, 4), (12, 256), (260, 64)])
+@pytest.mark.parametrize("cx, ch", [(12, 136), (12, 129), (12, 192), (0, 24), (12, 256),
+                                    (260, 64)])
 def test_wrappers_refuse_other_widths(cx, ch, dtype):
     """Off the CPU a width outside the rule raises and names the rule: no
     wrapper gives way to the plain version there. The same tensors on the CPU
     take the plain version, whatever their width."""
     for fn, backward in ((P.fused_convlstm_step, False), (P.gate_bwd, True)):
-        with pytest.raises(ValueError, match=r"hidden widths \(8, 16, 32, 64, 128\) and "
-                                             r"1 <= Cx <= 256"):
+        with pytest.raises(ValueError, match=r"1 <= Ch <= 128 \(built for \(8, 16, 32, 64, "
+                                             r"128\).*\) and 1 <= Cx <= 256"):
             fn(*_meta(cx=cx, ch=ch, dtype=dtype, backward=backward))
+    if cx == 0:
+        return
     args = [torch.zeros(a.shape, dtype=dtype) for a in _meta(cx=cx, ch=ch, dtype=dtype,
                                                              hgt=4, wdt=4, backward=True)]
     assert P.fused_convlstm_step(*args[:6])[0].shape == (2, 4, 4, ch)
@@ -183,6 +195,75 @@ def test_fused_rollout_matches_jax(cx, ch):
         got = model.eval()(torch.from_numpy(x)).numpy()
     assert got.shape == want.shape == (2, 3, hgt, wdt, cx)
     np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+# -- hidden widths the kernels are not built for: zero-padded to the next ------
+
+PADDED = [(cx, ch) for ch in (24, 40, 12) for cx in (1, 12)]
+
+
+@pytest.mark.parametrize("cx, ch", PADDED)
+def test_padded_step_equals_the_plain_step_and_jax(cx, ch):
+    """pad -> plain step -> slice is the plain step at the unpadded width (the
+    padded channels of h' and c' are exact zeros), and that is the JAX step;
+    float32 at 2e-5."""
+    args, _ = _inputs(cx, ch, seed=400 + cx + ch)
+    x, h, c, wx, wh, b = (torch.from_numpy(a) for a in args)
+    chp = P.padded_hidden(ch)
+    assert chp == {24: 32, 40: 64, 12: 16}[ch]
+    hp, cp, wxp, whp, bp = P.pad_step_operands(h, c, wx, wh, b, chp)
+    assert hp.shape[-1] == cp.shape[-1] == chp and bp.shape == (4 * chp,)
+    assert wxp.shape == (3, 3, cx, 4 * chp) and whp.shape == (3, 3, chp, 4 * chp)
+    # each gate block keeps its columns, at the block's new offset
+    for g in range(4):
+        assert torch.equal(wxp[..., g * chp:g * chp + ch], wx[..., g * ch:(g + 1) * ch])
+        assert torch.equal(whp[:, :, :ch, g * chp:g * chp + ch], wh[..., g * ch:(g + 1) * ch])
+        assert not whp[:, :, :, g * chp + ch:(g + 1) * chp].any()
+    assert not whp[:, :, ch:].any()
+    h2p, c2p = P.fused_convlstm_step_ref(x, hp, cp, wxp, whp, bp)
+    assert not h2p[..., ch:].any() and not c2p[..., ch:].any()
+    h2, c2 = P.fused_convlstm_step_ref(x, h, c, wx, wh, b)
+    np.testing.assert_allclose(h2p[..., :ch].numpy(), h2.numpy(), atol=2e-5)
+    np.testing.assert_allclose(c2p[..., :ch].numpy(), c2.numpy(), atol=2e-5)
+    h_j, c_j = F._step_ref(*(jnp.asarray(a) for a in args))
+    np.testing.assert_allclose(h2.numpy(), np.asarray(h_j), atol=2e-5)
+    np.testing.assert_allclose(c2.numpy(), np.asarray(c_j), atol=2e-5)
+    # a second step on the padded state: the zeros stay zeros
+    h3p, c3p = P.fused_convlstm_step_ref(x, h2p, c2p, wxp, whp, bp)
+    assert not h3p[..., ch:].any() and not c3p[..., ch:].any()
+
+
+@pytest.mark.parametrize("cx, ch", PADDED)
+def test_padded_gate_bwd_equals_the_plain_one_and_jax(cx, ch):
+    """pad (cotangents with zeros) -> plain gate backward -> slice is the
+    plain one at the unpadded width, and that is the JAX reference's; float32
+    at 1e-4 x max|grad|."""
+    args, cots = _inputs(cx, ch, seed=500 + cx + ch)
+    x, h, c, wx, wh, b, dh, dc = (torch.from_numpy(a) for a in args + cots)
+    chp = P.padded_hidden(ch)
+    padded = P.pad_step_operands(h, c, wx, wh, b, chp)
+    dgp, dcp = P.gate_bwd_ref(x, *padded, P.pad_channels(dh, chp), P.pad_channels(dc, chp))
+    assert dgp.shape[-1] == 4 * chp and dcp.shape[-1] == chp
+    dg, dcv = P.gate_bwd_ref(x, h, c, wx, wh, b, dh, dc)
+    got_dg = P.slice_gate_columns(dgp, ch)
+    assert got_dg.shape == dg.shape
+    assert torch.equal(P.slice_gate_columns(P.pad_gate_columns(dg, chp), ch), dg)
+    for got, want in ((got_dg, dg), (dcp[..., :ch], dcv)):
+        np.testing.assert_allclose(got.numpy(), want.numpy(),
+                                   atol=1e-4 * float(want.abs().max()))
+    dg_j, dc_j = F._gate_bwd_ref(*(jnp.asarray(a) for a in args + cots))
+    for got, want in ((dg, dg_j), (dcv, dc_j)):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-4 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("cx, ch", PADDED)
+def test_padded_widths_pass_the_wrappers_checks(cx, ch):
+    """Off the CPU these widths pass every check up to the device type, with
+    unaligned views too: the kernels see the padded copies."""
+    for fn, backward in ((P.fused_convlstm_step, False), (P.gate_bwd, True)):
+        with pytest.raises(ValueError, match="cpu or cuda tensors, not meta"):
+            fn(*_meta(cx=cx, ch=ch, backward=backward))
 
 
 # -- the sources ----------------------------------------------------------------
