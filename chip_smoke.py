@@ -13,9 +13,10 @@ Phases, in order; any failure exits non-zero before the last line:
    K3, the LSTM gate tail; K4, the axial attention; K5, the int8 step; K6a and
    K6b, the channel-major step and 3x3 conv head (one source); K1h; T1, T2 and
    K1p; T3. ptxas' registers and spills of every kernel are printed, and the
-   SASS of K1, K2, K4 and K6b is read with ``cuobjdump``: every bfloat16
-   instantiation of K1, K2, K4's tensor-core kernel and K6b's must hold HMMA
-   (tensor-core) instructions and no float32 one may;
+   SASS of K1, K2, K1h, K4, K6a and K6b is read with ``cuobjdump``: every
+   bfloat16 instantiation of K1, K2, K1h (hidden 8 to 256), K6a (8 to 128),
+   K4's tensor-core kernel and K6b's must hold HMMA (tensor-core)
+   instructions and no float32 one may;
 3. K1 against its plain PyTorch version at the serving shapes (B=8,
    256x256, Cx 12 and 64, Ch 64), in float32 and bfloat16, with the image's
    first and last rows and columns checked on their own;
@@ -23,7 +24,8 @@ Phases, in order; any failure exits non-zero before the last line:
 5. the six gradients of ``FusedConvLSTMStep`` (K1 forward, K2 backward)
    against torch autograd of the plain step, float32, same shapes; then
    phases 3-5 once more at Ch 8, 16, 32 and 128 with Cx 1, 12, 20 and Ch,
-   float32 and bfloat16, at B=2, 50x70 (a multiple of no tile), launches counted;
+   and at Ch 192 (zero-padded to 256) and 256 with Cx 12 and 256, float32 and
+   bfloat16, at B=2, 50x70 (a multiple of no tile), launches counted;
 6. serving: the full-width ``EncoderDecoderConvLSTM`` (hidden 64, 12
    channels in and out, 24 forecast steps, weights from numpy seed 0 in the
    flax layout) behind ``NowcastServer`` answers 5 concurrent requests; the
@@ -68,7 +70,10 @@ Phases, in order; any failure exits non-zero before the last line:
    within one step of its dtype, edges on their own; K6a (Cx 64) and K6b
    (64 -> 12 channels) against their plain versions, float32 and bfloat16,
    K6b also at Cin 1, 12 and 128, Cout 1 and 16 and on images whose height and
-   width are multiples of no tile;
+   width are multiples of no tile; K5 at hidden 16, 24, 32 and 128 with Cx 12
+   and 13 (zero-padded to 64 / 128 and 16 in the wrapper), against the plain
+   step at the unpadded widths and bit-equal to K5 on operands padded
+   beforehand;
 14. int8 serving: the full-width ConvLSTM behind ``NowcastServer`` with
    ``quantize="int8"`` answers 5 concurrent requests and refuses a sixth,
    out-of-range one with 400, alone; 62 K5 and 0 K1 launches per forward;
@@ -77,6 +82,11 @@ Phases, in order; any failure exits non-zero before the last line:
 15. channel-major serving: the same model with ``cell_impl="cmajor"``; 14 K1,
    48 K6a and 24 K6b launches per forward; one reply held against the fused
    rollout;
+15b. both at hidden 32 (64x128 images, 7 in, 24 out): ``cell_impl="cmajor"``
+   (K6a built for 32) and ``quantize="int8"`` (the session pads the cells
+   once to 64) each answer 5 concurrent requests, launches counted per
+   forward, replies held against the fused rollout and against the int8
+   rollout through K5's plain version on the unpadded weights;
 16. timings: K5, K6a, K6b per call against their plain versions (K6b and K4
    also against the one library call that computes the same function), the
    b8 forward through the fused, int8 and channel-major rollouts in turns,
@@ -90,7 +100,10 @@ Phases, in order; any failure exits non-zero before the last line:
    the interior, T2 relative to max|plain|;
    T3 (the pad-row channel-major prototype) against its plain version and,
    through the layout helpers, against K6a, its pad rows exactly zero and a
-   3-step chain equal to three K6a steps;
+   3-step chain equal to three K6a steps; then K1h (B=2, 48x70, against its
+   plain version and K1) and K6a (B=2, 10x70) at Ch 8, 16, 24 (padded to 32),
+   32, 64, 128 with Cx 1, 12, 64, and T1, K1p, T2, T3 at Cx = Ch = 8 and 32,
+   float32 and bfloat16;
 18. the halo variant of the main path (``SATFLOW_STEP_VARIANT=halo``): the
    fused model answers 5 concurrent requests (62 K1h and 0 K1 launches per
    forward; reply held against the K1 rollout) and takes one Adam step with
@@ -119,8 +132,9 @@ Phases, in order; any failure exits non-zero before the last line:
    in bf16 and hidden 12 in float32: each width is zero-padded to the next one
    that is built (32, 16) inside the wrappers, so every cell step is still a
    counted K1 / K2 launch; replies and gradients held against the plain step
-   at the unpadded width at phase 22's tolerances; hidden 136 raises and
-   names the rule; K1 and K2 per call at hidden 24 beside hidden 32;
+   at the unpadded width at phase 22's tolerances; K1, K2, K1h at hidden 264
+   and K6a, K5 at hidden 136 raise and name the rule; K1 and K2 per call at
+   hidden 24 beside hidden 32;
 23. a JSON line of the kernels with each one's bound on this card, and last
    a JSON line ``{"ok": true, "device": {...}}``.
 
@@ -476,21 +490,25 @@ def check_function_grads(torch, step, step_ref, card) -> None:
 
 
 # Phases 3-5 once more at the other hidden widths K1 and K2 are built for, on
-# an image that is a multiple of neither tile (8 x 16 pixels; 4 x 16 at Ch=128).
-WIDTHS_CH = (8, 16, 32, 128)
+# an image that is a multiple of neither tile (8 x 16 pixels; 4 x 16 at Ch >=
+# 128), as (Ch, the Cx it is held at): above 128 (two groups of 128 channels a
+# pixel, 192 zero-padded to 256) at Cx 12 and at the widest input, 256.
+WIDTHS = tuple((ch, (1, 12, 20, ch)) for ch in (8, 16, 32, 128)) + ((192, (12, 256)),
+                                                                   (256, (12, 256)))
 WIDTHS_BHW = (2, 50, 70)
 
 
 def check_widths(torch, P, card) -> None:
     """K1, K2 and the six gradients of ``FusedConvLSTMStep`` against their
     plain versions at Ch 8, 16, 32, 128 with Cx 1, 12, 20 (padded to 32 in
-    the staged window, its rows no whole 16-byte pieces) and Ch, float32 and
-    bfloat16, the edge regions on their own, the launches counted. The
-    gradients are held relative to max|grad|: float32 to TOL_GRAD_F32,
-    bfloat16 to the bf16 train step's TOL_TRAIN_GRAD and cosine."""
+    the staged window, its rows no whole 16-byte pieces) and Ch, and at Ch 192
+    and 256 with Cx 12 and 256, float32 and bfloat16, the edge regions on
+    their own, the launches counted. The gradients are held relative to
+    max|grad|: float32 to TOL_GRAD_F32, bfloat16 to the bf16 train step's
+    TOL_TRAIN_GRAD and cosine."""
     names = ("dx", "dh", "dc", "dWx", "dWh", "db")
-    for ch in WIDTHS_CH:
-        for cx in (1, 12, 20, ch):
+    for ch, cxs in WIDTHS:
+        for cx in cxs:
             for dtype, tol, grad_tol in ((torch.float32, TOL_F32, TOL_GRAD_F32),
                                          (torch.bfloat16, TOL_BF16, TOL_TRAIN_GRAD)):
                 name = str(dtype)[6:]
@@ -1774,6 +1792,260 @@ def check_exp_cmajor(torch, card) -> float:
     return worst_bf16
 
 
+# K1h and K6a at every hidden width they are built for and at one they
+# zero-pad (24, to 32), with a 1-channel, a 12-channel and a 64-channel input;
+# K1h on B=2 48x70 (six row blocks of 8; 48 is a multiple of no tile height
+# but 8's), K6a on its card test's B=2 10x70 (a multiple of no tile).
+NEW_WIDTHS_CH = (8, 16, 24, 32, 64, 128)
+NEW_WIDTHS_CX = (1, 12, 64)
+HALO_WIDTHS_BHW = (2, 48, 70)
+CMAJOR_WIDTHS_BHW = (2, 10, 70)
+
+
+def check_halo_cmajor_widths(torch, card) -> dict:
+    """Phase 17d: K1h against its plain version and against K1, and K6a
+    against its plain version, at Ch 8, 16, 24, 32, 64, 128 with Cx 1, 12, 64,
+    float32 and bfloat16, every call a counted launch, edges on their own.
+    Returns {kernel: largest bf16 |kernel - plain|}."""
+    from satflow_tpu_torch.ops import cmajor_convlstm as CM
+    from satflow_tpu_torch.ops import fused_convlstm_step as P
+
+    worst = {"K1h": 0.0, "K6a": 0.0}
+    hb, hh, hw = HALO_WIDTHS_BHW
+    cb, chh, cw = CMAJOR_WIDTHS_BHW
+    for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
+        name = str(dtype)[6:]
+        for ch in NEW_WIDTHS_CH:
+            errs = {"K1h": 0.0, "K1h vs K1": 0.0, "K6a": 0.0}
+            for cx in NEW_WIDTHS_CX:
+                what = f"{name} Cx={cx} Ch={ch}"
+                args = step_inputs(torch, cx, dtype, seed=3000 + ch + cx, ch=ch,
+                                   bhw=HALO_WIDTHS_BHW)
+                before = P.fused_convlstm_step_halo.launches, P.fused_convlstm_step.launches
+                got = P.fused_convlstm_step_halo(*args)
+                torch.cuda.synchronize()
+                if (P.fused_convlstm_step_halo.launches, P.fused_convlstm_step.launches) != (
+                        before[0] + 1, before[1]):
+                    fail(f"K1h did not launch alone at {what}")
+                want = P.fused_convlstm_step_halo_ref(*args)
+                k1 = P._step(*args)
+                regions = dict(REGIONS, **{"block rows": (slice(None), boundary_rows(hh, 8))})
+                for region, idx in regions.items():
+                    for i, out in enumerate(("h", "c")):
+                        errs["K1h"] = max(errs["K1h"], _max_err(
+                            torch, got[i][idx], want[i][idx], tol,
+                            f"K1h vs plain {what} {out} {region}"))
+                        errs["K1h vs K1"] = max(errs["K1h vs K1"], _max_err(
+                            torch, got[i][idx], k1[i][idx], TOL_SAME_SUMS[name],
+                            f"K1h vs K1 {what} {out} {region}"))
+                cell = step_inputs(torch, cx, dtype, seed=4000 + ch + cx, ch=ch,
+                                   bhw=CMAJOR_WIDTHS_BHW)
+                cell = tuple(CM.to_cmajor(t) for t in cell[:3]) + cell[3:]
+                before = CM.cmajor_convlstm_step.launches
+                got = CM.cmajor_convlstm_step(*cell, chh, cw)
+                torch.cuda.synchronize()
+                if CM.cmajor_convlstm_step.launches != before + 1:
+                    fail(f"K6a did not launch at {what}")
+                want = CM.cmajor_convlstm_step_ref(*cell, chh, cw)
+                for i, out in enumerate(("h", "c")):
+                    g_, w_ = CM.from_cmajor(got[i], chh, cw), CM.from_cmajor(want[i], chh, cw)
+                    if g_.shape != (cb, chh, cw, ch):
+                        fail(f"K6a {what}: {out}' of shape {tuple(g_.shape)}")
+                    for region, idx in REGIONS.items():
+                        errs["K6a"] = max(errs["K6a"], _max_err(
+                            torch, g_[idx], w_[idx], tol, f"K6a vs plain {what} {out} {region}"))
+            if dtype == torch.bfloat16:
+                worst["K1h"] = max(worst["K1h"], errs["K1h"])
+                worst["K6a"] = max(worst["K6a"], errs["K6a"])
+            print(f"K1h (B={hb} {hh}x{hw}) and K6a (B={cb} {chh}x{cw}) vs plain: {name} Ch={ch}"
+                  f"{' (padded to 32)' if ch == 24 else ''}, Cx {NEW_WIDTHS_CX}: max|diff| K1h "
+                  f"{errs['K1h']:.3g}, K6a {errs['K6a']:.3g} (edges and block-boundary rows held on "
+                  f"their own) tol {tol}; K1h vs K1 {errs['K1h vs K1']:.3g} tol "
+                  f"{TOL_SAME_SUMS[name]}; every call a launch ok [{card}]", flush=True)
+    return worst
+
+
+# K5 at hidden widths it zero-pads (to 64 or 128) with an input width it
+# pads (13, to 16) and one it does not (12), B=2 48x70.
+INT8_WIDTHS = tuple((ch, cx) for ch in (16, 24, 32, 128) for cx in (12, 13))
+
+
+def check_int8_widths(torch, card) -> float:
+    """Phase 13c: K5 at Ch 16, 24, 32, 128 with Cx 12 and 13, zero-padded in
+    the wrapper: against the plain step at the unpadded widths (h'q within one
+    int8 step on at most INT8_MAX_FLIP_SHARE of elements, c' within one step of
+    its dtype), and bit-equal to K5 on operands padded beforehand (what the
+    session does once); the padded channels exact zeros. Returns the largest
+    |c' diff|."""
+    from satflow_tpu_torch.ops import fused_convlstm_int8 as Q
+
+    worst = 0.0
+    bhw = (2, 48, 70)
+    for ch, cx in INT8_WIDTHS:
+        x, h, c, wx, wh, b = step_inputs(torch, cx, torch.float32, seed=5000 + ch + cx, ch=ch,
+                                         bhw=bhw)
+        w3q, dequant, bias = Q.quantize_weights(wx, wh, b)
+        args = (Q.quantize_activations(x), Q.quantize_activations(h), c.to(torch.bfloat16),
+                w3q, dequant, bias)
+        before = Q.fused_convlstm_step_int8.launches
+        hq_k, c_k = Q.fused_convlstm_step_int8(*args)
+        torch.cuda.synchronize()
+        if Q.fused_convlstm_step_int8.launches != before + 1:
+            fail(f"K5 did not launch at Cx={cx} Ch={ch}")
+        hq_p, c_p = Q.fused_convlstm_step_int8_ref(*args)
+        diff = (hq_k.int() - hq_p.int()).abs()
+        flips = diff.float().mean().item()
+        if diff.max().item() > 1 or flips > INT8_MAX_FLIP_SHARE:
+            fail(f"K5 != plain at Cx={cx} Ch={ch}: h'q max|diff| {diff.max().item()}, share {flips}")
+        err = _max_err(torch, c_k, c_p, TOL_INT8_C["bfloat16"], f"K5 c' Cx={cx} Ch={ch}")
+        worst = max(worst, err)
+        cx_to, ch_to = Q.kernel_widths(cx, ch)
+        w_pad = Q.pad_quantized(w3q, dequant, bias, cx, cx_to, ch_to)
+        pre = Q.fused_convlstm_step_int8(
+            Q.pad_channels(args[0], cx_to), Q.pad_channels(args[1], ch_to),
+            Q.pad_channels(args[2], ch_to), *w_pad, Q.pack_weights(w_pad[0], cx_to))
+        if not (torch.equal(pre[0][..., :ch], hq_k) and torch.equal(pre[1][..., :ch], c_k)):
+            fail(f"K5 padded in the wrapper != K5 on operands padded beforehand at Cx={cx} Ch={ch}")
+        if ch < ch_to and (pre[0][..., ch:].abs().max().item() != 0
+                           or pre[1][..., ch:].abs().max().item() != 0):
+            fail(f"K5's padded channels are not zeros at Cx={cx} Ch={ch}")
+        print(f"K5 vs plain: c bf16 B={bhw[0]} {bhw[1]}x{bhw[2]} Cx={cx} Ch={ch} (run at Cx={cx_to} "
+              f"Ch={ch_to}): h'q differs by one step on {int((diff != 0).sum().item())} of "
+              f"{diff.numel()} elements (share {flips:.2g} <= {INT8_MAX_FLIP_SHARE}), c' max|diff| "
+              f"{err:.3g} tol {TOL_INT8_C['bfloat16']}; bit-equal to K5 on operands padded "
+              f"beforehand, padded channels zero ok [{card}]", flush=True)
+    return worst
+
+
+def check_study_widths(torch, card) -> None:
+    """Phase 17e: T1, K1p, T2 and T3 at the JAX tools' width 8 and at 32
+    (Cx = Ch), float32 and bfloat16, against their plain versions, every call
+    a counted launch; T2 relative to max|plain|."""
+    from satflow_tpu_torch.tools import exp_cmajor as XC
+    from satflow_tpu_torch.tools import exp_tap9 as XT
+
+    bsz, hgt, wdt = 2, 48, 70
+    for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
+        name = str(dtype)[6:]
+        for ch in (8, 32):
+            x, h, c, wx, wh, b = step_inputs(torch, ch, dtype, seed=6000 + ch, ch=ch,
+                                             bhw=(bsz, hgt, wdt))
+            pargs = (XT.pad_w(x).contiguous(), XT.pad_w(h).contiguous(), c, wx, wh, b)
+            errs = {}
+            for what, fn, ref in (("T1", XT.step_tap9, XT.step_tap9_ref),
+                                  ("K1p", XT.step_padded, XT.step_padded_ref),
+                                  ("T2", XT.step_nogate, XT.step_nogate_ref)):
+                before = fn.launches
+                got = fn(*pargs)
+                torch.cuda.synchronize()
+                if fn.launches != before + 1:
+                    fail(f"{what} did not launch at {name} Ch={ch}")
+                want = ref(*pargs)
+                for g_, w_ in zip(got, want):
+                    if what == "T2":
+                        scale = w_.float().abs().max().item()
+                        e = (g_.float() - w_.float()).abs().max().item() / scale
+                        if not e <= TOL_NOGATE_REL[name]:
+                            fail(f"T2 vs plain {name} Ch={ch}: max|diff| / max|plain| {e:.3g}")
+                    else:
+                        e = _max_err(torch, g_, w_, tol, f"{what} vs plain {name} Ch={ch}")
+                    errs[what] = max(errs.get(what, 0.0), e)
+            carry = [XC.to_cmajor(t, HALO_BLOCK_H) for t in (x, h, c)]
+            t3 = (*carry, XC.weights_cmajor(wx, wh), b.reshape(-1, 1).contiguous())
+            before = XC.cmajor_step.launches
+            got = XC.cmajor_step(*t3, HALO_BLOCK_H, hgt, wdt)
+            torch.cuda.synchronize()
+            if XC.cmajor_step.launches != before + 1:
+                fail(f"T3 did not launch at {name} C={ch}")
+            want = XC.cmajor_step_ref(*t3, HALO_BLOCK_H, hgt, wdt)
+            errs["T3"] = max(_max_err(torch, g_, w_, tol, f"T3 vs plain {name} C={ch}")
+                             for g_, w_ in zip(got, want))
+            print(f"T1, K1p, T2 (W-padded) and T3 (pad rows) vs plain: {name} B={bsz} {hgt}x{wdt} "
+                  f"Cx=Ch={ch}: max|diff| " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+                  + f" (T2 relative to max|plain|) tol {tol}; every call a launch ok [{card}]",
+                  flush=True)
+
+
+# The channel-major and int8 rollouts at hidden 32 (one of the hparam search's
+# widths: K6a built for it, K5 padded to 64): 64x128 images (W % 128 == 0, the
+# channel-major geometry gate), 7 frames in and 24 out, b8.
+SMALL_HIDDEN = 32
+SMALL_HW = (64, 128)
+
+
+def small_width_paths(torch, card):
+    """Phase 15b: ``cell_impl="cmajor"`` and ``quantize="int8"`` served at
+    hidden 32 (5 concurrent requests each), launches counted per forward,
+    replies held against the fused rollout through K1 (cmajor) and against
+    the int8 rollout through K5's plain version on the unpadded weights.
+    Returns ((K1, K6a, K6b) launches, K5 launches)."""
+    from satflow_tpu_torch.interop.jax_weights import params_from_flax
+    from satflow_tpu_torch.models.conv_lstm import EncoderDecoderConvLSTM
+    from satflow_tpu_torch.ops import cmajor_convlstm as CM
+    from satflow_tpu_torch.ops import fused_convlstm_int8 as Q
+    from satflow_tpu_torch.ops import fused_convlstm_step as P
+    from satflow_tpu_torch.serve import InferenceSession
+
+    weights = params_from_flax(flax_params(0, hidden=SMALL_HIDDEN))
+    requests = convlstm_requests(seed=9, hw=SMALL_HW)
+    what = f"hidden {SMALL_HIDDEN}, {SMALL_HW[0]}x{SMALL_HW[1]}"
+
+    fused = EncoderDecoderConvLSTM(hidden_dim=SMALL_HIDDEN, input_channels=CIN,
+                                   out_channels=COUT, forecast_steps=STEPS)
+    fused.module.load_state_dict(weights)
+    fused = fused.to(DEVICE).eval()
+    fused.set_compute_dtype(torch.bfloat16)
+    model = EncoderDecoderConvLSTM(hidden_dim=SMALL_HIDDEN, input_channels=CIN,
+                                   out_channels=COUT, forecast_steps=STEPS, cell_impl="cmajor")
+    session = InferenceSession(model, max_batch=B, state_dict=weights, dtype=torch.bfloat16,
+                               device=DEVICE)
+    replies, wall, forwards, cm = drive_server(
+        session, requests, [P.fused_convlstm_step, CM.cmajor_convlstm_step, CM.cmajor_conv3x3])
+    check_frames(requests, replies, f"cmajor serving at {what}")
+    if forwards < 1 or cm != tuple(n * forwards for n in CMAJOR_LAUNCHES_PER_FORWARD):
+        fail(f"cmajor serving at {what} launched (K1, K6a, K6b) {cm} times in {forwards} "
+             f"forwards, expected {CMAJOR_LAUNCHES_PER_FORWARD} each")
+    with torch.inference_mode():
+        x0 = torch.from_numpy(requests[0][None]).to(DEVICE)
+        ref = fused(x0.to(torch.bfloat16)).float().cpu().numpy()[0]
+    diff = float(np.abs(ref - replies[0][1]).max())
+    if not diff <= TOL_ROLLOUT:
+        fail(f"cmajor reply at {what} vs the fused rollout: max|diff| {diff:.3g} > {TOL_ROLLOUT}")
+    print(f"cmajor at {what}: served {len(requests)} requests (6 samples) in {forwards} "
+          f"forward(s) of b{B}, {wall:.3f} s wall; launches (K1, K6a, K6b) {cm} = "
+          f"{CMAJOR_LAUNCHES_PER_FORWARD} x {forwards}; reply vs the fused rollout max|diff| "
+          f"{diff:.3g} <= {TOL_ROLLOUT} ok [{card}]", flush=True)
+    del session, model
+
+    model = EncoderDecoderConvLSTM(hidden_dim=SMALL_HIDDEN, input_channels=CIN,
+                                   out_channels=COUT, forecast_steps=STEPS)
+    session = InferenceSession(model, max_batch=B, state_dict=weights, quantize="int8",
+                               device=DEVICE)
+    widths = tuple(q.w3q.shape[-1] // 4 for n, q in session.qparams.items() if n != "head")
+    if widths != (64,) * 4:
+        fail(f"the int8 session at {what} did not pad its cells once to 64: {widths}")
+    replies, wall, forwards, (k5, k1) = drive_server(
+        session, requests, [Q.fused_convlstm_step_int8, P.fused_convlstm_step])
+    check_frames(requests, replies, f"int8 serving at {what}")
+    if forwards < 1 or (k5, k1) != (INT8_LAUNCHES_PER_FORWARD * forwards, 0):
+        fail(f"int8 serving at {what} launched K5 {k5} and K1 {k1} times in {forwards} forwards")
+    with torch.inference_mode():
+        plain = Q.int8_rollout(Q.quantize_convlstm_params(model.module, pad=False), x0, STEPS,
+                               step=Q.fused_convlstm_step_int8_ref).float().cpu().numpy()[0]
+    diffs = {name: float(np.abs(r - replies[0][1]).max())
+             for name, r in (("the bf16 rollout through K1", ref),
+                             ("the int8 rollout through K5's plain version, unpadded", plain))}
+    for name, d in diffs.items():
+        if not d <= TOL_INT8_REPLY:
+            fail(f"int8 reply at {what} vs {name}: max|diff| {d:.3g} > {TOL_INT8_REPLY}")
+    print(f"int8 at {what} (cells padded once to 64 by the session): served {len(requests)} "
+          f"requests (6 samples) in {forwards} forward(s) of b{B}, {wall:.3f} s wall; launches K5 "
+          f"{k5} = {INT8_LAUNCHES_PER_FORWARD} x {forwards}, K1 {k1}; reply vs "
+          + ", ".join(f"{n} {d:.3g}" for n, d in diffs.items())
+          + f" <= {TOL_INT8_REPLY} ok [{card}]", flush=True)
+    return cm, k5
+
+
 def fit_one_step(torch, model, counters, want_per_step, what: str, card, hw=(H, W),
                  precision="bf16"):
     """One Adam step (and the epoch's one validation forward) through
@@ -1974,28 +2246,43 @@ def widths_path(torch, card, paths=WIDTH_PATHS):
 
 
 def padded_widths(torch, card):
-    """The rest of phase 22b: a hidden width above 128 is refused on the card
-    with the rule named, nothing launched; and what the padding costs a call:
+    """The rest of phase 22b: a hidden width above a kernel's widest (256 for
+    K1, K2, K1h; 128 for K6a, K5) is refused on the card with the rule named,
+    nothing launched; K1 and K2 per call at hidden 256 (Cx=12); and what the
+    padding costs a call:
     K1 and K2 at hidden 24 (padded to 32 in the wrapper: two pad and two slice
     copies of the state) beside hidden 32, bf16, B=8, 256x256, Cx=12."""
     from satflow_tpu_torch.ops import fused_convlstm_step as P
 
-    args = step_inputs(torch, CIN, torch.float32, seed=77, ch=136, bhw=(1, 8, 16))
-    cots = cotangents(torch, torch.float32, seed=78, ch=136, bhw=(1, 8, 16))
-    before = P.fused_convlstm_step.launches, P.gate_bwd.launches
-    for name, call in (("K1", lambda: P.fused_convlstm_step(*args)),
-                       ("K2", lambda: P.gate_bwd(*args, *cots))):
+    from satflow_tpu_torch.ops import cmajor_convlstm as CM
+    from satflow_tpu_torch.ops import fused_convlstm_int8 as Q
+
+    wide = step_inputs(torch, CIN, torch.float32, seed=77, ch=264, bhw=(1, 8, 16))
+    cots = cotangents(torch, torch.float32, seed=78, ch=264, bhw=(1, 8, 16))
+    x, h, c, wx, wh, b = step_inputs(torch, CIN, torch.float32, seed=76, ch=136, bhw=(1, 8, 16))
+    cell = (CM.to_cmajor(x), CM.to_cmajor(h), CM.to_cmajor(c), wx, wh, b)
+    q = (Q.quantize_activations(x), Q.quantize_activations(h), c,
+         *Q.quantize_weights(wx, wh, b))
+    counters = (P.fused_convlstm_step, P.gate_bwd, P.fused_convlstm_step_halo,
+                CM.cmajor_convlstm_step, Q.fused_convlstm_step_int8)
+    before = tuple(k.launches for k in counters)
+    for name, rule, call in (
+            ("K1 at hidden 264", "1 <= Ch <= 256", lambda: P.fused_convlstm_step(*wide)),
+            ("K2 at hidden 264", "1 <= Ch <= 256", lambda: P.gate_bwd(*wide, *cots)),
+            ("K1h at hidden 264", "1 <= Ch <= 256", lambda: P.fused_convlstm_step_halo(*wide)),
+            ("K6a at hidden 136", "1 <= Ch <= 128", lambda: CM.cmajor_convlstm_step(*cell, 8, 16)),
+            ("K5 at hidden 136", "1 <= Ch <= 128", lambda: Q.fused_convlstm_step_int8(*q))):
         try:
             call()
         except ValueError as e:
-            if "1 <= Ch <= 128" not in str(e):
-                fail(f"{name} at hidden 136 raised without naming the rule: {e}")
+            if rule not in str(e):
+                fail(f"{name} raised without naming the rule: {e}")
         else:
-            fail(f"{name} at hidden 136 did not raise")
-    if (P.fused_convlstm_step.launches, P.gate_bwd.launches) != before:
+            fail(f"{name} did not raise")
+    if tuple(k.launches for k in counters) != before:
         fail("a refused width was counted as a launch")
-    print(f"hidden 136: K1 and K2 raise and name the rule (1 <= Ch <= 128), nothing launched "
-          f"[{card}]", flush=True)
+    print(f"K1, K2 and K1h at hidden 264 raise and name the rule (1 <= Ch <= 256), K6a and K5 at "
+          f"hidden 136 (1 <= Ch <= 128); nothing launched [{card}]", flush=True)
     ms = {}
     for ch in (24, 32):
         args = step_inputs(torch, CIN, torch.bfloat16, seed=79 + ch, ch=ch)
@@ -2008,6 +2295,19 @@ def padded_widths(torch, card):
           f"{ms[32][0]['kernel']:.4f} ms, K2 {ms[32][1]['kernel']:.4f} ms: the padding costs "
           f"{ms[24][0]['kernel'] - ms[32][0]['kernel']:.4f} / "
           f"{ms[24][1]['kernel'] - ms[32][1]['kernel']:.4f} ms a call [{card}]", flush=True)
+    # the widest hidden width, two groups of 128 channels a pixel
+    ch = 256
+    args = step_inputs(torch, CIN, torch.bfloat16, seed=81, ch=ch)
+    cots = cotangents(torch, torch.bfloat16, seed=82, ch=ch)
+    t1 = per_call_ms(torch, P.fused_convlstm_step, P.fused_convlstm_step_ref, args, n=3)
+    t2 = per_call_ms(torch, P.gate_bwd, P.gate_bwd_ref, args + cots, n=3)
+    flop = 2 * B * H * W * 4 * ch * 9 * (CIN + ch)
+    # outputs: h', c' (K1); dgates (4 Ch) and dc_prev (Ch), five of h's size (K2)
+    for name, t, extra in (("K1", t1, (args[1], args[2])), ("K2", t2, (args[1],) * 5)):
+        b_ms, by = bound_ms(args + extra + (cots if name == "K2" else ()), flop, "bf16")
+        print(f"time per {name} call, bf16 B={B} {H}x{W} Cx={CIN} Ch={ch}: kernel "
+              f"{t['kernel']:.4f} ms ({flop / t['kernel'] / 1e9:.1f} TFLOP/s), plain "
+              f"{t['plain']:.4f} ms; bound {b_ms:.4f} ms by {by} [{card}]", flush=True)
 
 
 def study_tools(torch, card):
@@ -2269,19 +2569,20 @@ def sass_ops(_build, name: str, key) -> dict:
 
 
 def check_sass(_build, card) -> dict:
-    """Phase 2, the machine code of K1 and K2: every bfloat16 instantiation
-    contracts on the tensor cores (HMMA instructions in its SASS) and no
-    float32 one does. Returns {(library, hidden width): HMMA count} of the
-    bfloat16 kernels."""
+    """Phase 2, the machine code of K1, K2, K1h (hidden 8 to 256) and K6a (8
+    to 128): every bfloat16 instantiation contracts on the tensor cores (HMMA
+    instructions in its SASS) and no float32 one does. Returns {(library,
+    hidden width): HMMA count} of the bfloat16 kernels."""
     def instance(line):
         m = INSTANCE.search(line)
         return m and (m.group(1) != "f", int(m.group(2)))
 
     counts = {}
-    for name in ("fused_convlstm_step", "fused_convlstm_step_bwd"):
+    for name, n in (("fused_convlstm_step", 12), ("fused_convlstm_step_bwd", 12),
+                    ("fused_convlstm_step_halo", 12), ("cmajor_convlstm", 10)):
         per_function = sass_ops(_build, name, instance)
-        if len(per_function) != 10:
-            fail(f"{name}: expected 10 instantiations in the SASS, found {sorted(per_function)}")
+        if len(per_function) != n:
+            fail(f"{name}: expected {n} instantiations in the SASS, found {sorted(per_function)}")
         for (bf16, ch), ops in sorted(per_function.items()):
             if bf16 != (ops["HMMA"] > 0):
                 fail(f"{name} {'bf16' if bf16 else 'f32'} Ch={ch}: {ops['HMMA']} HMMA instructions")
@@ -2337,6 +2638,12 @@ def main() -> None:
     except ImportError as e:
         fail(f"satflow_tpu_torch is not importable beside this script: {e}")
 
+    t_start = time.perf_counter()
+
+    def phase_done(name: str) -> None:
+        """The run's wall seconds so far, after each phase: where its time goes."""
+        print(f"[{time.perf_counter() - t_start:.1f} s] {name} done", flush=True)
+
     # phase 1
     card = card_line()
     print(f"card (name, power limit): {card}", flush=True)
@@ -2364,19 +2671,24 @@ def main() -> None:
                 print(f"  {name} ({dtype}): {line.strip()}", flush=True)
 
     hmma = check_sass(_build, card)
-    print(f"HMMA instructions in the bf16 K1: {sum(n for (lib, _), n in hmma.items() if lib == 'fused_convlstm_step')}"
-          f" ({hmma['fused_convlstm_step', HIDDEN]} at Ch={HIDDEN}), in the bf16 K2: "
-          f"{sum(n for (lib, _), n in hmma.items() if lib == 'fused_convlstm_step_bwd')}", flush=True)
+    print("HMMA instructions in the bf16 instantiations: " + ", ".join(
+        f"{what} {sum(n for (lib, _), n in hmma.items() if lib == name)} "
+        f"({hmma[name, HIDDEN]} at Ch={HIDDEN})"
+        for what, name in (("K1", "fused_convlstm_step"), ("K2", "fused_convlstm_step_bwd"),
+                           ("K1h", "fused_convlstm_step_halo"), ("K6a", "cmajor_convlstm"))),
+          flush=True)
     hmma_new = check_sass_redesign(_build, card)
     print(f"HMMA instructions in K4's tensor-core kernel (all D buckets): "
           f"{hmma_new['axial_attention']}, in the bf16 K6b: {hmma_new['cmajor_convlstm']}",
           flush=True)
+    phase_done("phases 1-2 (build, SASS)")
 
     # phases 3-5: each kernel against its plain version
     k1_err = check_kernel(torch, fused_convlstm_step, fused_convlstm_step_ref, card)
     k2_err = check_gate_bwd(torch, gate_bwd, gate_bwd_ref, card)
     check_function_grads(torch, fused_convlstm_step, fused_convlstm_step_ref, card)
     check_widths(torch, P, card)
+    phase_done("phases 3-5 (K1, K2 checks)")
     # phase 6: serving (counts set to 0 inside, just before the requests)
     serve_k1, _, _, model = serve_slice(torch, card)
     # phase 7
@@ -2384,6 +2696,7 @@ def main() -> None:
                                      gate_bwd, gate_bwd_ref, model, card)
     # phase 8: training (counts set to 0 inside, just before fit)
     train_k1, train_k2, _, _ = train_slice(torch, card)
+    phase_done("phases 6-8 (ConvLSTM serving, timings, training)")
 
     # phase 9: K3 and K4 against their plain versions
     k3_err = check_gate_tail(torch, card)
@@ -2395,32 +2708,43 @@ def main() -> None:
     del mn_model
     # phase 12: MetNet training (counts set to 0 inside, just before fit)
     train_k3, train_k4 = metnet_train_slice(torch, card)
+    phase_done("phases 9-12 (K3, K4, MetNet)")
 
     # phase 13: K5, K6a and K6b against their plain versions
     k5_err = check_int8_kernel(torch, card)
+    k5_err = max(k5_err, check_int8_widths(torch, card))
     k6a_err, k6b_err = check_cmajor_kernels(torch, card)
     # phases 14-15: int8 and channel-major serving (counts set to 0 just before the requests)
     serve_k5, qparams = int8_serve_slice(torch, card)
     (cm_k1, serve_k6a, serve_k6b), cmajor_model = cmajor_serve_slice(torch, card, model)
+    # phase 15b: both at hidden 32 (counts set to 0 inside, just before the requests)
+    (cm32_k1, cm32_k6a, cm32_k6b), int8_32_k5 = small_width_paths(torch, card)
     # phase 16
     serving = serving_timings(torch, model, cmajor_model, qparams, card)
+    phase_done("phases 13-16 (K5, K6a, K6b, int8 and cmajor serving)")
 
     # phase 17: K1h, T1, T2 and T3 against their plain versions
     k1h_err = check_halo_kernel(torch, card)
     t1_err, t2_err, k1p_err = check_study_steps(torch, card)
     t3_err = check_exp_cmajor(torch, card)
+    widths_err = check_halo_cmajor_widths(torch, card)
+    k1h_err, k6a_err = max(k1h_err, widths_err["K1h"]), max(k6a_err, widths_err["K6a"])
+    check_study_widths(torch, card)
+    phase_done("phase 17 (K1h, T1-T3 checks, widths)")
     # phases 18-20 (counts set to 0 inside, just before each path is driven)
     halo_serve, halo_train_k1h, halo_train_k2 = halo_path(torch, card, model)
     (st_k1, st_k1p, st_t1, st_t2, st_k6a, st_t3), _ = study_tools(torch, card)
     cells_k3, cells_train_k3, cell_models, *split_train = cells_path(torch, card)
     # phase 21
     study = new_kernel_timings(torch, model, cell_models, split_train, card)
+    phase_done("phases 18-21 (halo path, study tools, cells, timings)")
 
     # phase 22 (counts set to 0 inside, just before each path is driven)
     widths_k1, widths_k2 = widths_path(torch, card)
     # phase 22b: hidden widths that are zero-padded to a built one
     padded_k1, padded_k2 = widths_path(torch, card, PADDED_PATHS)
     padded_widths(torch, card)
+    phase_done("phase 22 (hidden widths)")
 
     # phase 23
     def kernel(name, source, replaces, launches, err, t, library=None):
@@ -2435,13 +2759,13 @@ def main() -> None:
         # the yardstick of the tap9 study tool + the hidden 16, 32, 24 and 12 models
         kernel("fused_convlstm_step", "fused_convlstm_step.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_step.py:453",
-               serve_k1 + train_k1 + cm_k1 + st_k1 + widths_k1 + padded_k1, k1_err,
+               serve_k1 + train_k1 + cm_k1 + cm32_k1 + st_k1 + widths_k1 + padded_k1, k1_err,
                per_call[HIDDEN]),
         # the TPU's unpadded sibling of K1: the port's K1 is that kernel (its
         # tensors are unpadded NHWC), so this row repeats K1's numbers
         kernel("fused_convlstm_step (unpadded NHWC)", "fused_convlstm_step.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_step.py:380",
-               serve_k1 + train_k1 + cm_k1 + st_k1 + widths_k1 + padded_k1, k1_err,
+               serve_k1 + train_k1 + cm_k1 + cm32_k1 + st_k1 + widths_k1 + padded_k1, k1_err,
                per_call[HIDDEN]),
         kernel("fused_convlstm_step_halo", "fused_convlstm_step_halo.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_step.py:266",
@@ -2458,13 +2782,14 @@ def main() -> None:
                serve_k4 + train_k4, k4_err, k4_t, library=k4_t["library"]),
         kernel("fused_convlstm_step_int8", "fused_convlstm_int8.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_int8.py:172",
-               serve_k5, k5_err, serving[f"K5.{HIDDEN}"]),
+               serve_k5 + int8_32_k5, k5_err, serving[f"K5.{HIDDEN}"]),
         kernel("cmajor_convlstm_step", "cmajor_convlstm.cu",
                "satflow_tpu/ops/pallas/cmajor_convlstm.py:232",
-               serve_k6a + st_k6a, k6a_err, serving["K6a"]),  # + the cmajor study's yardstick
+               # + the hidden-32 path and the cmajor study's yardstick
+               serve_k6a + cm32_k6a + st_k6a, k6a_err, serving["K6a"]),
         kernel("cmajor_conv3x3", "cmajor_convlstm.cu",
                "satflow_tpu/ops/pallas/cmajor_convlstm.py:257",
-               serve_k6b, k6b_err, serving["K6b"], library=serving["K6b"]["library"]),
+               serve_k6b + cm32_k6b, k6b_err, serving["K6b"], library=serving["K6b"]["library"]),
         # K1 once more, in the W-padded layout of the TPU kernel it replaces: the
         # tap9 study tool's yardstick
         kernel("step_padded", "exp_tap9.cu",

@@ -16,8 +16,9 @@
 // with f32 gate math, h' and c' stored in the input type (float or bf16).
 // The weights stay in the JAX HWIO layout, Wx (3, 3, Cx, 4Ch), Wh (3, 3, Ch,
 // 4Ch), b (4Ch): the per-tap (9, 4Ch, Cx+Ch) transform of the TPU kernel
-// exists to feed its matrix unit and has no use here. Ch is fixed at 64; Cx
-// is any width from 1 to 128.
+// exists to feed its matrix unit and has no use here. Ch is 8, 16, 32, 64 or
+// 128 (the wrapper zero-pads another width to the next of them); Cx is any
+// width from 1 to 256.
 //
 // K6b, the head:  out = conv3x3_SAME(x, W) + b, x (B, Cin, H*W), W (3, 3, Cin,
 // Cout) HWIO, out (B, Cout, H*W); Cin <= 128, Cout <= 16.
@@ -27,17 +28,21 @@
 // ~900 FLOP/byte, bound by operations. K6b (64 -> 12 channels) is 7.2 GFLOP
 // against ~80 MB: ~90 FLOP/byte, bound by the bytes it moves.
 //
-// Design (simple and right first). Both kernels give a block a tile of 4 rows
-// x 32 columns and stage its 6 x 34 window, one plane per input channel, in
-// shared memory as f32. In this layout neighbouring lanes own neighbouring
-// pixels of one channel, so global loads and stores along W are coalesced as
-// they stand, and a warp's shared-memory reads fall in 32 different banks.
-//   K6a: 8 warps; lane l owns column l of all 4 rows, warp w owns hidden
-//   channels 8w..8w+7, so a thread holds the four gates of 4 pixels x 8
-//   channels in 128 f32 registers and the LSTM epilogue needs no exchange.
-//   Per input channel and dx it reads 6 window values, which serve the three
-//   dy taps; the weights of a tap are the same for the whole warp (one
-//   address, served as a broadcast from the read-only cache).
+// Design, K6a: the NHWC step's (K1's) contraction, with a channel-major
+// source for its window (convlstm_gates.cuh, CmajorRows in
+// convlstm_source.cuh). A block of 8 warps owns tile_rows<Ch>() x 16 pixels
+// and all Ch hidden channels. bfloat16 contracts on the tensor cores, an
+// implicit GEMM with M = pixels, N = 4Ch, K = 9 x (Cx + Ch) on mma.sync
+// (convlstm_mma.cuh): the channel-major window is staged transposed into a
+// [pixel][channel] bf16 tile by 16-byte loads of 8 pixels of 8 channel planes
+// and byte permutes in registers (the route K6b takes), so that a tap is a row
+// offset of the window, as in K1. The epilogue reads c and writes h', c'
+// through a per-warp [channel][pixel] buffer in shared memory (over the
+// window, once every warp is done with it): a warp reads and writes each
+// channel plane as runs of 16 neighbouring pixels, and a thread turns the four
+// gates of its (pixel, channel pair) into h' and c' with no exchange between
+// threads. float32 keeps the f32 FMAs on the CUDA cores (convlstm_tile.cuh)
+// and stores h', c' by the element.
 //
 // K6b is two kernels, by type. Both are persistent: a grid of as many blocks
 // as fit the card, each staging the weights in shared memory once (Cout padded
@@ -55,7 +60,8 @@
 //   [pixel][channel] bf16 window whose pitch carries 16 bytes of padding; a
 //   tap is then a row offset and every ldmatrix row is aligned, as in K1, at
 //   one third of the shifted copies' shared memory. The two halo columns (and
-//   the whole window where W % 8 != 0) are staged by the element. A block of 8
+//   the whole window where W % 8 != 0) are staged by the element
+//   (convlstm_source.cuh::stage_cmajor_bf16, which K6a's window shares). A block of 8
 //   warps owns 8 rows x 32 columns, a warp one row: two m16 tiles that share
 //   the weights' B fragments (one ldmatrix.trans a k16 step for both n8
 //   tiles). The sums leave through a per-warp [co][pixel] buffer in shared
@@ -67,14 +73,14 @@
 //   for the three dy taps of its 4 pixels, and one read of a tap's 16 weights
 //   serves 4 pixels.
 //
-// What this design leaves on the table: the contraction of K6a runs as f32
-// FMAs on the CUDA cores instead of the tensor cores; its weights are re-read
-// from L2 by every block; the 6 x 34 window re-reads 1.6x the tile's inputs.
-// The bf16 K6b stages a tile's window with plain loads before its first
-// product (two blocks on an SM overlap each other, nothing overlaps within a
-// block), its halo columns cost a 32-byte sector per 2-byte element, and N =
-// 16 leaves the tensor cores mostly idle: it is bound by staging, not by the
-// 24 us its bytes need.
+// What this design leaves on the table: K6a leaves K1's (mma.sync at about
+// half of the tensor cores' peak, the weights copied from L2 by every block,
+// the window staged before the first product), and its halo columns are
+// staged by the element. The bf16 K6b stages a tile's window with plain loads
+// before its first product (two blocks on an SM overlap each other, nothing
+// overlaps within a block), its halo columns cost a 32-byte sector per 2-byte
+// element, and N = 16 leaves the tensor cores mostly idle: it is bound by
+// staging, not by the 24 us its bytes need.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -82,7 +88,7 @@
 #include <cstddef>
 #include <cstdint>
 
-#include "convlstm_mma.cuh"
+#include "convlstm_gates.cuh"
 
 namespace {
 
@@ -92,23 +98,16 @@ using convlstm_mma::mma_bf16;
 using convlstm_mma::round_up_16;
 using convlstm_mma::smem_addr;
 
-constexpr int kTileH = 4;
-constexpr int kTileW = 32;          // one column per lane
-constexpr int kHaloH = kTileH + 2;
+constexpr int kTileW = 32;          // K6b: one column per lane
 constexpr int kHaloW = kTileW + 2;
-constexpr int kPlane = kHaloH * kHaloW;
 
-// K6a
-constexpr int kCh = 64;             // hidden channels
-constexpr int kWarpCh = 8;          // hidden channels per warp
-constexpr int kCellThreads = 32 * (kCh / kWarpCh);
-constexpr int kMaxCx = 128;         // keeps the staged window within 227 KB
 // K6b
 constexpr int kMaxCin = 128;
 constexpr int kMaxCout = 16;
 // bfloat16: 8 warps, a warp one row of 32 pixels
 constexpr int kMmaTileH = 8;
 constexpr int kMmaThreads = 32 * kMmaTileH;
+static_assert(kMmaThreads == convlstm_tile::kThreads, "the window is staged by a block of these");
 constexpr int kMmaWindow = (kMmaTileH + 2) * kHaloW;  // pixels of a staged window
 constexpr int kWeightPitch = 48;   // bytes a staged weight row (16 bf16 and padding: the
                                    // 8 rows of an ldmatrix fall in different banks)
@@ -121,150 +120,141 @@ constexpr int kConvThreads = 32 * kConvWarps;
 constexpr int kConvChunk = 8;
 constexpr int kConvPlane = (kConvTileH + 2) * kHaloW;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+// K6a's per-warp epilogue buffer (bfloat16): the warp's kRows x 16 pixels of
+// c (then c') and of h', [channel][pixel], a channel row padded by 16 bytes so
+// that the four channel pairs a fragment holds fall on different banks.
+template <int CH>
+struct CellEpilogue {
+  using S = convlstm_mma::Shape<CH>;
+  static constexpr int kPixels = S::kRows * convlstm_tile::kTileW;  // the warp's pixels
+  static constexpr int kPitch = kPixels * 2 + 16;                    // bytes a channel row
+  static constexpr int kWarpBytes = 2 * S::kWarpCh * kPitch;
+  static constexpr int kBytes = 8 * kWarpBytes;
+};
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-__device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
-
-// Eight adjacent weights (16-byte aligned for bf16, 32-byte for f32) as f32.
-__device__ __forceinline__ void load8(float (&out)[kWarpCh], const float* p) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
-}
-__device__ __forceinline__ void load8(float (&out)[kWarpCh], const __nv_bfloat16* p) {
-  // bf16 is the high half of an f32: widen both halves of each 32-bit word
-  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-  const unsigned int w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    out[2 * k] = __uint_as_float(w[k] << 16);
-    out[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
-  }
-}
-
-// Stage the 6 x 34 windows of `channels` planes of src (B, channels, H*W) of
-// image b into dst, one plane after another; pixels outside the image are the
-// zeros of SAME padding.
-template <typename T, int kThreads>
-__device__ __forceinline__ void stage_planes(float* __restrict__ dst,
-                                             const T* __restrict__ src, int channels,
-                                             int b, int y0, int x0, int height,
-                                             int width) {
-  const size_t hw = size_t(height) * width;
-  const int n = channels * kPlane;
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    const int col = i % kHaloW;
-    const int r = (i / kHaloW) % kHaloH;
-    const int ci = i / kPlane;
-    const int gy = y0 - 1 + r;
-    const int gx = x0 - 1 + col;
-    float v = 0.f;
-    if (gy >= 0 && gy < height && gx >= 0 && gx < width) {
-      v = to_f32(src[(size_t(b) * channels + ci) * hw + size_t(gy) * width + gx]);
-    }
-    dst[i] = v;
-  }
-}
-
-// acc[r][g][j] += sum over the n input channels staged at s (planes) and the
-// nine taps of  s[ci][r + dy][lane + dx] * w[tap][ci][g * Ch + j]; w already
-// points at the warp's first channel, tap_stride = n * 4Ch.
-template <typename T>
-__device__ __forceinline__ void cell_accumulate(float (&acc)[kTileH][4][kWarpCh],
-                                                const float* __restrict__ s,
-                                                const T* __restrict__ w, int n,
-                                                int lane) {
-  const size_t tap_stride = size_t(n) * (4 * kCh);
-#pragma unroll 1
-  for (int ci = 0; ci < n; ++ci) {
-    const float* plane = s + ci * kPlane + lane;
-    const T* wc = w + size_t(ci) * (4 * kCh);
-#pragma unroll
-    for (int dx = 0; dx < 3; ++dx) {
-      float v[kHaloH];
-#pragma unroll
-      for (int r = 0; r < kHaloH; ++r) v[r] = plane[r * kHaloW + dx];
-#pragma unroll
-      for (int dy = 0; dy < 3; ++dy) {
-        float wr[4][kWarpCh];
-#pragma unroll
-        for (int g = 0; g < 4; ++g) load8(wr[g], wc + (dy * 3 + dx) * tap_stride + g * kCh);
-#pragma unroll
-        for (int r = 0; r < kTileH; ++r) {
-#pragma unroll
-          for (int g = 0; g < 4; ++g) {
-#pragma unroll
-            for (int j = 0; j < kWarpCh; ++j) {
-              acc[r][g][j] = fmaf(v[r + dy], wr[g][j], acc[r][g][j]);
-            }
-          }
-        }
-      }
-    }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kCellThreads, 1)
+template <typename T, int CH>
+__global__ void __launch_bounds__(convlstm_tile::kThreads, 1)
 cmajor_cell_kernel(const T* __restrict__ x, const T* __restrict__ h, const T* __restrict__ c,
                    const T* __restrict__ wx, const T* __restrict__ wh,
                    const T* __restrict__ bias, T* __restrict__ h_out, T* __restrict__ c_out,
                    int height, int width, int cx) {
+  using convlstm_tile::kTileW;
+  using convlstm_tile::lstm_update;
   extern __shared__ float4 smem4[];
-  float* window = reinterpret_cast<float*>(smem4);  // (cx + kCh) planes: x, then h
-  const int b = blockIdx.z;
-  const int y0 = blockIdx.y * kTileH;
-  const int x0 = blockIdx.x * kTileW;
-  stage_planes<T, kCellThreads>(window, x, cx, b, y0, x0, height, width);
-  stage_planes<T, kCellThreads>(window + cx * kPlane, h, kCh, b, y0, x0, height, width);
-  __syncthreads();
-
-  const int lane = threadIdx.x % 32;
-  const int ch0 = (threadIdx.x / 32) * kWarpCh;
-
-  float acc[kTileH][4][kWarpCh];
-#pragma unroll
-  for (int g = 0; g < 4; ++g) {
-#pragma unroll
-    for (int j = 0; j < kWarpCh; ++j) {
-      const float bv = to_f32(bias[g * kCh + ch0 + j]);
-#pragma unroll
-      for (int r = 0; r < kTileH; ++r) acc[r][g][j] = bv;
-    }
-  }
-  cell_accumulate(acc, window, wx + ch0, cx, lane);
-  cell_accumulate(acc, window + cx * kPlane, wh + ch0, kCh, lane);
-
-  const int gx = x0 + lane;
-  if (gx >= width) return;
+  const convlstm_tile::Tile tile = convlstm_tile::tile_of_block<CH>();
+  const convlstm_source::CmajorRows<T> src{x, h, tile.b, height, width, cx, CH};
   const size_t hw = size_t(height) * width;
-#pragma unroll
-  for (int r = 0; r < kTileH; ++r) {
-    const int gy = y0 + r;
-    if (gy < height) {
-#pragma unroll
-      for (int j = 0; j < kWarpCh; ++j) {
-        const size_t o = (size_t(b) * kCh + ch0 + j) * hw + size_t(gy) * width + gx;
-        const float c_prev = to_f32(c[o]);
-        const float c_next = sigmoid(acc[r][1][j]) * c_prev +
-                             sigmoid(acc[r][0][j]) * tanhf(acc[r][3][j]);
-        const float h_next = sigmoid(acc[r][2][j]) * tanhf(c_next);
-        c_out[o] = from_f32<T>(c_next);
-        h_out[o] = from_f32<T>(h_next);
+  if constexpr (!convlstm_gates::kTensorCores<T>) {
+    convlstm_gates::for_each_gate_pair<T, CH>(
+        smem4, tile, src, wx, wh, bias, height, width, cx,
+        [&](size_t pixel, int channel, float2 gi, float2 gf, float2 go, float2 gg) {
+          const size_t o = (size_t(tile.b) * CH + channel) * hw + (pixel - size_t(tile.b) * hw);
+          float c_next, h_next;
+          lstm_update(gi.x, gf.x, go.x, gg.x, c[o], c_next, h_next);
+          c_out[o] = c_next;
+          h_out[o] = h_next;
+          lstm_update(gi.y, gf.y, go.y, gg.y, c[o + hw], c_next, h_next);
+          c_out[o + hw] = c_next;
+          h_out[o + hw] = h_next;
+        });
+  } else {
+    using S = convlstm_mma::Shape<CH>;
+    using E = CellEpilogue<CH>;
+    unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
+    convlstm_mma::Acc<CH> acc;
+    convlstm_mma::gate_preactivations<CH>(acc, smem, src, wx, wh, bias, tile, cx);
+    __syncthreads();  // every warp is done with the window: the buffers go over it
+
+    const int lane = threadIdx.x % 32;
+    const int warp = threadIdx.x / 32;
+    const int wm = warp / S::kWarpsN;
+    const int wn = warp % S::kWarpsN;
+    const int row0 = tile.y0 + wm * S::kRows;  // the warp's first image row
+    const int ch0 = wn * S::kWarpCh;           // and first hidden channel
+    unsigned char* cbuf = smem + warp * E::kWarpBytes;  // c, then c'
+    unsigned char* hbuf = cbuf + S::kWarpCh * E::kPitch;  // h'
+    // the warp's buffers and planes, by the element, neighbouring lanes on
+    // neighbouring pixels of a channel: f(buffer element, plane offset)
+    auto for_each_element = [&](auto&& f) {
+      for (int i = lane; i < S::kWarpCh * E::kPixels; i += 32) {
+        const int ch = i / E::kPixels;
+        const int px = i % E::kPixels;
+        const int gy = row0 + px / kTileW;
+        const int gx = tile.x0 + px % kTileW;
+        if (gy < height && gx < width) {
+          f(ch * E::kPitch + px * 2, (size_t(tile.b) * CH + ch0 + ch) * hw + size_t(gy) * width + gx);
+        }
       }
-    }
+    };
+    for_each_element([&](int at, size_t o) {
+      *reinterpret_cast<__nv_bfloat16*>(cbuf + at) = c[o];
+    });
+    __syncwarp();
+    convlstm_mma::for_each_pair<CH>(
+        acc, [&](int row, int col, int channel, float2 gi, float2 gf, float2 go, float2 gg) {
+          const int at = (channel - ch0) * E::kPitch + ((row - wm * S::kRows) * kTileW + col) * 2;
+          auto* c0 = reinterpret_cast<__nv_bfloat16*>(cbuf + at);
+          auto* c1 = reinterpret_cast<__nv_bfloat16*>(cbuf + at + E::kPitch);
+          float c_next, h_next;
+          lstm_update(gi.x, gf.x, go.x, gg.x, __bfloat162float(*c0), c_next, h_next);
+          *c0 = __float2bfloat16(c_next);
+          *reinterpret_cast<__nv_bfloat16*>(hbuf + at) = __float2bfloat16(h_next);
+          lstm_update(gi.y, gf.y, go.y, gg.y, __bfloat162float(*c1), c_next, h_next);
+          *c1 = __float2bfloat16(c_next);
+          *reinterpret_cast<__nv_bfloat16*>(hbuf + at + E::kPitch) = __float2bfloat16(h_next);
+        });
+    __syncwarp();
+    for_each_element([&](int at, size_t o) {
+      c_out[o] = *reinterpret_cast<const __nv_bfloat16*>(cbuf + at);
+      h_out[o] = *reinterpret_cast<const __nv_bfloat16*>(hbuf + at);
+    });
   }
+}
+
+template <typename T, int CH>
+inline int cell_smem(int cx) {
+  const int gates = convlstm_gates::smem_bytes<T, CH>(cx);
+  if constexpr (convlstm_gates::kTensorCores<T>) {
+    return gates > CellEpilogue<CH>::kBytes ? gates : CellEpilogue<CH>::kBytes;
+  } else {
+    return gates;
+  }
+}
+
+template <typename T, int CH>
+struct Cell {
+  static int run(const void* x, const void* h, const void* c, const void* wx, const void* wh,
+                 const void* b, void* h_out, void* c_out, int batch, int height, int width,
+                 int cx, int device, void* stream) {
+    if (!convlstm_gates::geometry_ok<CH>(batch, height, width, cx)) {
+      return int(cudaErrorInvalidValue);
+    }
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return int(err);
+    const int smem = cell_smem<T, CH>(cx);
+    err = cudaFuncSetAttribute(cmajor_cell_kernel<T, CH>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return int(err);
+    cmajor_cell_kernel<T, CH><<<convlstm_tile::tile_grid<CH>(batch, height, width),
+                                convlstm_tile::kThreads, smem,
+                                static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(x), static_cast<const T*>(h), static_cast<const T*>(c),
+        static_cast<const T*>(wx), static_cast<const T*>(wh), static_cast<const T*>(b),
+        static_cast<T*>(h_out), static_cast<T*>(c_out), height, width, cx);
+    return int(cudaGetLastError());
+  }
+};
+
+template <typename T>
+int launch_cell(const void* x, const void* h, const void* c, const void* wx, const void* wh,
+                const void* b, void* h_out, void* c_out, int batch, int height, int width,
+                int cx, int ch, int device, void* stream) {
+  for (const void* p : {wx, wh}) {  // the weight slabs are copied 16 bytes at a time
+    if (reinterpret_cast<uintptr_t>(p) % 16) return int(cudaErrorMisalignedAddress);
+  }
+  return convlstm_gates::launch_for_width<Cell, T, 128>(ch, x, h, c, wx, wh, b, h_out, c_out,
+                                                       batch, height, width, cx, device,
+                                                       stream);
 }
 
 // The tile a persistent block takes at step `tile` of its walk: image b, first
@@ -347,57 +337,16 @@ cmajor_conv_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16*
     const __nv_bfloat16* xb = x + size_t(t.b) * cin * hw;
     __syncthreads();  // the previous tile's window has been read by every warp
 
-    // by the element: channel ci of window pixel (r, col); zeros outside the
-    // image and past cin
-    auto stage_elements = [&](int col_first, int col_step, int cols) {
-      for (int i = threadIdx.x; i < (kMmaTileH + 2) * cols * cinp; i += kMmaThreads) {
-        const int ci = i % cinp;
-        const int pix = i / cinp;
-        const int col = col_first + (pix % cols) * col_step;
-        const int r = pix / cols;
-        const int gy = t.y0 - 1 + r;
-        const int gx = t.x0 - 1 + col;
-        const bool in = ci < cin && gy >= 0 && gy < height && gx >= 0 && gx < width;
-        reinterpret_cast<__nv_bfloat16*>(window + (r * kHaloW + col) * pitch)[ci] =
-            in ? xb[size_t(ci) * hw + size_t(gy) * width + gx] : zero;
-      }
-    };
-    if (vec) {
-      // the 32 interior columns: 8 pixels x 8 channels a thread, transposed in registers
-      for (int i = threadIdx.x; i < (kMmaTileH + 2) * 4 * ncg; i += kMmaThreads) {
-        const int cg = i % ncg;
-        const int pg = (i / ncg) % 4;
-        const int r = i / (ncg * 4);
-        const int gy = t.y0 - 1 + r;
-        const int gx = t.x0 + pg * 8;
-        const bool in = gy >= 0 && gy < height && gx < width;
-        unsigned int v[8][4];
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          uint4 u = make_uint4(0u, 0u, 0u, 0u);
-          if (in && cg * 8 + c < cin) {
-            u = __ldg(reinterpret_cast<const uint4*>(xb + size_t(cg * 8 + c) * hw +
-                                                     size_t(gy) * width + gx));
-          }
-          v[c][0] = u.x; v[c][1] = u.y; v[c][2] = u.z; v[c][3] = u.w;
-        }
-        unsigned char* dst = window + (r * kHaloW + 1 + pg * 8) * pitch + cg * 16;
-#pragma unroll
-        for (int p = 0; p < 8; ++p) {
-          // pixel p is the low (p even) or high half of word p / 2 of every channel
-          const unsigned int sel = (p & 1) ? 0x7632u : 0x5410u;
-          uint4 o;
-          o.x = __byte_perm(v[0][p / 2], v[1][p / 2], sel);
-          o.y = __byte_perm(v[2][p / 2], v[3][p / 2], sel);
-          o.z = __byte_perm(v[4][p / 2], v[5][p / 2], sel);
-          o.w = __byte_perm(v[6][p / 2], v[7][p / 2], sel);
-          *reinterpret_cast<uint4*>(dst + p * pitch) = o;
-        }
-      }
-      stage_elements(0, kHaloW - 1, 2);  // the two halo columns
-    } else {
-      stage_elements(0, 1, kHaloW);
-    }
+    convlstm_source::stage_cmajor_bf16<kHaloW>(
+        window, pitch, ncg, kMmaTileH + 2, height, width, t.y0, t.x0, vec,
+        [&](int cg, int& n) {
+          n = cin - cg * 8;
+          return xb + size_t(cg * 8) * hw;
+        },
+        [&](int ci, int gy, int gx) {
+          const bool in = ci < cin && gy >= 0 && gy < height && gx >= 0 && gx < width;
+          return in ? __bfloat162float(xb[size_t(ci) * hw + size_t(gy) * width + gx]) : 0.f;
+        });
     __syncthreads();
 
     float acc[2][2][4];  // [m16 tile][n8 tile]
@@ -565,36 +514,6 @@ cmajor_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
       }
     }
   }
-}
-
-inline dim3 tile_grid(int batch, int height, int width) {
-  return dim3((width + kTileW - 1) / kTileW, (height + kTileH - 1) / kTileH, batch);
-}
-
-inline bool image_ok(int batch, int height, int width) {
-  return batch > 0 && batch <= 65535 && height > 0 && width > 0 &&
-         (height + kTileH - 1) / kTileH <= 65535;
-}
-
-template <typename T>
-int launch_cell(const void* x, const void* h, const void* c, const void* wx, const void* wh,
-                const void* b, void* h_out, void* c_out, int batch, int height, int width,
-                int cx, int ch, int device, void* stream) {
-  if (!image_ok(batch, height, width) || ch != kCh || cx <= 0 || cx > kMaxCx) {
-    return int(cudaErrorInvalidValue);
-  }
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return int(err);
-  const int smem = (cx + kCh) * kPlane * int(sizeof(float));
-  err = cudaFuncSetAttribute(cmajor_cell_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return int(err);
-  cmajor_cell_kernel<T><<<tile_grid(batch, height, width), kCellThreads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const T*>(h), static_cast<const T*>(c),
-      static_cast<const T*>(wx), static_cast<const T*>(wh), static_cast<const T*>(b),
-      static_cast<T*>(h_out), static_cast<T*>(c_out), height, width, cx);
-  return int(cudaGetLastError());
 }
 
 // A persistent grid: as many blocks as the card holds at once, at most one a tile.

@@ -1,17 +1,21 @@
 // The gate contraction of a ConvLSTM step on the bf16 tensor cores of NVIDIA
 // Hopper (sm_90a), hand-written: mma.sync m16n8k16 with ldmatrix and cp.async
-// in inline PTX. Used by the bfloat16 instantiations of the fused step (K1)
-// and its backward (K2) through convlstm_gates.cuh.
+// in inline PTX. Used by the bfloat16 instantiations of the fused step (K1),
+// its backward (K2), the halo-tensor step (K1h) and the channel-major step
+// (K6a) through convlstm_gates.cuh; they differ only in where the window's
+// pixels come from (convlstm_source.cuh).
 //
 //   gates = conv3x3_SAME(x, Wx) + conv3x3_SAME(h, Wh) + b
 //
 // bf16 operands, f32 accumulation, on unpadded NHWC tensors, weights in the
 // JAX HWIO layout: Wx (3, 3, Cx, 4CH), Wh (3, 3, CH, 4CH), b (4CH), gate
 // order i, f, o, g. It is an implicit GEMM per block: M = the tile's pixels,
-// N = 4CH, K = 9 taps x (Cx + CH, each padded to a multiple of 16).
+// N = 4 x the block's hidden channels (all CH up to 128, else a group of 128
+// of them, the groups on the grid's z axis), K = 9 taps x (Cx + CH, each padded
+// to a multiple of 16).
 //
 // A operand. The block stages its tile's window (a one-pixel halo; 10 x 18
-// pixels at CH <= 64, 6 x 18 at CH = 128) of [x | h] once, as bf16: per pixel
+// pixels at CH <= 64, 6 x 18 above) of [x | h] once, as bf16: per pixel
 // x's channels, zeros up to a multiple of 16, h's channels, zeros up to a
 // multiple of 16, and 16 bytes of padding, so that the 8 rows of an ldmatrix
 // (8 neighbouring pixels) fall on different banks. The zeros of SAME padding
@@ -20,7 +24,8 @@
 // 16 neighbouring pixels of one window row.
 //
 // B operand. The weights need no repacking: HWIO rows w[tap][ci][0:4CH] are
-// contiguous. K is walked in steps of 16 rows, tap by tap, x's rows then h's;
+// contiguous, and a group's four 128-column slices of them are too. K is
+// walked in steps of 16 rows, tap by tap, x's rows then h's;
 // kSlabSteps steps make a slab, which all 256 threads copy into shared memory
 // with cp.async (rows padded by 16 bytes; rows of the zero padding are written
 // as zeros), kStages slabs in a ring, so the copy of slab s + 2 runs under the
@@ -39,6 +44,7 @@
 //   32      4 x 2          2                 16                 64
 //   64      2 x 4          4                 16                128
 //   128     1 x 8          4 (of 4)          16                128
+//   256     as 128, for the block's group of 128 channels
 //
 // What bounds it. A k16 step of a 64 x 64 warp tile is 32 mma for 2 KB of A
 // and 2 KB of B fragments read from shared memory, which delivers 128 bytes a
@@ -61,23 +67,26 @@
 
 namespace convlstm_mma {
 
+using convlstm_tile::block_ch;
 using convlstm_tile::kHaloW;
 using convlstm_tile::kThreads;
 using convlstm_tile::kTileW;
+using convlstm_tile::Tile;
 using convlstm_tile::tile_rows;
 
 template <int CH>
 struct Shape {
-  static_assert(CH == 8 || CH == 16 || CH == 32 || CH == 64 || CH == 128,
+  static_assert(CH == 8 || CH == 16 || CH == 32 || CH == 64 || CH == 128 || CH == 256,
                 "hidden widths the contraction is written for");
-  static constexpr int kN = 4 * CH;                        // gate columns
+  static constexpr int kBlockCh = block_ch<CH>();          // hidden channels a block owns
+  static constexpr int kN = 4 * kBlockCh;                  // the block's gate columns
   static constexpr int kChp = (CH + 15) / 16 * 16;         // h's channels as staged
-  static constexpr int kWarpCh = CH < 16 ? CH : 16;        // hidden channels a warp owns
+  static constexpr int kWarpCh = kBlockCh < 16 ? kBlockCh : 16;  // hidden channels a warp owns
   static constexpr int kJ = kWarpCh / 8;                   // blocks of 8 channels a warp owns
-  static constexpr int kWarpsN = CH / kWarpCh;
+  static constexpr int kWarpsN = kBlockCh / kWarpCh;
   static constexpr int kWarpsM = 8 / kWarpsN;
   static constexpr int kRows = tile_rows<CH>() / kWarpsM;  // tile rows (m16 tiles) a warp owns
-  static constexpr int kSlabSteps = CH > 64 ? 2 : 4;       // k16 steps a weight slab
+  static constexpr int kSlabSteps = kBlockCh > 64 ? 2 : 4; // k16 steps a weight slab
   static constexpr int kSlabPitch = kN * 2 + 16;           // bytes a staged weight row
   static constexpr int kSlabBytes = kSlabSteps * 16 * kSlabPitch;
   static constexpr int kStages = 3;
@@ -148,20 +157,21 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
 template <int CH>
 using Acc = float[Shape<CH>::kRows][Shape<CH>::kJ][4][4];
 
-// The gate pre-activations of the block's tile at (y0, x0) of image b. `smem`
-// is the block's dynamic shared memory, smem_bytes<CH>(cx) long and 16-byte
-// aligned. h, wx and wh are 16-byte aligned; x need not be. Every thread of
-// the block must call it.
-template <int CH>
+// The gate pre-activations of the block's tile: `src` stages the window of its
+// image at (tile.y0, tile.x0) (see convlstm_source.cuh), which is contracted
+// against the tile's group of gate columns. `smem` is the block's dynamic
+// shared memory, smem_bytes<CH>(cx) long and 16-byte aligned. wx and wh are
+// 16-byte aligned. Every thread of the block must call it.
+template <int CH, typename Src>
 __device__ __forceinline__ void gate_preactivations(
-    Acc<CH>& acc, unsigned char* __restrict__ smem, const __nv_bfloat16* __restrict__ x,
-    const __nv_bfloat16* __restrict__ h, const __nv_bfloat16* __restrict__ wx,
-    const __nv_bfloat16* __restrict__ wh, const __nv_bfloat16* __restrict__ bias, int b,
-    int y0, int x0, int height, int width, int cx) {
+    Acc<CH>& acc, unsigned char* __restrict__ smem, const Src& src,
+    const __nv_bfloat16* __restrict__ wx, const __nv_bfloat16* __restrict__ wh,
+    const __nv_bfloat16* __restrict__ bias, const Tile& tile, int cx) {
   using S = Shape<CH>;
   constexpr int kWindowRows = tile_rows<CH>() + 2;
   const int cxp = round_up_16(cx);
   const int kt = cxp + S::kChp;              // K rows a tap
+  const int col0 = tile.group * S::kBlockCh; // the group's first column of each gate
   // k16 steps in all, 9 * kt / 16, rounded up to whole slabs: the steps past
   // the end get zero weights
   const int n_slabs = (9 * (kt / 16) + S::kSlabSteps - 1) / S::kSlabSteps;
@@ -184,7 +194,7 @@ __device__ __forceinline__ void gate_preactivations(
   Walk copied, multiplied;
 
   // Copy the next slab of the weights into stage `stage`: kSlabSteps k16
-  // steps of 16 rows, 4CH bf16 a row, as 16-byte pieces.
+  // steps of 16 rows, the group's 4 x kBlockCh bf16 a row, as 16-byte pieces.
   auto load_slab = [&](int stage) {
     unsigned char* slab = slabs + stage * S::kSlabBytes;
     constexpr int kPieces = S::kN * 2 / 16;  // 16-byte pieces a row
@@ -197,17 +207,20 @@ __device__ __forceinline__ void gate_preactivations(
         const int r = i / kPieces;
         const int piece = i % kPieces;
         const int k = copied.k + r;
-        const __nv_bfloat16* src = nullptr;
+        // slab column piece * 8 is gate g's column c of the group
+        const int g = piece * 8 / S::kBlockCh;
+        const int col = g * CH + col0 + piece * 8 % S::kBlockCh;
+        const __nv_bfloat16* w = nullptr;
         if (copied.tap < 9) {
           if (k < cx) {
-            src = wx + (size_t(copied.tap) * cx + k) * S::kN;
+            w = wx + (size_t(copied.tap) * cx + k) * (4 * CH);
           } else if (k >= cxp && k - cxp < CH) {
-            src = wh + (size_t(copied.tap) * CH + (k - cxp)) * S::kN;
+            w = wh + (size_t(copied.tap) * CH + (k - cxp)) * (4 * CH);
           }
         }
         unsigned char* dst = slab + (q * 16 + r) * S::kSlabPitch + piece * 16;
-        if (src != nullptr) {
-          cp_async_16(dst, src + piece * 8);
+        if (w != nullptr) {
+          cp_async_16(dst, w + col);
         } else {
           *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
         }
@@ -217,42 +230,12 @@ __device__ __forceinline__ void gate_preactivations(
     cp_async_commit();
   };
 
-  // Stage the window as 16-byte pieces of 8 channels, copied asynchronously
-  // (the first group; the slabs follow it); pixels outside the image and the
-  // channel padding are zeros. A pixel's pieces go to 8, 16 or 32 neighbouring
-  // lanes. x takes plain loads where its rows are not whole aligned pieces.
-  {
-    const int pieces = kt / 8;
-    const int lane_bits = pieces <= 8 ? 3 : pieces <= 16 ? 4 : 5;
-    const int sub = threadIdx.x & ((1 << lane_bits) - 1);
-    const bool x_vec = cx % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-    for (int pix = threadIdx.x >> lane_bits; pix < kWindowRows * kHaloW;
-         pix += kThreads >> lane_bits) {
-      const int gy = y0 - 1 + pix / kHaloW;
-      const int gx = x0 - 1 + pix % kHaloW;
-      const bool inside = gy >= 0 && gy < height && gx >= 0 && gx < width;
-      const size_t base = inside ? (size_t(b) * height + gy) * width + gx : 0;
-      for (int k = sub * 8; k < kt; k += 8 << lane_bits) {
-        unsigned char* dst = window + pix * pitch + k * 2;
-        if (k >= cxp) {
-          cp_async_16_or_zeros(dst, h + base * CH + (k - cxp), inside && k - cxp < CH);
-        } else if (x_vec || !inside || k >= cx) {
-          // a whole aligned piece of x, or zeros: h then stands in as an
-          // aligned address that is not read
-          const bool whole = inside && k + 8 <= cx;
-          cp_async_16_or_zeros(dst, whole ? x + base * cx + k : h, whole);
-        } else {
-          __align__(16) __nv_bfloat16 e[8];
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            e[j] = k + j < cx ? x[base * cx + k + j] : __float2bfloat16(0.f);
-          }
-          *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(e);
-        }
-      }
-    }
-    cp_async_commit();
-  }
+  // Stage the window: per pixel [x | zeros | h | zeros] as bf16, zeros where
+  // SAME padding puts them; copied asynchronously or stored (the first group;
+  // the slabs follow it, and the first wait and __syncthreads() below cover
+  // both kinds of write).
+  src.template stage_bf16<CH>(window, pitch, kt, cxp, kWindowRows, tile.y0, tile.x0);
+  cp_async_commit();
   load_slab(0);
   load_slab(1);  // n_slabs >= 5: 9 taps of at least 2 steps
 
@@ -266,7 +249,7 @@ __device__ __forceinline__ void gate_preactivations(
   for (int j = 0; j < S::kJ; ++j) {
 #pragma unroll
     for (int g = 0; g < 4; ++g) {
-      const int col = g * CH + wn * S::kWarpCh + j * 8 + (lane % 4) * 2;
+      const int col = g * CH + col0 + wn * S::kWarpCh + j * 8 + (lane % 4) * 2;
       const float b0 = __bfloat162float(bias[col]);
       const float b1 = __bfloat162float(bias[col + 1]);
 #pragma unroll
@@ -285,7 +268,7 @@ __device__ __forceinline__ void gate_preactivations(
                           ((wm * S::kRows) * kHaloW + (lane & 7) + ((lane >> 3) & 1) * 8) * pitch +
                           (lane >> 4) * 16;
   const uint32_t b_lane = ((lane & 7) + ((lane >> 3) & 1) * 8) * S::kSlabPitch +
-                          ((lane >> 4) * CH + wn * S::kWarpCh) * 2;
+                          ((lane >> 4) * S::kBlockCh + wn * S::kWarpCh) * 2;
 
   // The fragments of the step in hand and of the next one: each ldmatrix is
   // started one row of products ahead of its use.
@@ -314,7 +297,7 @@ __device__ __forceinline__ void gate_preactivations(
 #pragma unroll
         for (int gp = 0; gp < 2; ++gp) {
           ldmatrix_x4_trans(bf[q % 2][j][gp],
-                            slab + q * 16 * S::kSlabPitch + (gp * 2 * CH + j * 8) * 2);
+                            slab + q * 16 * S::kSlabPitch + (gp * 2 * S::kBlockCh + j * 8) * 2);
         }
       }
     };
@@ -351,7 +334,8 @@ __device__ __forceinline__ void gate_preactivations(
 
 // Calls f(row, col, channel, gi, gf, go, gg) for every pair of adjacent hidden
 // channels (channel, channel + 1) the thread owns: row and col are the pixel's
-// offsets in the tile, and each gate is a float2 over the two channels.
+// offsets in the tile, channel counts within the block's group, and each gate
+// is a float2 over the two channels.
 template <int CH, typename F>
 __device__ __forceinline__ void for_each_pair(const Acc<CH>& acc, F&& f) {
   using S = Shape<CH>;

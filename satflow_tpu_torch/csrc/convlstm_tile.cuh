@@ -7,19 +7,22 @@
 // on unpadded NHWC tensors, weights in the JAX HWIO layout: Wx (3, 3, Cx, 4Ch),
 // Wh (3, 3, Ch, 4Ch), b (4Ch), gate order i, f, o, g.
 //
-// Used by the float32 instantiations of the fused step (K1) and its backward
-// (K2) through convlstm_gates.cuh, at every hidden width CH they are built
-// for, and at CH = 64 by the halo-tensor variant of the step
-// (fused_convlstm_step_halo.cu, K1h) and the study kernels of exp_tap9.cu
-// (T1, T2, K1p) in both float32 and bfloat16. The bfloat16 K1 and K2 contract
-// on the tensor cores instead (convlstm_mma.cuh).
+// Used by the float32 instantiations of the fused step (K1), its backward
+// (K2), the halo-tensor step (K1h) and the channel-major step (K6a) through
+// convlstm_gates.cuh, at every hidden width CH they are built for, and by the
+// study kernels of exp_tap9.cu (T1, T2, K1p) in both float32 and bfloat16.
+// The bfloat16 K1, K2, K1h and K6a contract on the tensor cores instead
+// (convlstm_mma.cuh).
 //
 // Tile. A block of 8 warps owns kTileW = 16 columns of tile_rows<CH>() rows
-// and all CH hidden channels. It stages the tile's window of [x | h] (a
-// one-pixel halo) in shared memory as f32, x's channels padded with zeros to a
-// multiple of 4, with the zeros of SAME padding written there, so the inner
-// loop has no bounds checks. A warp computes one tile row for one block of up
-// to 64 hidden channels; Lanes<CH> says how its 32 lanes share that row:
+// and block_ch<CH>() hidden channels: all CH up to 128; above 128 the hidden
+// channels are cut into groups of 128 along the grid's z axis (z = image x
+// groups), and every group's block stages the whole window. It stages the
+// tile's window of [x | h] (a one-pixel halo) in shared memory as f32, x's
+// channels padded with zeros to a multiple of 4, with the zeros of SAME
+// padding written there, so the inner loop has no bounds checks. A warp
+// computes one tile row for one block of up to 64 hidden channels; Lanes<CH>
+// says how its 32 lanes share that row:
 //
 //   CH    lanes across channel pairs x pixel groups   pixels a thread owns
 //   8       4 x 8                                      2
@@ -28,6 +31,7 @@
 //   64     32 x 1                                     16
 //   128    32 x 1, and the block owns 4 rows, not 8:  16
 //          warps 0-3 take channels 0-63, warps 4-7 channels 64-127
+//   256    as 128, for the block's group of 128 channels
 //
 // A thread holds the four gate pre-activations (i, f, o, g) of its pixels x 2
 // adjacent channels in at most 128 f32 registers, so an epilogue over the LSTM
@@ -44,35 +48,56 @@
 
 namespace convlstm_tile {
 
-constexpr int kCh = 64;             // the hidden width of K1h, T1, T2 and K1p
 constexpr int kTileH = 8;           // output rows per block at CH <= 64, one per warp
 constexpr int kTileW = 16;          // output columns per block (per warp)
 constexpr int kLaneCh = 2;          // adjacent hidden channels a thread owns
 constexpr int kThreads = 256;       // 8 warps
-constexpr int kHaloH = kTileH + 2;
 constexpr int kHaloW = kTileW + 2;
 constexpr int kMaxCx = 256;         // keeps the staged window within 227 KB
+constexpr int kMaxBlockCh = 128;    // hidden channels a block owns at most
 
-// Output rows a block owns: 8, or 4 at CH = 128, where 8 warps are 4 rows x 2
-// channel blocks of 64 and the staged window stays within shared memory.
+// Hidden channels a block owns: all of CH up to 128, else a group of 128.
 template <int CH>
-__host__ __device__ constexpr int tile_rows() { return CH > 64 ? kTileH * 64 / CH : kTileH; }
+__host__ __device__ constexpr int block_ch() { return CH < kMaxBlockCh ? CH : kMaxBlockCh; }
+// Groups of block_ch<CH>() channels: blocks along the grid's z axis per image.
+template <int CH>
+__host__ __device__ constexpr int channel_groups() { return CH / block_ch<CH>(); }
+
+// Output rows a block owns: 8, or 4 above 64 channels a block, where 8 warps
+// are 4 rows x 2 channel blocks of 64 and the staged window stays within
+// shared memory.
+template <int CH>
+__host__ __device__ constexpr int tile_rows() {
+  return block_ch<CH>() > 64 ? kTileH * 64 / block_ch<CH>() : kTileH;
+}
 
 // How the lanes of a warp share one tile row (see the table above).
 template <int CH>
 struct Lanes {
-  static_assert(CH == 8 || CH == 16 || CH == 32 || CH == 64 || CH == 128,
+  static_assert(CH == 8 || CH == 16 || CH == 32 || CH == 64 || CH == 128 || CH == 256,
                 "hidden widths the tile is written for");
-  static constexpr int kPairs = CH < 64 ? CH / 2 : 32;   // lanes across channel pairs
-  static constexpr int kGroups = 32 / kPairs;            // lanes across pixel groups
-  static constexpr int kPix = kTileW / kGroups;          // pixels a thread owns
+  static constexpr int kBlock = block_ch<CH>();
+  static constexpr int kPairs = kBlock < 64 ? kBlock / 2 : 32;  // lanes across channel pairs
+  static constexpr int kGroups = 32 / kPairs;                   // lanes across pixel groups
+  static constexpr int kPix = kTileW / kGroups;                 // pixels a thread owns
   __device__ static int row() { return (threadIdx.x / 32) % tile_rows<CH>(); }
   __device__ static int pixel0() { return (threadIdx.x % 32) / kPairs * kPix; }
-  // the first of the thread's two hidden channels
+  // the first of the thread's two hidden channels within the block's group
   __device__ static int channel() {
     return (threadIdx.x / 32) / tile_rows<CH>() * 64 + (threadIdx.x % 32) % kPairs * kLaneCh;
   }
 };
+
+// Where a block of the tile grid stands: image b, its group of hidden
+// channels, and the tile's first row and column.
+struct Tile {
+  int b, group, y0, x0;
+};
+template <int CH>
+__device__ __forceinline__ Tile tile_of_block() {
+  return Tile{int(blockIdx.z) / channel_groups<CH>(), int(blockIdx.z) % channel_groups<CH>(),
+              int(blockIdx.y) * tile_rows<CH>(), int(blockIdx.x) * kTileW};
+}
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -173,19 +198,20 @@ __device__ __forceinline__ void init_with_bias(float (&acc)[Lanes<CH>::kPix][4][
 }
 
 // The contraction over a staged window: on return, acc[p][g][j] holds gate g
-// of hidden channel Lanes<CH>::channel() + j at the tile's pixel
-// (Lanes<CH>::row(), Lanes<CH>::pixel0() + p). `window` holds the tile's
-// (tile_rows<CH>() + 2) x (kTileW + 2) pixels of [x | h] as f32, cxp + CH
-// = cin values a pixel, cxp = cx rounded up to a multiple of 4 with zeros between,
-// and must be complete (a __syncthreads() after the last write) before the call.
+// of hidden channel group * block_ch<CH>() + Lanes<CH>::channel() + j at the
+// tile's pixel (Lanes<CH>::row(), Lanes<CH>::pixel0() + p). `window` holds the
+// tile's (tile_rows<CH>() + 2) x (kTileW + 2) pixels of [x | h] as f32, cxp +
+// CH = cin values a pixel, cxp = cx rounded up to a multiple of 4 with zeros
+// between, and must be complete (a __syncthreads() after the last write)
+// before the call.
 template <int CH, typename T>
 __device__ __forceinline__ void contract_window(
     float (&acc)[Lanes<CH>::kPix][4][kLaneCh], const float* __restrict__ window,
     const T* __restrict__ wx, const T* __restrict__ wh, const T* __restrict__ bias,
-    int cx, int cxp, int cin) {
+    int cx, int cxp, int cin, int group) {
   const int row = Lanes<CH>::row();
   const int p0 = Lanes<CH>::pixel0();
-  const int co = Lanes<CH>::channel();
+  const int co = group * block_ch<CH>() + Lanes<CH>::channel();
 
   init_with_bias<CH>(acc, bias, co);
 
@@ -201,34 +227,23 @@ __device__ __forceinline__ void contract_window(
   }
 }
 
-// The gate pre-activations of the block's tile: stages the window of image b
-// at (y0, x0) and contracts it (see contract_window for what acc holds).
-// `window` is the block's dynamic shared memory, window_bytes<CH>(cx) long.
-// Every thread of the block must call it.
-template <int CH, typename T>
+// The gate pre-activations of the block's tile: `src` stages the window of
+// its image at (tile.y0, tile.x0) (see convlstm_source.cuh for where the rows
+// come from) and it is contracted against the tile's group of gate columns
+// (see contract_window for what acc holds). `window` is the block's dynamic
+// shared memory, window_bytes<CH>(cx) long. Every thread of the block must
+// call it.
+template <int CH, typename Src, typename T>
 __device__ __forceinline__ void gate_preactivations(
-    float (&acc)[Lanes<CH>::kPix][4][kLaneCh], float* __restrict__ window,
-    const T* __restrict__ x, const T* __restrict__ h, const T* __restrict__ wx,
-    const T* __restrict__ wh, const T* __restrict__ bias, int b, int y0, int x0,
-    int height, int width, int cx) {
+    float (&acc)[Lanes<CH>::kPix][4][kLaneCh], float* __restrict__ window, const Src& src,
+    const T* __restrict__ wx, const T* __restrict__ wh, const T* __restrict__ bias,
+    const Tile& tile, int cx) {
   const int cxp = (cx + 3) & ~3;
   const int cin = cxp + CH;  // per staged pixel: x channels, zeros, then h channels
 
-  // Stage the window of [x | h] as f32; pixels outside the image are the
-  // zeros of SAME padding.
-  const int n_stage = (tile_rows<CH>() + 2) * kHaloW * cin;
-  for (int i = threadIdx.x; i < n_stage; i += kThreads) {
-    const int ci = i % cin;
-    const int pix = i / cin;
-    const int gy = y0 - 1 + pix / kHaloW;
-    const int gx = x0 - 1 + pix % kHaloW;
-    float v = 0.f;
-    if (gy >= 0 && gy < height && gx >= 0 && gx < width && (ci < cx || ci >= cxp)) {
-      const size_t base = (size_t(b) * height + gy) * width + gx;
-      v = ci < cx ? to_f32(x[base * cx + ci]) : to_f32(h[base * CH + (ci - cxp)]);
-    }
-    window[i] = v;
-  }
+  // The window of [x | h] as f32; pixels outside the image are the zeros of
+  // SAME padding.
+  src.stage_f32(window, cin, cxp, tile_rows<CH>() + 2, tile.y0, tile.x0);
   __shared__ int pitch;
   if (threadIdx.x == 0) pitch = cin;
   __syncthreads();
@@ -237,7 +252,7 @@ __device__ __forceinline__ void gate_preactivations(
   // above: where ptxas sees cin = cxp + CH it rebuilds every pixel's address
   // from that sum, two address instructions a pixel where one does (3 % of the
   // inner loop's issue slots).
-  contract_window<CH>(acc, window, wx, wh, bias, cx, cxp, pitch);
+  contract_window<CH>(acc, window, wx, wh, bias, cx, cxp, pitch, tile.group);
 }
 
 // The LSTM state update of one element, f32: gates i, f, o, g and c -> c', h'.
@@ -247,22 +262,24 @@ __device__ __forceinline__ void lstm_update(float gi, float gf, float go, float 
   h_next = sigmoid(go) * tanhf(c_next);
 }
 
-// What the fixed-width users (K1h, T1, T2, K1p) take; their wrappers check
-// the same before a launch.
-inline bool shape_ok(int batch, int height, int width, int cx, int ch) {
-  return ch == kCh && cx > 0 && cx % 4 == 0 && cx <= kMaxCx && batch > 0 &&
-         batch <= 65535 && height > 0 && width > 0;
-}
-
-template <int CH = kCh>
+template <int CH>
 inline int window_bytes(int cx) {
   return (tile_rows<CH>() + 2) * kHaloW * (((cx + 3) & ~3) + CH) * int(sizeof(float));
 }
 
-template <int CH = kCh>
+template <int CH>
 inline dim3 tile_grid(int batch, int height, int width) {
   return dim3((width + kTileW - 1) / kTileW, (height + tile_rows<CH>() - 1) / tile_rows<CH>(),
-              batch);
+              batch * channel_groups<CH>());
+}
+
+// Whether a grid of (batch, height, width) fits the launch: z = batch x
+// channel groups, y = row tiles, each at most 65535.
+template <int CH>
+inline bool grid_ok(int batch, int height, int width) {
+  return batch > 0 && height > 0 && width > 0 &&
+         (long long)batch * channel_groups<CH>() <= 65535 &&
+         (height + tile_rows<CH>() - 1) / tile_rows<CH>() <= 65535;
 }
 
 }  // namespace convlstm_tile

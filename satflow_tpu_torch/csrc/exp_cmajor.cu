@@ -21,15 +21,18 @@
 //   f, o, g, each C wide) with the contraction axis [x ; h] fastest; b is
 //   (4C, 1).
 //
-// C is fixed at 64 for x and h alike (the prototype's Cx == Ch), block_h is a
+// C is the same for x and h (the prototype's Cx == Ch): 8, 16, 32, 64 or 128
+// (the wrapper zero-pads another width to the next of them); block_h is a
 // multiple of 4 and H a multiple of block_h.
 //
 // Design (simple and right first). A block owns a tile of 4 rows x 32 columns
 // of the padded image and stages its 6 x 34 window, one plane per input
-// channel, as f32 in shared memory (104 KB). 8 warps; lane l owns column l of
-// the 4 rows, warp w hidden channels 8w..8w+7, so a thread holds the four
-// gates of 4 pixels x 8 channels in 128 f32 registers and the epilogue needs
-// no exchange. With the contraction axis fastest, a thread reads its weights
+// channel, as f32 in shared memory (104 KB at C = 64, 204 KB at 128). One warp
+// per 8 hidden channels, up to 64 channels a block (above, the groups of 64
+// are blocks along the grid's z axis, each staging the whole window); lane l
+// owns column l of the 4 rows, warp w hidden channels 8w..8w+7 of the block's,
+// so a thread holds the four gates of 4 pixels x 8 channels in 128 f32
+// registers and the epilogue needs no exchange. With the contraction axis fastest, a thread reads its weights
 // four input channels at a time: per tap and group of four input channels it
 // loads the 16 window values once, then for each of its 32 (gate, channel)
 // rows one 16-byte (f32) or 8-byte (bf16) vector, the same address for the
@@ -52,11 +55,19 @@ constexpr int kTileW = 32;          // one column per lane
 constexpr int kHaloH = kTileH + 2;
 constexpr int kHaloW = kTileW + 2;
 constexpr int kPlane = kHaloH * kHaloW;
-constexpr int kC = 64;              // channels of x, h and c
-constexpr int kK = 2 * kC;          // contraction depth per tap: [x ; h]
 constexpr int kWarpCh = 8;          // hidden channels per warp
-constexpr int kThreads = 32 * (kC / kWarpCh);
 constexpr int kKv = 4;              // input channels per weight vector
+
+// The block's geometry at C channels: kBlockC hidden channels (one warp per
+// 8), kGroups blocks per image along z, contraction depth kK = 2C a tap.
+template <int C>
+struct Geometry {
+  static_assert(C == 8 || C == 16 || C == 32 || C == 64 || C == 128, "channel widths built");
+  static constexpr int kBlockC = C < 64 ? C : 64;
+  static constexpr int kGroups = C / kBlockC;
+  static constexpr int kK = 2 * C;
+  static constexpr int kThreads = 32 * (kBlockC / kWarpCh);
+};
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -86,19 +97,23 @@ __device__ __forceinline__ void load4(float (&out)[kKv], const __nv_bfloat16* p)
   out[3] = __uint_as_float(u.y & 0xffff0000u);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
+template <typename T, int C>
+__global__ void __launch_bounds__(Geometry<C>::kThreads, 1)
 exp_cmajor_step_kernel(const T* __restrict__ x, const T* __restrict__ h,
                        const T* __restrict__ c, const T* __restrict__ w9,
                        const T* __restrict__ bias, T* __restrict__ h_out,
                        T* __restrict__ c_out, int height, int width, int block_h) {
+  using G = Geometry<C>;
+  constexpr int kC = C;
+  constexpr int kK = G::kK;
+  constexpr int kThreads = G::kThreads;
   extern __shared__ float4 smem4[];
   float* window = reinterpret_cast<float*>(smem4);  // kK planes: x's, then h's
-  const int b = blockIdx.z;
+  const int b = blockIdx.z / G::kGroups;
   const int py0 = blockIdx.y * kTileH;  // first padded row of the tile
   const int x0 = blockIdx.x * kTileW;
   const int lane = threadIdx.x % 32;
-  const int ch0 = (threadIdx.x / 32) * kWarpCh;
+  const int ch0 = (blockIdx.z % G::kGroups) * G::kBlockC + (threadIdx.x / 32) * kWarpCh;
   const int gx = x0 + lane;
   const size_t sp = size_t(height + 2 * block_h) * width;
 
@@ -194,27 +209,48 @@ exp_cmajor_step_kernel(const T* __restrict__ x, const T* __restrict__ h,
   }
 }
 
-template <typename T>
-int launch(const void* x, const void* h, const void* c, const void* w9, const void* b,
-           void* h_out, void* c_out, int batch, int height, int width, int channels,
-           int block_h, int device, void* stream) {
+template <typename T, int C>
+int launch_at(const void* x, const void* h, const void* c, const void* w9, const void* b,
+              void* h_out, void* c_out, int batch, int height, int width, int block_h,
+              int device, void* stream) {
+  using G = Geometry<C>;
   const int tiles_y = (height + 2 * block_h) / kTileH;
-  if (channels != kC || batch <= 0 || batch > 65535 || height <= 0 || width <= 0 ||
+  if (batch <= 0 || batch * G::kGroups > 65535 || height <= 0 || width <= 0 ||
       block_h <= 0 || block_h % kTileH != 0 || height % block_h != 0 || tiles_y > 65535) {
     return int(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
-  const int smem = kK * kPlane * int(sizeof(float));
-  err = cudaFuncSetAttribute(exp_cmajor_step_kernel<T>,
+  const int smem = G::kK * kPlane * int(sizeof(float));
+  err = cudaFuncSetAttribute(exp_cmajor_step_kernel<T, C>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return int(err);
-  const dim3 grid((width + kTileW - 1) / kTileW, tiles_y, batch);
-  exp_cmajor_step_kernel<T><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((width + kTileW - 1) / kTileW, tiles_y, batch * G::kGroups);
+  exp_cmajor_step_kernel<T, C><<<grid, G::kThreads, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const T*>(h), static_cast<const T*>(c),
       static_cast<const T*>(w9), static_cast<const T*>(b), static_cast<T*>(h_out),
       static_cast<T*>(c_out), height, width, block_h);
   return int(cudaGetLastError());
+}
+
+template <typename T>
+int launch(const void* x, const void* h, const void* c, const void* w9, const void* b,
+           void* h_out, void* c_out, int batch, int height, int width, int channels,
+           int block_h, int device, void* stream) {
+  switch (channels) {
+    case 8: return launch_at<T, 8>(x, h, c, w9, b, h_out, c_out, batch, height, width,
+                                   block_h, device, stream);
+    case 16: return launch_at<T, 16>(x, h, c, w9, b, h_out, c_out, batch, height, width,
+                                     block_h, device, stream);
+    case 32: return launch_at<T, 32>(x, h, c, w9, b, h_out, c_out, batch, height, width,
+                                     block_h, device, stream);
+    case 64: return launch_at<T, 64>(x, h, c, w9, b, h_out, c_out, batch, height, width,
+                                     block_h, device, stream);
+    case 128: return launch_at<T, 128>(x, h, c, w9, b, h_out, c_out, batch, height, width,
+                                       block_h, device, stream);
+    default: return int(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace

@@ -30,9 +30,10 @@
 //
 // K1p: w3 as T2, the LSTM epilogue as T1.
 //
-// Ch is fixed at 64 and Cx is a multiple of 4 up to 256. The tile, the thread
-// layout and the inner product are those of convlstm_tile.cuh at CH = 64 (8 x
-// 16 pixels a block, a thread owns the four gates of 16 pixels x 2 channels).
+// Ch is 8, 16, 32, 64 or 128 and Cx a multiple of 4 up to 256 (the wrappers
+// zero-pad other widths to these). The tile, the thread layout and the inner
+// product are those of convlstm_tile.cuh at CH (tile_rows<CH>() x 16 pixels a
+// block; at CH = 64 a thread owns the four gates of 16 pixels x 2 channels).
 // What bounds them on this card: operations (0.31 TFLOP against ~0.34 GB at
 // B=8, 256x256, Cx=Ch=64); the contraction is f32 FMAs on the CUDA cores in
 // both dtypes and leaves the tensor cores unused: the three are measurements
@@ -43,11 +44,11 @@
 
 #include <cstddef>
 
-#include "convlstm_tile.cuh"
+#include "convlstm_gates.cuh"
 
 namespace {
 
-using namespace convlstm_tile;
+using namespace convlstm_gates;
 
 // kTapMajor: w is w9 and each tap is one contraction over [x | h] (T1); else w
 // is w3 and each tap is two, x's then h's (T2's, K1p's and the main kernel's
@@ -56,25 +57,27 @@ using namespace convlstm_tile;
 // accumulator columns; it would store the other half there, which keeps the
 // compiler from dropping that half of the contraction: the whole contraction
 // is what T2 is there to time.
-template <typename T, bool kTapMajor, bool kGates>
+template <typename T, int CH, bool kTapMajor, bool kGates>
 __global__ void __launch_bounds__(kThreads, 1)
 padded_step_kernel(const T* __restrict__ xp, const T* __restrict__ hp,
                    const T* __restrict__ c, const T* __restrict__ w,
                    const T* __restrict__ bias, T* __restrict__ hp_out,
                    T* __restrict__ c_out, float* __restrict__ unused_sums, int height,
                    int width, int cx) {
+  using L = Lanes<CH>;
   extern __shared__ float4 smem4[];  // float4: 16-byte aligned rows
   float* window = reinterpret_cast<float*>(smem4);
   const int b = blockIdx.z;
-  const int y0 = blockIdx.y * kTileH;
+  const int y0 = blockIdx.y * tile_rows<CH>();
   const int x0 = blockIdx.x * kTileW;
-  const int cin = cx + kCh;  // per staged pixel: x channels, then h channels
+  const int cin = cx + CH;   // per staged pixel: x channels, then h channels
   const int wp = width + 2;  // padded row length
 
-  // Stage the (kTileH+2) x (kTileW+2) window of the channel concat [x | h] as
-  // f32. Window column j is padded column x0 + j: the halo columns come from
-  // the tensors themselves; only rows outside the image are written as zeros.
-  const int n_stage = kHaloH * kHaloW * cin;
+  // Stage the (tile_rows + 2) x (kTileW + 2) window of the channel concat
+  // [x | h] as f32. Window column j is padded column x0 + j: the halo columns
+  // come from the tensors themselves; only rows outside the image are written
+  // as zeros.
+  const int n_stage = (tile_rows<CH>() + 2) * kHaloW * cin;
   for (int i = threadIdx.x; i < n_stage; i += kThreads) {
     const int ci = i % cin;
     const int pix = i / cin;
@@ -83,28 +86,29 @@ padded_step_kernel(const T* __restrict__ xp, const T* __restrict__ hp,
     float v = 0.f;
     if (gy >= 0 && gy < height && px < wp) {
       const size_t base = (size_t(b) * height + gy) * wp + px;
-      v = ci < cx ? to_f32(xp[base * cx + ci]) : to_f32(hp[base * kCh + (ci - cx)]);
+      v = ci < cx ? to_f32(xp[base * cx + ci]) : to_f32(hp[base * CH + (ci - cx)]);
     }
     window[i] = v;
   }
   __syncthreads();
 
-  const int row = threadIdx.x / 32;
-  const int co = (threadIdx.x % 32) * kLaneCh;
-  float acc[kTileW][4][kLaneCh];
-  init_with_bias<kCh>(acc, bias, co);
+  const int row = L::row();
+  const int p0 = L::pixel0();
+  const int co = L::channel();
+  float acc[L::kPix][4][kLaneCh];
+  init_with_bias<CH>(acc, bias, co);
 
 #pragma unroll 1
   for (int ky = 0; ky < 3; ++ky) {
 #pragma unroll 1
     for (int kx = 0; kx < 3; ++kx) {
-      const float* s = window + ((row + ky) * kHaloW + kx) * cin;
+      const float* s = window + ((row + ky) * kHaloW + kx + p0) * cin;
       if constexpr (kTapMajor) {
-        accumulate<kCh>(acc, s, cin, w + size_t(ky * 3 + kx) * cin * (4 * kCh) + co, cin);
+        accumulate<CH>(acc, s, cin, w + size_t(ky * 3 + kx) * cin * (4 * CH) + co, cin);
       } else {
-        const T* w_dy = w + size_t(ky) * (3 * cin) * (4 * kCh) + co;
-        accumulate<kCh>(acc, s, cin, w_dy + size_t(kx) * cx * (4 * kCh), cx);
-        accumulate<kCh>(acc, s + cx, cin, w_dy + (size_t(3) * cx + size_t(kx) * kCh) * (4 * kCh), kCh);
+        const T* w_dy = w + size_t(ky) * (3 * cin) * (4 * CH) + co;
+        accumulate<CH>(acc, s, cin, w_dy + size_t(kx) * cx * (4 * CH), cx);
+        accumulate<CH>(acc, s + cx, cin, w_dy + (size_t(3) * cx + size_t(kx) * CH) * (4 * CH), CH);
       }
     }
   }
@@ -114,11 +118,11 @@ padded_step_kernel(const T* __restrict__ xp, const T* __restrict__ hp,
   const size_t row_c = (size_t(b) * height + gy) * width;
   const size_t row_h = (size_t(b) * height + gy) * wp;
 #pragma unroll
-  for (int p = 0; p < kTileW; ++p) {
-    const int gx = x0 + p;
+  for (int p = 0; p < L::kPix; ++p) {
+    const int gx = x0 + p0 + p;
     if (gx < width) {
-      const size_t oc = (row_c + gx) * kCh + co;
-      const size_t oh = (row_h + gx + 1) * kCh + co;
+      const size_t oc = (row_c + gx) * CH + co;
+      const size_t oh = (row_h + gx + 1) * CH + co;
 #pragma unroll
       for (int j = 0; j < kLaneCh; ++j) {
         const float c_prev = to_f32(c[oc + j]);
@@ -137,36 +141,54 @@ padded_step_kernel(const T* __restrict__ xp, const T* __restrict__ hp,
       }
     }
   }
-  // The output's two halo columns, zeros: the first column tile writes
-  // column 0, the tile that holds the image's last column writes column W+1.
+  // The output's two halo columns, zeros, by the threads of the first pixel
+  // group: the first column tile writes column 0, the tile that holds the
+  // image's last column writes column W+1.
+  if (p0 != 0) return;
   const T zero = from_f32<T>(0.f);
   if (x0 == 0) {
 #pragma unroll
-    for (int j = 0; j < kLaneCh; ++j) hp_out[row_h * kCh + co + j] = zero;
+    for (int j = 0; j < kLaneCh; ++j) hp_out[row_h * CH + co + j] = zero;
   }
   if (x0 + kTileW >= width) {
 #pragma unroll
-    for (int j = 0; j < kLaneCh; ++j) hp_out[(row_h + width + 1) * kCh + co + j] = zero;
+    for (int j = 0; j < kLaneCh; ++j) hp_out[(row_h + width + 1) * CH + co + j] = zero;
   }
 }
+
+template <typename T, bool kTapMajor, bool kGates>
+struct Padded {
+  template <typename U, int CH>
+  struct Step {
+    static int run(const void* xp, const void* hp, const void* c, const void* w, const void* b,
+                   void* hp_out, void* c_out, int batch, int height, int width, int cx,
+                   int device, void* stream) {
+      if (cx <= 0 || cx % 4 != 0 || cx > kMaxCx || !grid_ok<CH>(batch, height, width)) {
+        return int(cudaErrorInvalidValue);
+      }
+      cudaError_t err = cudaSetDevice(device);
+      if (err != cudaSuccess) return int(err);
+      const int smem = window_bytes<CH>(cx);
+      err = cudaFuncSetAttribute(padded_step_kernel<U, CH, kTapMajor, kGates>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return int(err);
+      padded_step_kernel<U, CH, kTapMajor, kGates>
+          <<<tile_grid<CH>(batch, height, width), kThreads, smem,
+             static_cast<cudaStream_t>(stream)>>>(
+              static_cast<const U*>(xp), static_cast<const U*>(hp), static_cast<const U*>(c),
+              static_cast<const U*>(w), static_cast<const U*>(b), static_cast<U*>(hp_out),
+              static_cast<U*>(c_out), static_cast<float*>(nullptr), height, width, cx);
+      return int(cudaGetLastError());
+    }
+  };
+};
 
 template <typename T, bool kTapMajor, bool kGates>
 int launch(const void* xp, const void* hp, const void* c, const void* w, const void* b,
            void* hp_out, void* c_out, int batch, int height, int width, int cx, int ch,
            int device, void* stream) {
-  if (!shape_ok(batch, height, width, cx, ch)) return int(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return int(err);
-  const int smem = window_bytes(cx);
-  err = cudaFuncSetAttribute(padded_step_kernel<T, kTapMajor, kGates>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return int(err);
-  padded_step_kernel<T, kTapMajor, kGates><<<tile_grid(batch, height, width), kThreads, smem,
-                                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(xp), static_cast<const T*>(hp), static_cast<const T*>(c),
-      static_cast<const T*>(w), static_cast<const T*>(b), static_cast<T*>(hp_out),
-      static_cast<T*>(c_out), static_cast<float*>(nullptr), height, width, cx);
-  return int(cudaGetLastError());
+  return launch_for_width<Padded<T, kTapMajor, kGates>::template Step, T, 128>(
+      ch, xp, hp, c, w, b, hp_out, c_out, batch, height, width, cx, device, stream);
 }
 
 }  // namespace

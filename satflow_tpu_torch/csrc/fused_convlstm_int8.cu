@@ -14,9 +14,13 @@
 // and hq (B, H, W, Ch) are int8; the weights arrive packed by
 // ops/fused_convlstm_int8.py::pack_weights as int32 (9, K/4, 4Ch), K = Cx+Ch
 // rounded up to 8: tap-major, each int32 the weights of four consecutive
-// [x | h] input channels of one output column. Ch is fixed at 64; Cx is any
-// multiple of 4 up to 256. The TPU kernel's (W+2)-padded carry is dropped:
-// the zeros of SAME padding are written into the staged window here.
+// [x | h] input channels of one output column. Ch is 64 or 128 (a block owns
+// 64 hidden channels; at 128 the two groups of 64 are blocks along the grid's
+// z axis, each staging the whole window); Cx is any multiple of 4 up to 256.
+// The wrapper zero-pads every other width to these (exact: a zero channel of
+// x or h and a zero weight column quantize to zeros). The TPU kernel's
+// (W+2)-padded carry is dropped: the zeros of SAME padding are written into
+// the staged window here.
 //
 // What bounds it on this card. At the serving shape (B=8, 256x256, Cx=Ch=64)
 // one call is 2 * B*H*W * 4Ch * 9(Cx+Ch) = 0.31 TOP against ~0.24 GB moved
@@ -24,7 +28,7 @@
 // the int8 tensor cores (1979 TOP/s) stop being bound by memory. The call is
 // bound by operations.
 //
-// Design (simple and right first): K1's 8x16-pixel tile. A block of 8 warps
+// Design (simple and right first): an 8x16-pixel tile. A block of 8 warps
 // stages the tile's 10 x 18 window of [xq | hq] in shared memory as packed
 // int8 (one 32-bit word per four channels, zero words for the padding), warp
 // w computes tile row w, and lane l owns hidden channels 2l and 2l+1: the
@@ -47,7 +51,8 @@
 
 namespace {
 
-constexpr int kCh = 64;             // hidden channels
+constexpr int kCh = 64;             // hidden channels a block owns
+constexpr int kMaxCh = 128;
 constexpr int kTileH = 8;           // output rows per block, one per warp
 constexpr int kTileW = 16;          // output columns per block (per warp)
 constexpr int kLaneCh = kCh / 32;   // hidden channels per lane
@@ -79,15 +84,17 @@ fused_convlstm_step_int8_kernel(const int8_t* __restrict__ xq, const int8_t* __r
                                 const CT* __restrict__ c, const int2* __restrict__ wp,
                                 const float* __restrict__ dequant,
                                 const float* __restrict__ bias, int8_t* __restrict__ h_out,
-                                CT* __restrict__ c_out, int height, int width, int cx,
+                                CT* __restrict__ c_out, int height, int width, int cx, int ch,
                                 int words) {
   extern __shared__ int2 smem2[];  // int2: 8-byte aligned pixel vectors
   int* window = reinterpret_cast<int*>(smem2);
-  const int b = blockIdx.z;
+  const int groups = ch / kCh;
+  const int b = blockIdx.z / groups;
+  const int group = blockIdx.z % groups;
   const int y0 = blockIdx.y * kTileH;
   const int x0 = blockIdx.x * kTileW;
   const int x_words = cx / 4;
-  const int h_words = kCh / 4;
+  const int h_words = ch / 4;
 
   // Stage the (kTileH+2) x (kTileW+2) window of [xq | hq], four channels per
   // word; pixels outside the image and the words that pad K are zero.
@@ -102,7 +109,7 @@ fused_convlstm_step_int8_kernel(const int8_t* __restrict__ xq, const int8_t* __r
       const size_t base = (size_t(b) * height + gy) * width + gx;
       v = wi < x_words
               ? __ldg(reinterpret_cast<const int*>(xq + base * cx) + wi)
-              : __ldg(reinterpret_cast<const int*>(hq + base * kCh) + (wi - x_words));
+              : __ldg(reinterpret_cast<const int*>(hq + base * ch) + (wi - x_words));
     }
     window[i] = v;
   }
@@ -110,7 +117,7 @@ fused_convlstm_step_int8_kernel(const int8_t* __restrict__ xq, const int8_t* __r
 
   const int row = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int co = lane * kLaneCh;
+  const int co = group * kCh + lane * kLaneCh;  // the first of the lane's two channels
 
   int acc[kTileW][4][kLaneCh];
 #pragma unroll
@@ -122,19 +129,19 @@ fused_convlstm_step_int8_kernel(const int8_t* __restrict__ xq, const int8_t* __r
     }
   }
 
-  // wp as int2: [(tap * words + kg) * 4 + g] * 32 + lane holds the packed
-  // weights of gate g, channels 2*lane and 2*lane+1, input channels 4kg..4kg+3.
+  // wp as int2: [(tap * words + kg) * 2Ch + g * Ch / 2 + co / 2] holds the
+  // packed weights of gate g, channels co and co+1, input channels 4kg..4kg+3.
 #pragma unroll 1
   for (int tap = 0; tap < 9; ++tap) {
     const int* s = window + ((row + tap / 3) * kHaloW + tap % 3) * words;
-    const int2* w = wp + size_t(tap) * words * (4 * 32) + lane;
+    const int2* w = wp + size_t(tap) * words * (2 * ch) + co / 2;
 #pragma unroll 1
     for (int kg = 0; kg < words; kg += 2) {
       int2 wr[2][4];
 #pragma unroll
       for (int k = 0; k < 2; ++k) {
 #pragma unroll
-        for (int g = 0; g < 4; ++g) wr[k][g] = __ldg(w + ((kg + k) * 4 + g) * 32);
+        for (int g = 0; g < 4; ++g) wr[k][g] = __ldg(w + (kg + k) * (2 * ch) + g * (ch / 2));
       }
 #pragma unroll
       for (int p = 0; p < kTileW; ++p) {
@@ -158,15 +165,15 @@ fused_convlstm_step_int8_kernel(const int8_t* __restrict__ xq, const int8_t* __r
   for (int g = 0; g < 4; ++g) {
 #pragma unroll
     for (int j = 0; j < kLaneCh; ++j) {
-      dq[g][j] = dequant[g * kCh + co + j];
-      bv[g][j] = bias[g * kCh + co + j];
+      dq[g][j] = dequant[g * ch + co + j];
+      bv[g][j] = bias[g * ch + co + j];
     }
   }
 #pragma unroll
   for (int p = 0; p < kTileW; ++p) {
     const int gx = x0 + p;
     if (gx < width) {
-      const size_t o = ((size_t(b) * height + gy) * width + gx) * kCh + co;
+      const size_t o = ((size_t(b) * height + gy) * width + gx) * ch + co;
       int8_t hq_next[kLaneCh];
 #pragma unroll
       for (int j = 0; j < kLaneCh; ++j) {
@@ -189,8 +196,9 @@ fused_convlstm_step_int8_kernel(const int8_t* __restrict__ xq, const int8_t* __r
 }
 
 inline bool shape_ok(int batch, int height, int width, int cx, int ch) {
-  return ch == kCh && cx > 0 && cx % 4 == 0 && cx <= kMaxCx && batch > 0 &&
-         batch <= 65535 && height > 0 && width > 0;
+  return ch % kCh == 0 && ch > 0 && ch <= kMaxCh && cx > 0 && cx % 4 == 0 && cx <= kMaxCx &&
+         batch > 0 && batch * (ch / kCh) <= 65535 && height > 0 && width > 0 &&
+         (height + kTileH - 1) / kTileH <= 65535;
 }
 
 template <typename CT>
@@ -200,18 +208,19 @@ int launch(const void* xq, const void* hq, const void* c, const void* wp,
   if (!shape_ok(batch, height, width, cx, ch)) return int(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
-  const int words = (cx + kCh + 7) / 8 * 2;
+  const int words = (cx + ch + 7) / 8 * 2;
   const int smem = kHaloH * kHaloW * words * int(sizeof(int));
   err = cudaFuncSetAttribute(fused_convlstm_step_int8_kernel<CT>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return int(err);
-  const dim3 grid((width + kTileW - 1) / kTileW, (height + kTileH - 1) / kTileH, batch);
+  const dim3 grid((width + kTileW - 1) / kTileW, (height + kTileH - 1) / kTileH,
+                  batch * (ch / kCh));
   fused_convlstm_step_int8_kernel<CT><<<grid, kThreads, smem,
                                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(xq), static_cast<const int8_t*>(hq),
       static_cast<const CT*>(c), static_cast<const int2*>(wp),
       static_cast<const float*>(dequant), static_cast<const float*>(bias),
-      static_cast<int8_t*>(h_out), static_cast<CT*>(c_out), height, width, cx, words);
+      static_cast<int8_t*>(h_out), static_cast<CT*>(c_out), height, width, cx, ch, words);
   return int(cudaGetLastError());
 }
 

@@ -10,7 +10,9 @@
 //
 // with f32 gate math, and h', c' stored in the input type (float or bf16).
 // The weights keep the JAX HWIO layout: Wx (3, 3, Cx, 4Ch), Wh (3, 3, Ch, 4Ch),
-// b (4Ch). Ch is 8, 16, 32, 64 or 128; Cx is any width from 1 to 256.
+// b (4Ch). Ch is 8, 16, 32, 64, 128 or 256 (above 128 in groups of 128
+// hidden channels, one group a block, every group's block staging the whole
+// window); Cx is any width from 1 to 256.
 //
 // What bounds it on this card. At the serving shape (B=8, 256x256, Cx=Ch=64)
 // one call is 2 * B*H*W * 4Ch * 9(Cx+Ch) = 0.31 TFLOP against ~0.34 GB of
@@ -57,16 +59,12 @@ fused_convlstm_step_kernel(const T* __restrict__ x, const T* __restrict__ h,
                            T* __restrict__ h_out, T* __restrict__ c_out,
                            int height, int width, int cx) {
   extern __shared__ float4 smem4[];  // float4: 16-byte aligned rows
+  const Tile tile = tile_of_block<CH>();
+  const ImageRows<T> src{x, h, tile.b, height, width, cx, CH};
   for_each_gate_pair<T, CH>(
-      smem4, x, h, wx, wh, bias, height, width, cx,
+      smem4, tile, src, wx, wh, bias, height, width, cx,
       [&](size_t pixel, int channel, float2 gi, float2 gf, float2 go, float2 gg) {
-        const size_t o = pixel * CH + channel;
-        const float2 c_prev = load_pair(c + o);
-        float2 c_next, h_next;
-        lstm_update(gi.x, gf.x, go.x, gg.x, c_prev.x, c_next.x, h_next.x);
-        lstm_update(gi.y, gf.y, go.y, gg.y, c_prev.y, c_next.y, h_next.y);
-        store_pair(c_out + o, c_next.x, c_next.y);
-        store_pair(h_out + o, h_next.x, h_next.y);
+        lstm_pair(c, h_out, c_out, pixel * CH + channel, gi, gf, go, gg);
       });
 }
 
@@ -75,6 +73,7 @@ struct Step {
   static int run(const void* x, const void* h, const void* c, const void* wx,
                  const void* wh, const void* b, void* h_out, void* c_out, int batch,
                  int height, int width, int cx, int device, void* stream) {
+    if (!geometry_ok<CH>(batch, height, width, cx)) return int(cudaErrorInvalidValue);
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return int(err);
     const int smem = smem_bytes<T, CH>(cx);
@@ -94,7 +93,6 @@ template <typename T>
 int launch(const void* x, const void* h, const void* c, const void* wx,
            const void* wh, const void* b, void* h_out, void* c_out, int batch,
            int height, int width, int cx, int ch, int device, void* stream) {
-  if (!geometry_ok(batch, height, width, cx)) return int(cudaErrorInvalidValue);
   for (const void* p : {h, c, wx, wh, static_cast<const void*>(h_out),
                         static_cast<const void*>(c_out)}) {
     if (!aligned<T>(p)) return int(cudaErrorMisalignedAddress);

@@ -20,7 +20,8 @@
 // are not this kernel's: the wrapper takes them from library convs of dgates,
 // as the JAX package leaves them to XLA.
 //
-// Ch is 8, 16, 32, 64 or 128; Cx is any width from 1 to 256.
+// Ch is 8, 16, 32, 64, 128 or 256 (above 128 in groups of 128 hidden channels,
+// as K1); Cx is any width from 1 to 256.
 //
 // What bounds it on this card: the recompute is K1's contraction, 2 * B*H*W *
 // 4Ch * 9(Cx+Ch) FLOP = 0.31 TFLOP at B=8, 256x256, Cx=Ch=64, against ~0.67 GB
@@ -74,8 +75,10 @@ gate_bwd_kernel(const T* __restrict__ x, const T* __restrict__ h,
                 T* __restrict__ dgates, T* __restrict__ dc_prev, int height,
                 int width, int cx) {
   extern __shared__ float4 smem4[];  // float4: 16-byte aligned rows
+  const Tile tile = tile_of_block<CH>();
+  const ImageRows<T> src{x, h, tile.b, height, width, cx, CH};
   for_each_gate_pair<T, CH>(
-      smem4, x, h, wx, wh, bias, height, width, cx,
+      smem4, tile, src, wx, wh, bias, height, width, cx,
       [&](size_t pixel, int channel, float2 gi, float2 gf, float2 go, float2 gg) {
         const size_t o = pixel * CH + channel;
         const size_t o4 = pixel * (4 * CH) + channel;
@@ -97,6 +100,7 @@ struct GateBwd {
                  const void* wh, const void* b, const void* dh_next, const void* dc_next,
                  void* dgates, void* dc_prev, int batch, int height, int width, int cx,
                  int device, void* stream) {
+    if (!geometry_ok<CH>(batch, height, width, cx)) return int(cudaErrorInvalidValue);
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return int(err);
     const int smem = smem_bytes<T, CH>(cx);
@@ -118,7 +122,6 @@ int launch(const void* x, const void* h, const void* c, const void* wx,
            const void* wh, const void* b, const void* dh_next, const void* dc_next,
            void* dgates, void* dc_prev, int batch, int height, int width, int cx,
            int ch, int device, void* stream) {
-  if (!geometry_ok(batch, height, width, cx)) return int(cudaErrorInvalidValue);
   for (const void* p : {h, c, wx, wh, dh_next, dc_next, static_cast<const void*>(dgates),
                         static_cast<const void*>(dc_prev)}) {
     if (!aligned<T>(p)) return int(cudaErrorMisalignedAddress);

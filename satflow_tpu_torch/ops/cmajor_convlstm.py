@@ -24,9 +24,12 @@ a plain conv, as the JAX VJPs do: this is the inference formulation.
 The geometry gate :func:`cmajor_supported` is the JAX one (W % 128 == 0,
 channels % 8 == 0): it decides whether a model takes this formulation at all,
 on every device, so that the port and the JAX package agree on which rollout
-a configuration runs. The kernels themselves are built for hidden width 64
-(K6a: Cx <= 128; K6b: Cin <= 128, Cout <= 16) and a CUDA tensor outside that
-is refused.
+a configuration runs. K6a is built for the hidden widths
+``CELL_HIDDEN_WIDTHS`` = 8, 16, 32, 64, 128 and any Cx from 1 to 256
+(:func:`cell_takes`): another hidden width up to 128 is zero-padded to the
+next one that is, exactly as the NHWC step pads it, and the outputs sliced
+back; K6b takes Cin <= 128 and Cout <= 16. A CUDA tensor outside that is
+refused.
 """
 
 from __future__ import annotations
@@ -35,14 +38,21 @@ import ctypes
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from satflow_tpu_torch.ops import _build
-from satflow_tpu_torch.ops.fused_convlstm_step import conv3x3, fused_convlstm_step_ref
+from satflow_tpu_torch.ops.fused_convlstm_step import (
+    conv3x3,
+    fused_convlstm_step_ref,
+    pad_step_weights,
+    padded_hidden,
+    width_rule,
+)
 
-#: hidden width K6a is compiled for
-KERNEL_HIDDEN = 64
+#: hidden widths K6a is compiled for
+CELL_HIDDEN_WIDTHS = (8, 16, 32, 64, 128)
 #: largest input widths whose staged windows fit a block's shared memory
-KERNEL_MAX_CX = 128
+KERNEL_MAX_CX = 256
 KERNEL_MAX_CIN = 128
 #: most output channels K6b's per-thread accumulators hold
 KERNEL_MAX_COUT = 16
@@ -134,6 +144,12 @@ def _check_common(named: dict, first: str, height: int, width: int) -> None:
         raise ValueError(f"the kernel takes B <= 65535 and H <= 262140, got {tuple(ref.shape)}")
 
 
+def cell_takes(cx: int, ch: int) -> bool:
+    """K6a's dispatch rule on CUDA tensors: 1 <= Ch <= 128 (a width it is not
+    built for padded to the next that is) and 1 <= Cx <= 256."""
+    return 1 <= ch <= CELL_HIDDEN_WIDTHS[-1] and 1 <= cx <= KERNEL_MAX_CX
+
+
 def _check_cell(x, h, c, wx, wh, b, height, width) -> None:
     """Raise on anything K6a does not take (the device type last, so that the
     other checks can be exercised without a card)."""
@@ -148,10 +164,10 @@ def _check_cell(x, h, c, wx, wh, b, height, width) -> None:
         raise ValueError(
             f"weights must be wx (3,3,{cx},{4 * ch}), wh (3,3,{ch},{4 * ch}), "
             f"b ({4 * ch},); got {tuple(wx.shape)}, {tuple(wh.shape)}, {tuple(b.shape)}")
-    if ch != KERNEL_HIDDEN or cx > KERNEL_MAX_CX:
+    if not cell_takes(cx, ch):
         raise ValueError(
-            f"the kernel is built for hidden width {KERNEL_HIDDEN} and Cx <= "
-            f"{KERNEL_MAX_CX}; got Cx={cx}, Ch={ch}")
+            f"the channel-major step takes {width_rule(CELL_HIDDEN_WIDTHS, KERNEL_MAX_CX)}; "
+            f"got Cx={cx}, Ch={ch}")
     if x.device.type != "cuda":
         raise ValueError(f"the channel-major step runs on cpu or cuda tensors, not {x.device}")
 
@@ -191,6 +207,11 @@ def _step(x, h, c, wx, wh, b, height, width) -> Tuple[torch.Tensor, torch.Tensor
     if all(t.device.type == "cpu" for t in (x, h, c, wx, wh, b)):
         return cmajor_convlstm_step_ref(x, h, c, wx, wh, b, height, width)
     _check_cell(x, h, c, wx, wh, b, height, width)
+    ch = h.shape[1]
+    if ch not in CELL_HIDDEN_WIDTHS:  # the NHWC step's padding, on the channel axis
+        ch_to = padded_hidden(ch, CELL_HIDDEN_WIDTHS)
+        h, c = (F.pad(t, (0, 0, 0, ch_to - ch)) for t in (h, c))
+        wx, wh, b = pad_step_weights(wx, wh, b, ch_to)
     lib = _library()
     h_out = torch.empty_like(h)
     c_out = torch.empty_like(c)
@@ -202,6 +223,8 @@ def _step(x, h, c, wx, wh, b, height, width) -> Tuple[torch.Tensor, torch.Tensor
     )
     _build.raise_on(err, lib, "cmajor_convlstm_step")
     cmajor_convlstm_step.launches += 1
+    if ch != h.shape[1]:
+        return h_out[:, :ch].contiguous(), c_out[:, :ch].contiguous()
     return h_out, c_out
 
 

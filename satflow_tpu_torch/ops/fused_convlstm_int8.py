@@ -22,12 +22,24 @@ The port's xq and hq are unpadded NHWC int8 (the TPU's (W+2)-padded carry
 is dropped; the kernel supplies the zeros of SAME padding). Inference only:
 nothing here takes part in autograd.
 
-Dispatch (:func:`kernel_takes`): K5 is built for hidden width 64 and takes
-Cx a multiple of 4 up to 256, any B, H, W >= 1. (The JAX rule, H % 8 == 0
-and Ch % 8 == 0, is the TPU kernel's block geometry and is not carried
-over.) :func:`fused_convlstm_step_int8` runs the plain version for CPU
-tensors and launches K5 for CUDA tensors, or raises: a CUDA tensor outside
-the kernel's domain is refused, never handed to the plain version.
+Dispatch (:func:`kernel_takes`): K5 is built for the hidden widths
+``KERNEL_HIDDEN_WIDTHS`` = 64, 128 (a block owns 64 hidden channels) and Cx
+a multiple of 4 up to 256, any B, H, W >= 1; CUDA tensors of any hidden width
+from 1 to 128 and any Cx from 1 to 256 launch it, zero-padded to the next
+widths it is built for (:func:`kernel_widths`) and the outputs sliced back.
+(The JAX rule, H % 8 == 0 and Ch % 8 == 0, is the TPU kernel's block
+geometry and is not carried over.) The padding is exact, bit for bit at the
+real channels: it adds zero channels to xq and hq and zero rows and columns
+to the quantized weights (:func:`pad_quantized`), which is what quantizing
+zero-padded float weights gives (the fixed activation scale does not depend
+on the channel count, a zero column's scale is clamped to 1e-12 and
+quantizes to zeros, and the real columns' scales do not change); a padded
+channel's gates are then exact zeros, its c' and h'q zeros, and the integer
+sums of the real channels unchanged. The rollout pads once per session
+(:func:`quantize_convlstm_params` on a card), a direct call once per call.
+:func:`fused_convlstm_step_int8` runs the plain version for CPU tensors and
+launches K5 for CUDA tensors, or raises: a CUDA tensor outside the rule is
+refused, never handed to the plain version.
 """
 
 from __future__ import annotations
@@ -39,11 +51,16 @@ import torch
 import torch.nn.functional as F
 
 from satflow_tpu_torch.ops import _build
-from satflow_tpu_torch.ops.fused_convlstm_step import lstm_gates
+from satflow_tpu_torch.ops.fused_convlstm_step import (
+    lstm_gates,
+    pad_channels,
+    pad_gate_columns,
+    padded_hidden,
+)
 
 ACT_SCALE = 127.0
-#: hidden width the kernel is compiled for
-KERNEL_HIDDEN = 64
+#: hidden widths the kernel is compiled for: 64 hidden channels a block
+KERNEL_HIDDEN_WIDTHS = (64, 128)
 #: largest input width whose staged window the kernel takes
 KERNEL_MAX_CX = 256
 
@@ -137,15 +154,46 @@ def fused_convlstm_step_int8_ref(xq, hq, c, w3q, dequant, b, w_packed=None
     return hq_next.contiguous(), c_next.to(c.dtype).contiguous()
 
 
+WIDTH_RULE = (f"1 <= Ch <= {KERNEL_HIDDEN_WIDTHS[-1]} and 1 <= Cx <= {KERNEL_MAX_CX} (built "
+              f"for Ch {KERNEL_HIDDEN_WIDTHS} and Cx a multiple of 4; other widths zero-padded "
+              "to the next of them)")
+
+
 def kernel_takes(cx: int, ch: int) -> bool:
-    """K5's domain: hidden width 64, Cx a multiple of 4 in [4, 256]."""
-    return ch == KERNEL_HIDDEN and cx % 4 == 0 and 0 < cx <= KERNEL_MAX_CX
+    """K5's dispatch rule on CUDA tensors: 1 <= Ch <= 128 and 1 <= Cx <= 256."""
+    return 1 <= ch <= KERNEL_HIDDEN_WIDTHS[-1] and 1 <= cx <= KERNEL_MAX_CX
 
 
-def _check(xq, hq, c, w3q, dequant, b, w_packed) -> None:
+def kernel_widths(cx: int, ch: int) -> Tuple[int, int]:
+    """(Cx, Ch) as K5 runs them: Cx rounded up to a multiple of 4, Ch to the
+    next of ``KERNEL_HIDDEN_WIDTHS``; raises outside :func:`kernel_takes`."""
+    if not kernel_takes(cx, ch):
+        raise ValueError(f"the int8 step takes {WIDTH_RULE}; got Cx={cx}, Ch={ch}")
+    return -(-cx // 4) * 4, padded_hidden(ch, KERNEL_HIDDEN_WIDTHS)
+
+
+def pad_quantized(w3q: torch.Tensor, dequant: torch.Tensor, b: torch.Tensor, cx: int,
+                  cx_to: int, ch_to: int):
+    """A cell's quantized (w3q, dequant, b) at Cx, Ch -> at cx_to >= Cx, ch_to
+    >= Ch: zero rows of ``w3q`` for the added input channels of x and h, and
+    for the added hidden channels of each gate zero columns of ``w3q`` and
+    zeros of ``dequant`` and ``b``. The real rows and columns are unchanged,
+    bit for bit."""
+    ch4 = w3q.shape[2]
+    ch = ch4 // 4
+    wxq = F.pad(w3q[:, : 3 * cx].reshape(3, 3, cx, ch4), (0, 0, 0, cx_to - cx))
+    whq = F.pad(w3q[:, 3 * cx:].reshape(3, 3, ch, ch4), (0, 0, 0, ch_to - ch))
+    w3 = torch.cat([wxq.reshape(3, 3 * cx_to, ch4), whq.reshape(3, 3 * ch_to, ch4)], dim=1)
+    return (pad_gate_columns(w3, ch_to).contiguous(), pad_gate_columns(dequant, ch_to),
+            pad_gate_columns(b, ch_to))
+
+
+def _check(xq, hq, c, w3q, dequant, b, w_packed=None) -> None:
     """Raise on anything the kernel does not take (the device type last, so
     that the other checks can be exercised without a card)."""
-    named = dict(xq=xq, hq=hq, c=c, w3q=w3q, dequant=dequant, b=b, w_packed=w_packed)
+    named = dict(xq=xq, hq=hq, c=c, w3q=w3q, dequant=dequant, b=b)
+    if w_packed is not None:
+        named["w_packed"] = w_packed
     for name, t in named.items():
         if t.device != xq.device:
             raise ValueError(f"{name} is on {t.device}, xq on {xq.device}")
@@ -154,7 +202,7 @@ def _check(xq, hq, c, w3q, dequant, b, w_packed) -> None:
     for name, t, dtype in (("xq", xq, torch.int8), ("hq", hq, torch.int8),
                            ("w3q", w3q, torch.int8), ("w_packed", w_packed, torch.int32),
                            ("dequant", dequant, torch.float32), ("b", b, torch.float32)):
-        if t.dtype != dtype:
+        if t is not None and t.dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if c.dtype not in _ENTRY:
         raise TypeError(f"c must be float32 or bfloat16, got {c.dtype}")
@@ -168,21 +216,21 @@ def _check(xq, hq, c, w3q, dequant, b, w_packed) -> None:
             "must share (B, H, W), and hq and c their shape"
         )
     if not kernel_takes(cx, ch):
-        raise ValueError(
-            f"the kernel is built for hidden width {KERNEL_HIDDEN} and takes Cx a multiple "
-            f"of 4 in [4, {KERNEL_MAX_CX}]; got Cx={cx}, Ch={ch}"
-        )
+        raise ValueError(f"the int8 step takes {WIDTH_RULE}; got Cx={cx}, Ch={ch}")
     k_pad = -(-(cx + ch) // 8) * 8
+    packed = None if w_packed is None else tuple(w_packed.shape)
     if (tuple(w3q.shape) != (3, 3 * cx + 3 * ch, 4 * ch)
-            or tuple(w_packed.shape) != (9, k_pad // 4, 4 * ch)
+            or packed not in (None, (9, k_pad // 4, 4 * ch))
             or dequant.numel() != 4 * ch or b.numel() != 4 * ch):
         raise ValueError(
             f"weights must be w3q (3,{3 * cx + 3 * ch},{4 * ch}), w_packed "
             f"(9,{k_pad // 4},{4 * ch}), dequant and b of {4 * ch} elements; got "
-            f"{tuple(w3q.shape)}, {tuple(w_packed.shape)}, {tuple(dequant.shape)}, {tuple(b.shape)}"
+            f"{tuple(w3q.shape)}, {packed}, {tuple(dequant.shape)}, {tuple(b.shape)}"
         )
-    if min(bsz, height, width) <= 0 or bsz > 65535:
-        raise ValueError(f"the kernel takes 1 <= B <= 65535 and H, W >= 1, got {tuple(xq.shape)}")
+    groups = kernel_widths(cx, ch)[1] // KERNEL_HIDDEN_WIDTHS[0]  # blocks an image along z
+    if min(bsz, height, width) <= 0 or bsz * groups > 65535:
+        raise ValueError(f"the kernel takes 1 <= B <= {65535 // groups} at Ch={ch} and H, W >= 1, "
+                         f"got {tuple(xq.shape)}")
     if xq.device.type != "cuda":
         raise ValueError(f"the int8 step runs on cpu or cuda tensors, not {xq.device}")
 
@@ -208,28 +256,38 @@ def fused_convlstm_step_int8(xq, hq, c, w3q, dequant, b,
 
     xq (B, H, W, Cx) and hq (B, H, W, Ch) int8; c (B, H, W, Ch) bf16 or f32;
     w3q, dequant, b from :func:`quantize_weights`. Returns (h'q int8, c').
-    CPU tensors take :func:`fused_convlstm_step_int8_ref`; CUDA tensors launch
-    K5 on the current stream, counted in ``fused_convlstm_step_int8.launches``.
-    ``w_packed`` is :func:`pack_weights` of ``w3q``, which a rollout makes
-    once per cell; left out, the wrapper packs on every call.
+    CPU tensors take :func:`fused_convlstm_step_int8_ref`; CUDA tensors of the
+    widths in :func:`kernel_takes` launch K5 on the current stream (zero-padded
+    to :func:`kernel_widths` where they are not those), counted in
+    ``fused_convlstm_step_int8.launches``. ``w_packed`` is :func:`pack_weights`
+    of ``w3q``, which a rollout makes once per cell; left out, or where the
+    widths are padded here, the wrapper packs on every call.
     """
     if all(t.device.type == "cpu" for t in (xq, hq, c, w3q, dequant, b)):
         return fused_convlstm_step_int8_ref(xq, hq, c, w3q, dequant, b)
-    if w_packed is None:
-        w_packed = pack_weights(w3q, xq.shape[-1])
     _check(xq, hq, c, w3q, dequant, b, w_packed)
+    cx, ch = xq.shape[-1], hq.shape[-1]
+    cx_to, ch_to = kernel_widths(cx, ch)
+    if (cx_to, ch_to) != (cx, ch):
+        xq, hq, c = pad_channels(xq, cx_to), pad_channels(hq, ch_to), pad_channels(c, ch_to)
+        w3q, dequant, b = pad_quantized(w3q, dequant, b, cx, cx_to, ch_to)
+        w_packed = None
+    if w_packed is None:
+        w_packed = pack_weights(w3q, cx_to)
     lib = _library()
     h_out = torch.empty_like(hq)
     c_out = torch.empty_like(c)
-    bsz, height, width, cx = xq.shape
+    bsz, height, width, _ = xq.shape
     stream = torch.cuda.current_stream(xq.device).cuda_stream
     err = getattr(lib, _ENTRY[c.dtype])(
         xq.data_ptr(), hq.data_ptr(), c.data_ptr(), w_packed.data_ptr(),
         dequant.data_ptr(), b.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
-        bsz, height, width, cx, hq.shape[-1], xq.device.index, stream,
+        bsz, height, width, cx_to, ch_to, xq.device.index, stream,
     )
     _build.raise_on(err, lib, "fused_convlstm_step_int8")
     fused_convlstm_step_int8.launches += 1
+    if ch_to != ch:
+        return h_out[..., :ch].contiguous(), c_out[..., :ch].contiguous()
     return h_out, c_out
 
 
@@ -251,15 +309,23 @@ class Int8Cell(NamedTuple):
     w_packed: torch.Tensor
 
 
-def quantize_convlstm_params(core: torch.nn.Module) -> Dict:
+def quantize_convlstm_params(core: torch.nn.Module, pad: Optional[bool] = None) -> Dict:
     """Quantize a fused-cell ``ConvLSTMCore`` for :func:`int8_rollout`.
 
     Reads the core's four fused cells (``encoder.encoder_{1,2}``,
     ``decoder.decoder_{1,2}``) and its head conv, as the JAX function reads
     the flax tree that ``params_from_flax`` fills them from; tensors stay on
-    the core's device. Raises ``ValueError`` for a module without them.
+    the core's device. With ``pad`` (by default: when the core is on a CUDA
+    device, where the rollout launches K5) each cell's quantized weights are
+    zero-padded once, here, to the widths K5 is built for
+    (:func:`kernel_widths`, :func:`pad_quantized`): the rollout's carries then
+    run at those widths and no call pads. Raises ``ValueError`` for a module
+    without fused cells, and with ``pad`` for a hidden width above 128.
     """
-    def q(cell) -> Int8Cell:
+    if pad is None:
+        pad = next(core.parameters()).device.type == "cuda"
+
+    def q(cell, x_is_hidden: bool) -> Int8Cell:
         wx, wh, bias = (getattr(cell, name, None)
                         for name in ("x_gates_kernel", "h_gates_kernel", "bias"))
         if wx is None or wh is None or bias is None:
@@ -268,11 +334,17 @@ def quantize_convlstm_params(core: torch.nn.Module) -> Dict:
                 "h_gates_kernel/bias); build the model with cell_impl='fused'"
             )
         w3q, dequant, b = quantize_weights(wx.detach(), wh.detach(), bias.detach())
-        return Int8Cell(w3q, dequant, b, pack_weights(w3q, wx.shape[2]))
+        cx = cx_to = wx.shape[2]
+        if pad:
+            cx_to, ch_to = kernel_widths(cx, wh.shape[2])
+            # a cell whose x is the carry before it reads that carry's padded width
+            cx_to = ch_to if x_is_hidden else cx_to
+            w3q, dequant, b = pad_quantized(w3q, dequant, b, cx, cx_to, ch_to)
+        return Int8Cell(w3q, dequant, b, pack_weights(w3q, cx_to))
 
     try:
         encoder, decoder = core.encoder, core.decoder
-        cells = {name: q(group[name])
+        cells = {name: q(group[name], name != "encoder_1")
                  for group, names in ((encoder, ("encoder_1", "encoder_2")),
                                       (decoder, ("decoder_1", "decoder_2")))
                  for name in names}
@@ -295,11 +367,15 @@ def int8_rollout(qparams: Dict, x: torch.Tensor, forecast_steps: int,
     once, the h carries stay int8 and the c carries bf16 throughout, and the
     head runs in bf16 on the dequantized h4. ``step`` swaps the step's
     implementation for every cell (the chip smoke passes
-    :func:`fused_convlstm_step_int8_ref`).
+    :func:`fused_convlstm_step_int8_ref`). Weights padded by
+    :func:`quantize_convlstm_params` run the carries at the padded widths; the
+    inputs' channels are padded to match and the head reads h4's real ones.
     """
     bsz, _, height, width, _ = x.shape
-    ch = qparams["encoder_1"].w3q.shape[-1] // 4
-    xq = quantize_activations(x).transpose(0, 1).contiguous()  # (T, B, H, W, C)
+    ch = qparams["encoder_1"].w3q.shape[-1] // 4               # the carries' width
+    cx = qparams["encoder_1"].w3q.shape[1] // 3 - ch           # the first cell's input width
+    hidden = qparams["head"]["kernel"].shape[1]                # the model's hidden width
+    xq = pad_channels(quantize_activations(x), cx).transpose(0, 1).contiguous()  # (T, B, H, W, C)
     zq = torch.zeros(bsz, height, width, ch, dtype=torch.int8, device=x.device)
     zc = torch.zeros(bsz, height, width, ch, dtype=torch.bfloat16, device=x.device)
 
@@ -319,7 +395,7 @@ def int8_rollout(qparams: Dict, x: torch.Tensor, forecast_steps: int,
         h3, c3 = cell("decoder_1", v, h3, c3)
         h4, c4 = cell("decoder_2", h3, h4, c4)
         v = h4
-        h4f = dequantize_activations(h4).permute(0, 3, 1, 2)
+        h4f = dequantize_activations(h4[..., :hidden]).permute(0, 3, 1, 2)
         # the bias is added to the conv's bf16 result, as the JAX rollout does
         outs.append(F.conv2d(h4f, head_k, padding=1).permute(0, 2, 3, 1) + head_b)
     return torch.sigmoid(torch.stack(outs, dim=1))

@@ -22,31 +22,32 @@ linear grads as library convs, as ``_bwd`` leaves them to XLA.
 
 Dispatch (:func:`kernel_takes`), the counterpart of the JAX dispatcher's
 ``c.shape[-1] % 8 == 0``: K1 and K2 are built for the hidden widths
-``KERNEL_HIDDEN_WIDTHS`` = 8, 16, 32, 64, 128 and any input width Cx from 1
-to ``KERNEL_MAX_CX`` = 256, in float32 (f32 FMAs on the CUDA cores) and in
-bfloat16 (the tensor cores, ``csrc/convlstm_mma.cuh``). CUDA tensors of any
-hidden width from 1 to 128 launch the kernels: a width the kernels are not
-built for is zero-padded to the next one that is (:func:`padded_hidden`,
-:func:`pad_step_operands`) and the outputs are sliced back. That is exact: a
-padded channel's gate sums are all zero, so its c' = σ(0)·0 + σ(0)·tanh(0) = 0
-and h' = σ(0)·tanh(0) = 0, and it reaches the real channels only through zero
-rows of ``wh``. The padded call is a counted launch of K1 / K2 like any
-other (a Ch with Ch % 8 != 0, which the JAX dispatcher sends to its XLA step,
-is padded like the rest). CUDA tensors with Ch above 128 (the JAX kernel takes any multiple of
-8) or Cx above 256 raise: on the card a wrapper launches its kernel or raises,
-and a caller who wants the plain step there names it (the models take
-``step=fused_convlstm_step_ref``). Anything else the kernels do not take (a
-dtype that is not float32 or bfloat16, tensors on different devices, wrong
-shapes, non-contiguous or misaligned tensors) raises too, as does a failed
-build or launch.
+``KERNEL_HIDDEN_WIDTHS`` = 8, 16, 32, 64, 128, 256 and any input width Cx
+from 1 to ``KERNEL_MAX_CX`` = 256, in float32 (f32 FMAs on the CUDA cores)
+and in bfloat16 (the tensor cores, ``csrc/convlstm_mma.cuh``); above 128 a
+block owns a group of 128 hidden channels. CUDA tensors of any hidden width
+from 1 to 256 launch the kernels: a width the kernels are not built for is
+zero-padded to the next one that is (:func:`padded_hidden`,
+:func:`pad_step_operands`; 129-255 to 256, the last group of 128 partly
+zeros) and the outputs are sliced back. That is exact: a padded channel's
+gate sums are all zero, so its c' = σ(0)·0 + σ(0)·tanh(0) = 0 and h' =
+σ(0)·tanh(0) = 0, and it reaches the real channels only through zero rows of
+``wh``. The padded call is a counted launch of K1 / K2 like any other (a Ch
+with Ch % 8 != 0, which the JAX dispatcher sends to its XLA step, is padded
+like the rest). CUDA tensors with Ch above 256 or Cx above 256 raise: on the
+card a wrapper launches its kernel or raises, and a caller who wants the
+plain step there names it (the models take ``step=fused_convlstm_step_ref``).
+Anything else the kernels do not take (a dtype that is not float32 or
+bfloat16, tensors on different devices, wrong shapes, non-contiguous or
+misaligned tensors) raises too, as does a failed build or launch.
 
 The halo-tensor variant ``_step_pallas_halo`` is ported as K1h
 (``csrc/fused_convlstm_step_halo.cu``, :func:`fused_convlstm_step_halo`): the
-same step, but the image is cut into row blocks of ``block_h`` rows and the
-row above and below each block is gathered outside the kernel by
+same step, but the image is cut into row blocks of ``block_h`` = 8 rows and
+the row above and below each block is gathered outside the kernel by
 :func:`build_halo` into a side tensor with the image's edge zeros in it, so
-the kernel tests no row index; it is built for hidden width 64 and Cx a
-multiple of 4 only. As in the JAX dispatcher the environment
+the kernel tests no row index. It shares K1's contraction (the tensor cores
+in bfloat16) and K1's width rule and padding. As in the JAX dispatcher the environment
 variable ``SATFLOW_STEP_VARIANT``, read at call time, chooses the forward of
 :func:`fused_convlstm_step`: unset or ``3pass`` is K1, ``halo`` is K1h, any
 other value raises. The backward is K2 whatever the variant.
@@ -63,11 +64,10 @@ import torch.nn.functional as F
 
 from satflow_tpu_torch.ops import _build
 
-#: hidden widths K1 and K2 are compiled for
-KERNEL_HIDDEN_WIDTHS = (8, 16, 32, 64, 128)
-#: the one hidden width K1h and the study kernels (T1, T2, K1p) are compiled
-#: for; they also need Cx % 4 == 0
-KERNEL_HIDDEN = 64
+#: hidden widths K1, K2 and K1h are compiled for
+KERNEL_HIDDEN_WIDTHS = (8, 16, 32, 64, 128, 256)
+#: hidden channels a block owns at most: wider steps run in groups of these
+KERNEL_BLOCK_CH = 128
 #: largest input width whose staged window fits the block's shared memory
 KERNEL_MAX_CX = 256
 
@@ -181,20 +181,25 @@ def gate_bwd_ref(x, h, c, wx, wh, b, dh_next, dc_next) -> Tuple[torch.Tensor, to
 
 
 def kernel_takes(cx: int, ch: int) -> bool:
-    """The dispatch rule of K1 and K2 on CUDA tensors: 1 <= Ch <= 128 and
-    1 <= Cx <= 256 launch the kernels (a Ch they are not built for padded to
-    :func:`padded_hidden`), any other width raises."""
+    """The dispatch rule of K1, K2 and K1h on CUDA tensors: 1 <= Ch <= 256
+    and 1 <= Cx <= 256 launch the kernels (a Ch they are not built for padded
+    to :func:`padded_hidden`), any other width raises."""
     return 1 <= ch <= KERNEL_HIDDEN_WIDTHS[-1] and 1 <= cx <= KERNEL_MAX_CX
 
 
-def padded_hidden(ch: int) -> int:
-    """The hidden width the kernels run ``ch`` at: the smallest of
-    ``KERNEL_HIDDEN_WIDTHS`` that is >= ch."""
-    for width in KERNEL_HIDDEN_WIDTHS:
+def padded_hidden(ch: int, widths=KERNEL_HIDDEN_WIDTHS) -> int:
+    """The hidden width a kernel runs ``ch`` at: the smallest of the widths
+    it is built for (by default K1's, ``KERNEL_HIDDEN_WIDTHS``) that is >= ch."""
+    for width in widths:
         if ch <= width:
             return width
-    raise ValueError(f"hidden width {ch} is above the kernels' largest, "
-                     f"{KERNEL_HIDDEN_WIDTHS[-1]}")
+    raise ValueError(f"hidden width {ch} is above the kernels' largest, {widths[-1]}")
+
+
+def width_rule(widths=KERNEL_HIDDEN_WIDTHS, max_cx: int = KERNEL_MAX_CX) -> str:
+    """The width rule of kernels built for ``widths``, as the refusals name it."""
+    return (f"1 <= Ch <= {widths[-1]} (built for {tuple(widths)}, other widths zero-padded "
+            f"to the next of them) and 1 <= Cx <= {max_cx}")
 
 
 def pad_channels(t: torch.Tensor, ch_to: int) -> torch.Tensor:
@@ -217,14 +222,20 @@ def slice_gate_columns(t: torch.Tensor, ch: int) -> torch.Tensor:
     return t.reshape(*t.shape[:-1], 4, ch_from)[..., :ch].reshape(*t.shape[:-1], 4 * ch)
 
 
-def pad_step_operands(h, c, wx, wh, b, ch_to: int):
-    """The step's (h, c, wx, wh, b) at hidden width ``ch_to`` >= Ch: h and c
-    get zero channels, ``wx`` and ``b`` zero gate columns, ``wh`` zero input
-    rows and zero gate columns. The step on these computes the unpadded
-    step's (h', c') in its first Ch channels and exact zeros in the rest."""
-    return (pad_channels(h, ch_to), pad_channels(c, ch_to), pad_gate_columns(wx, ch_to),
+def pad_step_weights(wx, wh, b, ch_to: int):
+    """The step's (wx, wh, b) at hidden width ``ch_to`` >= Ch: ``wx`` and ``b``
+    get zero gate columns, ``wh`` zero input rows and zero gate columns."""
+    return (pad_gate_columns(wx, ch_to),
             F.pad(pad_gate_columns(wh, ch_to), (0, 0, 0, ch_to - wh.shape[2])),
             pad_gate_columns(b, ch_to))
+
+
+def pad_step_operands(h, c, wx, wh, b, ch_to: int):
+    """The step's (h, c, wx, wh, b) at hidden width ``ch_to`` >= Ch: h and c
+    get zero channels, the weights :func:`pad_step_weights`. The step on these
+    computes the unpadded step's (h', c') in its first Ch channels and exact
+    zeros in the rest."""
+    return (pad_channels(h, ch_to), pad_channels(c, ch_to), *pad_step_weights(wx, wh, b, ch_to))
 
 
 def _check(x, h, c, wx, wh, b, **state_like) -> None:
@@ -262,12 +273,12 @@ def _check(x, h, c, wx, wh, b, **state_like) -> None:
         )
     if not kernel_takes(cx, ch):
         raise ValueError(
-            f"the kernels take 1 <= Ch <= {KERNEL_HIDDEN_WIDTHS[-1]} (built for "
-            f"{KERNEL_HIDDEN_WIDTHS}, other widths zero-padded to the next of them) and "
-            f"1 <= Cx <= {KERNEL_MAX_CX}, got Ch={ch}, Cx={cx}; the plain step "
+            f"the kernels take {width_rule()}, got Ch={ch}, Cx={cx}; the plain step "
             "(fused_convlstm_step_ref) takes any width")
-    if min(bsz, height, width) <= 0 or bsz > 65535:
-        raise ValueError(f"the kernel takes 1 <= B <= 65535 and H, W >= 1, got {tuple(x.shape)}")
+    groups = -(-padded_hidden(ch) // KERNEL_BLOCK_CH)  # blocks an image along the grid's z
+    if min(bsz, height, width) <= 0 or bsz * groups > 65535:
+        raise ValueError(f"the kernel takes 1 <= B <= {65535 // groups} at Ch={ch} and H, W >= 1, "
+                         f"got {tuple(x.shape)}")
     if x.device.type != "cuda":
         raise ValueError(f"the fused step runs on cpu or cuda tensors, not {x.device}")
     # bfloat16 is copied 16 bytes at a time, float32 read and written as pairs;
@@ -303,45 +314,54 @@ def step_variant() -> str:
     return variant
 
 
-def fused_convlstm_step_halo(x, h, c, wx, wh, b, block_h: int = HALO_BLOCK_H
-                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1h: one ConvLSTM step through the halo-tensor variant, without autograd.
-
-    CPU tensors take :func:`fused_convlstm_step_halo_ref`; CUDA tensors gather
-    the two side tensors with :func:`build_halo` and launch the kernel on the
-    current stream, counted in ``fused_convlstm_step_halo.launches``. A geometry
-    the kernel does not take (H % block_h != 0, block_h != 8, Ch != 64,
-    Cx % 4 != 0) raises.
-    """
-    if all(t.device.type == "cpu" for t in (x, h, c, wx, wh, b)):
-        return fused_convlstm_step_halo_ref(x, h, c, wx, wh, b, block_h)
-    # the kernel's own geometry and widths first: _check ends with the device type
-    if x.dim() == 4 and h.dim() == 4:
-        if block_h != HALO_BLOCK_H or x.shape[1] % block_h:
-            raise ValueError(
-                f"the halo kernel is built for row blocks of {HALO_BLOCK_H} rows and needs "
-                f"H % block_h == 0, got block_h={block_h}, H={x.shape[1]}")
-        if h.shape[-1] != KERNEL_HIDDEN:
-            raise ValueError(f"the halo kernel is built for hidden width {KERNEL_HIDDEN}, "
-                             f"got {h.shape[-1]}")
-        if x.shape[-1] % 4:
-            raise ValueError(f"the halo kernel takes Cx a multiple of 4 in [4, {KERNEL_MAX_CX}], "
-                             f"got {x.shape[-1]}")
-    _check(x, h, c, wx, wh, b)
-    lib = _library("fused_convlstm_step_halo", _HALO_ENTRY, 10)
-    x_halo, h_halo = build_halo(x, block_h), build_halo(h, block_h)
+def _launch_step(counter, x, h, c, wx, wh, b, halo: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 (or K1h with ``halo``) on checked CUDA tensors: a hidden width the
+    kernels are not built for is zero-padded to the next one that is and the
+    outputs sliced back; the launch is counted on ``counter``."""
+    name, entries = (("fused_convlstm_step_halo", _HALO_ENTRY) if halo
+                     else ("fused_convlstm_step", _ENTRY))
+    ch = h.shape[-1]
+    if ch not in KERNEL_HIDDEN_WIDTHS:
+        h, c, wx, wh, b = pad_step_operands(h, c, wx, wh, b, padded_hidden(ch))
+    # K1h reads each row block's edge rows from the side tensors
+    ins = ((x, build_halo(x, HALO_BLOCK_H), h, build_halo(h, HALO_BLOCK_H)) if halo
+           else (x, h)) + (c, wx, wh, b)
+    lib = _library(name, entries, len(ins) + 2)
     h_out = torch.empty_like(h)
     c_out = torch.empty_like(c)
     bsz, height, width, cx = x.shape
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = getattr(lib, _HALO_ENTRY[x.dtype])(
-        x.data_ptr(), x_halo.data_ptr(), h.data_ptr(), h_halo.data_ptr(), c.data_ptr(),
-        wx.data_ptr(), wh.data_ptr(), b.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
+    err = getattr(lib, entries[x.dtype])(
+        *(t.data_ptr() for t in ins), h_out.data_ptr(), c_out.data_ptr(),
         bsz, height, width, cx, h.shape[-1], x.device.index, stream,
     )
-    _build.raise_on(err, lib, "fused_convlstm_step_halo")
-    fused_convlstm_step_halo.launches += 1
+    _build.raise_on(err, lib, counter.__name__)
+    counter.launches += 1
+    if ch != h.shape[-1]:
+        return h_out[..., :ch].contiguous(), c_out[..., :ch].contiguous()
     return h_out, c_out
+
+
+def fused_convlstm_step_halo(x, h, c, wx, wh, b, block_h: int = HALO_BLOCK_H
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1h: one ConvLSTM step through the halo-tensor variant, without autograd.
+
+    CPU tensors take :func:`fused_convlstm_step_halo_ref`; CUDA tensors of the
+    widths in :func:`kernel_takes` gather the two side tensors with
+    :func:`build_halo` and launch the kernel on the current stream (a hidden
+    width it is not built for zero-padded to the next one that is, as K1),
+    counted in ``fused_convlstm_step_halo.launches``. A geometry the kernel
+    does not take (H % block_h != 0, block_h != 8) or any other width raises.
+    """
+    if all(t.device.type == "cpu" for t in (x, h, c, wx, wh, b)):
+        return fused_convlstm_step_halo_ref(x, h, c, wx, wh, b, block_h)
+    # the kernel's own geometry first: _check ends with the device type
+    if x.dim() == 4 and (block_h != HALO_BLOCK_H or x.shape[1] % block_h):
+        raise ValueError(
+            f"the halo kernel is built for row blocks of {HALO_BLOCK_H} rows and needs "
+            f"H % block_h == 0, got block_h={block_h}, H={x.shape[1]}")
+    _check(x, h, c, wx, wh, b)
+    return _launch_step(fused_convlstm_step_halo, x, h, c, wx, wh, b, halo=True)
 
 
 fused_convlstm_step_halo.launches = 0
@@ -355,24 +375,7 @@ def _step(x, h, c, wx, wh, b) -> Tuple[torch.Tensor, torch.Tensor]:
     if all(t.device.type == "cpu" for t in (x, h, c, wx, wh, b)):
         return fused_convlstm_step_ref(x, h, c, wx, wh, b)
     _check(x, h, c, wx, wh, b)
-    ch = h.shape[-1]
-    if ch not in KERNEL_HIDDEN_WIDTHS:
-        h, c, wx, wh, b = pad_step_operands(h, c, wx, wh, b, padded_hidden(ch))
-    lib = _library("fused_convlstm_step", _ENTRY, 8)
-    h_out = torch.empty_like(h)
-    c_out = torch.empty_like(c)
-    bsz, height, width, cx = x.shape
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = getattr(lib, _ENTRY[x.dtype])(
-        x.data_ptr(), h.data_ptr(), c.data_ptr(), wx.data_ptr(), wh.data_ptr(),
-        b.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
-        bsz, height, width, cx, h.shape[-1], x.device.index, stream,
-    )
-    _build.raise_on(err, lib, "fused_convlstm_step")
-    fused_convlstm_step.launches += 1
-    if ch != h.shape[-1]:
-        return h_out[..., :ch].contiguous(), c_out[..., :ch].contiguous()
-    return h_out, c_out
+    return _launch_step(fused_convlstm_step, x, h, c, wx, wh, b, halo=False)
 
 
 def gate_bwd(x, h, c, wx, wh, b, dh_next, dc_next) -> Tuple[torch.Tensor, torch.Tensor]:

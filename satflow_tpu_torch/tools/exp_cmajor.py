@@ -13,9 +13,13 @@ and ``b`` is (4C, 1).
 for CUDA tensors and its plain version :func:`cmajor_step_ref` for CPU tensors.
 It differs from the served channel-major step (K6a,
 ``ops/cmajor_convlstm.py``) in both layouts: K6a's carry has no pad rows and
-its weights stay HWIO.
+its weights stay HWIO. The kernel is built for the channel widths
+``KERNEL_CHANNEL_WIDTHS`` = 8, 16, 32, 64, 128; any C from 1 to 128 launches
+it, zero-padded to the next of them (channels, gate rows and contraction
+columns of ``w9``) and the outputs sliced back.
 
-Run on the card: verifies against the NHWC plain step, then times a chained
+Run on the card: verifies against the NHWC plain step (the JAX tool's float32
+shapes, C = 8 and 16, then bfloat16 at ``--channels``), then times a chained
 rollout (x fed back from h') of K6a and T3::
 
     python -m satflow_tpu_torch.tools.exp_cmajor [--batch 8] [--size 256]
@@ -35,11 +39,12 @@ import torch.nn.functional as F
 
 from satflow_tpu_torch.ops import _build
 from satflow_tpu_torch.ops import cmajor_convlstm as K6
+from satflow_tpu_torch.ops import fused_convlstm_step as K1
 from satflow_tpu_torch.ops.fused_convlstm_step import fused_convlstm_step_ref, lstm_gates
 from satflow_tpu_torch.tools.exp_tap9 import _device, full_f32, time_chain
 
-#: channel width (of x, h and c alike) the kernel is compiled for
-KERNEL_CHANNELS = 64
+#: channel widths (of x, h and c alike) the kernel is compiled for
+KERNEL_CHANNEL_WIDTHS = (8, 16, 32, 64, 128)
 #: the kernel's tile height: block_h must be a multiple of it
 KERNEL_TILE_H = 4
 
@@ -134,13 +139,28 @@ def _check(x, h, c, w9, b, block_h, height, width) -> None:
         raise ValueError(
             f"weights must be w9 (9, {4 * ch}, {2 * ch}) and b ({4 * ch}, 1); got "
             f"{tuple(w9.shape)}, {tuple(b.shape)}")
-    if ch != KERNEL_CHANNELS:
-        raise ValueError(f"the kernel is built for {KERNEL_CHANNELS} channels, got {ch}")
-    if not 0 < bsz <= 65535 or (height + 2 * block_h) // KERNEL_TILE_H > 65535:
-        raise ValueError(f"the kernel takes 1 <= B <= 65535 and H + 2*block_h <= 262140, got "
-                         f"B={bsz}, H={height}")
+    if not 1 <= ch <= KERNEL_CHANNEL_WIDTHS[-1]:
+        raise ValueError(f"the kernel takes 1 <= C <= {KERNEL_CHANNEL_WIDTHS[-1]} (built for "
+                         f"{KERNEL_CHANNEL_WIDTHS}, other widths zero-padded to the next of "
+                         f"them), got {ch}")
+    groups = 2 if ch > 64 else 1  # blocks of 64 channels an image along the grid's z
+    if not 0 < bsz * groups <= 65535 or (height + 2 * block_h) // KERNEL_TILE_H > 65535:
+        raise ValueError(f"the kernel takes 1 <= B <= {65535 // groups} and H + 2*block_h <= "
+                         f"262140, got B={bsz}, H={height}")
     if x.device.type != "cuda":
         raise ValueError(f"the prototype step runs on cpu or cuda tensors, not {x.device}")
+
+
+def pad_operands(x, h, c, w9, b, ch_to: int):
+    """(x, h, c, w9, b) at channel width ``ch_to`` >= C: zero channels of the
+    carries, zero gate rows (per gate) and zero contraction columns (per x
+    and h) of ``w9``, zero bias rows: the step computes the same h', c' in the
+    first C channels and zeros in the rest."""
+    ch = c.shape[1]
+    w = F.pad(w9.reshape(9, 4, ch, 2, ch), (0, ch_to - ch, 0, 0, 0, ch_to - ch))
+    carries = (F.pad(t, (0, 0, 0, ch_to - ch)) for t in (x, h, c))
+    return (*carries, w.reshape(9, 4 * ch_to, 2 * ch_to).contiguous(),
+            F.pad(b.reshape(4, ch, 1), (0, 0, 0, ch_to - ch)).reshape(4 * ch_to, 1))
 
 
 def _library() -> ctypes.CDLL:
@@ -168,6 +188,10 @@ def cmajor_step(x, h, c, w9, b, block_h: int, height: int, width: int
     if all(t.device.type == "cpu" for t in (x, h, c, w9, b)):
         return cmajor_step_ref(x, h, c, w9, b, block_h, height, width)
     _check(x, h, c, w9, b, block_h, height, width)
+    ch = c.shape[1]
+    if ch not in KERNEL_CHANNEL_WIDTHS:
+        x, h, c, w9, b = pad_operands(x, h, c, w9, b,
+                                      K1.padded_hidden(ch, KERNEL_CHANNEL_WIDTHS))
     lib = _library()
     h_out = torch.empty_like(h)
     c_out = torch.empty_like(c)
@@ -179,6 +203,8 @@ def cmajor_step(x, h, c, w9, b, block_h: int, height: int, width: int
     )
     _build.raise_on(err, lib, "cmajor_step")
     cmajor_step.launches += 1
+    if ch != c.shape[1]:
+        return h_out[:, :ch].contiguous(), c_out[:, :ch].contiguous()
     return h_out, c_out
 
 
@@ -233,16 +259,13 @@ def main(bsz=8, height=256, width=256, ch=64, block_h=8, steps=24, verify_only=F
          device: Optional[str] = None) -> dict:
     """Verify T3, then (on the card) time chained rollouts of K6a and T3."""
     device = _device(device)
-    if device == "cpu":  # the JAX tool's shapes, through the plain version
-        verify(device)
-        verify(device, bsz=1, height=64, width=128, ch=16, block_h=8)
+    # the JAX tool's float32 shapes, through the plain version on the CPU
+    verify(device)
+    verify(device, bsz=1, height=64, width=128, ch=16, block_h=8)
+    if device == "cpu":
         print("no card asked for; stopping after the plain version's check", flush=True)
         return {}
-    # the same image sizes at the kernel's channel width
-    verify(device, ch=KERNEL_CHANNELS)
-    verify(device, bsz=1, height=64, width=128, ch=KERNEL_CHANNELS, block_h=8)
-    verify(device, bsz=2, height=64, width=256, ch=KERNEL_CHANNELS, block_h=8,
-           dtype=torch.bfloat16)
+    verify(device, bsz=2, height=64, width=256, ch=ch, block_h=8, dtype=torch.bfloat16)
     if verify_only:
         print("verify-only: OK", flush=True)
         return {}

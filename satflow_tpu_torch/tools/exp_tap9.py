@@ -27,7 +27,10 @@ All three keep the JAX main path's W-padded I/O: ``xp`` (B, H, W+2, Cx) and ``hp
 reads as given (callers keep it zero); ``c`` is (B, H, W, Ch); the result is
 ``(h' (B, H, W+2, Ch), c' (B, H, W, Ch))`` with the halo columns of h' written
 as zeros. Each wrapper runs its plain version (``*_ref``) for CPU tensors and
-launches its kernel for CUDA tensors, or raises.
+launches its kernel for CUDA tensors, or raises. The kernels are built for
+the hidden widths ``KERNEL_HIDDEN_WIDTHS`` = 8, 16, 32, 64, 128 and Cx a
+multiple of 4 up to 256; any Ch from 1 to 128 and Cx from 1 to 256 launch
+them, zero-padded to those (as K1 pads) and the outputs sliced back.
 
 Run on the card (verifies, then times a chained rollout of K1, K1p, T1, T2)::
 
@@ -53,6 +56,8 @@ from satflow_tpu_torch.ops import _build
 from satflow_tpu_torch.ops import fused_convlstm_step as K1
 
 _SOURCE = "exp_tap9"
+#: hidden widths the study kernels are compiled for
+KERNEL_HIDDEN_WIDTHS = (8, 16, 32, 64, 128)
 _TAP9_ENTRY = {
     torch.float32: "satflow_step_tap9_f32",
     torch.bfloat16: "satflow_step_tap9_bf16",
@@ -155,15 +160,28 @@ def _check(xp, hp, c, wx, wh, b, block_h: int) -> None:
             f"b ({4 * ch},); got {tuple(wx.shape)}, {tuple(wh.shape)}, {tuple(b.shape)}")
     if block_h <= 0 or height % block_h:
         raise ValueError(f"H % block_h must be 0, got H={height}, block_h={block_h}")
-    if ch != K1.KERNEL_HIDDEN:
-        raise ValueError(f"the kernels are built for hidden width {K1.KERNEL_HIDDEN}, got {ch}")
-    if cx % 4 or not 0 < cx <= K1.KERNEL_MAX_CX:
-        raise ValueError(
-            f"the kernels take Cx a multiple of 4 in [4, {K1.KERNEL_MAX_CX}], got {cx}")
+    if not kernel_takes(cx, ch):
+        raise ValueError(f"the study kernels take {K1.width_rule(KERNEL_HIDDEN_WIDTHS)} (Cx "
+                         f"padded to a multiple of 4), got Ch={ch}, Cx={cx}")
     if min(bsz, height) <= 0 or bsz > 65535:
         raise ValueError(f"the kernels take 1 <= B <= 65535 and H, W >= 1, got {tuple(xp.shape)}")
     if xp.device.type != "cuda":
         raise ValueError(f"the study steps run on cpu or cuda tensors, not {xp.device}")
+
+
+def kernel_takes(cx: int, ch: int) -> bool:
+    """The study kernels' rule on CUDA tensors: 1 <= Ch <= 128, 1 <= Cx <= 256."""
+    return 1 <= ch <= KERNEL_HIDDEN_WIDTHS[-1] and 1 <= cx <= K1.KERNEL_MAX_CX
+
+
+def pad_operands(xp, hp, c, wx, wh, b):
+    """The operands at the widths the kernels are built for: Ch to the next of
+    ``KERNEL_HIDDEN_WIDTHS``, Cx to a multiple of 4, with zero channels, zero
+    weight rows and zero gate columns (exact, as K1's padding)."""
+    cx, ch = xp.shape[-1], hp.shape[-1]
+    cx_to, ch_to = -(-cx // 4) * 4, K1.padded_hidden(ch, KERNEL_HIDDEN_WIDTHS)
+    hp, c, wx, wh, b = K1.pad_step_operands(hp, c, wx, wh, b, ch_to)
+    return (K1.pad_channels(xp, cx_to), hp, c, F.pad(wx, (0, 0, 0, cx_to - cx)), wh, b)
 
 
 def _library() -> ctypes.CDLL:
@@ -181,6 +199,9 @@ def build() -> None:
 
 def _launch(entries, counter, weights: Callable, xp, hp, c, wx, wh, b, block_h):
     _check(xp, hp, c, wx, wh, b, block_h)
+    ch = hp.shape[-1]
+    if ch not in KERNEL_HIDDEN_WIDTHS or xp.shape[-1] % 4:
+        xp, hp, c, wx, wh, b = pad_operands(xp, hp, c, wx, wh, b)
     lib = _library()
     w = weights(wx, wh)
     hp_out = torch.empty_like(hp)
@@ -194,6 +215,8 @@ def _launch(entries, counter, weights: Callable, xp, hp, c, wx, wh, b, block_h):
     )
     _build.raise_on(err, lib, counter.__name__)
     counter.launches += 1
+    if ch != hp.shape[-1]:
+        return hp_out[..., :ch].contiguous(), c_out[..., :ch].contiguous()
     return hp_out, c_out
 
 
@@ -274,13 +297,11 @@ def full_f32():
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
 
 
-def verify(device: str, bsz: int = 2, size: int = 16, cx: int = 8, ch: Optional[int] = None,
+def verify(device: str, bsz: int = 2, size: int = 16, cx: int = 8, ch: int = 8,
            block_h: int = 8) -> float:
     """T1 and K1p against the main step's plain version (1e-4), and T2 against
     its own arithmetic written with library convs; returns the largest |diff|.
-    The JAX tool's small shape; on the card the hidden width is the kernels' 64."""
-    on_card = device != "cpu"
-    ch = ch or (K1.KERNEL_HIDDEN if on_card else 8)
+    The JAX tool's small shape, Cx = Ch = 8, on the CPU and on the card."""
     xp, hp, c, wx, wh, b = step_inputs(bsz, size, cx, ch, torch.float32, device, seed=0,
                                        w_scale=0.1)
     x, h = xp[:, :, 1:-1].contiguous(), hp[:, :, 1:-1].contiguous()

@@ -184,10 +184,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         CM._check_cell(cm[0], cm[1], cm[2], cm[3].transpose(0, 1), *cm[4:], 8, WDT)
     with pytest.raises(ValueError, match="weights must be"):
         CM._check_cell(*cm[:4], cm[4][..., :8].contiguous(), cm[5], 8, WDT)
-    small = [_t(a) for a in _cell_inputs(7, b=1, hgt=8)]
-    small = [CM.to_cmajor(t) for t in small[:3]] + small[3:]
-    with pytest.raises(ValueError, match="hidden width 64"):
-        CM._check_cell(*small, 8, WDT)
+    wide = [_t(a) for a in _cell_inputs(7, b=1, hgt=8, ch=136)]
+    wide = [CM.to_cmajor(t) for t in wide[:3]] + wide[3:]
+    with pytest.raises(ValueError, match=r"1 <= Ch <= 128 \(built for \(8, 16, 32, 64, 128\)"):
+        CM._check_cell(*wide, 8, WDT)
     x, w, b = cm[0], torch.zeros(3, 3, 64, 12), torch.zeros(12)
     with pytest.raises(ValueError, match="cpu or cuda"):
         CM._check_conv(x, w, b, 8, WDT)

@@ -98,7 +98,7 @@ def _meta(cx=12, ch=64, dtype=torch.float32, b=2, hgt=8, wdt=8):
     "args, error, match",
     [
         # widths outside kernel_takes (the widths it takes: test_torch_widths.py)
-        (_meta(ch=136), ValueError, "1 <= Ch <= 128"),
+        (_meta(ch=264), ValueError, "1 <= Ch <= 256"),
         (_meta(cx=0), ValueError, "1 <= Cx <= 256"),
         (_meta(cx=260), ValueError, "1 <= Cx <= 256"),
         (_meta(dtype=torch.float16), TypeError, "float32 or bfloat16"),

@@ -7,7 +7,9 @@ runs on a card's machine that has no flax: ``python -m pytest
 tests/test_torch_gpu.py``. Without a card it skips.
 
 K1/K2 at a ragged size (the 8x16 tiles do not divide 20x36) with Cx=12, and
-at every hidden width they are built for (8 to 128; Cx 1, 12, 256) at 21x37.
+at every hidden width they are built for (8 to 256; Cx 1, 12, 256) at 21x37;
+K1h, K6a, K5 and the study kernels at every width they are built for and at
+widths they zero-pad.
 Tolerances: float32 with TF32 off, the same f32 sums in another order (and
 for the step's gradients the same cuDNN linear grads fed agreeing dgates):
 atol 1e-4 (x max|grad| for gradients); bf16: both store bf16 (step 2^-8)
@@ -170,7 +172,7 @@ def test_kernels_take_an_unaligned_input_on_card(cx, dtype, atol):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("ch", [8, 16, 32, 128])
+@pytest.mark.parametrize("ch", [8, 16, 32, 128, 256])
 def test_function_grads_at_every_width_on_card(ch):
     """The six float32 gradients through K1 + K2 at the other widths."""
     _card()
@@ -191,9 +193,9 @@ def test_function_grads_at_every_width_on_card(ch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("cx, ch", [(12, 136), (12, 192), (300, 64)])
+@pytest.mark.parametrize("cx, ch", [(12, 264), (12, 300), (300, 64)])
 def test_width_outside_the_rule_is_refused_on_card(cx, ch):
-    """A width above the kernels' largest (hidden 128, Cx 256) raises on the
+    """A width above the kernels' largest (hidden 256, Cx 256) raises on the
     card and names the rule: nothing launches, and no wrapper gives way to the
     plain version, which a caller names itself
     (``step=fused_convlstm_step_ref``)."""
@@ -202,7 +204,7 @@ def test_width_outside_the_rule_is_refused_on_card(cx, ch):
     args = _width_args(cx, ch, torch.float32, seed=7)
     before = P.fused_convlstm_step.launches, P.gate_bwd.launches
     for call in (lambda: P.fused_convlstm_step(*args[:6]), lambda: P.gate_bwd(*args)):
-        with pytest.raises(ValueError, match="1 <= Ch <= 128 .* and 1 <= Cx <= 256"):
+        with pytest.raises(ValueError, match="1 <= Ch <= 256 .* and 1 <= Cx <= 256"):
             call()
     assert (P.fused_convlstm_step.launches, P.gate_bwd.launches) == before
     with pytest.raises(TypeError, match="float32 or bfloat16"):
@@ -213,7 +215,7 @@ def test_width_outside_the_rule_is_refused_on_card(cx, ch):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype, atol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
-@pytest.mark.parametrize("ch", [24, 40, 12, 1, 96, 127])
+@pytest.mark.parametrize("ch", [24, 40, 12, 1, 96, 127, 192, 136])
 @pytest.mark.parametrize("cx", [1, 12])
 def test_kernels_match_plain_at_padded_widths_on_card(cx, ch, dtype, atol):
     """K1 and K2 at hidden widths they are not built for: zero-padded to the
@@ -410,19 +412,27 @@ def test_metnet_forward_through_k3_and_k4_on_card():
     torch.testing.assert_close(y, want, atol=1e-4, rtol=0)
 
 
-def _int8_args(cx, c_dtype, shape=(2, 20, 36), seed=40):
+def _int8_args(cx, c_dtype, shape=(2, 20, 36), seed=40, ch=64):
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def rand(*s):
         return torch.rand(*s, generator=g, device="cuda")
 
-    w3q, dequant, b = Q.quantize_weights((rand(3, 3, cx, 256) - 0.5) * 0.2,
-                                         (rand(3, 3, 64, 256) - 0.5) * 0.2,
-                                         (rand(256) - 0.5) * 0.2)
+    w3q, dequant, b = Q.quantize_weights((rand(3, 3, cx, 4 * ch) - 0.5) * 0.2,
+                                         (rand(3, 3, ch, 4 * ch) - 0.5) * 0.2,
+                                         (rand(4 * ch) - 0.5) * 0.2)
     xq = Q.quantize_activations(rand(*shape, cx))
-    hq = Q.quantize_activations(rand(*shape, 64) * 2 - 1)
-    c = (rand(*shape, 64) * 2 - 1).to(c_dtype)
+    hq = Q.quantize_activations(rand(*shape, ch) * 2 - 1)
+    c = (rand(*shape, ch) * 2 - 1).to(c_dtype)
     return xq, hq, c, w3q, dequant, b
+
+
+def _int8_close(got, want, c_step):
+    """K5 against the plain int8 step: h'q within one int8 step on at most
+    0.1 % of elements, c' within one step of its dtype."""
+    diff = (got[0].int() - want[0].int()).abs()
+    assert int(diff.max()) <= 1 and float((diff != 0).float().mean()) <= 1e-3
+    torch.testing.assert_close(got[1].float(), want[1].float(), atol=c_step, rtol=0)
 
 
 @pytest.mark.gpu
@@ -440,21 +450,46 @@ def test_int8_kernel_matches_plain_on_card(cx, c_dtype, c_step):
     assert Q.fused_convlstm_step_int8.launches == before + 2
     assert hq_k.dtype == torch.int8 and c_k.dtype == c_dtype
     assert torch.equal(hq_k, hq_k2) and torch.equal(c_k, c_k2)
-    hq_p, c_p = Q.fused_convlstm_step_int8_ref(*args)
-    diff = (hq_k.int() - hq_p.int()).abs()
-    assert int(diff.max()) <= 1 and float((diff != 0).float().mean()) <= 1e-3
-    torch.testing.assert_close(c_k.float(), c_p.float(), atol=c_step, rtol=0)
+    _int8_close((hq_k, c_k), Q.fused_convlstm_step_int8_ref(*args), c_step)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c_dtype, c_step", [(torch.bfloat16, 2.0 ** -7), (torch.float32, 1e-6)])
+@pytest.mark.parametrize("cx, ch", [(12, 32), (13, 24), (12, 24), (1, 8), (13, 128), (256, 100)])
+def test_int8_kernel_at_padded_widths_on_card(cx, ch, c_dtype, c_step):
+    """K5 at widths it is not built for, zero-padded inside the wrapper (Ch to
+    64 or 128, Cx to a multiple of 4): one counted launch, outputs of the
+    unpadded shape, within K5's tolerance of the plain step at the unpadded
+    width; the same padded call with its weights padded once beforehand
+    (``pad_quantized``, as a rollout does) gives the same bits."""
+    _card()
+    args = _int8_args(cx, c_dtype, ch=ch, seed=41)
+    before = Q.fused_convlstm_step_int8.launches
+    got = Q.fused_convlstm_step_int8(*args)
+    torch.cuda.synchronize()
+    assert Q.fused_convlstm_step_int8.launches == before + 1
+    assert got[0].shape == args[1].shape and got[1].shape == args[2].shape
+    _int8_close(got, Q.fused_convlstm_step_int8_ref(*args), c_step)
+    cx_to, ch_to = Q.kernel_widths(cx, ch)
+    w3q, dq, b = Q.pad_quantized(*args[3:], cx, cx_to, ch_to)
+    pre = Q.fused_convlstm_step_int8(*(Q.pad_channels(t, w) for t, w in
+                                       zip(args[:3], (cx_to, ch_to, ch_to))), w3q, dq, b,
+                                     Q.pack_weights(w3q, cx_to))
+    assert torch.equal(pre[0][..., :ch], got[0]) and torch.equal(pre[1][..., :ch], got[1])
+    if ch < ch_to:
+        assert int(pre[0][..., ch:].abs().max()) == 0 and float(pre[1][..., ch:].abs().max()) == 0
 
 
 @pytest.mark.gpu
 def test_int8_kernel_dispatch_rule_on_card():
-    """A CUDA tensor outside K5's domain is refused, not handed to the plain
-    version; no launch is counted."""
+    """A CUDA tensor outside K5's rule (hidden 136) is refused and names the
+    rule, not handed to the plain version; no launch is counted."""
     _card()
     args = list(_int8_args(12, torch.bfloat16))
+    wide = _int8_args(12, torch.bfloat16, ch=136, shape=(1, 8, 8))
     before = Q.fused_convlstm_step_int8.launches
-    with pytest.raises(ValueError, match="hidden width 64"):
-        Q.fused_convlstm_step_int8(args[0][..., :6].contiguous(), *args[1:])
+    with pytest.raises(ValueError, match=r"1 <= Ch <= 128 and 1 <= Cx <= 256"):
+        Q.fused_convlstm_step_int8(*wide)
     with pytest.raises(TypeError, match="c must be"):
         Q.fused_convlstm_step_int8(args[0], args[1], args[2].half(), *args[3:])
     with pytest.raises(ValueError, match="is on cpu"):
@@ -483,11 +518,38 @@ def test_int8_rollout_through_k5_on_card():
     torch.testing.assert_close(y.float(), want.float(), atol=2e-2, rtol=0)
 
 
-def _cmajor_args(dtype, cx, shape=(2, 10, 70), seed=50):
+@pytest.mark.gpu
+@pytest.mark.parametrize("hidden", [32, 24])
+def test_int8_rollout_at_other_widths_through_k5_on_card(hidden):
+    """The int8 rollout at hidden widths K5 is not built for: the weights are
+    padded once, by ``quantize_convlstm_params`` on the card, every cell step
+    is a K5 launch, and the rollout through the plain step on the unpadded
+    weights agrees within 2e-2."""
+    _card()
+    from satflow_tpu_torch.models.conv_lstm import ConvLSTMCore
+
+    core = ConvLSTMCore(hidden_dim=hidden, in_channels=12, out_channels=12, forecast_steps=3,
+                        generator=torch.Generator().manual_seed(1)).cuda().eval()
+    qp = Q.quantize_convlstm_params(core)
+    assert qp["encoder_1"].w3q.shape[-1] == 4 * 64
+    x = torch.rand(2, 2, 24, 40, 12, device="cuda")
+    before = Q.fused_convlstm_step_int8.launches
+    with torch.inference_mode():
+        y = Q.int8_rollout(qp, x, 3)
+        torch.cuda.synchronize()
+        assert Q.fused_convlstm_step_int8.launches == before + 10
+        want = Q.int8_rollout(Q.quantize_convlstm_params(core, pad=False), x, 3,
+                              step=Q.fused_convlstm_step_int8_ref)
+    assert y.shape == (2, 3, 24, 40, 12) and y.dtype == torch.bfloat16
+    torch.testing.assert_close(y.float(), want.float(), atol=2e-2, rtol=0)
+
+
+def _cmajor_args(dtype, cx, shape=(2, 10, 70), seed=50, ch=64):
     g = torch.Generator(device="cuda").manual_seed(seed)
     b, h, w = shape
-    shapes = (((b, cx, h * w), 1.0), ((b, 64, h * w), 1.0), ((b, 64, h * w), 1.0),
-              ((3, 3, cx, 256), 0.1), ((3, 3, 64, 256), 0.04), ((256,), 0.1))
+    shapes = (((b, cx, h * w), 1.0), ((b, ch, h * w), 1.0), ((b, ch, h * w), 1.0),
+              ((3, 3, cx, 4 * ch), (9 * cx) ** -0.5), ((3, 3, ch, 4 * ch), (9 * ch) ** -0.5),
+              ((4 * ch,), 0.1))
     return [(torch.randn(*s, generator=g, device="cuda") * sc).to(dtype) for s, sc in shapes]
 
 
@@ -505,6 +567,26 @@ def test_cmajor_cell_kernel_matches_plain_on_card(dtype, atol, cx):
     h_p, c_p = CM.cmajor_convlstm_step_ref(*args, 10, 70)
     torch.testing.assert_close(h_k.float(), h_p.float(), atol=atol, rtol=0)
     torch.testing.assert_close(c_k.float(), c_p.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype, atol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("ch", [8, 16, 32, 128, 24, 1])
+@pytest.mark.parametrize("cx", [1, 12, 256])
+def test_cmajor_cell_kernel_at_every_width_on_card(dtype, atol, cx, ch):
+    """K6a at every hidden width it is built for and at two it is not (padded
+    to 32 and 8 inside the wrapper), with 1, 12 and 256 input channels, at a
+    ragged size; one counted launch, outputs of the unpadded shape."""
+    _card()
+    args = _cmajor_args(dtype, cx, ch=ch, seed=51)
+    before = CM.cmajor_convlstm_step.launches
+    h_k, c_k = CM.cmajor_convlstm_step(*args, 10, 70)
+    torch.cuda.synchronize()
+    assert CM.cmajor_convlstm_step.launches == before + 1
+    assert h_k.shape == args[1].shape and c_k.shape == args[2].shape
+    h_p, c_p = CM.cmajor_convlstm_step_ref(*args, 10, 70)
+    torch.testing.assert_close(h_k.float(), h_p.float(), atol=atol, rtol=0)
+    torch.testing.assert_close(c_k.float(), c_p.float(), atol=atol, rtol=atol)
 
 
 @pytest.mark.gpu
@@ -557,11 +639,9 @@ def test_cmajor_kernels_dispatch_rule_on_card():
     _card()
     args = _cmajor_args(torch.float32, 64)
     before = CM.cmajor_convlstm_step.launches
-    with pytest.raises(ValueError, match="hidden width 64"):
-        CM.cmajor_convlstm_step(args[0], args[1][:, :8].contiguous(), args[2][:, :8].contiguous(),
-                                args[3][..., :32].contiguous(),
-                                args[4][:, :, :8, :32].contiguous(), args[5][:32].contiguous(),
-                                10, 70)
+    wide = _cmajor_args(torch.float32, 12, ch=136, shape=(1, 2, 70))
+    with pytest.raises(ValueError, match=r"1 <= Ch <= 128 \(built for \(8, 16, 32, 64, 128\)"):
+        CM.cmajor_convlstm_step(*wide, 2, 70)
     with pytest.raises(ValueError, match="Cout <= 16"):
         CM.cmajor_conv3x3(args[0], torch.zeros(3, 3, 64, 24, device="cuda"),
                           torch.zeros(24, device="cuda"), 10, 70)
@@ -585,6 +665,31 @@ def test_cmajor_core_through_k6_on_card():
 
     kw = dict(hidden_dim=64, in_channels=12, out_channels=12, forecast_steps=3)
     m_c = ConvLSTMCore(cell_impl="cmajor", generator=torch.Generator().manual_seed(0), **kw)
+    m_f = ConvLSTMCore(cell_impl="fused", **kw)
+    m_f.load_state_dict(m_c.state_dict())
+    m_c, m_f = m_c.cuda().eval(), m_f.cuda().eval()
+    x = torch.rand(2, 2, 8, 128, 12, device="cuda")
+    counts = lambda: (P.fused_convlstm_step.launches, CM.cmajor_convlstm_step.launches,  # noqa: E731
+                      CM.cmajor_conv3x3.launches)
+    before = counts()
+    with torch.inference_mode():
+        y = m_c(x)
+        torch.cuda.synchronize()
+        assert tuple(a - b for a, b in zip(counts(), before)) == (4, 6, 3)
+        want = m_f(x)
+    torch.testing.assert_close(y, want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hidden", [32, 24])
+def test_cmajor_core_at_other_widths_on_card(hidden):
+    """``cell_impl="cmajor"`` at hidden 32 (built) and 24 (padded to 32): the
+    same launches as at 64, and the fused rollout within 1e-4 (f32)."""
+    _card()
+    from satflow_tpu_torch.models.conv_lstm import ConvLSTMCore
+
+    kw = dict(hidden_dim=hidden, in_channels=12, out_channels=12, forecast_steps=3)
+    m_c = ConvLSTMCore(cell_impl="cmajor", generator=torch.Generator().manual_seed(2), **kw)
     m_f = ConvLSTMCore(cell_impl="fused", **kw)
     m_f.load_state_dict(m_c.state_dict())
     m_c, m_f = m_c.cuda().eval(), m_f.cuda().eval()
@@ -624,6 +729,30 @@ def test_halo_kernel_matches_plain_and_k1_on_card(dtype, atol, cx):
     h_p, c_p = P.fused_convlstm_step_halo_ref(*args)
     torch.testing.assert_close(h_k.float(), h_p.float(), atol=atol, rtol=0)
     torch.testing.assert_close(c_k.float(), c_p.float(), atol=atol, rtol=0)
+    h_1, c_1 = P._step(*args)
+    k1_atol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(h_k.float(), h_1.float(), atol=k1_atol, rtol=0)
+    torch.testing.assert_close(c_k.float(), c_1.float(), atol=k1_atol, rtol=2.0 ** -7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype, atol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("ch", [8, 16, 32, 128, 256, 24, 136])
+@pytest.mark.parametrize("cx", [1, 12])
+def test_halo_kernel_at_every_width_on_card(dtype, atol, cx, ch):
+    """K1h at every hidden width it is built for and at two it is not (padded
+    to 32 and 256), at 24x36 (three row blocks, two tiles a block at Ch >=
+    128); one counted launch, against its plain version and against K1."""
+    _card()
+    args = _width_args(cx, ch, dtype, seed=72, shape=(2, 24, 36))[:6]
+    before = P.fused_convlstm_step_halo.launches
+    h_k, c_k = P.fused_convlstm_step_halo(*args)
+    torch.cuda.synchronize()
+    assert P.fused_convlstm_step_halo.launches == before + 1
+    assert h_k.shape == args[1].shape and c_k.shape == args[2].shape
+    h_p, c_p = P.fused_convlstm_step_halo_ref(*args)
+    torch.testing.assert_close(h_k.float(), h_p.float(), atol=atol, rtol=atol)
+    torch.testing.assert_close(c_k.float(), c_p.float(), atol=atol, rtol=atol)
     h_1, c_1 = P._step(*args)
     k1_atol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
     torch.testing.assert_close(h_k.float(), h_1.float(), atol=k1_atol, rtol=0)
@@ -720,6 +849,53 @@ def test_nogate_kernel_matches_plain_on_card(dtype, rel, cx):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype, atol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("cx, ch", [(8, 8), (12, 32), (13, 24), (1, 8)])
+@pytest.mark.parametrize("name", ["tap9", "padded", "nogate"])
+def test_study_kernels_at_other_widths_on_card(dtype, atol, cx, ch, name):
+    """T1, K1p and T2 at the JAX tool's width (Cx = Ch = 8), at hidden 32 and
+    at widths they are not built for (padded inside the wrapper): one counted
+    launch, against the plain versions (T2 relative to max|plain|)."""
+    _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, h, c, wx, wh, b = _width_args(cx, ch, dtype, seed=82, shape=(2, 20, 36))[:6]
+    args = XT.pad_w(x).contiguous(), XT.pad_w(h).contiguous(), c, wx, wh, b
+    step, ref = getattr(XT, f"step_{name}"), getattr(XT, f"step_{name}_ref")
+    before = step.launches
+    h_k, c_k = step(*args, block_h=4)
+    torch.cuda.synchronize()
+    assert step.launches == before + 1 and h_k.shape == args[1].shape
+    h_p, c_p = ref(*args)
+    for got, want in ((h_k, h_p), (c_k, c_p)):
+        tol = atol * float(want.float().abs().max()) if name == "nogate" else atol
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+    assert float(h_k[:, :, (0, -1)].abs().max()) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype, atol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("ch", [8, 32, 128, 24])
+def test_exp_cmajor_kernel_at_other_widths_on_card(dtype, atol, ch):
+    """T3 at the JAX tool's widths (C = 8, 16), at 32, 128 and at 24 (padded
+    to 32): one counted launch, against its plain version, pad rows zero."""
+    _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    height, width, block_h = 16, 40, 8
+    x, h, c, wx, wh, b = _width_args(ch, ch, dtype, seed=91, shape=(2, height, width))[:6]
+    carry = [XC.to_cmajor(t, block_h) for t in (x, h, c)]
+    w9, b2 = XC.weights_cmajor(wx, wh), b.reshape(-1, 1)
+    before = XC.cmajor_step.launches
+    h_k, c_k = XC.cmajor_step(*carry, w9, b2, block_h, height, width)
+    torch.cuda.synchronize()
+    assert XC.cmajor_step.launches == before + 1 and h_k.shape == carry[1].shape
+    h_p, c_p = XC.cmajor_step_ref(*carry, w9, b2, block_h, height, width)
+    torch.testing.assert_close(h_k.float(), h_p.float(), atol=atol, rtol=0)
+    torch.testing.assert_close(c_k.float(), c_p.float(), atol=atol, rtol=atol)
+    rows = h_k.reshape(2, ch, height + 2 * block_h, width)
+    assert float(rows[:, :, :block_h].abs().max()) == 0 == float(rows[:, :, -block_h:].abs().max())
+
+
+@pytest.mark.gpu
 def test_study_steps_dispatch_rule_on_card():
     """CUDA tensors outside the study kernels' domain are refused."""
     _card()
@@ -782,10 +958,10 @@ def test_exp_cmajor_dispatch_rule_on_card():
     before = XC.cmajor_step.launches
     with pytest.raises(ValueError, match="block_h % 4"):
         XC.cmajor_step(z, z, z, w9, b2, 2, 8, 32)
-    z8 = torch.zeros(1, 8, (8 + 8) * 32, device="cuda")
-    with pytest.raises(ValueError, match="64 channels"):
-        XC.cmajor_step(z8, z8, z8, torch.zeros(9, 32, 16, device="cuda"),
-                       torch.zeros(32, 1, device="cuda"), 4, 8, 32)
+    z136 = torch.zeros(1, 136, (8 + 8) * 32, device="cuda")
+    with pytest.raises(ValueError, match=r"1 <= C <= 128 \(built for"):
+        XC.cmajor_step(z136, z136, z136, torch.zeros(9, 544, 272, device="cuda"),
+                       torch.zeros(544, 1, device="cuda"), 4, 8, 32)
     assert XC.cmajor_step.launches == before
 
 

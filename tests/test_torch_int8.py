@@ -189,10 +189,21 @@ def test_pack_weights_holds_every_weight_where_the_kernel_reads_it(cx):
 
 
 @pytest.mark.parametrize("cx, ch, takes", [(12, 64, True), (64, 64, True), (256, 64, True),
-                                           (4, 64, True), (6, 64, False), (0, 64, False),
-                                           (260, 64, False), (8, 8, False), (64, 128, False)])
+                                           (4, 64, True), (6, 64, True), (0, 64, False),
+                                           (260, 64, False), (8, 8, True), (64, 128, True),
+                                           (13, 24, True), (1, 1, True), (12, 129, False),
+                                           (12, 136, False), (12, 0, False)])
 def test_kernel_dispatch_rule(cx, ch, takes):
+    """Every hidden width from 1 to 128 and Cx from 1 to 256 launches K5 on
+    the card, padded to the widths it is built for; any other raises."""
     assert P8.kernel_takes(cx, ch) is takes
+    if takes:
+        cx_to, ch_to = P8.kernel_widths(cx, ch)
+        assert ch_to in P8.KERNEL_HIDDEN_WIDTHS and ch_to >= ch and cx_to % 4 == 0
+        assert cx <= cx_to < cx + 4 and (ch_to == 64) == (ch <= 64)
+    else:
+        with pytest.raises(ValueError, match=r"1 <= Ch <= 128 and 1 <= Cx <= 256"):
+            P8.kernel_widths(cx, ch)
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
@@ -211,10 +222,10 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         P8._check(args[0].transpose(1, 2), *args[1:], packed)
     with pytest.raises(ValueError, match="w_packed"):
         P8._check(*args, packed[:, :-1].contiguous())
-    small = _step_inputs(7, "bfloat16", 8, 8)
-    small = [_t(small[0]), _t(small[1]), _torch_c(small[2]), *(_t(a) for a in small[3:])]
-    with pytest.raises(ValueError, match="hidden width 64"):
-        P8._check(*small, P8.pack_weights(small[3], 8))
+    wide = _step_inputs(7, "bfloat16", 8, 136, h=4, w=4)
+    wide = [_t(wide[0]), _t(wide[1]), _torch_c(wide[2]), *(_t(a) for a in wide[3:])]
+    with pytest.raises(ValueError, match=r"1 <= Ch <= 128 and 1 <= Cx <= 256"):
+        P8._check(*wide, P8.pack_weights(wide[3], 8))
 
 
 # ---------------------------------------------------------------------------

@@ -183,7 +183,7 @@ def _halo_meta(hgt=16, ch=64, cx=12):
 
 
 @pytest.mark.parametrize("args, kw, match", [
-    (_halo_meta(ch=8), {}, "hidden width 64"),
+    (_halo_meta(ch=264), {}, r"1 <= Ch <= 256 \(built for"),
     (_halo_meta(hgt=12), {}, "H % block_h == 0"),
     (_halo_meta(), dict(block_h=4), "row blocks of 8"),
     (_halo_meta(), {}, "cpu or cuda tensors, not meta"),
@@ -307,8 +307,8 @@ def _padded_meta(hgt=16, ch=64, cx=12):
 @pytest.mark.parametrize("fn", [XT.step_tap9, XT.step_nogate, XT.step_padded],
                          ids=["tap9", "nogate", "padded"])
 @pytest.mark.parametrize("args, kw, match", [
-    (_padded_meta(ch=8), {}, "hidden width 64"),
-    (_padded_meta(cx=6), {}, "multiple of 4"),
+    (_padded_meta(ch=136), {}, r"1 <= Ch <= 128 \(built for \(8, 16, 32, 64, 128\)"),
+    (_padded_meta(cx=260), {}, "1 <= Cx <= 256"),
     (_padded_meta(hgt=12), {}, "H % block_h"),
     (_padded_meta()[:2] + (torch.empty(2, 16, 10, 64, device="meta"),) + _padded_meta()[3:], {},
      r"c .* be \(B, H, W, Ch\)"),
@@ -394,7 +394,7 @@ def test_cmajor_step_is_scan_stable(jax_cmajor):
 @pytest.mark.parametrize("kw, match", [
     (dict(block_h=2, hgt=8), "block_h % 4"),
     (dict(block_h=8, hgt=12), "H % block_h"),
-    (dict(ch=8), "64 channels"),
+    (dict(ch=136), r"1 <= C <= 128 \(built for \(8, 16, 32, 64, 128\)"),
     (dict(sp_off=1), r"\(B, C, SP\)"),
     (dict(), "cpu or cuda tensors, not meta"),
 ], ids=["block_h", "height", "channels", "sp", "device"])

@@ -47,28 +47,29 @@ WIDTHS = [(cx, ch) for ch in (8, 16, 32) for cx in (1, 12)]
     "cx, ch, takes",
     [(cx, ch, True) for ch in (8, 16, 32, 64, 128) for cx in (1, 12, ch, 256)]
     + [(12, 24, True), (12, 48, True), (12, 12, True), (12, 4, True), (1, 1, True),
-       (12, 96, True), (12, 127, True), (12, 129, False), (12, 136, False), (12, 256, False),
+       (12, 96, True), (12, 127, True), (12, 129, True), (12, 136, True), (12, 256, True),
+       (256, 192, True), (12, 257, False), (12, 264, False),
        (257, 64, False), (0, 64, False), (12, 0, False)],
 )
 def test_kernel_takes(cx, ch, takes):
-    """Every hidden width from 1 to 128 launches K1 and K2 (one they are not
-    instantiated for at the next width that is, zero-padded); a wider one is
-    refused on the card. The padded width is the least instantiated one that
-    holds Ch."""
+    """Every hidden width from 1 to 256 launches K1 and K2 (one they are not
+    instantiated for at the next width that is, zero-padded; 129-255 at 256);
+    a wider one is refused on the card. The padded width is the least
+    instantiated one that holds Ch."""
     assert P.kernel_takes(cx, ch) is takes
     if takes:
         chp = P.padded_hidden(ch)
         assert chp in P.KERNEL_HIDDEN_WIDTHS and chp >= ch
         assert all(w < ch for w in P.KERNEL_HIDDEN_WIDTHS if w < chp)
         assert (chp == ch) == (ch in P.KERNEL_HIDDEN_WIDTHS)
-    elif ch > 128:
-        with pytest.raises(ValueError, match="above the kernels' largest, 128"):
+    elif ch > 256:
+        with pytest.raises(ValueError, match="above the kernels' largest, 256"):
             P.padded_hidden(ch)
 
 
 def test_dispatch_rule_is_stated():
     doc = P.__doc__
-    assert "kernel_takes" in doc and "8, 16, 32, 64, 128" in doc and "256" in doc
+    assert "kernel_takes" in doc and "8, 16, 32, 64, 128, 256" in doc
     assert "raise" in doc and "Ch % 8" in doc and "step=fused_convlstm_step_ref" in doc
 
 
@@ -94,15 +95,15 @@ def test_wrappers_accept_every_width(cx, ch, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("cx, ch", [(12, 136), (12, 129), (12, 192), (0, 24), (12, 256),
+@pytest.mark.parametrize("cx, ch", [(12, 264), (12, 257), (12, 300), (0, 24), (12, 512),
                                     (260, 64)])
 def test_wrappers_refuse_other_widths(cx, ch, dtype):
     """Off the CPU a width outside the rule raises and names the rule: no
     wrapper gives way to the plain version there. The same tensors on the CPU
     take the plain version, whatever their width."""
     for fn, backward in ((P.fused_convlstm_step, False), (P.gate_bwd, True)):
-        with pytest.raises(ValueError, match=r"1 <= Ch <= 128 \(built for \(8, 16, 32, 64, "
-                                             r"128\).*\) and 1 <= Cx <= 256"):
+        with pytest.raises(ValueError, match=r"1 <= Ch <= 256 \(built for \(8, 16, 32, 64, "
+                                             r"128, 256\).*\) and 1 <= Cx <= 256"):
             fn(*_meta(cx=cx, ch=ch, dtype=dtype, backward=backward))
     if cx == 0:
         return
@@ -113,10 +114,16 @@ def test_wrappers_refuse_other_widths(cx, ch, dtype):
 
 
 def test_halo_variant_keeps_its_one_width():
-    with pytest.raises(ValueError, match="hidden width 64"):
-        P.fused_convlstm_step_halo(*_meta(ch=8))
-    with pytest.raises(ValueError, match="multiple of 4"):
-        P.fused_convlstm_step_halo(*_meta(cx=6))
+    """K1h keeps one row-block height (8) and takes K1's widths: every hidden
+    width to 256 and any Cx to 256 pass its checks up to the device type; a
+    wider one raises and names the rule."""
+    for cx, ch in ((6, 8), (12, 24), (1, 136), (256, 256)):
+        with pytest.raises(ValueError, match="cpu or cuda tensors, not meta"):
+            P.fused_convlstm_step_halo(*_meta(cx=cx, ch=ch))
+    with pytest.raises(ValueError, match=r"1 <= Ch <= 256 \(built for"):
+        P.fused_convlstm_step_halo(*_meta(ch=264))
+    with pytest.raises(ValueError, match="row blocks of 8"):
+        P.fused_convlstm_step_halo(*_meta(), block_h=4)
 
 
 # -- the step, its backward and the rollout against the JAX package ------------
