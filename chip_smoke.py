@@ -13,10 +13,12 @@ Phases, in order; any failure exits non-zero before the last line:
    K3, the LSTM gate tail; K4, the axial attention; K5, the int8 step; K6a and
    K6b, the channel-major step and 3x3 conv head (one source); K1h; T1, T2 and
    K1p; T3. ptxas' registers and spills of every kernel are printed, and the
-   SASS of K1, K2, K1h, K4, K6a and K6b is read with ``cuobjdump``: every
-   bfloat16 instantiation of K1, K2, K1h (hidden 8 to 256), K6a (8 to 128),
-   K4's tensor-core kernel and K6b's must hold HMMA (tensor-core)
-   instructions and no float32 one may;
+   SASS of K1, K2, K1h, K4, K5, K6a, K6b and T3 is read with ``cuobjdump``:
+   every bfloat16 instantiation of K1, K2, K1h (hidden 8 to 256), K6a and T3
+   (8 to 128), K4's tensor-core kernel and K6b's must hold HMMA (bf16
+   tensor-core) instructions and no float32 one may; every instantiation of
+   K5 (hidden 8 to 128, its step in both c types and its sums) must hold IMMA
+   (int8 tensor-core) instructions;
 3. K1 against its plain PyTorch version at the serving shapes (B=8,
    256x256, Cx 12 and 64, Ch 64), in float32 and bfloat16, with the image's
    first and last rows and columns checked on their own;
@@ -65,15 +67,17 @@ Phases, in order; any failure exits non-zero before the last line:
    against the same step through the plain versions, the step timed both
    ways and profiled;
 13. K5 against its plain version at B=8, 256x256, Cx 12 and 64, c in bf16
-   and f32: the plain version's integer sums against an int32 conv on the
-   CPU (exact), h'q within one int8 step on at most 0.1 % of elements, c'
-   within one step of its dtype, edges on their own; K6a (Cx 64) and K6b
-   (64 -> 12 channels) against their plain versions, float32 and bfloat16,
-   K6b also at Cin 1, 12 and 128, Cout 1 and 16 and on images whose height and
-   width are multiples of no tile; K5 at hidden 16, 24, 32 and 128 with Cx 12
-   and 13 (zero-padded to 64 / 128 and 16 in the wrapper), against the plain
-   step at the unpadded widths and bit-equal to K5 on operands padded
-   beforehand;
+   and f32: K5's own integer sums (its sums entry point, the same
+   tensor-core contraction) equal to the exact ones bit for bit, the plain
+   version's integer sums against int64 window products on the host, h'q
+   within one int8 step on at most 0.1 % of elements, c' within one step of
+   its dtype, edges on their own; K6a (Cx 64) and K6b (64 -> 12 channels)
+   against their plain versions, float32 and bfloat16, K6b also at Cin 1, 12
+   and 128, Cout 1 and 16 and on images whose height and width are multiples
+   of no tile; K5 at hidden 8, 16, 24 (zero-padded to 32), 32, 64 and 128
+   with Cx 1, 12 and 13 (zero-padded to 4, 12, 16 in the wrapper): its integer
+   sums exact, the step against the plain step at the unpadded widths and
+   bit-equal to K5 on operands padded beforehand;
 14. int8 serving: the full-width ConvLSTM behind ``NowcastServer`` with
    ``quantize="int8"`` answers 5 concurrent requests and refuses a sixth,
    out-of-range one with 400, alone; 62 K5 and 0 K1 launches per forward;
@@ -83,14 +87,15 @@ Phases, in order; any failure exits non-zero before the last line:
    48 K6a and 24 K6b launches per forward; one reply held against the fused
    rollout;
 15b. both at hidden 32 (64x128 images, 7 in, 24 out): ``cell_impl="cmajor"``
-   (K6a built for 32) and ``quantize="int8"`` (the session pads the cells
-   once to 64) each answer 5 concurrent requests, launches counted per
+   (K6a built for 32) and ``quantize="int8"`` (K5 built for 32: the session's
+   cells stay at 32) each answer 5 concurrent requests, launches counted per
    forward, replies held against the fused rollout and against the int8
-   rollout through K5's plain version on the unpadded weights;
-16. timings: K5, K6a, K6b per call against their plain versions (K6b and K4
-   also against the one library call that computes the same function), the
-   b8 forward through the fused, int8 and channel-major rollouts in turns,
-   and one int8 and one channel-major forward profiled;
+   rollout through K5's plain version;
+16. timings: K5 (Cx 12 and 64 at hidden 64, and Cx = Ch = 32), K6a, K6b per
+   call against their plain versions (K6b and K4 also against the one
+   library call that computes the same function), the b8 forward through the
+   fused, int8 and channel-major rollouts in turns, and one int8 and one
+   channel-major forward profiled;
 17. K1h, the halo-tensor variant of the step, against its plain version and
    against K1 at K1's shapes and tolerances, the image's first and last rows
    and the rows on either side of every row-block boundary on their own, and
@@ -98,12 +103,14 @@ Phases, in order; any failure exits non-zero before the last line:
    and their yardstick K1p (K1 in their W-padded layout) against their plain
    versions, the halo columns of h' exactly zero, T1 and K1p against K1 on
    the interior, T2 relative to max|plain|;
-   T3 (the pad-row channel-major prototype) against its plain version and,
-   through the layout helpers, against K6a, its pad rows exactly zero and a
-   3-step chain equal to three K6a steps; then K1h (B=2, 48x70, against its
-   plain version and K1) and K6a (B=2, 10x70) at Ch 8, 16, 24 (padded to 32),
-   32, 64, 128 with Cx 1, 12, 64, and T1, K1p, T2, T3 at Cx = Ch = 8 and 32,
-   float32 and bfloat16;
+   T3 (the pad-row channel-major prototype) at block_h 4 (the bf16 kernel's
+   8-row tiles straddle pad and image rows) and 8 against its plain version
+   and, through the layout helpers, against K6a, its pad rows exactly zero
+   and a 3-step chain equal to three K6a steps; then K1h (B=2, 48x70, against
+   its plain version and K1) and K6a (B=2, 10x70) at Ch 8, 16, 24 (padded to
+   32), 32, 64, 128 with Cx 1, 12, 64, T1, K1p, T2 at Cx = Ch = 8 and 32, and
+   T3 at C 8, 16, 24, 32, 64, 128 with block_h 4 and 8, float32 and
+   bfloat16;
 18. the halo variant of the main path (``SATFLOW_STEP_VARIANT=halo``): the
    fused model answers 5 concurrent requests (62 K1h and 0 K1 launches per
    forward; reply held against the K1 rollout) and takes one Adam step with
@@ -1268,7 +1275,7 @@ def metnet_train_slice(torch, card):
     return k3, k4
 
 
-def int8_inputs(torch, cx: int, c_dtype, seed: int):
+def int8_inputs(torch, cx: int, c_dtype, seed: int, ch: int = HIDDEN):
     """(xq, hq, c, w3q, dequant, b, w_packed) at the serving shape."""
     from satflow_tpu_torch.ops.fused_convlstm_int8 import (
         pack_weights,
@@ -1276,7 +1283,7 @@ def int8_inputs(torch, cx: int, c_dtype, seed: int):
         quantize_weights,
     )
 
-    x, h, c, wx, wh, b = step_inputs(torch, cx, torch.float32, seed)
+    x, h, c, wx, wh, b = step_inputs(torch, cx, torch.float32, seed, ch=ch)
     w3q, dequant, bias = quantize_weights(wx, wh, b)
     return (quantize_activations(x), quantize_activations(h), c.to(c_dtype), w3q, dequant,
             bias, pack_weights(w3q, cx))
@@ -1289,6 +1296,7 @@ def check_int8_kernel(torch, card) -> float:
         fused_convlstm_step_int8,
         fused_convlstm_step_int8_ref,
         int8_accumulate,
+        int8_gate_sums,
     )
 
     worst = 0.0
@@ -1319,6 +1327,19 @@ def check_int8_kernel(torch, card) -> float:
                     want += win @ w3[dy]
                 if not np.array_equal(acc, want):
                     fail(f"the plain int8 step's integer sums are not exact at Cx={cx}")
+                # K5's own sums (its sums entry point: the same tensor-core
+                # contraction) against the exact ones, every one of them
+                before = int8_gate_sums.launches
+                sums = int8_gate_sums(args[0], args[1], args[3], args[6])
+                exact = int8_accumulate(args[0], args[1], args[3])
+                if int8_gate_sums.launches != before + 1:
+                    fail(f"K5's sums entry point did not launch at Cx={cx}")
+                wrong = int((sums != exact).sum().item())
+                if wrong:
+                    fail(f"K5's integer sums differ from the exact ones at Cx={cx}: {wrong} of "
+                         f"{sums.numel()}")
+                print(f"K5's integer sums (tensor cores, IMMA) at B={B} {H}x{W} Cx={cx} Ch={HIDDEN}: "
+                      f"all {sums.numel()} equal to the exact ones [{card}]", flush=True)
             flips, errs = {}, {}
             for region, idx in REGIONS.items():
                 diff = (hq_k[idx].int() - hq_p[idx].int()).abs()
@@ -1508,17 +1529,20 @@ def serving_timings(torch, fused_model, cmajor_model, qparams, card):
 
     times = {}
     ops = 2 * B * H * W * 4 * HIDDEN * 9 * (HIDDEN + HIDDEN)  # the gate contraction, Cx=64
-    for cx in (CIN, HIDDEN):
-        args = int8_inputs(torch, cx, torch.bfloat16, seed=600 + cx)
+    # hidden 64 at the model's two input widths, and hidden 32 (the hparam
+    # search's and accuracy_gate's width, a width K5 is built for) at Cx = Ch
+    for cx, ch in ((CIN, HIDDEN), (HIDDEN, HIDDEN), (SMALL_HIDDEN, SMALL_HIDDEN)):
+        args = int8_inputs(torch, cx, torch.bfloat16, seed=600 + cx, ch=ch)
         t = per_call_ms(torch, fused_convlstm_step_int8, fused_convlstm_step_int8_ref, args, n=5)
-        cx_ops = 2 * B * H * W * 4 * HIDDEN * 9 * (cx + HIDDEN)
+        cx_ops = 2 * B * H * W * 4 * ch * 9 * (cx + ch)
         # packed and unpacked weights are one tensor's worth of bytes; h'q, c' out
         t["bound"] = bound_ms(args[:6] + (args[1], args[2]), cx_ops, "int8")
-        times[f"K5.{cx}"] = t
+        times[f"K5.{cx}" if ch == HIDDEN else f"K5.{cx}x{ch}"] = t
         print(f"time per K5 (int8 step) call, int8 x/h and bf16 c, B={B} {H}x{W} Cx={cx} "
-              f"Ch={HIDDEN}: kernel {t['kernel']:.4f} ms ({cx_ops / t['kernel'] / 1e9:.1f} TOP/s), "
-              f"plain (float64 conv) {t['plain']:.4f} ms; bound {t['bound'][0]:.4f} ms by "
-              f"{t['bound'][1]} [{card}]", flush=True)
+              f"Ch={ch}: kernel {t['kernel']:.4f} ms ({cx_ops / t['kernel'] / 1e9:.1f} TOP/s, "
+              f"{100 * t['bound'][0] / t['kernel']:.1f} % of the bound), plain (float64 conv) "
+              f"{t['plain']:.4f} ms; bound {t['bound'][0]:.4f} ms by {t['bound'][1]} [{card}]",
+              flush=True)
     cell, head = cmajor_inputs(torch, torch.bfloat16, seed=700)
     t = per_call_ms(torch, lambda *a: CM.cmajor_convlstm_step(*a, H, W),
                     lambda *a: CM.cmajor_convlstm_step_ref(*a, H, W), cell)
@@ -1725,30 +1749,31 @@ def check_study_steps(torch, card):
     return worst["T1"], worst["T2"], worst["K1p"]
 
 
-def exp_cmajor_inputs(torch, dtype, seed: int):
+def exp_cmajor_inputs(torch, dtype, seed: int, block_h: int = HALO_BLOCK_H):
     """T3's (x, h, c, w9, b) in the pad-row layout and K6a's (x, h, c, wx,
     wh, b) from the same NHWC tensors."""
     from satflow_tpu_torch.ops import cmajor_convlstm as CM
     from satflow_tpu_torch.tools import exp_cmajor as XC
 
     x, h, c, wx, wh, b = step_inputs(torch, HIDDEN, dtype, seed)
-    t3 = tuple(XC.to_cmajor(t, HALO_BLOCK_H) for t in (x, h, c)) + (
+    t3 = tuple(XC.to_cmajor(t, block_h) for t in (x, h, c)) + (
         XC.weights_cmajor(wx, wh), b.reshape(-1, 1).contiguous())
     k6a = tuple(CM.to_cmajor(t) for t in (x, h, c)) + (wx, wh, b)
     return t3, k6a
 
 
 def check_exp_cmajor(torch, card) -> float:
-    """Phase 17c: T3 vs its plain version and vs K6a; returns the largest
-    bf16 |T3 - plain|."""
+    """Phase 17c: T3 vs its plain version and vs K6a, at block_h 4 (the bf16
+    kernel's 8-row tiles straddle pad and image rows) and 8; returns the
+    largest bf16 |T3 - plain|."""
     from satflow_tpu_torch.ops import cmajor_convlstm as CM
     from satflow_tpu_torch.tools import exp_cmajor as XC
 
-    bh = HALO_BLOCK_H
     worst_bf16 = 0.0
-    for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
+    for (dtype, tol), bh in ((d, bh) for d in ((torch.float32, TOL_F32),
+                                               (torch.bfloat16, TOL_BF16)) for bh in (4, 8)):
         name = str(dtype)[6:]
-        t3, k6a = exp_cmajor_inputs(torch, dtype, seed=840)
+        t3, k6a = exp_cmajor_inputs(torch, dtype, seed=840 + bh, block_h=bh)
         before = XC.cmajor_step.launches
         got = XC.cmajor_step(*t3, bh, H, W)
         torch.cuda.synchronize()
@@ -1782,7 +1807,7 @@ def check_exp_cmajor(torch, card) -> float:
                              f"T3 3-step chain vs K6a {name}")
                     for a, b_ in ((carry[1], carry6[1]), (carry[2], carry6[2])))
         if dtype == torch.bfloat16:
-            worst_bf16 = max(errs.values())
+            worst_bf16 = max(worst_bf16, *errs.values())
         print(f"T3 vs plain: {name} B={B} {H}x{W} C={HIDDEN} block_h={bh}: max|diff| "
               f"{max(errs.values()):.3g} (edges: "
               + ", ".join(f"{k} {v:.3g}" for k, v in errs.items() if "all" not in k)
@@ -1865,18 +1890,20 @@ def check_halo_cmajor_widths(torch, card) -> dict:
     return worst
 
 
-# K5 at hidden widths it zero-pads (to 64 or 128) with an input width it
-# pads (13, to 16) and one it does not (12), B=2 48x70.
-INT8_WIDTHS = tuple((ch, cx) for ch in (16, 24, 32, 128) for cx in (12, 13))
+# K5 at every hidden width it is built for and at one it zero-pads (24, to
+# 32), with input widths it pads (1 and 13, to 4 and 16) and one it does not
+# (12), B=2 48x70.
+INT8_WIDTHS = tuple((ch, cx) for ch in (8, 16, 24, 32, 64, 128) for cx in (1, 12, 13))
 
 
 def check_int8_widths(torch, card) -> float:
-    """Phase 13c: K5 at Ch 16, 24, 32, 128 with Cx 12 and 13, zero-padded in
-    the wrapper: against the plain step at the unpadded widths (h'q within one
-    int8 step on at most INT8_MAX_FLIP_SHARE of elements, c' within one step of
-    its dtype), and bit-equal to K5 on operands padded beforehand (what the
-    session does once); the padded channels exact zeros. Returns the largest
-    |c' diff|."""
+    """Phase 13c: K5 at Ch 8, 16, 24, 32, 64, 128 with Cx 1, 12 and 13 (24, 1
+    and 13 zero-padded in the wrapper): its integer sums equal to the exact
+    ones; the step against the plain step at the unpadded widths (h'q within
+    one int8 step on at most INT8_MAX_FLIP_SHARE of elements, c' within one
+    step of its dtype), and bit-equal to K5 on operands padded beforehand (what
+    the session does once); the padded channels exact zeros. Returns the
+    largest |c' diff|."""
     from satflow_tpu_torch.ops import fused_convlstm_int8 as Q
 
     worst = 0.0
@@ -1893,6 +1920,9 @@ def check_int8_widths(torch, card) -> float:
         if Q.fused_convlstm_step_int8.launches != before + 1:
             fail(f"K5 did not launch at Cx={cx} Ch={ch}")
         hq_p, c_p = Q.fused_convlstm_step_int8_ref(*args)
+        sums = Q.int8_gate_sums(args[0], args[1], w3q)
+        if not torch.equal(sums, Q.int8_accumulate(args[0], args[1], w3q)):
+            fail(f"K5's integer sums differ from the exact ones at Cx={cx} Ch={ch}")
         diff = (hq_k.int() - hq_p.int()).abs()
         flips = diff.float().mean().item()
         if diff.max().item() > 1 or flips > INT8_MAX_FLIP_SHARE:
@@ -1909,18 +1939,24 @@ def check_int8_widths(torch, card) -> float:
         if ch < ch_to and (pre[0][..., ch:].abs().max().item() != 0
                            or pre[1][..., ch:].abs().max().item() != 0):
             fail(f"K5's padded channels are not zeros at Cx={cx} Ch={ch}")
+        flipped = int((diff != 0).sum().item())
         print(f"K5 vs plain: c bf16 B={bhw[0]} {bhw[1]}x{bhw[2]} Cx={cx} Ch={ch} (run at Cx={cx_to} "
-              f"Ch={ch_to}): h'q differs by one step on {int((diff != 0).sum().item())} of "
+              f"Ch={ch_to}): integer sums exact; h'q differs by one step on {flipped} of "
               f"{diff.numel()} elements (share {flips:.2g} <= {INT8_MAX_FLIP_SHARE}), c' max|diff| "
               f"{err:.3g} tol {TOL_INT8_C['bfloat16']}; bit-equal to K5 on operands padded "
               f"beforehand, padded channels zero ok [{card}]", flush=True)
     return worst
 
 
+# T3 at every channel width it is built for and at one it zero-pads (24, to 32)
+STUDY_T3_WIDTHS = (8, 16, 24, 32, 64, 128)
+
+
 def check_study_widths(torch, card) -> None:
-    """Phase 17e: T1, K1p, T2 and T3 at the JAX tools' width 8 and at 32
-    (Cx = Ch), float32 and bfloat16, against their plain versions, every call
-    a counted launch; T2 relative to max|plain|."""
+    """Phase 17e: T1, K1p and T2 at the JAX tools' width 8 and at 32 (Cx =
+    Ch), and T3 at STUDY_T3_WIDTHS with block_h 4 and 8, float32 and bfloat16,
+    against their plain versions, every call a counted launch, T3's pad rows
+    exactly zero; T2 relative to max|plain|."""
     from satflow_tpu_torch.tools import exp_cmajor as XC
     from satflow_tpu_torch.tools import exp_tap9 as XT
 
@@ -1950,35 +1986,50 @@ def check_study_widths(torch, card) -> None:
                     else:
                         e = _max_err(torch, g_, w_, tol, f"{what} vs plain {name} Ch={ch}")
                     errs[what] = max(errs.get(what, 0.0), e)
-            carry = [XC.to_cmajor(t, HALO_BLOCK_H) for t in (x, h, c)]
-            t3 = (*carry, XC.weights_cmajor(wx, wh), b.reshape(-1, 1).contiguous())
-            before = XC.cmajor_step.launches
-            got = XC.cmajor_step(*t3, HALO_BLOCK_H, hgt, wdt)
-            torch.cuda.synchronize()
-            if XC.cmajor_step.launches != before + 1:
-                fail(f"T3 did not launch at {name} C={ch}")
-            want = XC.cmajor_step_ref(*t3, HALO_BLOCK_H, hgt, wdt)
-            errs["T3"] = max(_max_err(torch, g_, w_, tol, f"T3 vs plain {name} C={ch}")
-                             for g_, w_ in zip(got, want))
-            print(f"T1, K1p, T2 (W-padded) and T3 (pad rows) vs plain: {name} B={bsz} {hgt}x{wdt} "
-                  f"Cx=Ch={ch}: max|diff| " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+            print(f"T1, K1p, T2 (W-padded) vs plain: {name} B={bsz} {hgt}x{wdt} Cx=Ch={ch}: max|diff| "
+                  + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
                   + f" (T2 relative to max|plain|) tol {tol}; every call a launch ok [{card}]",
                   flush=True)
+        for block_h in (4, 8):
+            errs = {}
+            for ch in STUDY_T3_WIDTHS:
+                x, h, c, wx, wh, b = step_inputs(torch, ch, dtype, seed=6100 + ch + block_h,
+                                                 ch=ch, bhw=(bsz, hgt, wdt))
+                carry = [XC.to_cmajor(t, block_h) for t in (x, h, c)]
+                t3 = (*carry, XC.weights_cmajor(wx, wh), b.reshape(-1, 1).contiguous())
+                before = XC.cmajor_step.launches
+                got = XC.cmajor_step(*t3, block_h, hgt, wdt)
+                torch.cuda.synchronize()
+                if XC.cmajor_step.launches != before + 1:
+                    fail(f"T3 did not launch at {name} C={ch} block_h={block_h}")
+                want = XC.cmajor_step_ref(*t3, block_h, hgt, wdt)
+                for g_, w_ in zip(got, want):
+                    pad = g_.reshape(bsz, ch, hgt + 2 * block_h, wdt)
+                    if pad[:, :, :block_h].abs().max().item() != 0 or \
+                            pad[:, :, -block_h:].abs().max().item() != 0:
+                        fail(f"T3 {name} C={ch} block_h={block_h}: pad rows not exactly zero")
+                    errs[ch] = max(errs.get(ch, 0.0), _max_err(
+                        torch, g_, w_, tol, f"T3 vs plain {name} C={ch} block_h={block_h}"))
+            print(f"T3 (pad rows) vs plain: {name} B={bsz} {hgt}x{wdt} block_h={block_h}: max|diff| "
+                  + ", ".join(f"C={k}{' (padded to 32)' if k == 24 else ''} {v:.3g}"
+                              for k, v in errs.items())
+                  + f" tol {tol}; pad rows zero; every call a launch ok [{card}]", flush=True)
 
 
 # The channel-major and int8 rollouts at hidden 32 (one of the hparam search's
-# widths: K6a built for it, K5 padded to 64): 64x128 images (W % 128 == 0, the
-# channel-major geometry gate), 7 frames in and 24 out, b8.
+# widths, and accuracy_gate's: K6a and K5 built for it): 64x128 images (W % 128
+# == 0, the channel-major geometry gate), 7 frames in and 24 out, b8.
 SMALL_HIDDEN = 32
 SMALL_HW = (64, 128)
 
 
 def small_width_paths(torch, card):
     """Phase 15b: ``cell_impl="cmajor"`` and ``quantize="int8"`` served at
-    hidden 32 (5 concurrent requests each), launches counted per forward,
-    replies held against the fused rollout through K1 (cmajor) and against
-    the int8 rollout through K5's plain version on the unpadded weights.
-    Returns ((K1, K6a, K6b) launches, K5 launches)."""
+    hidden 32 (5 concurrent requests each; K6a and K5 built for 32, the int8
+    session's cells not padded), launches counted per forward, replies held
+    against the fused rollout through K1 (cmajor) and against the int8
+    rollout through K5's plain version. Returns ((K1, K6a, K6b) launches, K5
+    launches)."""
     from satflow_tpu_torch.interop.jax_weights import params_from_flax
     from satflow_tpu_torch.models.conv_lstm import EncoderDecoderConvLSTM
     from satflow_tpu_torch.ops import cmajor_convlstm as CM
@@ -2022,8 +2073,9 @@ def small_width_paths(torch, card):
     session = InferenceSession(model, max_batch=B, state_dict=weights, quantize="int8",
                                device=DEVICE)
     widths = tuple(q.w3q.shape[-1] // 4 for n, q in session.qparams.items() if n != "head")
-    if widths != (64,) * 4:
-        fail(f"the int8 session at {what} did not pad its cells once to 64: {widths}")
+    if widths != (SMALL_HIDDEN,) * 4:
+        fail(f"the int8 session at {what} runs its cells at {widths}, not at K5's built "
+             f"{SMALL_HIDDEN}")
     replies, wall, forwards, (k5, k1) = drive_server(
         session, requests, [Q.fused_convlstm_step_int8, P.fused_convlstm_step])
     check_frames(requests, replies, f"int8 serving at {what}")
@@ -2034,11 +2086,11 @@ def small_width_paths(torch, card):
                                step=Q.fused_convlstm_step_int8_ref).float().cpu().numpy()[0]
     diffs = {name: float(np.abs(r - replies[0][1]).max())
              for name, r in (("the bf16 rollout through K1", ref),
-                             ("the int8 rollout through K5's plain version, unpadded", plain))}
+                             ("the int8 rollout through K5's plain version", plain))}
     for name, d in diffs.items():
         if not d <= TOL_INT8_REPLY:
             fail(f"int8 reply at {what} vs {name}: max|diff| {d:.3g} > {TOL_INT8_REPLY}")
-    print(f"int8 at {what} (cells padded once to 64 by the session): served {len(requests)} "
+    print(f"int8 at {what} (K5 built for {SMALL_HIDDEN}, the cells unpadded): served {len(requests)} "
           f"requests (6 samples) in {forwards} forward(s) of b{B}, {wall:.3f} s wall; launches K5 "
           f"{k5} = {INT8_LAUNCHES_PER_FORWARD} x {forwards}, K1 {k1}; reply vs "
           + ", ".join(f"{n} {d:.3g}" for n, d in diffs.items())
@@ -2560,7 +2612,8 @@ def sass_ops(_build, name: str, key) -> dict:
         if "Function :" in line:
             function = key(line)
             if function:
-                per_function[function] = {"HMMA": 0, "LDSM": 0, "LDGSTS": 0, "FFMA": 0}
+                per_function[function] = {"HMMA": 0, "IMMA": 0, "LDSM": 0, "LDGSTS": 0,
+                                          "FFMA": 0}
         elif function:
             for op in per_function[function]:
                 if f" {op}" in line:
@@ -2619,6 +2672,40 @@ def check_sass_redesign(_build, card) -> dict:
     return totals
 
 
+def check_sass_int8_t3(_build, card) -> dict:
+    """Phase 2, the machine code of K5 and T3: every instantiation of K5 (its
+    step with c in float32 and in bfloat16, and its sums, hidden 8 to 128)
+    holds IMMA (int8 tensor-core) instructions and no HMMA; T3's bfloat16
+    kernel holds HMMA at every width and its float32 kernel none. Returns
+    {(kernel, kind, width): IMMA or HMMA count}."""
+    def k5(line):
+        m = re.search(r"(step_int8_kernelI(13__nv_bfloat16|f)|int8_sums_kernelI)Li(\d+)E", line)
+        kind = m and ("sums" if "sums" in m.group(1) else "f32" if m.group(2) == "f" else "bf16")
+        return m and (kind, int(m.group(3)))
+
+    def t3(line):
+        m = re.search(r"exp_cmajor_(mma|step)_kernelILi(\d+)E", line)
+        return m and ("bf16" if m.group(1) == "mma" else "f32", int(m.group(2)))
+
+    counts = {}
+    for name, what, key, n in (("fused_convlstm_int8", "K5", k5, 15),
+                               ("exp_cmajor", "T3", t3, 10)):
+        per_function = sass_ops(_build, name, key)
+        if len(per_function) != n:
+            fail(f"{name}: expected {n} instantiations in the SASS, found {sorted(per_function)}")
+        for (kind, ch), ops in sorted(per_function.items()):
+            if what == "K5":
+                ok = ops["IMMA"] > 0 and ops["HMMA"] == 0
+            else:
+                ok = (kind == "bf16") == (ops["HMMA"] > 0) and ops["IMMA"] == 0
+            if not ok:
+                fail(f"{what} {kind} Ch={ch}: {ops['IMMA']} IMMA and {ops['HMMA']} HMMA instructions")
+            counts[what, kind, ch] = ops["IMMA"] + ops["HMMA"]
+            print(f"  SASS {name} ({what} {kind}, Ch={ch}): "
+                  + ", ".join(f"{op} {v}" for op, v in ops.items()) + f" [{card}]", flush=True)
+    return counts
+
+
 def main() -> None:
     try:
         import torch
@@ -2664,9 +2751,10 @@ def main() -> None:
         dtype = "?"
         for line in log.splitlines():
             if "Compiling entry function" in line:  # the mangled name carries the type
-                dtype = "bf16" if "bfloat16" in line else "f32"
-                width = INSTANCE.search(line)  # and, of K1 and K2, the hidden width
-                dtype += f", Ch={width.group(2)}" if width else ""
+                dtype = ("int8 sums" if "int8_sums" in line
+                         else "bf16" if "bfloat16" in line or "_mma_kernel" in line else "f32")
+                width = re.search(r"kernelI\w*?Li(\d+)E", line)  # and the hidden width
+                dtype += f", Ch={width.group(1)}" if width else ""
             elif "registers" in line or "spill" in line or "smem" in line:
                 print(f"  {name} ({dtype}): {line.strip()}", flush=True)
 
@@ -2680,6 +2768,11 @@ def main() -> None:
     hmma_new = check_sass_redesign(_build, card)
     print(f"HMMA instructions in K4's tensor-core kernel (all D buckets): "
           f"{hmma_new['axial_attention']}, in the bf16 K6b: {hmma_new['cmajor_convlstm']}",
+          flush=True)
+    mma_k5_t3 = check_sass_int8_t3(_build, card)
+    print(f"IMMA instructions in every K5 instantiation ({mma_k5_t3['K5', 'bf16', HIDDEN]} in the "
+          f"bf16-c step at Ch={HIDDEN}); HMMA in T3's bf16 kernel "
+          f"({mma_k5_t3['T3', 'bf16', HIDDEN]} at C={HIDDEN}) and none in its float32 one",
           flush=True)
     phase_done("phases 1-2 (build, SASS)")
 

@@ -38,9 +38,10 @@
 // and byte permutes in registers (the route K6b takes), so that a tap is a row
 // offset of the window, as in K1. The epilogue reads c and writes h', c'
 // through a per-warp [channel][pixel] buffer in shared memory (over the
-// window, once every warp is done with it): a warp reads and writes each
-// channel plane as runs of 16 neighbouring pixels, and a thread turns the four
-// gates of its (pixel, channel pair) into h' and c' with no exchange between
+// window, once every warp is done with it; convlstm_gates.cuh::
+// cmajor_lstm_bf16, shared with T3): a warp reads and writes each channel
+// plane as runs of 16 neighbouring pixels, and a thread turns the four gates
+// of its (pixel, channel pair) into h' and c' with no exchange between
 // threads. float32 keeps the f32 FMAs on the CUDA cores (convlstm_tile.cuh)
 // and stores h', c' by the element.
 //
@@ -120,25 +121,12 @@ constexpr int kConvThreads = 32 * kConvWarps;
 constexpr int kConvChunk = 8;
 constexpr int kConvPlane = (kConvTileH + 2) * kHaloW;
 
-// K6a's per-warp epilogue buffer (bfloat16): the warp's kRows x 16 pixels of
-// c (then c') and of h', [channel][pixel], a channel row padded by 16 bytes so
-// that the four channel pairs a fragment holds fall on different banks.
-template <int CH>
-struct CellEpilogue {
-  using S = convlstm_mma::Shape<CH>;
-  static constexpr int kPixels = S::kRows * convlstm_tile::kTileW;  // the warp's pixels
-  static constexpr int kPitch = kPixels * 2 + 16;                    // bytes a channel row
-  static constexpr int kWarpBytes = 2 * S::kWarpCh * kPitch;
-  static constexpr int kBytes = 8 * kWarpBytes;
-};
-
 template <typename T, int CH>
 __global__ void __launch_bounds__(convlstm_tile::kThreads, 1)
 cmajor_cell_kernel(const T* __restrict__ x, const T* __restrict__ h, const T* __restrict__ c,
                    const T* __restrict__ wx, const T* __restrict__ wh,
                    const T* __restrict__ bias, T* __restrict__ h_out, T* __restrict__ c_out,
                    int height, int width, int cx) {
-  using convlstm_tile::kTileW;
   using convlstm_tile::lstm_update;
   extern __shared__ float4 smem4[];
   const convlstm_tile::Tile tile = convlstm_tile::tile_of_block<CH>();
@@ -158,56 +146,12 @@ cmajor_cell_kernel(const T* __restrict__ x, const T* __restrict__ h, const T* __
           h_out[o + hw] = h_next;
         });
   } else {
-    using S = convlstm_mma::Shape<CH>;
-    using E = CellEpilogue<CH>;
     unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
     convlstm_mma::Acc<CH> acc;
-    convlstm_mma::gate_preactivations<CH>(acc, smem, src, wx, wh, bias, tile, cx);
+    convlstm_mma::gate_preactivations<CH, convlstm_mma::Bf16>(
+        acc, smem, src, convlstm_mma::HwioWeights<CH>{wx, wh}, bias, tile, cx);
     __syncthreads();  // every warp is done with the window: the buffers go over it
-
-    const int lane = threadIdx.x % 32;
-    const int warp = threadIdx.x / 32;
-    const int wm = warp / S::kWarpsN;
-    const int wn = warp % S::kWarpsN;
-    const int row0 = tile.y0 + wm * S::kRows;  // the warp's first image row
-    const int ch0 = wn * S::kWarpCh;           // and first hidden channel
-    unsigned char* cbuf = smem + warp * E::kWarpBytes;  // c, then c'
-    unsigned char* hbuf = cbuf + S::kWarpCh * E::kPitch;  // h'
-    // the warp's buffers and planes, by the element, neighbouring lanes on
-    // neighbouring pixels of a channel: f(buffer element, plane offset)
-    auto for_each_element = [&](auto&& f) {
-      for (int i = lane; i < S::kWarpCh * E::kPixels; i += 32) {
-        const int ch = i / E::kPixels;
-        const int px = i % E::kPixels;
-        const int gy = row0 + px / kTileW;
-        const int gx = tile.x0 + px % kTileW;
-        if (gy < height && gx < width) {
-          f(ch * E::kPitch + px * 2, (size_t(tile.b) * CH + ch0 + ch) * hw + size_t(gy) * width + gx);
-        }
-      }
-    };
-    for_each_element([&](int at, size_t o) {
-      *reinterpret_cast<__nv_bfloat16*>(cbuf + at) = c[o];
-    });
-    __syncwarp();
-    convlstm_mma::for_each_pair<CH>(
-        acc, [&](int row, int col, int channel, float2 gi, float2 gf, float2 go, float2 gg) {
-          const int at = (channel - ch0) * E::kPitch + ((row - wm * S::kRows) * kTileW + col) * 2;
-          auto* c0 = reinterpret_cast<__nv_bfloat16*>(cbuf + at);
-          auto* c1 = reinterpret_cast<__nv_bfloat16*>(cbuf + at + E::kPitch);
-          float c_next, h_next;
-          lstm_update(gi.x, gf.x, go.x, gg.x, __bfloat162float(*c0), c_next, h_next);
-          *c0 = __float2bfloat16(c_next);
-          *reinterpret_cast<__nv_bfloat16*>(hbuf + at) = __float2bfloat16(h_next);
-          lstm_update(gi.y, gf.y, go.y, gg.y, __bfloat162float(*c1), c_next, h_next);
-          *c1 = __float2bfloat16(c_next);
-          *reinterpret_cast<__nv_bfloat16*>(hbuf + at + E::kPitch) = __float2bfloat16(h_next);
-        });
-    __syncwarp();
-    for_each_element([&](int at, size_t o) {
-      c_out[o] = *reinterpret_cast<const __nv_bfloat16*>(cbuf + at);
-      h_out[o] = *reinterpret_cast<const __nv_bfloat16*>(hbuf + at);
-    });
+    convlstm_gates::cmajor_lstm_bf16<CH>(acc, smem, tile, c, h_out, c_out, height, width, 0);
   }
 }
 
@@ -215,7 +159,8 @@ template <typename T, int CH>
 inline int cell_smem(int cx) {
   const int gates = convlstm_gates::smem_bytes<T, CH>(cx);
   if constexpr (convlstm_gates::kTensorCores<T>) {
-    return gates > CellEpilogue<CH>::kBytes ? gates : CellEpilogue<CH>::kBytes;
+    constexpr int kEpilogue = convlstm_gates::CmajorEpilogue<CH>::kBytes;
+    return gates > kEpilogue ? gates : kEpilogue;
   } else {
     return gates;
   }

@@ -16,6 +16,11 @@
 // kernel's source (convlstm_source.cuh).
 //
 // Hidden widths: 8, 16, 32, 64, 128, 256 (launch_for_width). Cx: 1 to 256.
+//
+// Also here: the bf16 LSTM epilogue of the channel-major steps (K6a, T3),
+// cmajor_lstm_bf16, which writes h' and c' through a per-warp buffer in
+// shared memory. The int8 step (K5) and T3 call convlstm_mma.cuh themselves:
+// their weights are K-major, not HWIO.
 
 #pragma once
 
@@ -60,8 +65,9 @@ __device__ __forceinline__ void for_each_gate_pair(
   };
   if constexpr (kTensorCores<T>) {
     convlstm_mma::Acc<CH> acc;
-    convlstm_mma::gate_preactivations<CH>(acc, static_cast<unsigned char*>(smem), src, wx, wh,
-                                          bias, tile, cx);
+    convlstm_mma::gate_preactivations<CH, convlstm_mma::Bf16>(
+        acc, static_cast<unsigned char*>(smem), src, convlstm_mma::HwioWeights<CH>{wx, wh}, bias,
+        tile, cx);
     convlstm_mma::for_each_pair<CH>(acc, emit);
   } else {
     float acc[Lanes<CH>::kPix][4][kLaneCh];
@@ -132,6 +138,84 @@ __device__ __forceinline__ void lstm_pair(const T* __restrict__ c, T* __restrict
   lstm_update(gi.y, gf.y, go.y, gg.y, c_prev.y, c_next.y, h_next.y);
   store_pair(c_out + o, c_next.x, c_next.y);
   store_pair(h_out + o, h_next.x, h_next.y);
+}
+
+// The LSTM epilogue of a channel-major bf16 step on the tensor cores (K6a,
+// T3) on planes (B, CH, rows * width): the tile's rows count from the planes'
+// first row, and rows < pad_rows or >= rows - pad_rows are written as zeros
+// (T3's pad rows; K6a has none). h' and c' leave through a per-warp
+// [channel][pixel] buffer in shared memory, over the spent window (the caller
+// has synchronised the block after the contraction): the warp's kRows x 16
+// pixels of c (then c') and of h', a channel row padded by 16 bytes so that
+// the four channel pairs a fragment holds fall on different banks. A warp
+// reads and writes each channel plane as runs of 16 neighbouring pixels, and
+// a thread turns the four gates of its (pixel, channel pair) into h' and c'
+// with no exchange between threads.
+template <int CH>
+struct CmajorEpilogue {
+  static_assert(CH <= kMaxBlockCh, "one group of channels a block");
+  using S = convlstm_mma::Shape<CH>;
+  static constexpr int kPixels = S::kRows * kTileW;  // the warp's pixels
+  static constexpr int kPitch = kPixels * 2 + 16;    // bytes a channel row
+  static constexpr int kWarpBytes = 2 * S::kWarpCh * kPitch;
+  static constexpr int kBytes = 8 * kWarpBytes;
+};
+
+template <int CH>
+__device__ __forceinline__ void cmajor_lstm_bf16(const convlstm_mma::Acc<CH>& acc,
+                                                 unsigned char* smem, const Tile& tile,
+                                                 const __nv_bfloat16* __restrict__ c,
+                                                 __nv_bfloat16* __restrict__ h_out,
+                                                 __nv_bfloat16* __restrict__ c_out, int rows,
+                                                 int width, int pad_rows) {
+  using S = convlstm_mma::Shape<CH>;
+  using E = CmajorEpilogue<CH>;
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int wm = warp / S::kWarpsN;
+  const int wn = warp % S::kWarpsN;
+  const int row0 = tile.y0 + wm * S::kRows;  // the warp's first row
+  const int ch0 = wn * S::kWarpCh;           // and first hidden channel
+  const size_t plane = size_t(rows) * width;
+  unsigned char* cbuf = smem + warp * E::kWarpBytes;    // c, then c'
+  unsigned char* hbuf = cbuf + S::kWarpCh * E::kPitch;  // h'
+  // the warp's buffers and planes, by the element, neighbouring lanes on
+  // neighbouring pixels of a channel: f(buffer element, plane offset, pad row)
+  auto for_each_element = [&](auto&& f) {
+    for (int i = lane; i < S::kWarpCh * E::kPixels; i += 32) {
+      const int ch = i / E::kPixels;
+      const int px = i % E::kPixels;
+      const int gy = row0 + px / kTileW;
+      const int gx = tile.x0 + px % kTileW;
+      if (gy < rows && gx < width) {
+        const size_t o = (size_t(tile.b) * CH + ch0 + ch) * plane + size_t(gy) * width + gx;
+        f(ch * E::kPitch + px * 2, o, gy < pad_rows || gy >= rows - pad_rows);
+      }
+    }
+  };
+  for_each_element([&](int at, size_t o, bool pad) {
+    if (!pad) *reinterpret_cast<__nv_bfloat16*>(cbuf + at) = c[o];
+  });
+  __syncwarp();
+  convlstm_mma::for_each_pair<CH>(
+      acc, [&](int row, int col, int channel, float2 gi, float2 gf, float2 go, float2 gg) {
+        const int at = (channel - ch0) * E::kPitch + ((row - wm * S::kRows) * kTileW + col) * 2;
+        auto* c0 = reinterpret_cast<__nv_bfloat16*>(cbuf + at);
+        auto* c1 = reinterpret_cast<__nv_bfloat16*>(cbuf + at + E::kPitch);
+        float c_next, h_next;
+        lstm_update(gi.x, gf.x, go.x, gg.x, __bfloat162float(*c0), c_next, h_next);
+        *c0 = __float2bfloat16(c_next);
+        *reinterpret_cast<__nv_bfloat16*>(hbuf + at) = __float2bfloat16(h_next);
+        lstm_update(gi.y, gf.y, go.y, gg.y, __bfloat162float(*c1), c_next, h_next);
+        *c1 = __float2bfloat16(c_next);
+        *reinterpret_cast<__nv_bfloat16*>(hbuf + at + E::kPitch) = __float2bfloat16(h_next);
+      });
+  __syncwarp();
+  const __nv_bfloat16 zero = __float2bfloat16(0.f);
+  for_each_element([&](int at, size_t o, bool pad) {
+    c_out[o] = pad ? zero : *reinterpret_cast<const __nv_bfloat16*>(cbuf + at);
+    h_out[o] = pad ? zero : *reinterpret_cast<const __nv_bfloat16*>(hbuf + at);
+  });
 }
 
 }  // namespace convlstm_gates

@@ -1,36 +1,56 @@
-// The gate contraction of a ConvLSTM step on the bf16 tensor cores of NVIDIA
-// Hopper (sm_90a), hand-written: mma.sync m16n8k16 with ldmatrix and cp.async
-// in inline PTX. Used by the bfloat16 instantiations of the fused step (K1),
-// its backward (K2), the halo-tensor step (K1h) and the channel-major step
-// (K6a) through convlstm_gates.cuh; they differ only in where the window's
-// pixels come from (convlstm_source.cuh).
+// The gate contraction of a ConvLSTM step on the tensor cores of NVIDIA
+// Hopper (sm_90a), hand-written: mma.sync with ldmatrix and cp.async in inline
+// PTX, in two element types:
 //
-//   gates = conv3x3_SAME(x, Wx) + conv3x3_SAME(h, Wh) + b
+//   Bf16  mma.sync m16n8k16 bf16 x bf16 -> f32: the bfloat16 instantiations of
+//         the fused step (K1), its backward (K2), the halo-tensor step (K1h),
+//         the channel-major step (K6a) and the pad-row prototype step (T3)
+//   S8    mma.sync m16n8k32 s8 x s8 -> s32: the int8 step (K5), whose sums are
+//         exact
 //
-// bf16 operands, f32 accumulation, on unpadded NHWC tensors, weights in the
-// JAX HWIO layout: Wx (3, 3, Cx, 4CH), Wh (3, 3, CH, 4CH), b (4CH), gate
-// order i, f, o, g. It is an implicit GEMM per block: M = the tile's pixels,
-// N = 4 x the block's hidden channels (all CH up to 128, else a group of 128
-// of them, the groups on the grid's z axis), K = 9 taps x (Cx + CH, each padded
-// to a multiple of 16).
+//   gates = conv3x3_SAME(x, Wx) + conv3x3_SAME(h, Wh) [+ b]
+//
+// The kernels differ in where the window's pixels come from
+// (convlstm_source.cuh) and in how the weights are laid out (below).
+//
+// It is an implicit GEMM per block: M = the tile's pixels, N = 4 x the
+// block's hidden channels (all CH up to 128, else a group of 128 of them, the
+// groups on the grid's z axis), K = 9 taps x [x | h]. Everything is counted in
+// bytes, and a k step is 32 bytes of K: 16 bf16 channels or 32 int8 ones. The
+// A fragment of m16n8k32.s8 (16 rows x 32 bytes) is byte for byte the one of
+// m16n8k16.bf16 (16 rows x 16 bf16), and so is the B fragment (8 columns x 32
+// bytes: thread t holds bytes 4 (t % 4) .. 4 (t % 4) + 3 of column t / 4 in
+// b0, and the same 16 bytes on in b1), as are the accumulators' (row, column)
+// maps (f32 or s32). So one set of ldmatrix addresses serves both types.
 //
 // A operand. The block stages its tile's window (a one-pixel halo; 10 x 18
-// pixels at CH <= 64, 6 x 18 above) of [x | h] once, as bf16: per pixel
-// x's channels, zeros up to a multiple of 16, h's channels, zeros up to a
-// multiple of 16, and 16 bytes of padding, so that the 8 rows of an ldmatrix
-// (8 neighbouring pixels) fall on different banks. The zeros of SAME padding
-// are written there too; the inner loop has no bounds checks. A tap (ky, kx)
-// is then only a base offset into the window: the 16 rows of an A fragment are
+// pixels at CH <= 64, 6 x 18 above) of [x | h] once: per pixel x's channels,
+// zeros up to a multiple of 32 bytes, h's channels, zeros up to a multiple of
+// 32 bytes, and 16 bytes of padding, so that the 8 rows of an ldmatrix (8
+// neighbouring pixels) fall on different banks. The zeros of SAME padding are
+// written there too; the inner loop has no bounds checks. A tap (ky, kx) is
+// then only a base offset into the window: the 16 rows of an A fragment are
 // 16 neighbouring pixels of one window row.
 //
-// B operand. The weights need no repacking: HWIO rows w[tap][ci][0:4CH] are
-// contiguous, and a group's four 128-column slices of them are too. K is
-// walked in steps of 16 rows, tap by tap, x's rows then h's;
+// B operand. K is walked in k steps, tap by tap, x's bytes then h's;
 // kSlabSteps steps make a slab, which all 256 threads copy into shared memory
-// with cp.async (rows padded by 16 bytes; rows of the zero padding are written
-// as zeros), kStages slabs in a ring, so the copy of slab s + 2 runs under the
-// products of slab s. B fragments come from ldmatrix.trans. All warps of the
-// block share a slab.
+// with cp.async (rows of the zero padding are written as zeros), kStages slabs
+// in a ring, so the copy of slab s + 2 runs under the products of slab s. All
+// warps of the block share a slab. Two layouts of the weights:
+//
+//   HwioWeights    bf16 Wx (3, 3, Cx, 4CH), Wh (3, 3, CH, 4CH) as JAX lays
+//                  them out: rows w[tap][ci][0:4CH] are contiguous, so a slab
+//                  is 16 rows a k step of the group's 4 x kBlockCh columns
+//                  ([k][n]), read with ldmatrix.trans. K1, K2, K1h, K6a.
+//   KMajorWeights  w (9, 4CH, row bytes): each column's weights of a tap
+//                  contiguous along K (x's, then h's). A slab is the group's
+//                  4 x kBlockCh columns of kSlabSteps x 32 bytes ([n][k],
+//                  rows padded by 16 bytes), read with a plain ldmatrix, whose
+//                  8x8 b16 matrices hand thread t the 4 bytes 4 (t % 4) of row
+//                  t / 4: the B fragment of either type. ldmatrix.trans moves
+//                  16-bit elements only, so this is the one layout the int8
+//                  operand can take. K5 (int8, packed once a session) and T3
+//                  (its w9 (9, 4C, 2C) as given).
 //
 // Warps. 8 warps split the block's M x N as Shape<CH> says. A warp owns whole
 // tile rows (m16 tiles) and, for each block of 8 hidden channels it owns, the
@@ -46,10 +66,11 @@
 //   128     1 x 8          4 (of 4)          16                128
 //   256     as 128, for the block's group of 128 channels
 //
-// What bounds it. A k16 step of a 64 x 64 warp tile is 32 mma for 2 KB of A
+// What bounds it. A k step of a 64 x 64 warp tile is 32 mma for 2 KB of A
 // and 2 KB of B fragments read from shared memory, which delivers 128 bytes a
 // clock to the SM's four tensor cores: the fragment loads, not the tensor
-// cores, set the pace, near half of the 989 TFLOP/s peak at best. wgmma, which
+// cores, set the pace, near half of the bf16 peak (989 TFLOP/s) at best; an
+// s8 k step moves the same bytes for twice the multiply-adds. wgmma, which
 // reads B (and A) straight from shared memory for a 64-row tile, is what lifts
 // that; it is left for a later change, as is a persistent block that stages
 // the next tile's window under this tile's products (the window is staged with
@@ -62,6 +83,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 #include "convlstm_tile.cuh"
 
@@ -74,38 +96,26 @@ using convlstm_tile::kTileW;
 using convlstm_tile::Tile;
 using convlstm_tile::tile_rows;
 
+constexpr int kStepBytes = 32;  // bytes of K a k step: 16 bf16 or 32 int8 channels
+
 template <int CH>
 struct Shape {
   static_assert(CH == 8 || CH == 16 || CH == 32 || CH == 64 || CH == 128 || CH == 256,
                 "hidden widths the contraction is written for");
   static constexpr int kBlockCh = block_ch<CH>();          // hidden channels a block owns
   static constexpr int kN = 4 * kBlockCh;                  // the block's gate columns
-  static constexpr int kChp = (CH + 15) / 16 * 16;         // h's channels as staged
   static constexpr int kWarpCh = kBlockCh < 16 ? kBlockCh : 16;  // hidden channels a warp owns
   static constexpr int kJ = kWarpCh / 8;                   // blocks of 8 channels a warp owns
   static constexpr int kWarpsN = kBlockCh / kWarpCh;
   static constexpr int kWarpsM = 8 / kWarpsN;
   static constexpr int kRows = tile_rows<CH>() / kWarpsM;  // tile rows (m16 tiles) a warp owns
-  static constexpr int kSlabSteps = kBlockCh > 64 ? 2 : 4; // k16 steps a weight slab
-  static constexpr int kSlabPitch = kN * 2 + 16;           // bytes a staged weight row
-  static constexpr int kSlabBytes = kSlabSteps * 16 * kSlabPitch;
+  static constexpr int kSlabSteps = kBlockCh > 64 ? 2 : 4; // k steps a weight slab
   static constexpr int kStages = 3;
   static_assert(kWarpsM * kWarpsN == 8 && kRows * kWarpsM == tile_rows<CH>(), "8 warps");
 };
 
 __host__ __device__ inline int round_up_16(int n) { return (n + 15) & ~15; }
-
-// Bytes a staged pixel: [x | zeros | h | zeros] as bf16, and 16 bytes of padding.
-template <int CH>
-__host__ __device__ inline int pixel_pitch(int cx) {
-  return (round_up_16(cx) + Shape<CH>::kChp) * 2 + 16;
-}
-
-template <int CH>
-inline int smem_bytes(int cx) {
-  return (tile_rows<CH>() + 2) * kHaloW * pixel_pitch<CH>(cx) +
-         Shape<CH>::kStages * Shape<CH>::kSlabBytes;
-}
+__host__ __device__ inline int round_up_32(int n) { return (n + 31) & ~31; }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -151,52 +161,63 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// The accumulators of one thread: acc[r][j][g][e] is gate g of the warp's tile
-// row r, 8-channel block j; e as the m16n8 fragment lays it out (see
-// for_each_pair).
-template <int CH>
-using Acc = float[Shape<CH>::kRows][Shape<CH>::kJ][4][4];
+// d += a (16 x 32, row-major) * b (32 x 8, column-major), s8 products summed
+// exactly in s32 (no .satfinite: the callers' sums stay far inside 2^31).
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
-// The gate pre-activations of the block's tile: `src` stages the window of its
-// image at (tile.y0, tile.x0) (see convlstm_source.cuh), which is contracted
-// against the tile's group of gate columns. `smem` is the block's dynamic
-// shared memory, smem_bytes<CH>(cx) long and 16-byte aligned. wx and wh are
-// 16-byte aligned. Every thread of the block must call it.
-template <int CH, typename Src>
-__device__ __forceinline__ void gate_preactivations(
-    Acc<CH>& acc, unsigned char* __restrict__ smem, const Src& src,
-    const __nv_bfloat16* __restrict__ wx, const __nv_bfloat16* __restrict__ wh,
-    const __nv_bfloat16* __restrict__ bias, const Tile& tile, int cx) {
-  using S = Shape<CH>;
-  constexpr int kWindowRows = tile_rows<CH>() + 2;
-  const int cxp = round_up_16(cx);
-  const int kt = cxp + S::kChp;              // K rows a tap
-  const int col0 = tile.group * S::kBlockCh; // the group's first column of each gate
-  // k16 steps in all, 9 * kt / 16, rounded up to whole slabs: the steps past
-  // the end get zero weights
-  const int n_slabs = (9 * (kt / 16) + S::kSlabSteps - 1) / S::kSlabSteps;
-  const int pitch = kt * 2 + 16;
-  unsigned char* window = smem;
-  unsigned char* slabs = smem + kWindowRows * kHaloW * pitch;
+// The two element types: the staged element's size and the accumulator's
+// type (mma_bf16 or mma_s8 makes a k step's products).
+struct Bf16 {
+  using Value = float;
+  static constexpr int kBytes = 2;
+};
+struct S8 {
+  using Value = int;
+  static constexpr int kBytes = 1;
+};
 
-  // Where a walk over the k16 steps stands: rows k .. k + 15 of tap's
-  // [x | 0 | h | 0]; tap 9 is past the end.
-  struct Walk {
-    int tap = 0, k = 0;
-    __device__ __forceinline__ void next(int kt) {
-      k += 16;
-      if (k == kt) {
-        k = 0;
-        ++tap;
-      }
+// Bytes a staged pixel: [x | zeros | h | zeros], each part a multiple of 32
+// bytes, and 16 bytes of padding.
+template <int CH, typename M = Bf16>
+__host__ __device__ inline int pixel_pitch(int cx) {
+  return round_up_32(cx * M::kBytes) + round_up_32(CH * M::kBytes) + 16;
+}
+
+// Where a walk over the k steps stands: bytes k .. k + 31 of tap's [x | 0 |
+// h | 0] (kt bytes a tap); tap 9 is past the end.
+struct Walk {
+  int tap = 0, k = 0;
+  __device__ __forceinline__ void next(int kt) {
+    k += kStepBytes;
+    if (k == kt) {
+      k = 0;
+      ++tap;
     }
-  };
-  Walk copied, multiplied;
+  }
+};
 
-  // Copy the next slab of the weights into stage `stage`: kSlabSteps k16
-  // steps of 16 rows, the group's 4 x kBlockCh bf16 a row, as 16-byte pieces.
-  auto load_slab = [&](int stage) {
-    unsigned char* slab = slabs + stage * S::kSlabBytes;
+// B from HWIO bf16 weights (see the top of the file): a slab is kSlabSteps x
+// 16 rows (k) of the group's kN columns, rows padded by 16 bytes.
+template <int CH>
+struct HwioWeights {
+  using S = Shape<CH>;
+  static constexpr int kPitch = S::kN * 2 + 16;  // bytes a staged row
+  static constexpr int kSlabBytes = S::kSlabSteps * 16 * kPitch;
+  const __nv_bfloat16* wx;
+  const __nv_bfloat16* wh;
+
+  // Copy the slab at `copied` (advanced past it): 16-byte pieces of the rows
+  // k of [x | 0 | h | 0], cx x channels padded to cxp bytes, the group's
+  // columns from col0 on in each gate.
+  __device__ __forceinline__ void load_slab(unsigned char* slab, Walk& copied, int kt, int cx,
+                                            int cxp, int col0) const {
     constexpr int kPieces = S::kN * 2 / 16;  // 16-byte pieces a row
 #pragma unroll
     for (int q = 0; q < S::kSlabSteps; ++q) {
@@ -206,7 +227,7 @@ __device__ __forceinline__ void gate_preactivations(
         if (i >= 16 * kPieces) break;
         const int r = i / kPieces;
         const int piece = i % kPieces;
-        const int k = copied.k + r;
+        const int k = copied.k / 2 + r;  // the row's channel of [x | 0 | h | 0]
         // slab column piece * 8 is gate g's column c of the group
         const int g = piece * 8 / S::kBlockCh;
         const int col = g * CH + col0 + piece * 8 % S::kBlockCh;
@@ -214,11 +235,11 @@ __device__ __forceinline__ void gate_preactivations(
         if (copied.tap < 9) {
           if (k < cx) {
             w = wx + (size_t(copied.tap) * cx + k) * (4 * CH);
-          } else if (k >= cxp && k - cxp < CH) {
-            w = wh + (size_t(copied.tap) * CH + (k - cxp)) * (4 * CH);
+          } else if (k >= cxp / 2 && k - cxp / 2 < CH) {
+            w = wh + (size_t(copied.tap) * CH + (k - cxp / 2)) * (4 * CH);
           }
         }
-        unsigned char* dst = slab + (q * 16 + r) * S::kSlabPitch + piece * 16;
+        unsigned char* dst = slab + (q * 16 + r) * kPitch + piece * 16;
         if (w != nullptr) {
           cp_async_16(dst, w + col);
         } else {
@@ -227,14 +248,138 @@ __device__ __forceinline__ void gate_preactivations(
       }
       copied.next(kt);
     }
+  }
+  // This lane's ldmatrix row address in a slab: matrices (k 0-7, gate g),
+  // (k 8-15, gate g), (k 0-7, gate g + 1), (k 8-15, gate g + 1) of 8-channel
+  // block 0 of the warp's channels.
+  __device__ static uint32_t lane_offset(int lane, int wn) {
+    return ((lane & 7) + ((lane >> 3) & 1) * 8) * kPitch +
+           ((lane >> 4) * S::kBlockCh + wn * S::kWarpCh) * 2;
+  }
+  // ... and the offset of k step q, 8-channel block j, gate pair gp from there
+  __device__ static uint32_t offset(int q, int j, int gp) {
+    return q * 16 * kPitch + (gp * 2 * S::kBlockCh + j * 8) * 2;
+  }
+  __device__ static void load(uint32_t (&r)[4], uint32_t addr) { ldmatrix_x4_trans(r, addr); }
+};
+
+// B from K-major weights (see the top of the file): w holds, for tap t and
+// gate column n (of all 4CH), row_bytes bytes at (t * 4CH + n) * row_bytes:
+// x's x_bytes, then h's h_bytes (x_bytes, h_bytes and row_bytes multiples of
+// 16, w 16-byte aligned). A slab is the group's kN columns of kSlabSteps k
+// steps, a column padded by 16 bytes.
+template <int CH>
+struct KMajorWeights {
+  using S = Shape<CH>;
+  static constexpr int kPitch = S::kSlabSteps * kStepBytes + 16;  // bytes a staged column
+  static constexpr int kSlabBytes = S::kN * kPitch;
+  static constexpr int kPieces = S::kSlabSteps * kStepBytes / 16;  // 16-byte pieces a column
+  static_assert(kThreads % kPieces == 0 && S::kN * kPieces % kThreads == 0,
+                "a thread copies the same piece of its columns in every slab");
+  const unsigned char* w;
+  int row_bytes, x_bytes, h_bytes;
+
+  // Copy the slab at `copied` (advanced past it). Thread i copies piece i %
+  // kPieces of every (kThreads / kPieces)-th column: its k step is the same
+  // in every slab, so only that step's place in the walk is found anew.
+  __device__ __forceinline__ void load_slab(unsigned char* slab, Walk& copied, int kt, int cx,
+                                            int cxp, int col0) const {
+    const int piece = threadIdx.x % kPieces;
+    Walk at = copied;
+#pragma unroll
+    for (int q = 0; q < S::kSlabSteps; ++q) {
+      if (q < piece / 2) at.next(kt);
+      copied.next(kt);
+    }
+    // the piece's bytes in a column's row of the tap, or -1 for zeros
+    const int k = at.k + (piece % 2) * 16;
+    int kk = -1;
+    if (at.tap < 9) {
+      if (k < x_bytes) {
+        kk = k;
+      } else if (k >= cxp && k - cxp < h_bytes) {
+        kk = x_bytes + (k - cxp);
+      }
+    }
+    const unsigned char* src = w + size_t(at.tap) * (4 * CH) * row_bytes + kk;
+#pragma unroll
+    for (int it = 0; it < S::kN * kPieces / kThreads; ++it) {
+      const int n = (it * kThreads + threadIdx.x) / kPieces;  // the slab's column
+      // slab column n is gate g's column c of the group
+      const int col = n / S::kBlockCh * CH + col0 + n % S::kBlockCh;
+      unsigned char* dst = slab + n * kPitch + piece * 16;
+      if (kk >= 0) {
+        cp_async_16(dst, src + size_t(col) * row_bytes);
+      } else {
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+  }
+  // This lane's ldmatrix row address in a slab: matrices (gate g, bytes
+  // 0-15), (gate g, bytes 16-31), (gate g + 1, bytes 0-15), (gate g + 1,
+  // bytes 16-31) of the warp's first 8 channels, a row per column.
+  __device__ static uint32_t lane_offset(int lane, int wn) {
+    return ((lane & 7) + (lane >> 4) * S::kBlockCh + wn * S::kWarpCh) * kPitch +
+           ((lane >> 3) & 1) * 16;
+  }
+  // ... and the offset of k step q, 8-channel block j, gate pair gp from there
+  __device__ static uint32_t offset(int q, int j, int gp) {
+    return (gp * 2 * S::kBlockCh + j * 8) * kPitch + q * kStepBytes;
+  }
+  __device__ static void load(uint32_t (&r)[4], uint32_t addr) { ldmatrix_x4(r, addr); }
+};
+
+template <int CH, typename M = Bf16, typename Wts = HwioWeights<CH>>
+inline int smem_bytes(int cx) {
+  return (tile_rows<CH>() + 2) * kHaloW * pixel_pitch<CH, M>(cx) +
+         Shape<CH>::kStages * Wts::kSlabBytes;
+}
+
+// The accumulators of one thread: acc[r][j][g][e] is gate g of the warp's tile
+// row r, 8-channel block j; e as the m16n8 fragment lays it out (see
+// for_each_pair). V: float (Bf16) or int (S8).
+template <int CH, typename V = float>
+using Acc = V[Shape<CH>::kRows][Shape<CH>::kJ][4][4];
+
+// The gate pre-activations of the block's tile in element type M: `src`
+// stages the window of its image at (tile.y0, tile.x0) (see
+// convlstm_source.cuh), which is contracted against the tile's group of gate
+// columns of `wts` (HwioWeights or KMajorWeights). With M = Bf16 the sums
+// start from bias (bf16, 4CH); with S8 from zero (bias is not read). `smem`
+// is the block's dynamic shared memory, smem_bytes<CH, M, Wts>(cx) long and
+// 16-byte aligned. Every thread of the block must call it.
+template <int CH, typename M, typename Src, typename Wts>
+__device__ __forceinline__ void gate_preactivations(
+    Acc<CH, typename M::Value>& acc, unsigned char* __restrict__ smem, const Src& src,
+    const Wts& wts, const __nv_bfloat16* __restrict__ bias, const Tile& tile, int cx) {
+  using S = Shape<CH>;
+  using V = typename M::Value;
+  constexpr int kWindowRows = tile_rows<CH>() + 2;
+  const int cxp = round_up_32(cx * M::kBytes);         // x's bytes as staged
+  const int kt = cxp + round_up_32(CH * M::kBytes);    // K bytes a tap
+  const int col0 = tile.group * S::kBlockCh;  // the group's first column of each gate
+  // k steps in all, 9 * kt / 32, rounded up to whole slabs: the steps past
+  // the end get zero weights
+  const int n_slabs = (9 * (kt / kStepBytes) + S::kSlabSteps - 1) / S::kSlabSteps;
+  const int pitch = kt + 16;
+  unsigned char* window = smem;
+  unsigned char* slabs = smem + kWindowRows * kHaloW * pitch;
+  Walk copied, multiplied;
+
+  auto load_slab = [&](int stage) {
+    wts.load_slab(slabs + stage * Wts::kSlabBytes, copied, kt, cx, cxp, col0);
     cp_async_commit();
   };
 
-  // Stage the window: per pixel [x | zeros | h | zeros] as bf16, zeros where
-  // SAME padding puts them; copied asynchronously or stored (the first group;
-  // the slabs follow it, and the first wait and __syncthreads() below cover
-  // both kinds of write).
-  src.template stage_bf16<CH>(window, pitch, kt, cxp, kWindowRows, tile.y0, tile.x0);
+  // Stage the window: per pixel [x | zeros | h | zeros], zeros where SAME
+  // padding puts them; copied asynchronously or stored (the first group; the
+  // slabs follow it, and the first wait and __syncthreads() below cover both
+  // kinds of write).
+  if constexpr (std::is_same<M, S8>::value) {
+    src.template stage_s8<CH>(window, pitch, kt, cxp, kWindowRows, tile.y0, tile.x0);
+  } else {
+    src.template stage_bf16<CH>(window, pitch, kt / 2, cxp / 2, kWindowRows, tile.y0, tile.x0);
+  }
   cp_async_commit();
   load_slab(0);
   load_slab(1);  // n_slabs >= 5: 9 taps of at least 2 steps
@@ -244,14 +389,18 @@ __device__ __forceinline__ void gate_preactivations(
   const int wm = warp / S::kWarpsN;
   const int wn = warp % S::kWarpsN;
 
-  // acc = bias: e = 0, 2 are channel 2t, e = 1, 3 channel 2t + 1 (t = lane % 4)
+  // acc = bias (Bf16) or 0 (S8): e = 0, 2 are channel 2t, e = 1, 3 channel
+  // 2t + 1 (t = lane % 4)
 #pragma unroll
   for (int j = 0; j < S::kJ; ++j) {
 #pragma unroll
     for (int g = 0; g < 4; ++g) {
-      const int col = g * CH + col0 + wn * S::kWarpCh + j * 8 + (lane % 4) * 2;
-      const float b0 = __bfloat162float(bias[col]);
-      const float b1 = __bfloat162float(bias[col + 1]);
+      V b0 = 0, b1 = 0;
+      if constexpr (std::is_same<V, float>::value) {
+        const int col = g * CH + col0 + wn * S::kWarpCh + j * 8 + (lane % 4) * 2;
+        b0 = __bfloat162float(bias[col]);
+        b1 = __bfloat162float(bias[col + 1]);
+      }
 #pragma unroll
       for (int r = 0; r < S::kRows; ++r) {
         acc[r][j][g][0] = acc[r][j][g][2] = b0;
@@ -260,25 +409,24 @@ __device__ __forceinline__ void gate_preactivations(
     }
   }
 
-  // This lane's row addresses for ldmatrix. A: matrices (pixels 0-7, k 0-7),
-  // (pixels 8-15, k 0-7), (pixels 0-7, k 8-15), (pixels 8-15, k 8-15) of the
-  // warp's first tile row at tap (0, 0). B: matrices (k 0-7, gate g), (k 8-15,
-  // gate g), (k 0-7, gate g + 1), (k 8-15, gate g + 1) of 8-channel block 0.
+  // This lane's row addresses for ldmatrix. A: matrices (pixels 0-7, bytes
+  // 0-15), (pixels 8-15, bytes 0-15), (pixels 0-7, bytes 16-31), (pixels 8-15,
+  // bytes 16-31) of the warp's first tile row at tap (0, 0). B: see the
+  // weights' lane_offset.
   const uint32_t a_lane = smem_addr(window) +
                           ((wm * S::kRows) * kHaloW + (lane & 7) + ((lane >> 3) & 1) * 8) * pitch +
                           (lane >> 4) * 16;
-  const uint32_t b_lane = ((lane & 7) + ((lane >> 3) & 1) * 8) * S::kSlabPitch +
-                          ((lane >> 4) * S::kBlockCh + wn * S::kWarpCh) * 2;
+  const uint32_t b_lane = Wts::lane_offset(lane, wn);
 
   // The fragments of the step in hand and of the next one: each ldmatrix is
   // started one row of products ahead of its use.
   uint32_t bf[2][S::kJ][2][4];
   uint32_t af[2][4];
   auto a_address = [&]() {
-    // a step past the end multiplies tap 8's first rows by zero weights
+    // a step past the end multiplies tap 8's first bytes by zero weights
     const int tap = min(multiplied.tap, 8);
     const int k0 = multiplied.tap < 9 ? multiplied.k : 0;
-    return a_lane + ((tap / 3) * kHaloW + tap % 3) * pitch + k0 * 2;
+    return a_lane + ((tap / 3) * kHaloW + tap % 3) * pitch + k0;
   };
 
 #pragma unroll 1
@@ -290,14 +438,13 @@ __device__ __forceinline__ void gate_preactivations(
     } else {
       cp_async_commit();  // keeps the count of groups in step with s
     }
-    const uint32_t slab = smem_addr(slabs + (s % S::kStages) * S::kSlabBytes) + b_lane;
+    const uint32_t slab = smem_addr(slabs + (s % S::kStages) * Wts::kSlabBytes) + b_lane;
     auto load_b = [&](int q) {
 #pragma unroll
       for (int j = 0; j < S::kJ; ++j) {
 #pragma unroll
         for (int gp = 0; gp < 2; ++gp) {
-          ldmatrix_x4_trans(bf[q % 2][j][gp],
-                            slab + q * 16 * S::kSlabPitch + (gp * 2 * S::kBlockCh + j * 8) * 2);
+          Wts::load(bf[q % 2][j][gp], slab + Wts::offset(q, j, gp));
         }
       }
     };
@@ -321,8 +468,13 @@ __device__ __forceinline__ void gate_preactivations(
         for (int j = 0; j < S::kJ; ++j) {
 #pragma unroll
           for (int g = 0; g < 4; ++g) {
-            mma_bf16(acc[r][j][g], af[n % 2], bf[q % 2][j][g / 2][(g % 2) * 2],
-                     bf[q % 2][j][g / 2][(g % 2) * 2 + 1]);
+            const uint32_t b0 = bf[q % 2][j][g / 2][(g % 2) * 2];
+            const uint32_t b1 = bf[q % 2][j][g / 2][(g % 2) * 2 + 1];
+            if constexpr (std::is_same<M, S8>::value) {
+              mma_s8(acc[r][j][g], af[n % 2], b0, b1);
+            } else {
+              mma_bf16(acc[r][j][g], af[n % 2], b0, b1);
+            }
           }
         }
       }
@@ -335,10 +487,12 @@ __device__ __forceinline__ void gate_preactivations(
 // Calls f(row, col, channel, gi, gf, go, gg) for every pair of adjacent hidden
 // channels (channel, channel + 1) the thread owns: row and col are the pixel's
 // offsets in the tile, channel counts within the block's group, and each gate
-// is a float2 over the two channels.
-template <int CH, typename F>
-__device__ __forceinline__ void for_each_pair(const Acc<CH>& acc, F&& f) {
+// is a pair over the two channels (float2 of f32 sums, int2 of s32 ones).
+template <int CH, typename V, typename F>
+__device__ __forceinline__ void for_each_pair(
+    const V (&acc)[Shape<CH>::kRows][Shape<CH>::kJ][4][4], F&& f) {
   using S = Shape<CH>;
+  using V2 = typename std::conditional<std::is_same<V, int>::value, int2, float2>::type;
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
   const int wm = warp / S::kWarpsN;
@@ -351,10 +505,8 @@ __device__ __forceinline__ void for_each_pair(const Acc<CH>& acc, F&& f) {
       for (int half = 0; half < 2; ++half) {  // fragment rows lane / 4 and lane / 4 + 8
         const int e = half * 2;
         f(wm * S::kRows + r, lane / 4 + half * 8, wn * S::kWarpCh + j * 8 + (lane % 4) * 2,
-          make_float2(acc[r][j][0][e], acc[r][j][0][e + 1]),
-          make_float2(acc[r][j][1][e], acc[r][j][1][e + 1]),
-          make_float2(acc[r][j][2][e], acc[r][j][2][e + 1]),
-          make_float2(acc[r][j][3][e], acc[r][j][3][e + 1]));
+          V2{acc[r][j][0][e], acc[r][j][0][e + 1]}, V2{acc[r][j][1][e], acc[r][j][1][e + 1]},
+          V2{acc[r][j][2][e], acc[r][j][2][e + 1]}, V2{acc[r][j][3][e], acc[r][j][3][e + 1]});
       }
     }
   }

@@ -4,17 +4,21 @@
 //
 // A source stages the tile's window, window_rows x kHaloW pixels around
 // (y0 - 1, x0 - 1), each pixel [x | zeros | h | zeros], with the zeros of SAME
-// padding written in, in one of two formats:
+// padding written in, in one of three formats:
 //
 //   stage_bf16<CH>(window, pitch, kt, cxp, window_rows, y0, x0)
 //     bf16, pitch bytes a pixel, x's channels padded to cxp, kt = cxp + h's
 //     channels padded to a multiple of 16; by cp.async (the caller commits
 //     the group) or plain stores (the caller's __syncthreads() publishes them)
+//   stage_s8<CH>(window, pitch, kt, cxp, window_rows, y0, x0)
+//     the same in int8 (ImageRows only), x's and h's channels each padded to
+//     a multiple of 32
 //   stage_f32(window, cin, cxp, window_rows, y0, x0)
 //     f32, cin = cxp + CH values a pixel, x's channels padded to cxp
 //
 // The sources:
-//   ImageRows   K1, K2: NHWC x and h; zeros outside the image
+//   ImageRows   K1, K2 (bf16, f32), K5 (int8): NHWC x and h; zeros outside
+//               the image
 //   HaloRows    K1h: NHWC x and h, but the row above and the row below each
 //               8-row block come from the side tensors x_halo, h_halo
 //               (B, H/8, 2, W, C), which hold the image's edge zeros; so no
@@ -24,6 +28,9 @@
 //               eight 16-byte pieces of eight channel planes and written as
 //               eight 16-byte pixel rows (stage_cmajor_bf16, shared with K6b),
 //               so that a tap stays a row offset into the window
+//   PadRows     T3: CmajorRows over the prototype's pad-row planes (B, C, SP),
+//               SP = (H + 2 block_h) * W, whose block_h zero rows above and
+//               below the image are in memory
 
 #pragma once
 
@@ -123,38 +130,52 @@ __device__ __forceinline__ void stage_cmajor_bf16(unsigned char* window, int pit
   stage_elements(kCols - 1, 2);  // the two halo columns
 }
 
-// The bf16 window of an NHWC source: 16-byte pieces of 8 channels, copied
-// asynchronously; a pixel's pieces go to 8, 16 or 32 neighbouring lanes. x
-// takes plain loads where its rows are not whole aligned pieces.
-template <int CH, typename Src>
-__device__ __forceinline__ void stage_nhwc_bf16(const Src& src, unsigned char* window, int pitch,
-                                                int kt, int cxp, int window_rows, int y0,
-                                                int x0) {
+// The bf16 or int8 window of an NHWC source (element E): 16-byte pieces of 8
+// bf16 or 16 int8 channels, copied asynchronously; a pixel's pieces go to 8,
+// 16 or 32 neighbouring lanes. kt and cxp count elements. A piece that is not
+// whole in memory (x where its rows are not whole aligned pieces; h at CH = 8
+// in int8) is gathered by the element and stored.
+template <int CH, typename E, typename Src>
+__device__ __forceinline__ void stage_nhwc(const Src& src, unsigned char* window, int pitch,
+                                           int kt, int cxp, int window_rows, int y0, int x0) {
+  constexpr int kPer = 16 / int(sizeof(E));      // elements a piece
+  constexpr bool kHWhole = CH % kPer == 0;       // h's rows are whole pieces
   const int cx = src.cx;
-  const int pieces = kt / 8;
+  const int pieces = kt / kPer;
   const int lane_bits = pieces <= 8 ? 3 : pieces <= 16 ? 4 : 5;
   const int sub = threadIdx.x & ((1 << lane_bits) - 1);
-  const bool x_vec = cx % 8 == 0 && src.x_aligned();
+  const bool x_vec = cx % kPer == 0 && src.x_aligned();
+  // a piece of n elements from p, zeros after them
+  auto gather = [](unsigned char* dst, const E* p, int n) {
+    uint4 u = make_uint4(0u, 0u, 0u, 0u);
+    E* e = reinterpret_cast<E*>(&u);
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      if (j < n) e[j] = p[j];
+    }
+    *reinterpret_cast<uint4*>(dst) = u;
+  };
   for (int pix = threadIdx.x >> lane_bits; pix < window_rows * kHaloW;
        pix += kThreads >> lane_bits) {
-    const __nv_bfloat16* xs = nullptr;
-    const __nv_bfloat16* hs = nullptr;
+    const E* xs = nullptr;
+    const E* hs = nullptr;
     const bool inside = src.at(y0 - 1 + pix / kHaloW, x0 - 1 + pix % kHaloW, xs, hs);
-    for (int k = sub * 8; k < kt; k += 8 << lane_bits) {
-      unsigned char* dst = window + pix * pitch + k * 2;
+    for (int k = sub * kPer; k < kt; k += kPer << lane_bits) {
+      unsigned char* dst = window + pix * pitch + k * int(sizeof(E));
       // where nothing is read, h stands in as an aligned address
       if (k >= cxp) {
         const bool valid = inside && k - cxp < CH;
-        cp_async_16_or_zeros(dst, valid ? hs + (k - cxp) : src.h, valid);
+        if (kHWhole || !valid) {
+          cp_async_16_or_zeros(dst, valid ? hs + (k - cxp) : src.h, valid);
+        } else {
+          gather(dst, hs + (k - cxp), CH - (k - cxp));
+        }
       } else if (x_vec || !inside || k >= cx) {
         // a whole aligned piece of x, or zeros
-        const bool whole = inside && k + 8 <= cx;
+        const bool whole = inside && k + kPer <= cx;
         cp_async_16_or_zeros(dst, whole ? xs + k : src.h, whole);
       } else {
-        __align__(16) __nv_bfloat16 e[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) e[j] = k + j < cx ? xs[k + j] : __float2bfloat16(0.f);
-        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(e);
+        gather(dst, xs + k, cx - k);
       }
     }
   }
@@ -179,7 +200,8 @@ __device__ __forceinline__ void stage_nhwc_f32(const Src& src, float* window, in
   }
 }
 
-// K1, K2: NHWC x (B, H, W, cx) and h (B, H, W, ch) of image b.
+// K1, K2 (bf16, f32) and K5 (int8): NHWC x (B, H, W, cx) and h (B, H, W, ch) of
+// image b.
 template <typename T>
 struct ImageRows {
   const T* x;
@@ -199,7 +221,12 @@ struct ImageRows {
   template <int CH>
   __device__ __forceinline__ void stage_bf16(unsigned char* window, int pitch, int kt, int cxp,
                                              int window_rows, int y0, int x0) const {
-    stage_nhwc_bf16<CH>(*this, window, pitch, kt, cxp, window_rows, y0, x0);
+    stage_nhwc<CH, T>(*this, window, pitch, kt, cxp, window_rows, y0, x0);
+  }
+  template <int CH>
+  __device__ __forceinline__ void stage_s8(unsigned char* window, int pitch, int kt, int cxp,
+                                           int window_rows, int y0, int x0) const {
+    stage_nhwc<CH, T>(*this, window, pitch, kt, cxp, window_rows, y0, x0);
   }
   __device__ __forceinline__ void stage_f32(float* window, int cin, int cxp, int window_rows,
                                             int y0, int x0) const {
@@ -238,7 +265,7 @@ struct HaloRows {
   template <int CH>
   __device__ __forceinline__ void stage_bf16(unsigned char* window, int pitch, int kt, int cxp,
                                              int window_rows, int y0, int x0) const {
-    stage_nhwc_bf16<CH>(*this, window, pitch, kt, cxp, window_rows, y0, x0);
+    stage_nhwc<CH, T>(*this, window, pitch, kt, cxp, window_rows, y0, x0);
   }
   __device__ __forceinline__ void stage_f32(float* window, int cin, int cxp, int window_rows,
                                             int y0, int x0) const {
@@ -292,6 +319,21 @@ struct CmajorRows {
       window[pix * cin + c] = value(c, cxp, y0 - 1 + pix / kHaloW, x0 - 1 + pix % kHaloW);
     }
   }
+};
+
+// T3: the channel-major prototype's carries x and h (B, C, SP), SP = rows *
+// width, rows = H + 2 block_h: each plane is the image with block_h zero rows
+// above and below, in memory. The tile's rows (y0 and the window's) count
+// from the first pad row, and the planes are staged as CmajorRows stages an
+// image of `rows` rows: the rows above the first pad row and below the last
+// are SAME zeros, but only pad rows of the output read them, and those the
+// kernel writes as zeros; an image row's window lies in memory, its rows
+// above and below the image the pad rows' real zeros. So no row is tested
+// against the image, only the W boundary (and the planes' ends).
+template <typename T>
+struct PadRows : CmajorRows<T> {
+  __device__ PadRows(const T* x, const T* h, int b, int rows, int width, int c)
+      : CmajorRows<T>{x, h, b, rows, width, c, c} {}
 };
 
 }  // namespace convlstm_source

@@ -23,23 +23,25 @@ is dropped; the kernel supplies the zeros of SAME padding). Inference only:
 nothing here takes part in autograd.
 
 Dispatch (:func:`kernel_takes`): K5 is built for the hidden widths
-``KERNEL_HIDDEN_WIDTHS`` = 64, 128 (a block owns 64 hidden channels) and Cx
-a multiple of 4 up to 256, any B, H, W >= 1; CUDA tensors of any hidden width
-from 1 to 128 and any Cx from 1 to 256 launch it, zero-padded to the next
-widths it is built for (:func:`kernel_widths`) and the outputs sliced back.
-(The JAX rule, H % 8 == 0 and Ch % 8 == 0, is the TPU kernel's block
-geometry and is not carried over.) The padding is exact, bit for bit at the
-real channels: it adds zero channels to xq and hq and zero rows and columns
-to the quantized weights (:func:`pad_quantized`), which is what quantizing
-zero-padded float weights gives (the fixed activation scale does not depend
-on the channel count, a zero column's scale is clamped to 1e-12 and
-quantizes to zeros, and the real columns' scales do not change); a padded
-channel's gates are then exact zeros, its c' and h'q zeros, and the integer
-sums of the real channels unchanged. The rollout pads once per session
-(:func:`quantize_convlstm_params` on a card), a direct call once per call.
-:func:`fused_convlstm_step_int8` runs the plain version for CPU tensors and
-launches K5 for CUDA tensors, or raises: a CUDA tensor outside the rule is
-refused, never handed to the plain version.
+``KERNEL_HIDDEN_WIDTHS`` = 8, 16, 32, 64, 128 (the tensor-core contraction's
+``Shape``) and any Cx up to 256, any B, H, W >= 1; CUDA tensors of any hidden
+width from 1 to 128 and any Cx from 1 to 256 launch it, zero-padded to the
+next hidden width it is built for and Cx to a multiple of 4
+(:func:`kernel_widths`), the outputs sliced back. (The JAX rule, H % 8 == 0
+and Ch % 8 == 0, is the TPU kernel's block geometry and is not carried over.)
+The padding is exact, bit for bit at the real channels: it adds zero channels
+to xq and hq and zero rows and columns to the quantized weights
+(:func:`pad_quantized`), which is what quantizing zero-padded float weights
+gives (the fixed activation scale does not depend on the channel count, a
+zero column's scale is clamped to 1e-12 and quantizes to zeros, and the real
+columns' scales do not change); a padded channel's gates are then exact
+zeros, its c' and h'q zeros, and the integer sums of the real channels
+unchanged. The rollout pads once per session (:func:`quantize_convlstm_params`
+on a card), a direct call once per call. :func:`fused_convlstm_step_int8`
+runs the plain version for CPU tensors and launches K5 for CUDA tensors, or
+raises: a CUDA tensor outside the rule is refused, never handed to the plain
+version. :func:`int8_gate_sums` returns K5's integer sums themselves, from the
+same contraction: how the card's tests hold them to the exact ones.
 """
 
 from __future__ import annotations
@@ -56,11 +58,12 @@ from satflow_tpu_torch.ops.fused_convlstm_step import (
     pad_channels,
     pad_gate_columns,
     padded_hidden,
+    slice_gate_columns,
 )
 
 ACT_SCALE = 127.0
-#: hidden widths the kernel is compiled for: 64 hidden channels a block
-KERNEL_HIDDEN_WIDTHS = (64, 128)
+#: hidden widths the kernel is compiled for (all of them a block)
+KERNEL_HIDDEN_WIDTHS = (8, 16, 32, 64, 128)
 #: largest input width whose staged window the kernel takes
 KERNEL_MAX_CX = 256
 
@@ -69,6 +72,7 @@ _ENTRY = {
     torch.float32: "satflow_fused_convlstm_step_int8_f32",
     torch.bfloat16: "satflow_fused_convlstm_step_int8_bf16",
 }
+_SUMS_ENTRY = "satflow_fused_convlstm_int8_sums"
 
 
 # ---------------------------------------------------------------------------
@@ -101,23 +105,29 @@ def dequantize_activations(aq: torch.Tensor, dtype=torch.bfloat16) -> torch.Tens
     return (aq.float() * (1.0 / ACT_SCALE)).to(dtype)
 
 
-def pack_weights(w3q: torch.Tensor, cx: int) -> torch.Tensor:
-    """``w3q`` in the layout K5 reads: int32 (9, K/4, 4Ch), K = Cx+Ch rounded
-    up to 8.
+def packed_depth(cx: int, ch: int) -> int:
+    """Bytes of a packed column a tap: Cx and Ch each rounded up to 32."""
+    return -(-cx // 32) * 32 + -(-ch // 32) * 32
 
-    Tap (dy, dx) holds the rows of [x | h] channels of that tap (zero rows
-    pad K); each int32 packs the weights of four consecutive input channels
-    of one output column, lowest channel in the lowest byte, as ``__dp4a``
-    pairs them with four packed activations.
+
+def pack_weights(w3q: torch.Tensor, cx: int) -> torch.Tensor:
+    """``w3q`` in the layout K5 reads: int8 (9, 4Ch, :func:`packed_depth`),
+    K-major.
+
+    Tap (dy, dx), gate column n holds that column's weights of the tap along
+    the contraction: x's Cx channels, zeros up to a multiple of 32, h's Ch
+    channels, zeros up to a multiple of 32. That is the byte order of the
+    window K5 stages, so each 32-byte k step of a column is read as it lies
+    (the B fragment of ``mma.sync.m16n8k32.s8`` holds 4 K-consecutive bytes of
+    one column a register).
     """
     ch4 = w3q.shape[2]
     ch = (w3q.shape[1] - 3 * cx) // 3
-    k_pad = -(-(cx + ch) // 8) * 8
-    wxq = w3q[:, : 3 * cx].reshape(3, 3, cx, ch4)
-    whq = w3q[:, 3 * cx:].reshape(3, 3, ch, ch4)
-    taps = torch.cat([wxq, whq, w3q.new_zeros(3, 3, k_pad - cx - ch, ch4)], dim=2)
-    packed = taps.reshape(9, k_pad // 4, 4, ch4).permute(0, 1, 3, 2).contiguous()
-    return packed.view(torch.int32).reshape(9, k_pad // 4, ch4)
+    cxp = -(-cx // 32) * 32
+    wxq = F.pad(w3q[:, : 3 * cx].reshape(3, 3, cx, ch4), (0, 0, 0, cxp - cx))
+    whq = F.pad(w3q[:, 3 * cx:].reshape(3, 3, ch, ch4), (0, 0, 0, packed_depth(cx, ch) - cxp - ch))
+    taps = torch.cat([wxq, whq], dim=2).reshape(9, -1, ch4)
+    return taps.transpose(1, 2).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -155,8 +165,8 @@ def fused_convlstm_step_int8_ref(xq, hq, c, w3q, dequant, b, w_packed=None
 
 
 WIDTH_RULE = (f"1 <= Ch <= {KERNEL_HIDDEN_WIDTHS[-1]} and 1 <= Cx <= {KERNEL_MAX_CX} (built "
-              f"for Ch {KERNEL_HIDDEN_WIDTHS} and Cx a multiple of 4; other widths zero-padded "
-              "to the next of them)")
+              f"for Ch {KERNEL_HIDDEN_WIDTHS}; other hidden widths zero-padded to the next of "
+              "them, Cx to a multiple of 4)")
 
 
 def kernel_takes(cx: int, ch: int) -> bool:
@@ -189,56 +199,61 @@ def pad_quantized(w3q: torch.Tensor, dequant: torch.Tensor, b: torch.Tensor, cx:
 
 
 def _check(xq, hq, c, w3q, dequant, b, w_packed=None) -> None:
-    """Raise on anything the kernel does not take (the device type last, so
-    that the other checks can be exercised without a card)."""
-    named = dict(xq=xq, hq=hq, c=c, w3q=w3q, dequant=dequant, b=b)
-    if w_packed is not None:
-        named["w_packed"] = w_packed
+    """Raise on anything the kernel does not take (the device type and then
+    the alignment last, so that the other checks can be exercised without a
+    card). ``c`` is None for the sums alone."""
+    named = dict(xq=xq, hq=hq, c=c, w3q=w3q, dequant=dequant, b=b, w_packed=w_packed)
+    named = {name: t for name, t in named.items() if t is not None}
     for name, t in named.items():
         if t.device != xq.device:
             raise ValueError(f"{name} is on {t.device}, xq on {xq.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     for name, t, dtype in (("xq", xq, torch.int8), ("hq", hq, torch.int8),
-                           ("w3q", w3q, torch.int8), ("w_packed", w_packed, torch.int32),
+                           ("w3q", w3q, torch.int8), ("w_packed", w_packed, torch.int8),
                            ("dequant", dequant, torch.float32), ("b", b, torch.float32)):
         if t is not None and t.dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if c.dtype not in _ENTRY:
+    if c is not None and c.dtype not in _ENTRY:
         raise TypeError(f"c must be float32 or bfloat16, got {c.dtype}")
     if xq.dim() != 4 or hq.dim() != 4:
         raise ValueError(f"xq and hq must be NHWC, got {tuple(xq.shape)}, {tuple(hq.shape)}")
     bsz, height, width, cx = xq.shape
     ch = hq.shape[-1]
-    if hq.shape[:3] != xq.shape[:3] or c.shape != hq.shape:
+    if hq.shape[:3] != xq.shape[:3] or (c is not None and c.shape != hq.shape):
         raise ValueError(
             f"xq {tuple(xq.shape)}, hq {tuple(hq.shape)} and c {tuple(c.shape)} "
             "must share (B, H, W), and hq and c their shape"
         )
     if not kernel_takes(cx, ch):
         raise ValueError(f"the int8 step takes {WIDTH_RULE}; got Cx={cx}, Ch={ch}")
-    k_pad = -(-(cx + ch) // 8) * 8
     packed = None if w_packed is None else tuple(w_packed.shape)
+    depth = packed_depth(cx, ch)
     if (tuple(w3q.shape) != (3, 3 * cx + 3 * ch, 4 * ch)
-            or packed not in (None, (9, k_pad // 4, 4 * ch))
+            or packed not in (None, (9, 4 * ch, depth))
             or dequant.numel() != 4 * ch or b.numel() != 4 * ch):
         raise ValueError(
             f"weights must be w3q (3,{3 * cx + 3 * ch},{4 * ch}), w_packed "
-            f"(9,{k_pad // 4},{4 * ch}), dequant and b of {4 * ch} elements; got "
+            f"(9,{4 * ch},{depth}), dequant and b of {4 * ch} elements; got "
             f"{tuple(w3q.shape)}, {packed}, {tuple(dequant.shape)}, {tuple(b.shape)}"
         )
-    groups = kernel_widths(cx, ch)[1] // KERNEL_HIDDEN_WIDTHS[0]  # blocks an image along z
-    if min(bsz, height, width) <= 0 or bsz * groups > 65535:
-        raise ValueError(f"the kernel takes 1 <= B <= {65535 // groups} at Ch={ch} and H, W >= 1, "
+    if min(bsz, height, width) <= 0 or bsz > 65535 or -(-height // 4) > 65535:
+        raise ValueError(f"the kernel takes 1 <= B <= 65535, 1 <= H <= 262140 and W >= 1, "
                          f"got {tuple(xq.shape)}")
     if xq.device.type != "cuda":
         raise ValueError(f"the int8 step runs on cpu or cuda tensors, not {xq.device}")
+    # hq and the packed weights are copied 16 bytes at a time, c read as pairs
+    for name, align in (("hq", 16), ("w_packed", 16), ("c", 8)):
+        if name in named and named[name].data_ptr() % align:
+            raise ValueError(f"{name} must be {align}-byte aligned")
 
 
 def _library() -> ctypes.CDLL:
-    """K5's library, entry points typed: 8 pointers (xq, hq, c, packed
-    weights, dequant, b, h'q, c'), then (B, H, W, Cx, Ch, device), then the
-    stream."""
+    """K5's library, entry points typed: the step's 8 pointers (xq, hq, c,
+    packed weights, dequant, b, h'q, c') and the sums' 4 (xq, hq, packed
+    weights, sums), then (B, H, W, Cx, Ch, device), then the stream."""
+    _build.load_typed(_SOURCE, [_SUMS_ENTRY],
+                      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     return _build.load_typed(
         _SOURCE, _ENTRY.values(),
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
@@ -247,6 +262,21 @@ def _library() -> ctypes.CDLL:
 def build() -> None:
     """Build (or load) the kernel's library now rather than at first launch."""
     _build.load(_SOURCE)
+
+
+def _padded(xq, hq, c, w3q, dequant, b, w_packed):
+    """The operands at :func:`kernel_widths`, packed weights included: as
+    given where the widths are built, else zero-padded (and packed) here."""
+    cx, ch = xq.shape[-1], hq.shape[-1]
+    cx_to, ch_to = kernel_widths(cx, ch)
+    if (cx_to, ch_to) != (cx, ch):
+        xq, hq = pad_channels(xq, cx_to), pad_channels(hq, ch_to)
+        c = None if c is None else pad_channels(c, ch_to)
+        w3q, dequant, b = pad_quantized(w3q, dequant, b, cx, cx_to, ch_to)
+        w_packed = None
+    if w_packed is None:
+        w_packed = pack_weights(w3q, cx_to)
+    return xq, hq, c, dequant, b, w_packed
 
 
 def fused_convlstm_step_int8(xq, hq, c, w3q, dequant, b,
@@ -266,32 +296,51 @@ def fused_convlstm_step_int8(xq, hq, c, w3q, dequant, b,
     if all(t.device.type == "cpu" for t in (xq, hq, c, w3q, dequant, b)):
         return fused_convlstm_step_int8_ref(xq, hq, c, w3q, dequant, b)
     _check(xq, hq, c, w3q, dequant, b, w_packed)
-    cx, ch = xq.shape[-1], hq.shape[-1]
-    cx_to, ch_to = kernel_widths(cx, ch)
-    if (cx_to, ch_to) != (cx, ch):
-        xq, hq, c = pad_channels(xq, cx_to), pad_channels(hq, ch_to), pad_channels(c, ch_to)
-        w3q, dequant, b = pad_quantized(w3q, dequant, b, cx, cx_to, ch_to)
-        w_packed = None
-    if w_packed is None:
-        w_packed = pack_weights(w3q, cx_to)
+    ch = hq.shape[-1]
+    xq, hq, c, dequant, b, w_packed = _padded(xq, hq, c, w3q, dequant, b, w_packed)
     lib = _library()
     h_out = torch.empty_like(hq)
     c_out = torch.empty_like(c)
-    bsz, height, width, _ = xq.shape
+    bsz, height, width, cx_to = xq.shape
     stream = torch.cuda.current_stream(xq.device).cuda_stream
     err = getattr(lib, _ENTRY[c.dtype])(
         xq.data_ptr(), hq.data_ptr(), c.data_ptr(), w_packed.data_ptr(),
         dequant.data_ptr(), b.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
-        bsz, height, width, cx_to, ch_to, xq.device.index, stream,
+        bsz, height, width, cx_to, hq.shape[-1], xq.device.index, stream,
     )
     _build.raise_on(err, lib, "fused_convlstm_step_int8")
     fused_convlstm_step_int8.launches += 1
-    if ch_to != ch:
+    if hq.shape[-1] != ch:
         return h_out[..., :ch].contiguous(), c_out[..., :ch].contiguous()
     return h_out, c_out
 
 
 fused_convlstm_step_int8.launches = 0
+
+
+def int8_gate_sums(xq, hq, w3q, w_packed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The integer gate sums of one step, (B, H, W, 4Ch) int32: for CUDA
+    tensors K5's own, from its contraction (the sums entry point, counted in
+    ``int8_gate_sums.launches``), padded as the step pads; for CPU tensors
+    :func:`int8_accumulate`. The two are equal bit for bit."""
+    if all(t.device.type == "cpu" for t in (xq, hq, w3q)):
+        return int8_accumulate(xq, hq, w3q)
+    ch = hq.shape[-1]
+    ch4 = torch.zeros(1, 4 * ch, device=xq.device)  # dequant and b: checked, padded, not read
+    _check(xq, hq, None, w3q, ch4, ch4, w_packed)
+    xq, hq, _, _, _, w_packed = _padded(xq, hq, None, w3q, ch4, ch4, w_packed)
+    lib = _library()
+    bsz, height, width, cx_to = xq.shape
+    sums = torch.empty(bsz, height, width, 4 * hq.shape[-1], dtype=torch.int32, device=xq.device)
+    err = lib.satflow_fused_convlstm_int8_sums(
+        xq.data_ptr(), hq.data_ptr(), w_packed.data_ptr(), sums.data_ptr(), bsz, height, width,
+        cx_to, hq.shape[-1], xq.device.index, torch.cuda.current_stream(xq.device).cuda_stream)
+    _build.raise_on(err, lib, "int8_gate_sums")
+    int8_gate_sums.launches += 1
+    return slice_gate_columns(sums, ch).contiguous()
+
+
+int8_gate_sums.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -13,10 +13,13 @@ and ``b`` is (4C, 1).
 for CUDA tensors and its plain version :func:`cmajor_step_ref` for CPU tensors.
 It differs from the served channel-major step (K6a,
 ``ops/cmajor_convlstm.py``) in both layouts: K6a's carry has no pad rows and
-its weights stay HWIO. The kernel is built for the channel widths
-``KERNEL_CHANNEL_WIDTHS`` = 8, 16, 32, 64, 128; any C from 1 to 128 launches
-it, zero-padded to the next of them (channels, gate rows and contraction
-columns of ``w9``) and the outputs sliced back.
+its weights stay HWIO. In bfloat16 T3 contracts on the tensor cores through
+the served steps' contraction (``csrc/convlstm_mma.cuh``), its window staged
+from the pad-row planes (``convlstm_source.cuh::PadRows``) and ``w9`` read as
+given, K-major; in float32 it keeps f32 FMAs on the CUDA cores. The kernel is
+built for the channel widths ``KERNEL_CHANNEL_WIDTHS`` = 8, 16, 32, 64, 128;
+any C from 1 to 128 launches it, zero-padded to the next of them (channels,
+gate rows and contraction columns of ``w9``) and the outputs sliced back.
 
 Run on the card: verifies against the NHWC plain step (the JAX tool's float32
 shapes, C = 8 and 16, then bfloat16 at ``--channels``), then times a chained
@@ -45,7 +48,8 @@ from satflow_tpu_torch.tools.exp_tap9 import _device, full_f32, time_chain
 
 #: channel widths (of x, h and c alike) the kernel is compiled for
 KERNEL_CHANNEL_WIDTHS = (8, 16, 32, 64, 128)
-#: the kernel's tile height: block_h must be a multiple of it
+#: the float32 kernel's tile height: block_h must be a multiple of it (the
+#: bfloat16 kernel's tiles of 8 rows may straddle pad and image rows)
 KERNEL_TILE_H = 4
 
 _SOURCE = "exp_cmajor"

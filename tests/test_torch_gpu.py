@@ -18,7 +18,9 @@ K4: f32 atol 1e-5 (the same f32 math; K4's online softmax sums in another
 order); bf16 atol 2e-2 + one bf16 step relative (both round only the
 stored output). K5: the integer sums are exact on both sides, so h'q
 differs by at most one int8 step on at most 0.1 % of elements (exp/tanh
-differ by an ulp between ATen and CUDA) and c' by one step of its dtype.
+differ by an ulp between ATen and CUDA) and c' by one step of its dtype;
+its integer sums, read through its sums entry point, equal the exact ones
+(a float64 conv on the CPU) bit for bit.
 K6a/K6b: as K1 (f32 1e-4; bf16 3e-2, the plain versions round each conv's
 output to bf16). K1h, T1 and T3: as K1. T2's outputs are unbounded sums, so
 bf16 is held to 3e-2 x max|plain|.
@@ -481,6 +483,47 @@ def test_int8_kernel_at_padded_widths_on_card(cx, ch, c_dtype, c_step):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("ch", [8, 16, 24, 32, 64, 128])
+@pytest.mark.parametrize("cx", [1, 12, 13, 64])
+def test_int8_kernel_sums_are_exact_at_every_width_on_card(cx, ch):
+    """K5 at every hidden width it is built for and at one it pads (24, to
+    32), with inputs it pads (1, 13) and does not: the tensor cores' integer
+    sums equal the exact ones bit for bit (a wrong s8 fragment map gives
+    plausible sums, so nothing less than equality is a check), and the step
+    is within K5's tolerance of its plain version."""
+    _card()
+    args = _int8_args(cx, torch.bfloat16, shape=(2, 21, 37), seed=42, ch=ch)
+    before = Q.int8_gate_sums.launches, Q.fused_convlstm_step_int8.launches
+    sums = Q.int8_gate_sums(args[0], args[1], args[3])
+    got = Q.fused_convlstm_step_int8(*args)
+    torch.cuda.synchronize()
+    assert (Q.int8_gate_sums.launches, Q.fused_convlstm_step_int8.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert sums.shape == (2, 21, 37, 4 * ch) and sums.dtype == torch.int32
+    want = Q.int8_accumulate(args[0].cpu(), args[1].cpu(), args[3].cpu())
+    assert torch.equal(sums.cpu(), want)
+    _int8_close(got, Q.fused_convlstm_step_int8_ref(*args), 2.0 ** -7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cx, ch", [(256, 128), (13, 8), (64, 64)])
+def test_int8_kernel_sums_at_the_extremes_on_card(cx, ch):
+    """Every activation and weight at +-127: the largest sums a step can make
+    (127^2 * 9 * (Cx + Ch), 5.6e7 at Cx=256, Ch=128) come out exact."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(43)
+    xq = torch.full((1, 9, 17, cx), 127, dtype=torch.int8, device="cuda")
+    hq = torch.full((1, 9, 17, ch), 127, dtype=torch.int8, device="cuda")
+    signs = torch.randint(0, 2, (3, 3 * cx + 3 * ch, 4 * ch), generator=g, device="cuda")
+    w3q = ((signs * 2 - 1) * 127).to(torch.int8)
+    w3q[..., 0] = 127
+    sums = Q.int8_gate_sums(xq, hq, w3q)
+    want = Q.int8_accumulate(xq.cpu(), hq.cpu(), w3q.cpu())
+    assert int(want[0, 4, 8, 0]) == 127 * 127 * 9 * (cx + ch)
+    assert torch.equal(sums.cpu(), want)
+
+
+@pytest.mark.gpu
 def test_int8_kernel_dispatch_rule_on_card():
     """A CUDA tensor outside K5's rule (hidden 136) is refused and names the
     rule, not handed to the plain version; no launch is counted."""
@@ -531,7 +574,7 @@ def test_int8_rollout_at_other_widths_through_k5_on_card(hidden):
     core = ConvLSTMCore(hidden_dim=hidden, in_channels=12, out_channels=12, forecast_steps=3,
                         generator=torch.Generator().manual_seed(1)).cuda().eval()
     qp = Q.quantize_convlstm_params(core)
-    assert qp["encoder_1"].w3q.shape[-1] == 4 * 64
+    assert qp["encoder_1"].w3q.shape[-1] == 4 * 32  # built for 32; 24 padded to it
     x = torch.rand(2, 2, 24, 40, 12, device="cuda")
     before = Q.fused_convlstm_step_int8.launches
     with torch.inference_mode():
@@ -874,13 +917,16 @@ def test_study_kernels_at_other_widths_on_card(dtype, atol, cx, ch, name):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype, atol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
-@pytest.mark.parametrize("ch", [8, 32, 128, 24])
-def test_exp_cmajor_kernel_at_other_widths_on_card(dtype, atol, ch):
-    """T3 at the JAX tool's widths (C = 8, 16), at 32, 128 and at 24 (padded
-    to 32): one counted launch, against its plain version, pad rows zero."""
+@pytest.mark.parametrize("ch", [8, 16, 32, 64, 128, 24])
+@pytest.mark.parametrize("block_h", [4, 8])
+def test_exp_cmajor_kernel_at_other_widths_on_card(dtype, atol, ch, block_h):
+    """T3 at every width it is built for (the JAX tool's C = 8, 16 among them)
+    and at 24 (padded to 32), with block_h 4 (the bf16 kernel's 8-row tiles
+    straddle pad and image rows) and 8: one counted launch, against its plain
+    version, pad rows zero."""
     _card()
     torch.backends.cuda.matmul.allow_tf32 = False
-    height, width, block_h = 16, 40, 8
+    height, width = 16, 40
     x, h, c, wx, wh, b = _width_args(ch, ch, dtype, seed=91, shape=(2, height, width))[:6]
     carry = [XC.to_cmajor(t, block_h) for t in (x, h, c)]
     w9, b2 = XC.weights_cmajor(wx, wh), b.reshape(-1, 1)

@@ -139,19 +139,20 @@ def test_input_width_rule(kernel, cx, takes):
                                       (129, 256), (136, 256), (192, 256), (256, 256)])
 def test_padded_hidden_widths(ch, want):
     """K1, K2 and K1h run a width at the next they are built for (129-255 in
-    two groups of 128, the last one partly zeros); K6a and the study kernels
-    share the rule up to 128; K5 at 64 or 128."""
+    two groups of 128, the last one partly zeros); K6a, K5 and the study
+    kernels share the rule up to 128 (K5's Cx goes to a multiple of 4)."""
     assert P.padded_hidden(ch) == want
     if ch <= 128:
         assert P.padded_hidden(ch, CM.CELL_HIDDEN_WIDTHS) == want
         assert P.padded_hidden(ch, XT.KERNEL_HIDDEN_WIDTHS) == want
         assert P.padded_hidden(ch, XC.KERNEL_CHANNEL_WIDTHS) == want
-        assert P8.kernel_widths(13, ch) == (16, 64 if ch <= 64 else 128)
+        assert P.padded_hidden(ch, P8.KERNEL_HIDDEN_WIDTHS) == want
+        assert P8.kernel_widths(13, ch) == (16, want)
 
 
 # -- K5's padding: exact at the real channels -------------------------------------
 
-@pytest.mark.parametrize("cx, ch", [(12, 16), (13, 24), (12, 32), (1, 8)])
+@pytest.mark.parametrize("cx, ch", [(12, 16), (13, 24), (12, 32), (1, 8), (12, 40), (5, 100)])
 def test_padded_quantized_weights_are_jax_quantized_padded_weights(cx, ch):
     """Quantizing the zero-padded float weights with the JAX quantizer gives,
     on the real rows and columns, ``pad_quantized``'s bits: w3q equal, the
@@ -178,7 +179,7 @@ def test_padded_quantized_weights_are_jax_quantized_padded_weights(cx, ch):
 
 
 @pytest.mark.parametrize("c_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-@pytest.mark.parametrize("cx, ch", [(12, 16), (13, 24), (12, 32), (1, 8)])
+@pytest.mark.parametrize("cx, ch", [(12, 16), (13, 24), (12, 32), (1, 8), (12, 40), (5, 100)])
 def test_padded_int8_step_is_bit_equal_at_the_real_channels(cx, ch, c_dtype):
     """On operands padded as the card pads them (channels of xq, hq, c;
     ``pad_quantized`` weights) the integer sums and the dequantized gate
@@ -224,8 +225,9 @@ def test_padded_int8_rollout_is_bit_equal(hidden):
                         generator=torch.Generator().manual_seed(hidden)).eval()
     x = torch.rand(1, 2, 8, 16, 5, generator=torch.Generator().manual_seed(1))
     padded = P8.quantize_convlstm_params(core, pad=True)
-    assert padded["encoder_1"].w3q.shape == (3, 3 * 8 + 3 * 64, 256)
-    assert padded["encoder_2"].w3q.shape == (3, 3 * 64 + 3 * 64, 256)
+    ch_to = 32 if hidden > 16 else 16  # built for 16; 24 runs at 32
+    assert padded["encoder_1"].w3q.shape == (3, 3 * 8 + 3 * ch_to, 4 * ch_to)
+    assert padded["encoder_2"].w3q.shape == (3, 3 * ch_to + 3 * ch_to, 4 * ch_to)
     with torch.inference_mode():
         got = P8.int8_rollout(padded, x, 2)
         want = P8.int8_rollout(P8.quantize_convlstm_params(core), x, 2)
@@ -403,10 +405,49 @@ def test_bf16_instantiation_reaches_the_tensor_core_contraction(name, source):
 
 
 @pytest.mark.parametrize("name", ["fused_convlstm_step_halo.cu", "cmajor_convlstm.cu",
-                                  "convlstm_source.cuh", "convlstm_mma.cuh"])
+                                  "convlstm_source.cuh", "convlstm_mma.cuh",
+                                  "fused_convlstm_int8.cu", "exp_cmajor.cu"])
 def test_no_library_call_in_the_contraction(name):
     """No cuBLAS, cuDNN, CUTLASS or PyTorch call stands in for the
     contraction; the only library the sources reach is the CUDA runtime."""
     code = _code(name).lower()
     for word in ("cublas", "cudnn", "cutlass", "torch", "at::", "gemm("):
         assert word not in code, (name, word)
+
+
+def test_int8_step_contracts_on_the_int8_tensor_cores():
+    """K5 contracts on mma.sync m16n8k32 .s8 (IMMA), through the shared
+    contraction in its S8 type with K-major weights read by a plain ldmatrix,
+    its window from ImageRows; no __dp4a and no copy of the contraction's loop
+    is left in its source."""
+    code = _code("fused_convlstm_int8.cu")
+    assert "__dp4a" not in code and "mma_s8(" not in code and "ldmatrix" not in code
+    assert '#include "convlstm_gates.cuh"' in code
+    assert re.search(r"convlstm_mma::gate_preactivations<CH, S8>\(", code)
+    assert "KMajorWeights<CH>" in code and "ImageRows<int8_t>" in code
+    mma = _code("convlstm_mma.cuh")
+    assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in mma
+    assert ".satfinite" not in mma
+    loop = mma.split("gate_preactivations(")[1]
+    assert "mma_s8(acc" in loop and "src.template stage_s8<CH>" in loop
+    kmajor = mma.split("struct KMajorWeights")[1].split("};")[0]
+    assert "ldmatrix_x4(r, addr)" in kmajor and "trans" not in kmajor
+    assert "stage_s8" in _code("convlstm_source.cuh").split("struct ImageRows")[1]
+
+
+def test_prototype_step_reaches_the_tensor_core_contraction_through_pad_rows():
+    """T3's bfloat16 entry launches a kernel whose contraction is the shared
+    one (convlstm_mma.cuh, Bf16) on a PadRows window with w9 read K-major as
+    given, and whose epilogue is K6a's; the float32 kernel keeps its FMAs and
+    holds no tensor-core instruction."""
+    code = _code("exp_cmajor.cu")
+    assert '#include "convlstm_gates.cuh"' in code
+    bf16 = code.split("exp_cmajor_mma_kernel(")[1].split("inline bool geometry_ok")[0]
+    assert "convlstm_source::PadRows<__nv_bfloat16>" in bf16
+    assert re.search(r"convlstm_mma::gate_preactivations<C, convlstm_mma::Bf16>\(", bf16)
+    assert "convlstm_mma::KMajorWeights<C>" in bf16 and "cmajor_lstm_bf16<C>" in bf16
+    assert "exp_cmajor_mma_kernel<C><<<" in code.split("struct Step<__nv_bfloat16, C>")[1]
+    f32 = code.split("exp_cmajor_step_kernel(")[1].split("exp_cmajor_mma_kernel(")[0]
+    assert "fmaf(" in f32 and "mma" not in f32 and "ldmatrix" not in f32
+    assert re.search(r"struct PadRows\s*:\s*CmajorRows<T>", _code("convlstm_source.cuh"))
+

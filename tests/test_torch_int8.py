@@ -170,37 +170,69 @@ def test_step_matches_jax_interpret_kernel(monkeypatch):
     _assert_step_close(hq_t, c_t, hq_j[:, :, 1:-1], c_next_j, BF16_STEP)
 
 
-@pytest.mark.parametrize("cx", [4, 12, 64])
+@pytest.mark.parametrize("ch", [8, 16, 24, 32])
+def test_step_at_the_small_hidden_widths_matches_jax(monkeypatch, ch):
+    """K5's plain version at hidden 8, 16 and 32 (widths K5 is built for) and
+    24 (which it runs at 32), Cx = 12, against JAX's ``_step_ref_int8`` and its
+    Pallas kernel in interpret mode: h'q bit-equal; c' within one bf16 step
+    (the integer sums agree exactly, but exp and tanh differ by an ulp between
+    XLA and ATen, which moves c' by one bf16 step on about 1 element in 6000)."""
+    monkeypatch.setattr(J8, "_INTERPRET", True)
+    xq, hq, c_j, w3q, dq, bf = _step_inputs(20 + ch, "bfloat16", 12, ch)
+    hq_t, c_t = P8.fused_convlstm_step_int8(_t(xq), _t(hq), _torch_c(c_j), _t(w3q), _t(dq),
+                                            _t(bf))
+    weights = (jnp.asarray(w3q), jnp.asarray(dq), jnp.asarray(bf))
+    for hq_j, c_next_j in (J8._step_ref_int8(_pad_w(xq), _pad_w(hq), c_j, *weights),
+                           J8.fused_convlstm_step_int8(_pad_w(xq), _pad_w(hq), c_j, *weights,
+                                                      use_pallas=True)):
+        np.testing.assert_array_equal(hq_t.numpy(), np.asarray(hq_j[:, :, 1:-1]))
+        np.testing.assert_allclose(c_t.float().numpy(), np.asarray(c_next_j.astype(jnp.float32)),
+                                   atol=BF16_STEP, rtol=0)
+
+
+@pytest.mark.parametrize("cx", [4, 12, 64, 1, 13])
 def test_pack_weights_holds_every_weight_where_the_kernel_reads_it(cx):
-    ch = 64
-    rng = np.random.default_rng(6)
-    w3q = _t(rng.integers(-127, 128, size=(3, 3 * cx + 3 * ch, 4 * ch)).astype(np.int8))
-    packed = P8.pack_weights(w3q, cx)
-    k_pad = -(-(cx + ch) // 8) * 8
-    assert packed.dtype == torch.int32 and tuple(packed.shape) == (9, k_pad // 4, 4 * ch)
-    assert packed.is_contiguous()
-    as_bytes = packed.view(torch.int8).reshape(9, k_pad // 4, 4 * ch, 4)
-    for tap, k, col in [(0, 0, 0), (4, cx - 1, 17), (8, cx, 255), (5, cx + ch - 1, 64)]:
-        dy, dx = divmod(tap, 3)
-        row = dx * cx + k if k < cx else 3 * cx + dx * ch + (k - cx)
-        assert int(as_bytes[tap, k // 4, col, k % 4]) == int(w3q[dy, row, col])
-    pad = as_bytes.permute(0, 1, 3, 2).reshape(9, k_pad, 4 * ch)[:, cx + ch:]  # the zero rows
-    assert pad.numel() == 9 * (k_pad - cx - ch) * 4 * ch and not pad.any()
+    """K-major int8 (9, 4Ch, Kp): per tap and gate column x's Cx weights, zeros
+    up to a multiple of 32, h's Ch weights, zeros up to a multiple of 32 (the
+    byte order of K5's staged window), at every hidden width K5 is built for."""
+    for ch in P8.KERNEL_HIDDEN_WIDTHS:
+        rng = np.random.default_rng(6 + ch)
+        w3q = _t(rng.integers(-127, 128, size=(3, 3 * cx + 3 * ch, 4 * ch)).astype(np.int8))
+        packed = P8.pack_weights(w3q, cx)
+        cxp, chp = -(-cx // 32) * 32, -(-ch // 32) * 32
+        assert P8.packed_depth(cx, ch) == cxp + chp
+        assert packed.dtype == torch.int8 and tuple(packed.shape) == (9, 4 * ch, cxp + chp)
+        assert packed.is_contiguous()
+        for tap, k, col in [(0, 0, 0), (4, cx - 1, 17 % (4 * ch)), (8, cxp, 4 * ch - 1),
+                            (5, cxp + ch - 1, 4 * ch // 2), (2, cxp + ch // 2, 3)]:
+            dy, dx = divmod(tap, 3)
+            row = dx * cx + k if k < cx else 3 * cx + dx * ch + (k - cxp)
+            assert int(packed[tap, col, k]) == int(w3q[dy, row, col])
+        # every weight once, in place: the packed tensor without its zero bytes
+        x_part = packed[:, :, :cx].reshape(3, 3, 4 * ch, cx).permute(0, 1, 3, 2)
+        h_part = packed[:, :, cxp:cxp + ch].reshape(3, 3, 4 * ch, ch).permute(0, 1, 3, 2)
+        assert torch.equal(x_part.reshape(3, 3 * cx, 4 * ch), w3q[:, :3 * cx])
+        assert torch.equal(h_part.reshape(3, 3 * ch, 4 * ch), w3q[:, 3 * cx:])
+        assert not packed[:, :, cx:cxp].any() and not packed[:, :, cxp + ch:].any()
 
 
 @pytest.mark.parametrize("cx, ch, takes", [(12, 64, True), (64, 64, True), (256, 64, True),
                                            (4, 64, True), (6, 64, True), (0, 64, False),
                                            (260, 64, False), (8, 8, True), (64, 128, True),
                                            (13, 24, True), (1, 1, True), (12, 129, False),
-                                           (12, 136, False), (12, 0, False)])
+                                           (12, 136, False), (12, 0, False), (12, 16, True),
+                                           (12, 32, True), (12, 33, True), (12, 100, True)])
 def test_kernel_dispatch_rule(cx, ch, takes):
     """Every hidden width from 1 to 128 and Cx from 1 to 256 launches K5 on
-    the card, padded to the widths it is built for; any other raises."""
+    the card, padded to the next width it is built for (8, 16, 32, 64, 128:
+    hidden 24 runs at 32, not 64) and Cx to a multiple of 4; any other raises."""
+    assert P8.KERNEL_HIDDEN_WIDTHS == (8, 16, 32, 64, 128)
     assert P8.kernel_takes(cx, ch) is takes
     if takes:
         cx_to, ch_to = P8.kernel_widths(cx, ch)
         assert ch_to in P8.KERNEL_HIDDEN_WIDTHS and ch_to >= ch and cx_to % 4 == 0
-        assert cx <= cx_to < cx + 4 and (ch_to == 64) == (ch <= 64)
+        assert cx <= cx_to < cx + 4
+        assert ch_to == min(w for w in P8.KERNEL_HIDDEN_WIDTHS if w >= ch)
     else:
         with pytest.raises(ValueError, match=r"1 <= Ch <= 128 and 1 <= Cx <= 256"):
             P8.kernel_widths(cx, ch)
@@ -222,6 +254,8 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         P8._check(args[0].transpose(1, 2), *args[1:], packed)
     with pytest.raises(ValueError, match="w_packed"):
         P8._check(*args, packed[:, :-1].contiguous())
+    with pytest.raises(TypeError, match="w_packed must be torch.int8"):  # the __dp4a layout
+        P8._check(*args, packed.view(torch.int32))
     wide = _step_inputs(7, "bfloat16", 8, 136, h=4, w=4)
     wide = [_t(wide[0]), _t(wide[1]), _torch_c(wide[2]), *(_t(a) for a in wide[3:])]
     with pytest.raises(ValueError, match=r"1 <= Ch <= 128 and 1 <= Cx <= 256"):
@@ -264,7 +298,9 @@ def test_quantized_params_match_jax_bit_for_bit():
         np.testing.assert_array_equal(qp[name].w3q.numpy(), np.asarray(w3q_j))
         np.testing.assert_allclose(qp[name].dequant.numpy(), np.asarray(dq_j), rtol=1e-7, atol=0)
         np.testing.assert_array_equal(qp[name].bias.numpy(), np.asarray(b_j))
-        assert qp[name].w_packed.dtype == torch.int32
+        assert qp[name].w_packed.dtype == torch.int8  # K5's K-major layout
+        cx = qp[name].w3q.shape[1] // 3 - RHID
+        assert torch.equal(qp[name].w_packed, P8.pack_weights(qp[name].w3q, cx))
     head_j = np.asarray(qp_j["head"]["kernel"].astype(jnp.float32))  # HWIO
     np.testing.assert_array_equal(
         qp["head"]["kernel"].float().permute(2, 3, 1, 0).numpy(), head_j)
@@ -434,3 +470,18 @@ def test_int8_range_check_is_per_request(served):
     assert isinstance(results["bad"], ValueError) and "int8" in str(results["bad"])
     assert results["good"].shape == (4, RS, RS, RC) and np.isfinite(results["good"]).all()
     np.testing.assert_array_equal(results["good"], s.predict(x[1:2])[0])
+
+
+def test_time_int8_needs_a_card_and_bounds_by_the_larger_time(monkeypatch):
+    """The timing tool refuses to run without a card (it measures nothing on
+    the CPU), and its bound is the larger of the bytes at 3.35 TB/s and the
+    operations at the type's peak."""
+    from satflow_tpu_torch.tools import time_int8
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        time_int8.main()
+    t = torch.zeros(1000, dtype=torch.int8)  # 1 kB: 3e-7 ms at the memory rate
+    assert time_int8.bound_ms([t], 1979e12, "int8") == pytest.approx(1e3)
+    assert time_int8.bound_ms([t] * 3350, 0.0, "bf16") == pytest.approx(1e-3)
+

@@ -340,8 +340,11 @@ def test_cmajor_layout_helpers_match_jax_exactly(jax_cmajor, block_h):
 
 @pytest.mark.parametrize("dtype, atol", [("float32", 2e-5), ("bfloat16", 2e-2)])
 @pytest.mark.parametrize("shape, block_h", [(dict(hgt=32, wdt=32, cx=8), 4),
-                                            (dict(b=1, hgt=16, wdt=128, cx=16, ch=16), 8)],
-                         ids=["tool_shape", "wide"])
+                                            (dict(b=1, hgt=16, wdt=128, cx=16, ch=16), 8),
+                                            (dict(hgt=32, wdt=32, cx=8), 8),
+                                            (dict(b=1, hgt=16, wdt=128, cx=16, ch=16), 4),
+                                            (dict(hgt=12, wdt=40, cx=24, ch=24), 4)],
+                         ids=["tool_shape", "wide", "tool_shape_bh8", "wide_bh4", "c24_bh4"])
 def test_cmajor_step_matches_jax_kernel(jax_cmajor, dtype, atol, shape, block_h):
     """T3's plain version against ``cmajor_step(interpret=True)`` on the same
     channel-major carries, and against the NHWC reference through the layout
