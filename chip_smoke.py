@@ -13,12 +13,14 @@ Phases, in order; any failure exits non-zero before the last line:
    K3, the LSTM gate tail; K4, the axial attention; K5, the int8 step; K6a and
    K6b, the channel-major step and 3x3 conv head (one source); K1h; T1, T2 and
    K1p; T3. ptxas' registers and spills of every kernel are printed, and the
-   SASS of K1, K2, K1h, K4, K5, K6a, K6b and T3 is read with ``cuobjdump``:
-   every bfloat16 instantiation of K1, K2, K1h (hidden 8 to 256), K6a and T3
-   (8 to 128), K4's tensor-core kernel and K6b's must hold HMMA (bf16
-   tensor-core) instructions and no float32 one may; every instantiation of
-   K5 (hidden 8 to 128, its step in both c types and its sums) must hold IMMA
-   (int8 tensor-core) instructions;
+   SASS of K1, K2, K1h, K4, K5, K6a, K6b, T1, T2, K1p and T3 is read with
+   ``cuobjdump``: every bfloat16 instantiation of K1, K2, K1h (hidden 8 to
+   256), K6a, T1, T2, K1p and T3 (8 to 128), K4's tensor-core kernel and
+   K6b's must hold HMMA (bf16 tensor-core) instructions and no float32 one
+   may, T2's as many as K1p's and T1's at each width (the whole contraction,
+   though its epilogue reads half of it); every instantiation of K5 (hidden 8
+   to 128, its step in both c types and its sums) must hold IMMA (int8
+   tensor-core) instructions;
 3. K1 against its plain PyTorch version at the serving shapes (B=8,
    256x256, Cx 12 and 64, Ch 64), in float32 and bfloat16, with the image's
    first and last rows and columns checked on their own;
@@ -102,7 +104,8 @@ Phases, in order; any failure exits non-zero before the last line:
    ``build_halo`` against slicing; T1 (tap-major step), T2 (no gate math)
    and their yardstick K1p (K1 in their W-padded layout) against their plain
    versions, the halo columns of h' exactly zero, T1 and K1p against K1 on
-   the interior, T2 relative to max|plain|;
+   the interior, T2 relative to max|plain|, and the o + g sums T2's epilogue
+   does not read (its sums entry point) against the plain sums;
    T3 (the pad-row channel-major prototype) at block_h 4 (the bf16 kernel's
    8-row tiles straddle pad and image rows) and 8 against its plain version
    and, through the layout helpers, against K6a, its pad rows exactly zero
@@ -118,13 +121,16 @@ Phases, in order; any failure exits non-zero before the last line:
    gradients held against the same step through the plain versions);
 19. the two study entry points, ``tools.exp_tap9.main`` and
    ``tools.exp_cmajor.main``, in-process: each verifies, then times a chained
-   rollout of K1, K1p, T1, T2 and of K6a, T3; launches counted;
+   rollout of K1, K1p, T1, T2 and of K6a, T3; launches counted; on the
+   tensor cores K1p - T2 is the exact epilogue, K1p - T1 the order of the
+   walk, K1p / K1 the W-padded I/O and the order together;
 20. the remaining cell formulations: ``cell_impl`` ``concat``, ``split`` and
    ``hybrid`` each answer 5 concurrent requests (62 K3 launches per forward;
    reply held against the same forward through K3's plain version), and
    ``split`` takes one Adam step with ``remat_chunk=6`` (124 K3 launches;
    gradients held against the plain version's);
-21. timings: K1h, K1p, T1, T2 and T3 per call against their plain versions, and the
+21. timings: K1h, K1p, T1, T2 and T3 per call against their plain versions, with
+   their TFLOP/s and the share of their bound reached, and the
    halo gathers on their own; the b8 forward under ``3pass`` and ``halo`` in
    turns; the b8 forward through ``concat``, ``split`` and ``hybrid``; the
    ``split`` train step; one ``halo`` forward profiled;
@@ -1730,9 +1736,18 @@ def check_study_steps(torch, card):
                 if not rel[out] <= TOL_NOGATE_REL[name]:
                     fail(f"T2 vs plain {name} Cx={cx} {out}: max|diff| / max|plain| {rel[out]:.3g} "
                          f"> {TOL_NOGATE_REL[name]} (max|plain| {scale:.3g})")
+            # the o + g slots T2's epilogue does not read, through its sums entry
+            # point: f32 sums of the same products in another order
+            og = XT.step_nogate_sums(*args)[2]
+            og_p = XT.nogate_sums_ref(*args)
+            og_scale = og_p.abs().max().item()
+            rel["o+g"] = (og - og_p).abs().max().item() / og_scale
+            if not rel["o+g"] <= TOL_NOGATE_REL["float32"]:
+                fail(f"T2's o + g sums vs plain {name} Cx={cx}: max|diff| / max|plain| "
+                     f"{rel['o+g']:.3g} > {TOL_NOGATE_REL['float32']}")
             if dtype == torch.bfloat16:
                 worst["T1"] = max(worst["T1"], max(errs.values()))
-                worst["T2"] = max(worst["T2"], max(rel.values()))
+                worst["T2"] = max(worst["T2"], rel["h"], rel["c"])
                 worst["K1p"] = max(worst["K1p"], max(errs_p.values()))
             print(f"K1p vs plain: {name} B={B} {H}x{W}(+2) Cx={cx} Ch={HIDDEN}: max|diff| "
                   f"{max(errs_p.values()):.3g} tol {tol}; vs K1 on the interior "
@@ -1744,8 +1759,9 @@ def check_study_steps(torch, card):
                   + f") tol {tol}; vs K1 on the interior {max(errs_k1.values()):.3g} tol "
                   f"{TOL_SAME_SUMS[name]}; halo columns of h' zero ok [{card}]", flush=True)
             print(f"T2 vs plain: {name} B={B} {H}x{W}(+2) Cx={cx} Ch={HIDDEN}: max|diff| / max|plain| "
-                  f"h {rel['h']:.3g}, c {rel['c']:.3g} <= {TOL_NOGATE_REL[name]}; halo columns of "
-                  f"h' zero ok [{card}]", flush=True)
+                  f"h {rel['h']:.3g}, c {rel['c']:.3g} <= {TOL_NOGATE_REL[name]}; o + g sums "
+                  f"{rel['o+g']:.3g} <= {TOL_NOGATE_REL['float32']}; halo columns of h' zero ok "
+                  f"[{card}]", flush=True)
     return worst["T1"], worst["T2"], worst["K1p"]
 
 
@@ -2392,10 +2408,13 @@ def study_tools(torch, card):
     print(f"study tools (exp_tap9, exp_cmajor) at B={B} {H}x{W} C={HIDDEN} bf16, chained rollouts "
           f"of {STUDY_STEPS['tap9']} and {STUDY_STEPS['cmajor']} steps: ms per step "
           + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
-          + f"; against K1p: the gate math (K1p - T2) {100 * (1 - ms['nogate'] / ms['k1_padded']):.1f} "
-          f"%, tap-major order (K1p - T1) {100 * (1 - ms['tap9'] / ms['k1_padded']):.1f} %; K1 on "
-          f"the tensor cores against K1p's CUDA-core contraction {ms['k1_padded'] / ms['k1']:.2f}x; launches "
-          f"(K1, K1p, T1, T2, K6a, T3) {launches} [{card}]", flush=True)
+          + f"; on the tensor cores, against K1p: the exact epilogue (K1p - T2) "
+          f"{ms['k1_padded'] - ms['nogate']:.3f} ms, "
+          f"{100 * (1 - ms['nogate'] / ms['k1_padded']):.1f} %; the walk's order, the JAX "
+          f"main kernel's against tap by tap (K1p - T1) {ms['k1_padded'] - ms['tap9']:.3f} ms, "
+          f"{100 * (1 - ms['tap9'] / ms['k1_padded']):.1f} %; the W-padded I/O and the order "
+          f"(K1p / K1) {ms['k1_padded'] / ms['k1']:.3f}x; launches (K1, K1p, T1, T2, K6a, T3) "
+          f"{launches} [{card}]", flush=True)
     return launches, ms
 
 
@@ -2502,8 +2521,8 @@ def new_kernel_timings(torch, fused_model, cell_models, split_train, card):
     def report(name, what, t, flop, extra=""):
         print(f"time per {name} ({what}) call, bf16 B={B} {H}x{W} Cx={HIDDEN} Ch={HIDDEN}: kernel "
               f"{t['kernel']:.4f} ms ({flop / t['kernel'] / 1e9:.1f} TFLOP/s), plain "
-              f"{t['plain']:.4f} ms; bound {t['bound'][0]:.4f} ms by {t['bound'][1]}{extra} "
-              f"[{card}]", flush=True)
+              f"{t['plain']:.4f} ms; bound {t['bound'][0]:.4f} ms by {t['bound'][1]} "
+              f"({100 * t['bound'][0] / t['kernel']:.1f} % reached){extra} [{card}]", flush=True)
 
     # K1h: the wrapper's call is the two gathers plus the kernel
     args = step_inputs(torch, HIDDEN, torch.bfloat16, seed=900)
@@ -2520,9 +2539,9 @@ def new_kernel_timings(torch, fused_model, cell_models, split_train, card):
            f"; the two build_halo gathers alone {t['gather']:.4f} ms")
 
     pargs = padded_inputs(torch, HIDDEN, torch.bfloat16, seed=901)
-    for name, what, fn, ref in (("K1p", "K1's order and epilogue", XT.step_padded,
+    for name, what, fn, ref in (("K1p", "the JAX main kernel's order, K1's epilogue", XT.step_padded,
                                  XT.step_padded_ref),
-                                ("T1", "tap-major step", XT.step_tap9, XT.step_tap9_ref),
+                                ("T1", "tap-major step, K1's order", XT.step_tap9, XT.step_tap9_ref),
                                 ("T2", "step without gate math", XT.step_nogate,
                                  XT.step_nogate_ref)):
         t = per_call_ms(torch, fn, ref, pargs, n=5)
@@ -2706,6 +2725,44 @@ def check_sass_int8_t3(_build, card) -> dict:
     return counts
 
 
+# a study kernel's instantiation: padded_mma_kernel<CH, row order, gates> (bf16)
+# or padded_step_kernel<float, CH, tap-major, gates> (f32)
+STUDY_INSTANCE = re.compile(r"padded_(mma|step)_kernelI(?:f)?Li(\d+)ELb([01])ELb([01])E")
+
+
+def check_sass_tap9(_build, card) -> dict:
+    """Phase 2, the machine code of T1, T2 and K1p: every bfloat16
+    instantiation (hidden 8 to 128) holds HMMA instructions, T2's as many as
+    K1p's and T1's at each width (its epilogue reads half of the sums, the
+    contraction must stay whole), and no float32 one holds any. Returns
+    {(kernel, width): HMMA count} of the bfloat16 kernels."""
+    def study(line):
+        m = STUDY_INSTANCE.search(line)
+        if not m:
+            return None
+        bf16, flag, gates = m.group(1) == "mma", m.group(3) == "1", m.group(4) == "1"
+        row_order = flag if bf16 else not flag  # the f32 kernel's flag is "tap-major"
+        what = "T2" if not gates else "K1p" if row_order else "T1"
+        return "bf16" if bf16 else "f32", what, int(m.group(2))
+
+    per_function = sass_ops(_build, "exp_tap9", study)
+    if len(per_function) != 30:
+        fail(f"exp_tap9: expected 30 instantiations in the SASS, found {sorted(per_function)}")
+    counts = {}
+    for (kind, what, ch), ops in sorted(per_function.items()):
+        if (kind == "bf16") != (ops["HMMA"] > 0):
+            fail(f"{what} {kind} Ch={ch}: {ops['HMMA']} HMMA instructions")
+        if kind == "bf16":
+            counts[what, ch] = ops["HMMA"]
+        print(f"  SASS exp_tap9 ({what} {kind}, Ch={ch}): "
+              + ", ".join(f"{op} {n}" for op, n in ops.items()) + f" [{card}]", flush=True)
+    for ch in (8, 16, 32, 64, 128):
+        if not counts["T2", ch] == counts["K1p", ch] == counts["T1", ch]:
+            fail(f"exp_tap9 Ch={ch}: HMMA counts T1 {counts['T1', ch]}, T2 {counts['T2', ch]}, "
+                 f"K1p {counts['K1p', ch]} differ: a contraction lost some of its products")
+    return counts
+
+
 def main() -> None:
     try:
         import torch
@@ -2774,6 +2831,10 @@ def main() -> None:
           f"bf16-c step at Ch={HIDDEN}); HMMA in T3's bf16 kernel "
           f"({mma_k5_t3['T3', 'bf16', HIDDEN]} at C={HIDDEN}) and none in its float32 one",
           flush=True)
+    hmma_tap9 = check_sass_tap9(_build, card)
+    print("HMMA instructions in the bf16 T1, T2 and K1p at Ch 8-128: "
+          + ", ".join(f"{ch}: {hmma_tap9['T1', ch]}" for ch in (8, 16, 32, 64, 128))
+          + " each (T2 = K1p = T1 at every width); none in their float32 kernels", flush=True)
     phase_done("phases 1-2 (build, SASS)")
 
     # phases 3-5: each kernel against its plain version

@@ -19,8 +19,9 @@
 //
 // Also here: the bf16 LSTM epilogue of the channel-major steps (K6a, T3),
 // cmajor_lstm_bf16, which writes h' and c' through a per-warp buffer in
-// shared memory. The int8 step (K5) and T3 call convlstm_mma.cuh themselves:
-// their weights are K-major, not HWIO.
+// shared memory. The int8 step (K5), T3 and the bf16 T1, T2, K1p call
+// convlstm_mma.cuh themselves: their weights are K-major (K5, T3) or the
+// study tool's w9 and w3 read by strides (T1, T2, K1p), not HWIO.
 
 #pragma once
 

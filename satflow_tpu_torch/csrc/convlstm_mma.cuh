@@ -4,7 +4,8 @@
 //
 //   Bf16  mma.sync m16n8k16 bf16 x bf16 -> f32: the bfloat16 instantiations of
 //         the fused step (K1), its backward (K2), the halo-tensor step (K1h),
-//         the channel-major step (K6a) and the pad-row prototype step (T3)
+//         the channel-major step (K6a), the pad-row prototype step (T3) and the
+//         W-padded study steps (T1, T2 and their yardstick K1p)
 //   S8    mma.sync m16n8k32 s8 x s8 -> s32: the int8 step (K5), whose sums are
 //         exact
 //
@@ -32,16 +33,23 @@
 // then only a base offset into the window: the 16 rows of an A fragment are
 // 16 neighbouring pixels of one window row.
 //
-// B operand. K is walked in k steps, tap by tap, x's bytes then h's;
-// kSlabSteps steps make a slab, which all 256 threads copy into shared memory
-// with cp.async (rows of the zero padding are written as zeros), kStages slabs
-// in a ring, so the copy of slab s + 2 runs under the products of slab s. All
-// warps of the block share a slab. Two layouts of the weights:
+// B operand. K is walked in k steps, by default tap by tap, x's bytes then
+// h's (Walk); RowWalk walks the JAX main kernel's order instead (per kernel
+// row, x's three taps, then h's three). kSlabSteps steps make a slab, which
+// all 256 threads copy into shared memory with cp.async (rows of the zero
+// padding are written as zeros), kStages slabs in a ring, so the copy of slab
+// s + 2 runs under the products of slab s. All warps of the block share a
+// slab. Three layouts of the weights:
 //
 //   HwioWeights    bf16 Wx (3, 3, Cx, 4CH), Wh (3, 3, CH, 4CH) as JAX lays
 //                  them out: rows w[tap][ci][0:4CH] are contiguous, so a slab
 //                  is 16 rows a k step of the group's 4 x kBlockCh columns
 //                  ([k][n]), read with ldmatrix.trans. K1, K2, K1h, K6a.
+//   StridedWeights bf16 rows of 4CH gate columns, as HwioWeights, but one
+//                  tensor whose row of x's (h's) channel k at tap (ky, kx) is
+//                  base + ky sy + kx sx + k, a (base, sy, sx) for each of x
+//                  and h: the study steps' w9 (9, Cx+Ch, 4CH) and w3 (3,
+//                  3Cx+3CH, 4CH) read as given. T1, T2, K1p.
 //   KMajorWeights  w (9, 4CH, row bytes): each column's weights of a tap
 //                  contiguous along K (x's, then h's). A slab is the group's
 //                  4 x kBlockCh columns of kSlabSteps x 32 bytes ([n][k],
@@ -203,6 +211,30 @@ struct Walk {
   }
 };
 
+// The same pair in the JAX main kernel's order (fused_convlstm_step.py's
+// im2col): for each kernel row ky, x's k steps of taps (ky, 0), (ky, 1), (ky,
+// 2), then h's of the same three taps. x's bytes of a tap are kt less h's,
+// round_up_32(CH * M::kBytes); tap 9 is past the end.
+template <int CH, typename M = Bf16>
+struct RowWalk {
+  int tap = 0, k = 0;
+  __device__ __forceinline__ void next(int kt) {
+    const int cxp = kt - round_up_32(CH * M::kBytes);
+    k += kStepBytes;
+    if (k == cxp) {  // x's part of the tap is done: x's next tap, or h's first of the row
+      if (tap % 3 < 2) {
+        ++tap;
+        k = 0;
+      } else {
+        tap -= 2;
+      }
+    } else if (k == kt) {  // h's part is done: h's next tap, or x's first of the next row
+      ++tap;
+      k = tap % 3 == 0 ? 0 : cxp;
+    }
+  }
+};
+
 // B from HWIO bf16 weights (see the top of the file): a slab is kSlabSteps x
 // 16 rows (k) of the group's kN columns, rows padded by 16 bytes.
 template <int CH>
@@ -261,6 +293,65 @@ struct HwioWeights {
     return q * 16 * kPitch + (gp * 2 * S::kBlockCh + j * 8) * 2;
   }
   __device__ static void load(uint32_t (&r)[4], uint32_t addr) { ldmatrix_x4_trans(r, addr); }
+};
+
+// Where StridedWeights finds a part's rows: the row of channel k at tap (ky,
+// kx) is base + ky * sy + kx * sx + k.
+struct RowStrides {
+  int base, sy, sx;
+};
+
+// B from one bf16 tensor of rows of 4CH gate columns found by strides (see
+// the top of the file); the slab, the fragments and their loads are
+// HwioWeights'. load_slab takes either walk.
+template <int CH>
+struct StridedWeights {
+  using S = Shape<CH>;
+  using Hwio = HwioWeights<CH>;
+  static constexpr int kPitch = Hwio::kPitch;
+  static constexpr int kSlabBytes = Hwio::kSlabBytes;
+  const __nv_bfloat16* w;
+  RowStrides x, h;
+
+  template <typename W>
+  __device__ __forceinline__ void load_slab(unsigned char* slab, W& copied, int kt, int cx,
+                                            int cxp, int col0) const {
+    constexpr int kPieces = S::kN * 2 / 16;  // 16-byte pieces a row
+#pragma unroll
+    for (int q = 0; q < S::kSlabSteps; ++q) {
+      const int ky = copied.tap / 3;
+      const int kx = copied.tap % 3;
+#pragma unroll
+      for (int it = 0; it < (16 * kPieces + kThreads - 1) / kThreads; ++it) {
+        const int i = it * kThreads + threadIdx.x;
+        if (i >= 16 * kPieces) break;
+        const int r = i / kPieces;
+        const int piece = i % kPieces;
+        const int k = copied.k / 2 + r;  // the row's channel of [x | 0 | h | 0]
+        // slab column piece * 8 is gate g's column c of the group
+        const int g = piece * 8 / S::kBlockCh;
+        const int col = g * CH + col0 + piece * 8 % S::kBlockCh;
+        int row = -1;
+        if (copied.tap < 9) {
+          if (k < cx) {
+            row = x.base + ky * x.sy + kx * x.sx + k;
+          } else if (k >= cxp / 2 && k - cxp / 2 < CH) {
+            row = h.base + ky * h.sy + kx * h.sx + (k - cxp / 2);
+          }
+        }
+        unsigned char* dst = slab + (q * 16 + r) * kPitch + piece * 16;
+        if (row >= 0) {
+          cp_async_16(dst, w + size_t(row) * (4 * CH) + col);
+        } else {
+          *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+        }
+      }
+      copied.next(kt);
+    }
+  }
+  __device__ static uint32_t lane_offset(int lane, int wn) { return Hwio::lane_offset(lane, wn); }
+  __device__ static uint32_t offset(int q, int j, int gp) { return Hwio::offset(q, j, gp); }
+  __device__ static void load(uint32_t (&r)[4], uint32_t addr) { Hwio::load(r, addr); }
 };
 
 // B from K-major weights (see the top of the file): w holds, for tap t and
@@ -344,11 +435,12 @@ using Acc = V[Shape<CH>::kRows][Shape<CH>::kJ][4][4];
 // The gate pre-activations of the block's tile in element type M: `src`
 // stages the window of its image at (tile.y0, tile.x0) (see
 // convlstm_source.cuh), which is contracted against the tile's group of gate
-// columns of `wts` (HwioWeights or KMajorWeights). With M = Bf16 the sums
-// start from bias (bf16, 4CH); with S8 from zero (bias is not read). `smem`
-// is the block's dynamic shared memory, smem_bytes<CH, M, Wts>(cx) long and
-// 16-byte aligned. Every thread of the block must call it.
-template <int CH, typename M, typename Src, typename Wts>
+// columns of `wts` (HwioWeights, KMajorWeights or StridedWeights), the k
+// steps in the order of W (Walk, or RowWalk with StridedWeights). With M =
+// Bf16 the sums start from bias (bf16, 4CH); with S8 from zero (bias is not
+// read). `smem` is the block's dynamic shared memory, smem_bytes<CH, M,
+// Wts>(cx) long and 16-byte aligned. Every thread of the block must call it.
+template <int CH, typename M, typename W = Walk, typename Src, typename Wts>
 __device__ __forceinline__ void gate_preactivations(
     Acc<CH, typename M::Value>& acc, unsigned char* __restrict__ smem, const Src& src,
     const Wts& wts, const __nv_bfloat16* __restrict__ bias, const Tile& tile, int cx) {
@@ -364,7 +456,7 @@ __device__ __forceinline__ void gate_preactivations(
   const int pitch = kt + 16;
   unsigned char* window = smem;
   unsigned char* slabs = smem + kWindowRows * kHaloW * pitch;
-  Walk copied, multiplied;
+  W copied, multiplied;
 
   auto load_slab = [&](int stage) {
     wts.load_slab(slabs + stage * Wts::kSlabBytes, copied, kt, cx, cxp, col0);

@@ -31,6 +31,9 @@
 //   PadRows     T3: CmajorRows over the prototype's pad-row planes (B, C, SP),
 //               SP = (H + 2 block_h) * W, whose block_h zero rows above and
 //               below the image are in memory
+//   PadColumns  T1, T2, K1p (bf16): the study steps' W-padded NHWC xp (B, H,
+//               W+2, Cx) and hp (B, H, W+2, Ch), whose two halo columns are
+//               in memory and read as given; zeros above and below the image
 
 #pragma once
 
@@ -334,6 +337,32 @@ template <typename T>
 struct PadRows : CmajorRows<T> {
   __device__ PadRows(const T* x, const T* h, int b, int rows, int width, int c)
       : CmajorRows<T>{x, h, b, rows, width, c, c} {}
+};
+
+// T1, T2 and K1p: W-padded NHWC xp (B, H, W+2, cx) and hp (B, H, W+2, ch) of
+// image b, width the unpadded W. Window column j is padded column x0 + j, so
+// image column gx is padded column gx + 1 and the halo columns are read from
+// memory as given (the caller keeps them zero); rows outside the image, and
+// columns past W + 1 in the last column tile, are zeros.
+template <typename T>
+struct PadColumns {
+  const T* x;
+  const T* h;
+  int b, height, width, cx, ch;
+
+  __device__ __forceinline__ bool at(int gy, int gx, const T*& xs, const T*& hs) const {
+    if (gy < 0 || gy >= height || gx < -1 || gx > width) return false;
+    const size_t p = (size_t(b) * height + gy) * (width + 2) + (gx + 1);
+    xs = x + p * cx;
+    hs = h + p * ch;
+    return true;
+  }
+  __device__ __forceinline__ bool x_aligned() const { return aligned16(x); }
+  template <int CH>
+  __device__ __forceinline__ void stage_bf16(unsigned char* window, int pitch, int kt, int cxp,
+                                             int window_rows, int y0, int x0) const {
+    stage_nhwc<CH, T>(*this, window, pitch, kt, cxp, window_rows, y0, x0);
+  }
 };
 
 }  // namespace convlstm_source

@@ -10,8 +10,8 @@
 // Used by the float32 instantiations of the fused step (K1), its backward
 // (K2), the halo-tensor step (K1h) and the channel-major step (K6a) through
 // convlstm_gates.cuh, at every hidden width CH they are built for, and by the
-// study kernels of exp_tap9.cu (T1, T2, K1p) in both float32 and bfloat16.
-// The bfloat16 K1, K2, K1h and K6a contract on the tensor cores instead
+// float32 study kernels of exp_tap9.cu (T1, T2, K1p). The bfloat16 K1, K2,
+// K1h, K6a and study kernels contract on the tensor cores instead
 // (convlstm_mma.cuh).
 //
 // Tile. A block of 8 warps owns kTileW = 16 columns of tile_rows<CH>() rows

@@ -7,20 +7,27 @@ kernels (``csrc/exp_tap9.cu``):
 
 - :func:`step_tap9` (T1): ONE channel concat ``[x | h]``, then nine per-tap
   contractions of depth Cx+Ch against ``w9`` (9, Cx+Ch, 4Ch), tap loop
-  outermost, against K1's two contractions per tap;
-- :func:`step_nogate` (T2): K1's contraction and bias on ``w3`` (3, 3Cx+3Ch,
-  4Ch), with the sigmoid/tanh state update replaced by adds;
+  outermost;
+- :func:`step_nogate` (T2): the main kernel's contraction and bias on ``w3``
+  (3, 3Cx+3Ch, 4Ch), with the sigmoid/tanh state update replaced by adds;
+  :func:`step_nogate_sums` also returns the two gate slots that epilogue
+  does not read, o + g, so that the whole contraction can be checked;
 - :func:`step_padded` (K1p), their yardstick, as the JAX tool's is its main
-  kernel in the same layout: K1's contraction order on ``w3`` and K1's LSTM
-  epilogue behind the same staging as T1 and T2. K1p's time minus T2's is
-  what the transcendental epilogue costs and K1p against T1 what the tap
-  order does.
+  kernel in the same layout: the main kernel's contraction order on ``w3``
+  and K1's LSTM epilogue behind the same staging as T1 and T2.
 
-The three contract with f32 FMAs on the CUDA cores in float32 and bfloat16
-alike: they measure that contraction, which the float32 K1 still runs. The
-bfloat16 K1 contracts on the tensor cores (``csrc/convlstm_mma.cuh``), so its
-row in the timing table is the main path's step beside the study, and K1p
-against K1 is what the tensor cores are worth, not what the staging costs.
+The order each walks the contraction in. In bfloat16 the three contract on
+the tensor cores (``csrc/convlstm_mma.cuh``, K1's contraction, the weights
+read as given through :func:`weight_rows`): T1 tap by tap, x's channels and
+then h's of each tap, which is also the bf16 K1's order; T2 and K1p the JAX
+main kernel's order (``satflow_tpu/ops/pallas/fused_convlstm_step.py``'s
+im2col): per dy, x's channels of the taps dx = 0, 1, 2, then h's of the same
+three. So on the card K1p's time minus T2's is what the exact
+transcendental epilogue costs, K1p against T1 what the order of the walk
+does, and K1p against K1 what the W-padded I/O and the order cost together.
+In float32 all three walk tap by tap with f32 FMAs on the CUDA cores (T1
+over [x | h] of a tap at once, T2 and K1p over x's channels and then h's),
+as the float32 K1 does.
 
 All three keep the JAX main path's W-padded I/O: ``xp`` (B, H, W+2, Cx) and ``hp``
 (B, H, W+2, Ch) come with one halo column on either side, which the kernel
@@ -46,6 +53,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import functools
 import os
 from typing import Callable, Optional, Sequence, Tuple
 
@@ -70,6 +78,10 @@ _PADDED_ENTRY = {
     torch.float32: "satflow_step_padded_f32",
     torch.bfloat16: "satflow_step_padded_bf16",
 }
+_SUMS_ENTRY = {
+    torch.float32: "satflow_step_nogate_sums_f32",
+    torch.bfloat16: "satflow_step_nogate_sums_bf16",
+}
 
 
 def pad_w(a: torch.Tensor) -> torch.Tensor:
@@ -88,6 +100,22 @@ def weights_rows3(wx: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
     h's three, the main JAX kernel's im2col order."""
     c4 = wx.shape[-1]
     return torch.cat([wx.reshape(3, -1, c4), wh.reshape(3, -1, c4)], dim=1).contiguous()
+
+
+def weight_rows(layout: str, cx: int, ch: int) -> Tuple[Tuple[int, int, int], ...]:
+    """Where the bf16 kernels find a weight row in ``w9`` (``layout="tap9"``)
+    or ``w3`` (``"rows3"``), each a (rows, 4Ch) matrix: ``(base, sy, sx)`` for
+    x and for h, so that input channel k of x (of h) at tap (ky, kx) is row
+    ``base + ky * sy + kx * sx + k``. The kernels read the tensors as given."""
+    if layout == "tap9":
+        k = cx + ch
+        return (0, 3 * k, k), (cx, 3 * k, k)
+    if layout == "rows3":
+        return (0, 3 * cx + 3 * ch, cx), (3 * cx, 3 * cx + 3 * ch, ch)
+    raise ValueError(f"layout is tap9 or rows3, not {layout!r}")
+
+
+_WEIGHTS = {"tap9": weights_tap9, "rows3": weights_rows3}
 
 
 def _window(ap: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
@@ -130,6 +158,19 @@ def step_nogate_ref(xp, hp, c, wx, wh, b) -> Tuple[torch.Tensor, torch.Tensor]:
     c_next = acc[..., :ch] + c.float()
     h_next = acc[..., ch:2 * ch] + c_next
     return pad_w(h_next.to(xp.dtype)).contiguous(), c_next.to(xp.dtype).contiguous()
+
+
+def nogate_sums_ref(xp, hp, c, wx, wh, b) -> torch.Tensor:
+    """The two gate slots T2's epilogue does not read, summed: ``acc[2Ch:3Ch]
+    + acc[3Ch:4Ch]`` of :func:`step_nogate_ref`'s f32 contraction, (B, H, W,
+    Ch) float32."""
+    ch = c.shape[-1]
+    w3 = weights_rows3(wx, wh).float()
+    acc = b.float()
+    for dy in range(3):
+        win = torch.cat([_window(a, dy, dx) for a in (xp, hp) for dx in range(3)], dim=-1)
+        acc = acc + win @ w3[dy]
+    return (acc[..., 2 * ch:3 * ch] + acc[..., 3 * ch:]).contiguous()
 
 
 def _check(xp, hp, c, wx, wh, b, block_h: int) -> None:
@@ -184,12 +225,19 @@ def pad_operands(xp, hp, c, wx, wh, b):
     return (K1.pad_channels(xp, cx_to), hp, c, F.pad(wx, (0, 0, 0, cx_to - cx)), wh, b)
 
 
+@functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    """The kernels' library with its three entry-point families typed: 7 pointers,
-    then (B, H, W, Cx, Ch, device), then the stream."""
-    return _build.load_typed(
-        _SOURCE, [*_TAP9_ENTRY.values(), *_NOGATE_ENTRY.values(), *_PADDED_ENTRY.values()],
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    """The kernels' library with its entry points typed: 7 pointers (8 for
+    the sums entries), then (B, H, W, Cx, Ch), in bf16 the six weight-row
+    strides, then the device and the stream."""
+    for entries, pointers in ((_TAP9_ENTRY, 7), (_NOGATE_ENTRY, 7), (_PADDED_ENTRY, 7),
+                              (_SUMS_ENTRY, 8)):
+        for dtype, entry in entries.items():
+            strides = 6 if dtype == torch.bfloat16 else 0
+            lib = _build.load_typed(
+                _SOURCE, [entry], [ctypes.c_void_p] * pointers
+                + [ctypes.c_int] * (5 + strides + 1) + [ctypes.c_void_p])
+    return lib
 
 
 def build() -> None:
@@ -197,27 +245,28 @@ def build() -> None:
     _build.load(_SOURCE)
 
 
-def _launch(entries, counter, weights: Callable, xp, hp, c, wx, wh, b, block_h):
+def _launch(entries, counter, layout: str, xp, hp, c, wx, wh, b, block_h, sums=False):
     _check(xp, hp, c, wx, wh, b, block_h)
     ch = hp.shape[-1]
     if ch not in KERNEL_HIDDEN_WIDTHS or xp.shape[-1] % 4:
         xp, hp, c, wx, wh, b = pad_operands(xp, hp, c, wx, wh, b)
     lib = _library()
-    w = weights(wx, wh)
-    hp_out = torch.empty_like(hp)
-    c_out = torch.empty_like(c)
+    w = _WEIGHTS[layout](wx, wh)
+    outs = [torch.empty_like(hp), torch.empty_like(c)]
+    if sums:
+        outs.append(torch.empty(c.shape, dtype=torch.float32, device=c.device))
     bsz, height, wp2, cx = xp.shape
+    ints = [bsz, height, wp2 - 2, cx, hp.shape[-1]]
+    if xp.dtype == torch.bfloat16:
+        ints += [n for part in weight_rows(layout, cx, hp.shape[-1]) for n in part]
     stream = torch.cuda.current_stream(xp.device).cuda_stream
     err = getattr(lib, entries[xp.dtype])(
-        xp.data_ptr(), hp.data_ptr(), c.data_ptr(), w.data_ptr(), b.data_ptr(),
-        hp_out.data_ptr(), c_out.data_ptr(),
-        bsz, height, wp2 - 2, cx, hp.shape[-1], xp.device.index, stream,
-    )
+        *(t.data_ptr() for t in (xp, hp, c, w, b, *outs)), *ints, xp.device.index, stream)
     _build.raise_on(err, lib, counter.__name__)
     counter.launches += 1
     if ch != hp.shape[-1]:
-        return hp_out[..., :ch].contiguous(), c_out[..., :ch].contiguous()
-    return hp_out, c_out
+        outs = [t[..., :ch].contiguous() for t in outs]
+    return tuple(outs)
 
 
 def step_tap9(xp, hp, c, wx, wh, b, block_h: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -231,7 +280,7 @@ def step_tap9(xp, hp, c, wx, wh, b, block_h: int = 8) -> Tuple[torch.Tensor, tor
     """
     if all(t.device.type == "cpu" for t in (xp, hp, c, wx, wh, b)):
         return step_tap9_ref(xp, hp, c, wx, wh, b)
-    return _launch(_TAP9_ENTRY, step_tap9, weights_tap9, xp, hp, c, wx, wh, b, block_h)
+    return _launch(_TAP9_ENTRY, step_tap9, "tap9", xp, hp, c, wx, wh, b, block_h)
 
 
 def step_nogate(xp, hp, c, wx, wh, b, block_h: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -242,19 +291,32 @@ def step_nogate(xp, hp, c, wx, wh, b, block_h: int = 8) -> Tuple[torch.Tensor, t
     """
     if all(t.device.type == "cpu" for t in (xp, hp, c, wx, wh, b)):
         return step_nogate_ref(xp, hp, c, wx, wh, b)
-    return _launch(_NOGATE_ENTRY, step_nogate, weights_rows3, xp, hp, c, wx, wh, b, block_h)
+    return _launch(_NOGATE_ENTRY, step_nogate, "rows3", xp, hp, c, wx, wh, b, block_h)
+
+
+def step_nogate_sums(xp, hp, c, wx, wh, b, block_h: int = 8) -> Tuple[torch.Tensor, ...]:
+    """T2 that also returns the gate slots its epilogue does not read:
+    ``(h' padded, c', o + g)``, o + g float32 (B, H, W, Ch).
+
+    CPU tensors take :func:`step_nogate_ref` and :func:`nogate_sums_ref`;
+    CUDA tensors launch T2's kernel through its sums entry point, counted in
+    ``step_nogate.launches``.
+    """
+    if all(t.device.type == "cpu" for t in (xp, hp, c, wx, wh, b)):
+        return (*step_nogate_ref(xp, hp, c, wx, wh, b), nogate_sums_ref(xp, hp, c, wx, wh, b))
+    return _launch(_SUMS_ENTRY, step_nogate, "rows3", xp, hp, c, wx, wh, b, block_h, sums=True)
 
 
 def step_padded(xp, hp, c, wx, wh, b, block_h: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1p: the main step (K1's contraction order and epilogue) in the study
-    kernels' W-padded layout, their yardstick.
+    """K1p: the main step (the JAX main kernel's contraction order, K1's
+    epilogue) in the study kernels' W-padded layout, their yardstick.
 
     CPU tensors take :func:`step_padded_ref`; CUDA tensors launch the kernel
     on the current stream, counted in ``step_padded.launches``.
     """
     if all(t.device.type == "cpu" for t in (xp, hp, c, wx, wh, b)):
         return step_padded_ref(xp, hp, c, wx, wh, b)
-    return _launch(_PADDED_ENTRY, step_padded, weights_rows3, xp, hp, c, wx, wh, b, block_h)
+    return _launch(_PADDED_ENTRY, step_padded, "rows3", xp, hp, c, wx, wh, b, block_h)
 
 
 step_tap9.launches = 0
@@ -375,11 +437,11 @@ def time_steps(device: str, bsz: int, size: int, ch: int, block_h: int, steps: i
         out["k1_padded"] = time_chain(
             lambda x, h, c_: step_padded(x, h, c_, wx, wh, b, block_h=block_h), (xp, hp, c),
             steps)
-        _report("K1p (CUDA-core K1, padded)", out["k1_padded"], flops)
+        _report("K1p (K1 W-padded, JAX order)", out["k1_padded"], flops)
     if "tap9" in which:
         out["tap9"] = time_chain(
             lambda x, h, c_: step_tap9(x, h, c_, wx, wh, b, block_h=block_h), (xp, hp, c), steps)
-        _report("tap9 (9 taps of K=Cx+Ch)", out["tap9"], flops)
+        _report("tap9 (T1, K1's order)", out["tap9"], flops)
     if "nogate" in which:
         # as the JAX tool: small weights and c handed back unchanged, so that
         # the unbounded sums stay finite over the chain
@@ -387,7 +449,7 @@ def time_steps(device: str, bsz: int, size: int, ch: int, block_h: int, steps: i
         out["nogate"] = time_chain(
             lambda x, h, c_: (step_nogate(x, h, c_, wxs, whs, b, block_h=block_h)[0], c_),
             (xp, hp, c * 1e-3), steps)
-        _report("nogate (contraction only)", out["nogate"], flops)
+        _report("nogate (T2, K1p's adds only)", out["nogate"], flops)
     return out
 
 

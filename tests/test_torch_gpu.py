@@ -23,7 +23,13 @@ its integer sums, read through its sums entry point, equal the exact ones
 (a float64 conv on the CPU) bit for bit.
 K6a/K6b: as K1 (f32 1e-4; bf16 3e-2, the plain versions round each conv's
 output to bf16). K1h, T1 and T3: as K1. T2's outputs are unbounded sums, so
-bf16 is held to 3e-2 x max|plain|.
+bf16 is held to 3e-2 x max|plain|. The bf16 study kernels on the tensor
+cores at every width are held to ``chip_smoke.py``'s bars: T1 against its
+plain version (the same f32 sums of the same bf16 products) and T1 and K1p
+against K1 to one bf16 step of the stored outputs (atol = rtol = 2^-7), K1p
+against its plain version (which rounds each conv's output to bf16) to 3e-2,
+T2 to 2^-7 x max|plain| (two bf16 roundings), and T2's f32 o + g sums to
+1e-5 x max|plain| (f32 rounding of sums of up to 9 x 192 products).
 """
 
 import pytest
@@ -913,6 +919,68 @@ def test_study_kernels_at_other_widths_on_card(dtype, atol, cx, ch, name):
         tol = atol * float(want.float().abs().max()) if name == "nogate" else atol
         torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
     assert float(h_k[:, :, (0, -1)].abs().max()) == 0
+
+
+TOL_SAME_SUMS_BF16 = dict(atol=2.0 ** -7, rtol=2.0 ** -7)
+TOL_NOGATE_REL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ch", [8, 16, 32, 64, 128, 24])
+@pytest.mark.parametrize("cx", [1, 12, 64])
+@pytest.mark.parametrize("name", ["tap9", "padded", "nogate"])
+def test_study_kernels_on_the_tensor_cores_at_every_width_on_card(name, cx, ch):
+    """T1, K1p and T2 in bf16 (the tensor-core kernels) at every hidden width
+    they are built for and at 24 (padded to 32), Cx 1, 12 and 64: one counted
+    launch, the halo columns of h' exactly zero, against their plain versions
+    and T1 and K1p against K1 on the interior."""
+    _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, h, c, wx, wh, b = _width_args(cx, ch, torch.bfloat16, seed=83, shape=(2, 20, 36))[:6]
+    args = XT.pad_w(x).contiguous(), XT.pad_w(h).contiguous(), c, wx, wh, b
+    step, ref = getattr(XT, f"step_{name}"), getattr(XT, f"step_{name}_ref")
+    before = step.launches
+    h_k, c_k = step(*args, block_h=4)
+    torch.cuda.synchronize()
+    assert step.launches == before + 1
+    assert h_k.shape == args[1].shape and c_k.shape == c.shape
+    assert float(h_k[:, :, (0, -1)].abs().max()) == 0
+    h_p, c_p = ref(*args)
+    if name == "nogate":
+        for got, want in ((h_k, h_p), (c_k, c_p)):
+            scale = float(want.float().abs().max())
+            torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                       atol=TOL_NOGATE_REL[torch.bfloat16] * scale)
+        return
+    tol = TOL_SAME_SUMS_BF16 if name == "tap9" else dict(atol=3e-2, rtol=0)
+    torch.testing.assert_close(h_k.float(), h_p.float(), **tol)
+    torch.testing.assert_close(c_k.float(), c_p.float(), **tol)
+    h_1, c_1 = P._step(x, h, c, wx, wh, b)
+    torch.testing.assert_close(h_k[:, :, 1:-1].float(), h_1.float(), **TOL_SAME_SUMS_BF16)
+    torch.testing.assert_close(c_k.float(), c_1.float(), **TOL_SAME_SUMS_BF16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("cx, ch", [(64, 64), (12, 32), (1, 8), (13, 24), (64, 128)])
+def test_nogate_sums_hold_the_whole_contraction_on_card(dtype, cx, ch):
+    """T2's sums entry point: the o + g gate slots its epilogue does not read
+    against the plain sums, so the whole contraction is held; h' and c' as
+    T2's; one counted launch."""
+    _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, h, c, wx, wh, b = _width_args(cx, ch, dtype, seed=84, shape=(2, 20, 36))[:6]
+    args = XT.pad_w(x).contiguous(), XT.pad_w(h).contiguous(), c, wx, wh, b
+    before = XT.step_nogate.launches
+    h_k, c_k, og = XT.step_nogate_sums(*args, block_h=4)
+    torch.cuda.synchronize()
+    assert XT.step_nogate.launches == before + 1
+    assert og.dtype == torch.float32 and og.shape == c.shape
+    want = XT.nogate_sums_ref(*args)
+    torch.testing.assert_close(og, want, rtol=0,
+                               atol=TOL_NOGATE_REL[torch.float32] * float(want.abs().max()))
+    h_t2, c_t2 = XT.step_nogate(*args, block_h=4)
+    assert torch.equal(h_k, h_t2) and torch.equal(c_k, c_t2)
 
 
 @pytest.mark.gpu
