@@ -148,7 +148,28 @@ Phases, in order; any failure exits non-zero before the last line:
    at the unpadded width at phase 22's tolerances; K1, K2, K1h at hidden 264
    and K6a, K5 at hidden 136 raise and name the rule; K1 and K2 per call at
    hidden 24 beside hidden 32;
-23. a JSON line of the kernels with each one's bound on this card, and last
+23. eval: ``evaluate_model`` on the full-width ConvLSTM (phase 6's weights,
+   bf16, ``cell_impl="fused"``) over 2 batches of b8 advection
+   (7 x 256x256x12 in, 24 out, MSE / SSIM / MS-SSIM per lead time), once
+   through K1 (62 launches a batch, counted) and once through the plain step,
+   the two sets of curves held together; the MS-SSIM of the two rollouts
+   against each other per lead time; the forward and the metric computation
+   timed apart;
+24. SSIM-loss MetNet: ``metnet_ssim.yaml`` (metnet.yaml's widths, loss
+   ``ssim``, built channel-aware, nonnegative, range-converted) trains 4 bf16
+   Adam steps through ``Trainer.fit`` on one b8 256x256 advection batch (23
+   channels in the fake schema) with one temporal-dropout mask: losses finite and decreasing, 7 K3 + 2 K4 launches
+   per step, gradients held against the plain versions' at phase 12's
+   tolerance; the train step timed under ssim beside mse;
+25. the accuracy gate on the card, in float32 (the Trainer's default): (a)
+   ``tests/test_accuracy.py``'s geometry (16x16, 1 channel, hidden 16, 6 lead
+   times, 12 epochs, decay 0.8), the trained ConvLSTM's mean MSE below
+   persistence and below both flow arms (Farneback as ``farneback_flow``
+   resolves it, and Horn-Schunck), every cell step a counted K1 / K2 launch;
+   (b) ``tools/accuracy_gate.py``'s baselines and ConvLSTM arm through
+   ``satflow_tpu_torch.tools.accuracy_gate`` (hidden 32, 30 epochs), its
+   per-lead curves printed beside the JAX study's means;
+26. a JSON line of the kernels with each one's bound on this card, and last
    a JSON line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.
@@ -283,6 +304,35 @@ TOL_NOGATE_REL = {"float32": 1e-5, "bfloat16": 2 ** -7}
 HALO_BLOCK_H = 8   # rows per row block of K1h and block_h of T3's pad rows
 STUDY_STEPS = {"tap9": 20, "cmajor": 24}  # the chained rollouts of the two study tools
 K3_PER_FORWARD = LAUNCHES_PER_FORWARD     # concat/split/hybrid: one gate tail per cell step
+
+# Phase 23: ``evaluate_model`` on the full-width ConvLSTM over EVAL_BATCHES
+# batches of b8 advection, once through K1 and once through the plain step.
+# Both are bf16 rollouts whose outputs differ by at most TOL_ROLLOUT; the
+# curves average that over 8 x 256 x 256 pixels, so they are held to: MSE
+# |K1 - plain| <= 5 % of plain + 1e-4, SSIM and MS-SSIM within 1e-2, and the
+# MS-SSIM of the two rollouts against each other >= 0.99 at every lead time.
+EVAL_BATCHES = 2
+TOL_EVAL_MSE = dict(rtol=5e-2, atol=1e-4)
+TOL_EVAL_SSIM = 1e-2
+MIN_ROLLOUT_MS_SSIM = 0.99
+# Phase 24: metnet_ssim.yaml trains SSIM_STEPS Adam steps on one batch of
+# advection (a signal SSIM can learn; the fake datamodule's targets are white
+# noise) with one temporal-dropout mask, so that each step's loss is the same
+# function of the weights and must fall; warmup_steps=0 puts the config's lr
+# (1e-3) on the first step (the default warmup of 1000 steps would hold it
+# near 1e-8). On an H100 the loss fell 0.973 -> 0.455 over these 4 steps and
+# monotonically for 7; on the noise targets it rose first (PERF.md §6).
+SSIM_STEPS = 4
+# Phase 25 (a): tests/test_accuracy.py's gate geometry (DecayDM of 8 batches
+# a split, eval set of 2 at seed 300, 6 lead times, 12 epochs, hidden 16,
+# lr 5e-3, the Trainer's default precision 32)
+GATE_KW = dict(batch_size=8, width=16, height=16, number_sat_channels=1, history_minutes=15,
+               forecast_minutes=30, velocity=(1, 1), decay=0.8, n_blobs=3)
+GATE_STEPS, GATE_EPOCHS, GATE_LEN = 6, 12, 8
+# (b): the JAX study's means over 12 lead times (docs/ACCURACY.md:20-33; model
+# quality on the TPU rebuild's runs, printed beside the port's, not held)
+JAX_STUDY = {"persistence": 0.02084, "optical_flow": 0.00867, "optical_flow_hs": 0.02590,
+             "convlstm": 0.00657, "convlstm_ms_ssim": 0.2355}
 
 # The card's published peaks (H100 SXM data sheet, dense): what a kernel's
 # bound is computed from.
@@ -1015,14 +1065,15 @@ def metnet_flax_variables(in_channels: int, seed: int = 0) -> dict:
     return {"params": params, "batch_stats": stats}
 
 
-def _metnet(torch, **kw):
-    from satflow_tpu_torch.core.registry import create_model
-    import satflow_tpu_torch.models  # noqa: F401 - populate the registry
+def _metnet(torch, loss: str = "mse", **kw):
+    """metnet.yaml (``loss="ssim"``: metnet_ssim.yaml, which differs in the
+    loss alone)."""
+    from satflow_tpu_torch.models import create_model
 
     return create_model("litmetnet", image_encoder="downsampler", input_channels=MN_CIN,
                         sat_channels=12, input_size=64, output_channels=MN_COUT,
                         hidden_dim=MN_HIDDEN, kernel_size=3, num_layers=1, num_att_layers=1,
-                        forecast_steps=MN_F, temporal_dropout=0.2, lr=1e-3, loss="mse", **kw)
+                        forecast_steps=MN_F, temporal_dropout=0.2, lr=1e-3, loss=loss, **kw)
 
 
 def metnet_serve_slice(torch, card):
@@ -1182,6 +1233,56 @@ def metnet_timings(torch, model, card):
     return k3, k4
 
 
+def compare_metnet_grads(torch, model, batch, gen, what: str, card, zero_tol: float = 1e-3):
+    """Every MetNet parameter's gradient of one train-mode loss through K3 and
+    K4 against the same loss through their plain versions (the same
+    temporal-dropout mask both ways): within TOL_TRAIN_GRAD x max|grad| and
+    cosine MIN_TRAIN_GRAD_COS; the ones zero in exact arithmetic within
+    ``zero_tol`` x max|grad| of their layer's weight, both ways. Returns
+    (worst relative difference, worst cosine)."""
+    from satflow_tpu_torch.ops.axial_attention import axial_attention_ref
+    from satflow_tpu_torch.ops.fused_lstm import fused_lstm_gates_ref
+
+    def step_grads(**kw):
+        model.train()
+        model.zero_grad(set_to_none=True)
+        gen.manual_seed(1)  # the same temporal-dropout mask both ways
+        loss, _ = model.loss(batch, **kw)
+        loss.backward()
+        grads = {n: p.grad.detach().clone() for n, p in model.module.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        return grads
+
+    got = step_grads()
+    want = step_grads(gate_tail=fused_lstm_gates_ref, attention=axial_attention_ref)
+    worst, worst_cos = 0.0, 1.0
+    for name, g in got.items():
+        w = want[name]
+        if g is None or not bool(torch.isfinite(g).all()):
+            fail(f"{what}: parameter {name} has no finite gradient through the kernels")
+        if name in MN_ZERO_GRAD:
+            scale = want[name.replace(".bias", ".weight")].abs().max().item()
+            if not (g.abs().max().item() <= zero_tol * scale
+                    and w.abs().max().item() <= zero_tol * scale):
+                fail(f"{what} {name}: gradient not negligible against its layer's weight's: "
+                     f"max|grad| {g.abs().max().item():.3g} through the kernels, "
+                     f"{w.abs().max().item():.3g} plain, the weight's {scale:.3g}")
+            continue
+        if not g.abs().sum().item() > 0:
+            fail(f"{what}: parameter {name} has a zero gradient through the kernels")
+        rel = (g - w).abs().max().item() / w.abs().max().item()
+        cos = torch.nn.functional.cosine_similarity(g.flatten(), w.flatten(), dim=0).item()
+        worst, worst_cos = max(worst, rel), min(worst_cos, cos)
+        if not (rel <= TOL_TRAIN_GRAD and cos >= MIN_TRAIN_GRAD_COS):
+            fail(f"{what}: gradient of {name} through K3+K4 vs plain: max|diff| / max|grad| "
+                 f"{rel:.3g} (tol {TOL_TRAIN_GRAD}), cosine {cos:.6f} (min {MIN_TRAIN_GRAD_COS})")
+    print(f"{what}'s gradients through K3+K4 vs the plain versions (bf16): "
+          f"{len(got) - len(MN_ZERO_GRAD)} parameters nonzero (and {len(MN_ZERO_GRAD)} zero in "
+          f"exact arithmetic, negligible both ways); max|diff| / max|grad| {worst:.3g} <= "
+          f"{TOL_TRAIN_GRAD}, cosine >= {worst_cos:.6f} ok [{card}]", flush=True)
+    return worst, worst_cos
+
+
 def metnet_train_slice(torch, card):
     """Phase 12; returns (K3 launches, K4 launches)."""
     from satflow_tpu_torch.data import SatFlowDataModule
@@ -1231,40 +1332,7 @@ def metnet_train_slice(torch, card):
 
     batch = to_device(next(iter(dm.train_dataloader())), torch.device(DEVICE))
     plain = dict(gate_tail=fused_lstm_gates_ref, attention=axial_attention_ref)
-
-    def step_grads(**kw):
-        model.train()
-        model.zero_grad(set_to_none=True)
-        gen.manual_seed(1)  # the same temporal-dropout mask both ways
-        loss, _ = model.loss(batch, **kw)
-        loss.backward()
-        grads = {n: p.grad.detach().clone() for n, p in model.module.named_parameters()}
-        model.zero_grad(set_to_none=True)
-        return grads
-
-    got, want = step_grads(), step_grads(**plain)
-    worst, worst_cos = 0.0, 1.0
-    for name, g in got.items():
-        w = want[name]
-        if g is None or not bool(torch.isfinite(g).all()):
-            fail(f"MetNet parameter {name} has no finite gradient through the kernels")
-        if name in MN_ZERO_GRAD:
-            scale = want[name.replace(".bias", ".weight")].abs().max().item()
-            if not (g.abs().max().item() <= 1e-3 * scale and w.abs().max().item() <= 1e-3 * scale):
-                fail(f"MetNet {name}: gradient not negligible against its layer's weight's")
-            continue
-        if not g.abs().sum().item() > 0:
-            fail(f"MetNet parameter {name} has a zero gradient through the kernels")
-        rel = (g - w).abs().max().item() / w.abs().max().item()
-        cos = torch.nn.functional.cosine_similarity(g.flatten(), w.flatten(), dim=0).item()
-        worst, worst_cos = max(worst, rel), min(worst_cos, cos)
-        if not (rel <= TOL_TRAIN_GRAD and cos >= MIN_TRAIN_GRAD_COS):
-            fail(f"MetNet gradient of {name} through K3+K4 vs plain: max|diff| / max|grad| "
-                 f"{rel:.3g} (tol {TOL_TRAIN_GRAD}), cosine {cos:.6f} (min {MIN_TRAIN_GRAD_COS})")
-    print(f"MetNet train step's gradients through K3+K4 vs the plain versions (bf16): "
-          f"{len(got) - len(MN_ZERO_GRAD)} parameters nonzero (and {len(MN_ZERO_GRAD)} zero in "
-          f"exact arithmetic, negligible both ways); max|diff| / max|grad| {worst:.3g} <= "
-          f"{TOL_TRAIN_GRAD}, cosine >= {worst_cos:.6f} ok [{card}]", flush=True)
+    compare_metnet_grads(torch, model, batch, gen, "MetNet train step", card)
 
     state = trainer.state
     steps = {"kernel": make_train_step(model), "plain": make_train_step(model, **plain)}
@@ -2763,6 +2831,306 @@ def check_sass_tap9(_build, card) -> dict:
     return counts
 
 
+def eval_slice(torch, card):
+    """Phase 23: ``evaluate_model`` on the full-width ConvLSTM (bf16,
+    ``cell_impl="fused"``) through K1 and through the plain step; returns K1's
+    launches in the counted run."""
+    from satflow_tpu_torch.data import AdvectionDataset
+    from satflow_tpu_torch.data.datamodule import to_device
+    from satflow_tpu_torch.eval.evaluate import batch_metrics, evaluate_model
+    from satflow_tpu_torch.interop.jax_weights import params_from_flax
+    from satflow_tpu_torch.models import EncoderDecoderConvLSTM
+    from satflow_tpu_torch.ops.fused_convlstm_step import (
+        fused_convlstm_step,
+        fused_convlstm_step_ref,
+    )
+    from satflow_tpu_torch.ops.ssim import ms_ssim, ssim
+
+    model = EncoderDecoderConvLSTM(hidden_dim=HIDDEN, input_channels=CIN, out_channels=COUT,
+                                   forecast_steps=STEPS, cell_impl="fused")
+    model.module.load_state_dict(params_from_flax(flax_params(0)))
+    model.to(DEVICE)
+    model.set_compute_dtype(torch.bfloat16)
+    ds = AdvectionDataset(batch_size=B, width=W, height=H, number_sat_channels=CIN,
+                          history_minutes=5 * (T - 1), forecast_minutes=5 * STEPS,
+                          length=EVAL_BATCHES)
+    batches = [to_device(ds[i], torch.device(DEVICE)) for i in range(EVAL_BATCHES)]
+    torch.cuda.synchronize()
+
+    fused_convlstm_step.launches = 0
+    t0 = time.perf_counter()
+    got = evaluate_model(model, batches, compute_ms_ssim=True)
+    wall_kernel = time.perf_counter() - t0
+    launches = fused_convlstm_step.launches
+    t0 = time.perf_counter()
+    want = evaluate_model(model, batches, compute_ms_ssim=True, step=fused_convlstm_step_ref)
+    wall_plain = time.perf_counter() - t0
+    if launches != LAUNCHES_PER_FORWARD * EVAL_BATCHES or fused_convlstm_step.launches != launches:
+        fail(f"eval launched K1 {launches} times ({fused_convlstm_step.launches} after the plain "
+             f"run), expected {LAUNCHES_PER_FORWARD} x {EVAL_BATCHES} batches and none plain")
+    shapes = {"mse": (COUT, STEPS), "ssim": (STEPS,), "ms_ssim": (STEPS,)}
+    for key, shape in shapes.items():
+        for name, res in (("K1", got), ("plain", want)):
+            if res[key].shape != shape or not np.isfinite(res[key]).all():
+                fail(f"eval {key} through {name}: shape {res[key].shape}, expected {shape}, "
+                     f"or not finite")
+    mse_err = np.abs(got["mse"] - want["mse"])
+    if not (mse_err <= TOL_EVAL_MSE["atol"] + TOL_EVAL_MSE["rtol"] * np.abs(want["mse"])).all():
+        fail(f"eval MSE curves, K1 vs plain: max|diff| {mse_err.max():.3g} beyond {TOL_EVAL_MSE}")
+    for key in ("ssim", "ms_ssim"):
+        err = np.abs(got[key] - want[key]).max()
+        if not err <= TOL_EVAL_SSIM:
+            fail(f"eval {key} curves, K1 vs plain: max|diff| {err:.3g} > {TOL_EVAL_SSIM}")
+    print(f"eval of the full-width ConvLSTM (b{B}, {T} x {H}x{W}x{CIN} in, {STEPS} out, bf16, "
+          f"fused; {EVAL_BATCHES} advection batches): K1 launches {launches} = "
+          f"{LAUNCHES_PER_FORWARD} x {EVAL_BATCHES}; mse_mean {got['mse_mean']:.6g} (plain "
+          f"{want['mse_mean']:.6g}), ssim_mean {got['ssim_mean']:.6g} ({want['ssim_mean']:.6g}), "
+          f"ms_ssim_mean {got['ms_ssim_mean']:.6g} ({want['ms_ssim_mean']:.6g}); curves within "
+          f"MSE {TOL_EVAL_MSE}, SSIM / MS-SSIM {TOL_EVAL_SSIM} (max|diff| MSE {mse_err.max():.3g}, "
+          f"SSIM {np.abs(got['ssim'] - want['ssim']).max():.3g}, MS-SSIM "
+          f"{np.abs(got['ms_ssim'] - want['ms_ssim']).max():.3g}) ok; evaluate_model wall "
+          f"{wall_kernel:.3f} s through K1, {wall_plain:.3f} s plain [{card}]", flush=True)
+    print("eval per-lead MS-SSIM through K1: "
+          + ", ".join(f"{v:.4f}" for v in got["ms_ssim"]) + f" [{card}]", flush=True)
+
+    model.eval()
+    with torch.no_grad():
+        x, y = model.eval_batch(batches[0])
+        y_kernel = model(x)
+        y_plain = model(x, step=fused_convlstm_step_ref)
+        between = [ms_ssim(y_kernel[:, i], y_plain[:, i]).item() for i in range(STEPS)]
+        if not min(between) >= MIN_ROLLOUT_MS_SSIM:
+            fail(f"MS-SSIM of the K1 rollout against the plain one: min {min(between):.4f} < "
+                 f"{MIN_ROLLOUT_MS_SSIM}")
+        print("MS-SSIM of the K1 rollout against the plain-step rollout, per lead time "
+              f"(batch 0): " + ", ".join(f"{v:.5f}" for v in between) + f"; min "
+              f"{min(between):.5f} >= {MIN_ROLLOUT_MS_SSIM} ok [{card}]", flush=True)
+        def per_lead():  # the same curves by one ssim and one ms_ssim call a lead time
+            return [(ssim(y_kernel[:, i], y[:, i]), ms_ssim(y_kernel[:, i], y[:, i]))
+                    for i in range(STEPS)]
+
+        fns = {"forward": lambda: model(x),
+               "metrics": lambda: batch_metrics(y_kernel, y, True),
+               "metrics without MS-SSIM": lambda: batch_metrics(y_kernel, y, False),
+               "metrics a call per lead time": per_lead}
+        runs = {name: [] for name in fns}
+        for fn in fns.values():
+            cuda_ms(torch, fn, 1)  # warm-up
+        for name in list(fns) + list(fns)[::-1]:
+            runs[name].append(cuda_ms(torch, fns[name], 2))
+    ms = {k: sum(v) / len(v) for k, v in runs.items()}
+    print(f"eval per batch (b{B}, {STEPS} lead times, {H}x{W}x{COUT}): forward through K1 "
+          f"{ms['forward']:.2f} ms, metrics {ms['metrics']:.2f} ms (MSE, SSIM and MS-SSIM per "
+          f"lead time, all lead times in one pass; {ms['metrics without MS-SSIM']:.2f} ms "
+          f"without MS-SSIM; SSIM and MS-SSIM by a call per lead time "
+          f"{ms['metrics a call per lead time']:.2f} ms), each the mean of 2 runs of 2 calls "
+          f"[{card}]", flush=True)
+    return launches, ms
+
+
+class SameMask:
+    """Trainer callback: reseeds MetNet's temporal-dropout generator before
+    every train step, so that each step draws the first step's mask."""
+
+    def __init__(self, gen, seed: int = 0):
+        self.gen, self.seed = gen, seed
+
+    def on_train_start(self, engine) -> None:
+        self.gen.manual_seed(self.seed)
+
+    def on_train_batch_end(self, engine, metrics, step) -> None:
+        self.gen.manual_seed(self.seed)
+
+    def on_validation_end(self, engine, metrics, epoch) -> None: ...
+
+    def on_preemption(self, engine) -> None: ...
+
+    def on_train_end(self, engine) -> None: ...
+
+
+def metnet_ssim_slice(torch, card):
+    """Phase 24: metnet_ssim.yaml trains through K3 and K4 on the SSIM loss;
+    returns (K3 launches, K4 launches, {loss: step ms})."""
+    from satflow_tpu_torch.data import AdvectionDataset, SatFlowDataModule
+    from satflow_tpu_torch.nn.losses import get_loss
+    from satflow_tpu_torch.ops.axial_attention import axial_attention
+    from satflow_tpu_torch.ops.fused_lstm import fused_lstm_gates
+    from satflow_tpu_torch.train import Trainer
+    from satflow_tpu_torch.train.steps import make_train_step
+
+    gen = torch.Generator()
+    model = _metnet(torch, loss="ssim", generator=gen, warmup_steps=0, total_steps=100_000)
+    if model.loss_name != "ssim":
+        fail(f"metnet_ssim built the loss {model.loss_name!r}")
+    model.module.load_state_dict(model.state_dict_from_flax(
+        metnet_flax_variables(4 * MN_TRAIN_CIN + MN_F, seed=2)))
+
+    class AdvectionDM(SatFlowDataModule):
+        """b8 256x256 advection in the fake schema: 12 satellite channels,
+        topography and 10 NWP fields (23 in), 24 future frames."""
+
+        def _dataset(self, split, n):
+            return AdvectionDataset(batch_size=B, width=W, height=H, number_sat_channels=MN_CIN,
+                                    history_minutes=5 * (T - 1), forecast_minutes=5 * MN_F,
+                                    length=1)
+
+    dm = AdvectionDM(fake_data=True, num_workers=0)
+    counter = LaunchesPerStep(fused_lstm_gates, axial_attention)
+    # one batch, SSIM_STEPS epochs of one step and one validation forward each
+    trainer = Trainer(max_epochs=SSIM_STEPS, overfit_batches=1, precision="bf16",
+                      log_every_n_steps=1, device=DEVICE, callbacks=[counter, SameMask(gen)])
+    fused_lstm_gates.launches = axial_attention.launches = 0
+    t0 = time.perf_counter()
+    trainer.fit(model, dm)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k3, k4 = fused_lstm_gates.launches, axial_attention.launches
+    losses = [e["train/loss"] for e in trainer.history.history if "train/loss" in e]
+    if trainer.global_step != SSIM_STEPS or len(losses) != SSIM_STEPS:
+        fail(f"metnet_ssim fit took {trainer.global_step} steps and logged {len(losses)} losses")
+    if not (all(np.isfinite(losses)) and all(b < a for a, b in zip(losses, losses[1:]))):
+        fail(f"metnet_ssim losses not finite and decreasing: {losses}")
+    want_step = (MN_K3_PER_FORWARD, MN_K4_PER_FORWARD)
+    if counter.per_step != [want_step] * SSIM_STEPS:
+        fail(f"metnet_ssim (K3, K4) launches per step {counter.per_step}, expected {want_step}")
+    # every epoch: one train step and one validation forward
+    if (k3, k4) != (2 * SSIM_STEPS * MN_K3_PER_FORWARD, 2 * SSIM_STEPS * MN_K4_PER_FORWARD):
+        fail(f"metnet_ssim fit launched K3 {k3} and K4 {k4} times")
+    print(f"metnet_ssim (metnet_ssim.yaml: hidden {MN_HIDDEN}, {MN_F} lead times, loss ssim, "
+          f"channel-aware, nonnegative, range-converted) trained {SSIM_STEPS} bf16 Adam steps on "
+          f"one b{B} {H}x{W}x{MN_TRAIN_CIN} advection batch in {wall:.2f} s wall: losses "
+          + ", ".join(f"{v:.6f}" for v in losses) + f" (finite, decreasing); launches per step "
+          f"K3 {want_step[0]}, K4 {want_step[1]}; fit total K3 {k3}, K4 {k4} (with {SSIM_STEPS} "
+          f"validation forwards) [{card}]", flush=True)
+
+    batch = trainer.last_batch
+    # the key biases' zero gradients are bf16 rounding noise of 1.2-1.6e-3 x
+    # their weight's under the SSIM loss (measured in bf16 on a CPU at 64 px, b2)
+    compare_metnet_grads(torch, model, batch, gen, "metnet_ssim train step", card,
+                         zero_tol=1e-2)
+
+    # one train step under the SSIM criterion and under metnet.yaml's mse, in turns
+    criteria = {"ssim": model.criterion, "mse": get_loss("mse")}
+    step = make_train_step(model)
+    runs = {"mse": [], "ssim": []}
+    for name in ("mse", "ssim") + ("ssim", "mse", "mse", "ssim"):
+        model.criterion = criteria[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(trainer.state, batch)
+        torch.cuda.synchronize()
+        runs[name].append((time.perf_counter() - t0) * 1e3)
+    model.criterion = criteria["ssim"]
+    step_ms = {k: sum(v[1:]) / len(v[1:]) for k, v in runs.items()}  # the first is a warm-up
+    print(f"MetNet b{B} train step (bf16, K3 + K4, {H}x{W}x{MN_TRAIN_CIN}, {MN_F} lead times): "
+          f"ssim loss {step_ms['ssim']:.2f} ms, mse loss {step_ms['mse']:.2f} ms (runs ssim "
+          + ", ".join(f"{v:.2f}" for v in runs["ssim"][1:]) + "; mse "
+          + ", ".join(f"{v:.2f}" for v in runs["mse"][1:]) + f" ms) [{card}]", flush=True)
+    return k3, k4, step_ms
+
+
+def _gate_counts(frames: int, steps: int, train_steps: int, forwards: int):
+    """(K1, K2) launches of a ConvLSTM fit with per-step remat plus
+    ``forwards`` forwards: every train step runs each cell step forward, once
+    more in its recompute, and backward once."""
+    per_forward = 2 * frames + 2 * steps
+    return 2 * per_forward * train_steps + per_forward * forwards, per_forward * train_steps
+
+
+def gate_slice(torch, card):
+    """Phase 25: the accuracy gate on the card; returns (K1, K2) launches of
+    (a) and (b) together and the gate's times."""
+    from satflow_tpu_torch.baseline import run_baseline
+    from satflow_tpu_torch.data.datamodule import SatFlowDataModule
+    from satflow_tpu_torch.data.fake import DecayingAdvectionDataset
+    from satflow_tpu_torch.eval import evaluate_model
+    from satflow_tpu_torch.models import create_model
+    from satflow_tpu_torch.ops.flow import farneback_backend
+    from satflow_tpu_torch.ops.fused_convlstm_step import fused_convlstm_step, gate_bwd
+    from satflow_tpu_torch.tools import accuracy_gate
+    from satflow_tpu_torch.train import Trainer
+
+    solve = farneback_backend()
+    print(f"farneback_flow resolves to: {solve} "
+          f"({'OpenCV Farneback' if solve == 'opencv' else 'no cv2 here: Horn-Schunck'})",
+          flush=True)
+
+    # (a) tests/test_accuracy.py's geometry
+    class DecayDM(SatFlowDataModule):
+        def __init__(self):
+            super().__init__(fake_data=True, num_workers=0, shard=False)
+
+        def _dataset(self, split, n):
+            return DecayingAdvectionDataset(length=GATE_LEN,
+                                            seed=accuracy_gate.SPLIT_SEEDS[split], **GATE_KW)
+
+    eval_ds = DecayingAdvectionDataset(length=2, seed=300, **GATE_KW)
+    t0 = time.perf_counter()
+    flows = {m: run_baseline(eval_ds, forecast_steps=GATE_STEPS, flow_method=m, max_batches=2,
+                             device=DEVICE) for m in ("farneback", "horn_schunck")}
+    torch.cuda.synchronize()
+    base_s = time.perf_counter() - t0
+    persist = float(np.mean(flows["farneback"]["baseline_loss"]))
+    model = create_model("encoderdecoderconvlstm", input_channels=1, out_channels=1,
+                         forecast_steps=GATE_STEPS, hidden_dim=16, lr=5e-3,
+                         generator=torch.Generator().manual_seed(0))
+    trainer = Trainer(max_epochs=GATE_EPOCHS, log_every_n_steps=50, device=DEVICE)
+    fused_convlstm_step.launches = gate_bwd.launches = 0
+    t0 = time.perf_counter()
+    trainer.fit(model, DecayDM())
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    curves = evaluate_model(model, eval_ds, max_batches=2, compute_ms_ssim=False)
+    k1, k2 = fused_convlstm_step.launches, gate_bwd.launches
+    frames = GATE_KW["history_minutes"] // 5 + 1
+    want = _gate_counts(frames, GATE_STEPS, GATE_EPOCHS * GATE_LEN,
+                        GATE_EPOCHS * GATE_LEN + 2)
+    if (k1, k2) != want:
+        fail(f"gate (a) launched K1 {k1}, K2 {k2}; expected {want} (every cell step a launch)")
+    mse = curves["mse_mean"]
+    arms = {"persistence": persist, **{f"flow ({m})": res["flow_mean"]
+                                       for m, res in flows.items()}}
+    print(f"accuracy gate (a), tests/test_accuracy.py's geometry (16x16, 1 channel, hidden 16, "
+          f"{GATE_STEPS} lead times, {GATE_EPOCHS} epochs, decay 0.8, float32): trained ConvLSTM "
+          f"mean MSE {mse:.6g} vs " + ", ".join(f"{k} {v:.6g}" for k, v in arms.items())
+          + f"; training {train_s:.2f} s wall, baselines {base_s:.2f} s; launches K1 {k1}, "
+          f"K2 {k2} [{card}]", flush=True)
+    if not (np.isfinite(mse) and all(mse < v for v in arms.values())):
+        fail(f"the port-trained ConvLSTM ({mse:.6g}) does not beat {arms}")
+
+    # (b) tools/accuracy_gate.py's baselines and ConvLSTM arm through the port's tool
+    fused_convlstm_step.launches = gate_bwd.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):  # its JSON line is reprinted below
+        res = accuracy_gate.main(["baselines", "convlstm"], device=DEVICE)
+    gate_s = time.perf_counter() - t0
+    k1b, k2b = fused_convlstm_step.launches, gate_bwd.launches
+    epochs = accuracy_gate.CONVLSTM_EPOCHS
+    batches = 12  # the tool's DecayDM: 12 batches a split
+    want = _gate_counts(accuracy_gate.DS_KW["history_minutes"] // 5 + 1, accuracy_gate.STEPS,
+                        epochs * batches, epochs * batches + 3)
+    if (k1b, k2b) != want:
+        fail(f"gate (b) launched K1 {k1b}, K2 {k2b}; expected {want}")
+    rows = ("persistence", "optical_flow", "optical_flow_hs", "convlstm")
+    for row in rows:
+        if len(res[row]["mse_t"]) != accuracy_gate.STEPS or not np.isfinite(res[row]["mse_t"]).all():
+            fail(f"gate (b) {row}: curve {res[row]['mse_t']}")
+    print(f"accuracy gate (b), tools/accuracy_gate.py's ConvLSTM arm (32x32, 2 channels, hidden "
+          f"32, lr 3e-3, {epochs} epochs, {accuracy_gate.STEPS} lead times, float32) through "
+          f"satflow_tpu_torch.tools.accuracy_gate: {gate_s:.2f} s wall (training "
+          f"{res['convlstm']['train_seconds']:.2f} s); launches K1 {k1b}, K2 {k2b} [{card}]",
+          flush=True)
+    print("  mean MSE (this run | the JAX study's, docs/ACCURACY.md): " + ", ".join(
+        f"{row} {res[row]['mse']:.5f} | {JAX_STUDY[row]:.5f}" for row in rows)
+        + f"; convlstm MS-SSIM {res['convlstm']['ms_ssim']:.4f} | "
+        f"{JAX_STUDY['convlstm_ms_ssim']:.4f}; optical_flow solved by "
+        f"{res['optical_flow']['solve']}", flush=True)
+    for t in range(accuracy_gate.STEPS):
+        print(f"  lead {t}: MSE " + ", ".join(f"{row} {res[row]['mse_t'][t]:.5f}" for row in rows)
+              + f"; convlstm MS-SSIM {res['convlstm']['ms_ssim_t'][t]:.4f}", flush=True)
+    return k1 + k1b, k2 + k2b, {"a_train_s": train_s, "b_s": gate_s}
+
+
 def main() -> None:
     try:
         import torch
@@ -2900,7 +3268,17 @@ def main() -> None:
     padded_widths(torch, card)
     phase_done("phase 22 (hidden widths)")
 
-    # phase 23
+    # phase 23: eval of the full-width ConvLSTM (counts set to 0 inside, just before it)
+    eval_k1, _ = eval_slice(torch, card)
+    phase_done("phase 23 (eval of the full-width ConvLSTM)")
+    # phase 24: metnet_ssim training (counts set to 0 inside, just before fit)
+    ssim_k3, ssim_k4, _ = metnet_ssim_slice(torch, card)
+    phase_done("phase 24 (metnet_ssim training)")
+    # phase 25: the accuracy gate (counts set to 0 inside, just before each arm)
+    gate_k1, gate_k2, _ = gate_slice(torch, card)
+    phase_done("phase 25 (accuracy gate)")
+
+    # phase 26
     def kernel(name, source, replaces, launches, err, t, library=None):
         return {"name": name, "route": "cuda", "source": f"satflow_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -2910,30 +3288,33 @@ def main() -> None:
     k4_t = k4_ms[K4_SHAPES[0]]
     print(json.dumps({"kernels": [
         # K1: bf16 serving + training + the channel-major rollout's encoder +
-        # the yardstick of the tap9 study tool + the hidden 16, 32, 24 and 12 models
+        # the yardstick of the tap9 study tool + the hidden 16, 32, 24 and 12
+        # models + eval + the accuracy gate's training and eval
         kernel("fused_convlstm_step", "fused_convlstm_step.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_step.py:453",
-               serve_k1 + train_k1 + cm_k1 + cm32_k1 + st_k1 + widths_k1 + padded_k1, k1_err,
-               per_call[HIDDEN]),
+               serve_k1 + train_k1 + cm_k1 + cm32_k1 + st_k1 + widths_k1 + padded_k1 + eval_k1
+               + gate_k1, k1_err, per_call[HIDDEN]),
         # the TPU's unpadded sibling of K1: the port's K1 is that kernel (its
         # tensors are unpadded NHWC), so this row repeats K1's numbers
         kernel("fused_convlstm_step (unpadded NHWC)", "fused_convlstm_step.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_step.py:380",
-               serve_k1 + train_k1 + cm_k1 + cm32_k1 + st_k1 + widths_k1 + padded_k1, k1_err,
-               per_call[HIDDEN]),
+               serve_k1 + train_k1 + cm_k1 + cm32_k1 + st_k1 + widths_k1 + padded_k1 + eval_k1
+               + gate_k1, k1_err, per_call[HIDDEN]),
         kernel("fused_convlstm_step_halo", "fused_convlstm_step_halo.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_step.py:266",
                halo_serve + halo_train_k1h, k1h_err, study["K1h"]),
         kernel("gate_bwd", "fused_convlstm_step_bwd.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_step.py:833",
-               train_k2 + halo_train_k2 + widths_k2 + padded_k2, k2_err, per_call_bwd[HIDDEN]),
+               train_k2 + halo_train_k2 + widths_k2 + padded_k2 + gate_k2, k2_err,
+               per_call_bwd[HIDDEN]),
         kernel("fused_lstm_gates", "fused_lstm_gates.cu",
                "satflow_tpu/ops/pallas/fused_lstm.py:75",
-               # MetNet serving + training, the concat/split/hybrid cells
-               serve_k3 + train_k3 + sum(cells_k3.values()) + cells_train_k3, k3_err, k3_ms),
+               # MetNet serving + training (mse and ssim), the concat/split/hybrid cells
+               serve_k3 + train_k3 + ssim_k3 + sum(cells_k3.values()) + cells_train_k3, k3_err,
+               k3_ms),
         kernel("axial_attention", "axial_attention.cu",
                "satflow_tpu/ops/pallas/axial_attention.py:60",
-               serve_k4 + train_k4, k4_err, k4_t, library=k4_t["library"]),
+               serve_k4 + train_k4 + ssim_k4, k4_err, k4_t, library=k4_t["library"]),
         kernel("fused_convlstm_step_int8", "fused_convlstm_int8.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_int8.py:172",
                serve_k5 + int8_32_k5, k5_err, serving[f"K5.{HIDDEN}"]),

@@ -11,9 +11,11 @@ Subpackages
                    logging utilities (the port's own copies of the JAX
                    package's framework-free modules).
 - ``ops``:         CUDA kernels' wrappers, their nvcc build and their plain
-                   PyTorch versions; the autograd Functions that join them.
+                   PyTorch versions; the autograd Functions that join them;
+                   SSIM / MS-SSIM and the optical-flow ops.
 - ``nn``:          layers (the five ConvLSTM cell formulations, the conv
-                   types, axial attention, MetNet's blocks) and losses.
+                   types, axial attention, MetNet's blocks) and the loss
+                   registry (mse, l1, huber, bce, focal, ssim, ms_ssim, nll).
 - ``models``:      the model zoo: ``EncoderDecoderConvLSTM`` and ``LitMetNet``.
 - ``interop``:     the flax -> PyTorch weight bridge and the ``.npz`` format.
 - ``data``:        the datasets, the fake data and the data module, the
@@ -22,7 +24,10 @@ Subpackages
                    loggers and the ``Trainer``.
 - ``experiments``: the experiment entry point behind ``python -m satflow_tpu_torch.run``.
 - ``serve``:       inference sessions, micro-batching and the HTTP server.
-- ``tools``:       the two kernel-study entry points (``exp_tap9``, ``exp_cmajor``).
+- ``eval``:        per-lead-time MSE / SSIM / MS-SSIM curves and ensemble CRPS.
+- ``baseline``:    the optical-flow and persistence baselines.
+- ``tools``:       the two kernel-study entry points (``exp_tap9``, ``exp_cmajor``),
+                   the kernels' timing scripts and the accuracy gate.
 """
 
 from __future__ import annotations

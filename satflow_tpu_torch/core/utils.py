@@ -120,12 +120,26 @@ def seed_everything(seed: Optional[int]) -> torch.Generator:
     return torch.Generator().manual_seed(seed)
 
 
+def count_parameters(params) -> Dict[str, int]:
+    """Total and trainable parameter counts of an ``nn.Module`` (trainable:
+    those that require grad) or of a state dict (every tensor counts as
+    trainable, as every leaf of the JAX ``params`` tree does)."""
+    if isinstance(params, torch.nn.Module):
+        tensors = list(params.parameters())
+        trainable = sum(p.numel() for p in tensors if p.requires_grad)
+    else:
+        tensors = list(params.values())
+        trainable = None
+    total = int(sum(t.numel() for t in tensors))
+    return {"params/total": total,
+            "params/trainable": total if trainable is None else int(trainable)}
+
+
 def log_hyperparameters(config: Dict[str, Any], model: torch.nn.Module, loggers) -> None:
     """Send the chosen hparams and parameter counts to every logger."""
     hparams: Dict[str, Any] = {k: config[k] for k in ("trainer", "model", "datamodule", "seed")
                                if k in config}
-    hparams["params/total"] = sum(p.numel() for p in model.parameters())
-    hparams["params/trainable"] = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    hparams.update(count_parameters(model))
     for lg in loggers or []:
         if hasattr(lg, "log_hyperparams"):
             lg.log_hyperparams(hparams)

@@ -12,7 +12,7 @@
 // any C >= 1.
 //
 // What bounds it on this card: ~10 flops and 5 transcendentals per element
-// against 12 bytes (bf16: 4 gates + c in, h' + c' out), far below the ~295
+// against 14 bytes (bf16: 4 gates + c in, h' + c' out), far below the ~295
 // FLOP/byte at which an H100 stops being bound by its memory. At MetNet's
 // shape (49,152 rows x C=64, bf16) one call moves ~44 MB: ~13 us at 3.35 TB/s.
 //

@@ -1,6 +1,11 @@
 """Model zoo of the PyTorch port; importing it fills the registry."""
 
-from satflow_tpu_torch.models.conv_lstm import ConvLSTMCore, EncoderDecoderConvLSTM
-from satflow_tpu_torch.models.metnet import LitMetNet, MetNetCore
-
-__all__ = ["ConvLSTMCore", "EncoderDecoderConvLSTM", "LitMetNet", "MetNetCore"]
+from satflow_tpu_torch.core.registry import (  # noqa: F401
+    create_model,
+    get_model,
+    list_models,
+    register_model,
+)
+from satflow_tpu_torch.models.base import BaseModel  # noqa: F401
+from satflow_tpu_torch.models.conv_lstm import ConvLSTMCore, EncoderDecoderConvLSTM  # noqa: F401
+from satflow_tpu_torch.models.metnet import LitMetNet, MetNetCore  # noqa: F401

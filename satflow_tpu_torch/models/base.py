@@ -112,10 +112,14 @@ class BaseModel(nn.Module):
     @torch.no_grad()
     def frame_metrics(self, y_hat: torch.Tensor, y: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Per-lead-time loss vector ``frame_loss`` (T,): the configured
-        criterion on each frame (the JAX vmap over the lead-time axis)."""
+        criterion on each frame (the JAX vmap over the lead-time axis), in
+        one pass where the criterion has a ``per_frame`` form (SSIM's)."""
         if y_hat.dim() >= 5 and y_hat.shape[1] == y.shape[1]:
-            per_frame = [self.criterion(y_hat[:, f], y[:, f]) for f in range(y.shape[1])]
-            return {"frame_loss": torch.stack(per_frame)}
+            per_frame = getattr(self.criterion, "per_frame", None)
+            if per_frame is not None:
+                return {"frame_loss": per_frame(y_hat, y)}
+            frames = [self.criterion(y_hat[:, f], y[:, f]) for f in range(y.shape[1])]
+            return {"frame_loss": torch.stack(frames)}
         return {}
 
     def make_optimizer(self) -> torch.optim.Optimizer:

@@ -34,6 +34,7 @@ from torch.nn.parameter import UninitializedParameter
 from satflow_tpu_torch.core.registry import register_model
 from satflow_tpu_torch.models.base import BaseModel
 from satflow_tpu_torch.nn.attention import AxialAttentionBlock
+from satflow_tpu_torch.nn.losses import get_loss
 from satflow_tpu_torch.nn.misc import compute_dtype, conv2d_nhwc, crop_center, space_to_depth
 from satflow_tpu_torch.nn.recurrent import ConvLSTMCell, lecun_normal_
 from satflow_tpu_torch.ops.axial_attention import axial_attention
@@ -260,6 +261,9 @@ class LitMetNet(BaseModel):
     repeated over T and the NWP fields resized to the satellite grid; the
     target is center-cropped and average-pooled to the output geometry.
     Optimizer: Adam under :func:`~satflow_tpu_torch.train.schedules.warmup_cosine`.
+    A ``loss`` name containing ``"ssim"`` builds the SSIM-family criterion
+    channel-aware, nonnegative and with the [-1, 1] -> [0, 1] range
+    conversion (``metnet_ssim.yaml``), and keeps the name.
     ``image_encoder``, ``num_layers`` and ``head`` are accepted and ignored,
     and ``sat_channels`` and ``input_size`` stored and not read, as by the
     JAX model (the input width and geometry come from the data).
@@ -298,6 +302,12 @@ class LitMetNet(BaseModel):
         self.total_steps = total_steps
         self.dtype = dtype
         self._generator = generator
+        loss_name = loss
+        # SSIM-family criteria are built channel-aware, nonnegative and with
+        # the range conversion, as the JAX model builds them
+        if isinstance(loss, str) and "ssim" in loss:
+            loss = get_loss(loss, convert_range_flag=True, nonnegative=True,
+                            channel=output_channels)
         super().__init__(
             forecast_steps=forecast_steps,
             lr=lr,
@@ -307,6 +317,8 @@ class LitMetNet(BaseModel):
             output_channels=output_channels,
             pretrained=pretrained,
         )
+        if isinstance(loss_name, str):
+            self.loss_name = loss_name  # the registry name, for the hparams
 
     def build_module(self) -> nn.Module:
         return MetNetCore(

@@ -1,1 +1,2 @@
-"""Kernel-study entry points: ``exp_tap9`` (T1, T2) and ``exp_cmajor`` (T3)."""
+"""Entry points: the kernel studies (``exp_tap9``, ``exp_cmajor``), the
+kernels' timing scripts (``time_*``) and the accuracy gate (``accuracy_gate``)."""

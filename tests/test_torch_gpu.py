@@ -1092,3 +1092,98 @@ def test_study_tool_mains_run_on_card(tool, capsys):
         assert set(out) == {"k6a", "t3"}
     assert all(v > 0 for v in out.values())
     assert "ms" in capsys.readouterr().out
+
+
+# -- eval, losses and baselines on the card -------------------------------------
+# SSIM / MS-SSIM and the flow ops against the same calls on the CPU: float32,
+# the same f32 arithmetic by other library kernels: atol 1e-5 (x max|grad|
+# for gradients; rtol 1e-5 for the baseline's MSE curves). evaluate_model's
+# curves through K1 (float32) against the plain step on the CPU: MSE rtol
+# 1e-4, SSIM and MS-SSIM atol 1e-5.
+
+
+def _image_pair(shape, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.rand(*shape, generator=g)
+    return x, (x + 0.2 * torch.randn(*shape, generator=g)).clamp(0, 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fn", ["ssim", "ms_ssim"])
+def test_ssim_on_card_matches_cpu_with_tf32_allowed(fn):
+    """With cuDNN's TF32 allowed process-wide, the blur still sums in full
+    float32, forward and backward."""
+    from satflow_tpu_torch.ops import ssim as S
+
+    _card()
+    x, y = _image_pair((2, 3, 64, 64, 4))
+    want_x = x.clone().requires_grad_()
+    want = getattr(S, fn)(want_x, y)
+    want.backward()
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got_x = x.cuda().requires_grad_()
+        got = getattr(S, fn)(got_x, y.cuda())
+        got.backward()
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    assert abs(got.item() - want.item()) <= 1e-5
+    scale = want_x.grad.abs().max().item()
+    assert (got_x.grad.cpu() - want_x.grad).abs().max().item() <= 1e-5 * scale
+
+
+@pytest.mark.gpu
+def test_flow_ops_on_card_match_cpu():
+    from satflow_tpu_torch.ops import flow as FL
+
+    _card()
+    prev, _ = _image_pair((24, 20), seed=1)
+    curr = torch.roll(prev, 1, dims=1)
+    want = FL.horn_schunck_flow(prev, curr)
+    got = FL.horn_schunck_flow(prev.cuda(), curr.cuda())
+    assert got.device.type == "cuda"
+    assert (got.cpu() - want).abs().max().item() <= 1e-5
+    frames = FL.rollout_warp(curr.cuda(), got, 4).cpu()
+    assert (frames - FL.rollout_warp(curr, want, 4)).abs().max().item() <= 1e-5
+
+
+@pytest.mark.gpu
+def test_run_baseline_on_card_matches_cpu():
+    from satflow_tpu_torch.baseline import run_baseline
+    from satflow_tpu_torch.data import AdvectionDataset
+
+    _card()
+    ds = AdvectionDataset(batch_size=2, width=16, height=16, number_sat_channels=2,
+                          history_minutes=15, forecast_minutes=20, length=2)
+    for method in ("farneback", "horn_schunck"):
+        want = run_baseline(ds, forecast_steps=4, flow_method=method, device="cpu")
+        got = run_baseline(ds, forecast_steps=4, flow_method=method, device="cuda")
+        for key in ("flow_loss", "baseline_loss"):
+            torch.testing.assert_close(torch.from_numpy(got[key]), torch.from_numpy(want[key]),
+                                       rtol=1e-5, atol=0)
+
+
+@pytest.mark.gpu
+def test_evaluate_model_on_card_through_k1():
+    """Every cell step of the scored rollouts a K1 launch; the curves against
+    the same model's on the CPU."""
+    from satflow_tpu_torch.data import AdvectionDataset
+    from satflow_tpu_torch.eval import evaluate_model
+    from satflow_tpu_torch.models import create_model
+
+    _card()
+    model = create_model("encoderdecoderconvlstm", input_channels=2, out_channels=2,
+                         forecast_steps=3, hidden_dim=8,
+                         generator=torch.Generator().manual_seed(0))
+    ds = AdvectionDataset(batch_size=2, width=16, height=16, number_sat_channels=2,
+                          history_minutes=15, forecast_minutes=15, length=2)
+    want = evaluate_model(model, ds)
+    model.cuda()
+    before = P.fused_convlstm_step.launches
+    got = evaluate_model(model, ds)
+    assert P.fused_convlstm_step.launches - before == 2 * (2 * 4 + 2 * 3)
+    torch.testing.assert_close(torch.from_numpy(got["mse"]), torch.from_numpy(want["mse"]),
+                               rtol=1e-4, atol=0)
+    for key in ("ssim", "ms_ssim"):
+        torch.testing.assert_close(torch.from_numpy(got[key]), torch.from_numpy(want[key]),
+                                   rtol=0, atol=1e-5)

@@ -141,8 +141,13 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import satflow_tpu_torch, satflow_tpu_torch.models, satflow_tpu_torch.serve.server\n"
         "import satflow_tpu_torch.interop.jax_weights, satflow_tpu_torch.ops._build\n"
+        "import satflow_tpu_torch.eval, satflow_tpu_torch.baseline, satflow_tpu_torch.ops.ssim\n"
+        "import satflow_tpu_torch.ops.flow, satflow_tpu_torch.tools.accuracy_gate\n"
+        "import satflow_tpu_torch.core, satflow_tpu_torch.nn, satflow_tpu_torch.data\n"
+        "import satflow_tpu_torch.experiments\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "assert not any(m.startswith('satflow_tpu.') or m == 'satflow_tpu' for m in sys.modules)\n"
+        "assert not {'flax', 'optax'} & set(sys.modules)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           timeout=120)
