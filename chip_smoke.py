@@ -169,7 +169,33 @@ Phases, in order; any failure exits non-zero before the last line:
    (b) ``tools/accuracy_gate.py``'s baselines and ConvLSTM arm through
    ``satflow_tpu_torch.tools.accuracy_gate`` (hidden 32, 30 epochs), its
    per-lead curves printed beside the JAX study's means;
-26. a JSON line of the kernels with each one's bound on this card, and last
+26. the ConvLSTM's lifecycle at full width (phase 8's model and data):
+   ``experiments.train.train`` on the repo's default config
+   (``callbacks=default``, ``trainer.device=cuda``, bf16, ``remat_chunk=6``)
+   trains 4 steps with one validation and one test batch and writes
+   ``checkpoints/best``, ``checkpoints/last`` and ``artifacts/final``; a second
+   Trainer resumes from ``last`` for 2 more steps, its restored state equal
+   to the saved one bit for bit, K1 and K2 launches counted per step, its
+   weights equal bit for bit to those of an uninterrupted 6-step run from
+   the same weights (cuDNN deterministic in this phase);
+   ``create_model("local:...")`` behind ``NowcastServer`` with no weights
+   answers 5 concurrent requests (62 K1 launches per forward), one reply
+   bit-equal to a session on the trainer's in-memory weights;
+   ``eval.evaluate.main --checkpoint`` scores one batch on the card; the
+   checkpoint's bytes and its save and load times;
+27. the full-width MetNet (metnet.yaml, ``warmup_cosine``): 3 steps, a
+   checkpoint, a resume and 2 more, the restored state (BatchNorm running
+   statistics included) equal to the saved one, the learning rate of each
+   resumed step equal to the uninterrupted run's, 7 K3 and 2 K4 launches a
+   step; then one fused ConvLSTM train step (phase 8's) under
+   ``Trainer(profiler="pytorch")``, whose top device kernels ``op_breakdown``
+   prints with the aten op that launched each;
+28. at hidden 32 on 64x64 images: SIGTERM at step 2 (a callback sends it)
+   leaves ``last`` at that step and the run resumes from it;
+   ``scale_batch_size(max_trials=4)`` picks 16 and sets it on the shipped
+   datamodule, whose train loader then gives batches of 16;
+   ``tune`` returns a finite learning rate;
+29. a JSON line of the kernels with each one's bound on this card, and last
    a JSON line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.
@@ -3131,6 +3157,428 @@ def gate_slice(torch, card):
     return k1 + k1b, k2 + k2b, {"a_train_s": train_s, "b_s": gate_s}
 
 
+# Phases 26-28: the lifecycle of a trained model (checkpoints, resume, the
+# local: source, the profiler, preemption and the probes). Phase 26 runs the
+# repo's default training config at full width: the ConvLSTM of phase 8
+# (convlstm.yaml, bf16 on f32 weights, remat_chunk=6) on fake b8 256x256 data.
+LIFE_STEPS, LIFE_RESUMED = 4, 2  # steps before the checkpoint, and after it
+# The resumed run against the uninterrupted one from the same weights, on the
+# same batches: cuDNN runs deterministic algorithms in this phase, so the
+# weights must agree bit for bit.
+MN_LIFE_STEPS, MN_LIFE_RESUMED = 3, 2
+SMALL_LIFE_HIDDEN, SMALL_LIFE_HW = 32, (64, 64)
+PROFILE_TOP = 14
+
+
+class StateAtStart:
+    """Trainer callback: a copy of the train state as fit starts (after a
+    resume has filled it)."""
+
+    def __init__(self):
+        self.state = None
+
+    def on_train_start(self, engine) -> None:
+        self.state = _clone_tree(engine.state.state_dict())
+
+    def on_train_batch_end(self, engine, metrics, step) -> None: ...
+
+    def on_validation_end(self, engine, metrics, epoch) -> None: ...
+
+    def on_preemption(self, engine) -> None: ...
+
+    def on_train_end(self, engine) -> None: ...
+
+
+class LrPerStep(StateAtStart):
+    """Trainer callback: the learning rate each step's update ran at."""
+
+    def __init__(self):
+        super().__init__()
+        self.lrs = []
+
+    def on_train_batch_end(self, engine, metrics, step) -> None:
+        self.lrs.append(engine.state.optimizer.param_groups[0]["lr"])
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_clone_tree(v) for v in tree)
+    return tree.detach().clone() if hasattr(tree, "detach") else tree
+
+
+def _same_tree(torch, got, want, where: str) -> None:
+    """Fail unless two state trees are equal bit for bit."""
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            fail(f"{where}: keys differ: {sorted(set(got) ^ set(want))[:5]}")
+        for k in want:
+            _same_tree(torch, got[k], want[k], f"{where}.{k}")
+    elif isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            fail(f"{where}: {len(got)} entries, saved {len(want)}")
+        for i, (g, w) in enumerate(zip(got, want)):
+            _same_tree(torch, g, w, f"{where}[{i}]")
+    elif isinstance(want, torch.Tensor):
+        if not torch.equal(got.to(want.device), want):
+            fail(f"{where}: differs from the saved tensor")
+    elif got != want:
+        fail(f"{where}: {got!r}, saved {want!r}")
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path)
+               for f in files)
+
+
+def _hold_resumed(torch, resumed, straight, what: str, card) -> None:
+    """Fail unless the resumed run's weights equal the uninterrupted run's
+    bit for bit."""
+    want = dict(straight.model.named_parameters())
+    for n, p in resumed.model.named_parameters():
+        if not torch.equal(p, want[n]):
+            worst = (p.detach() - want[n].detach()).abs().max().item()
+            fail(f"{what}: {n} differs from the uninterrupted run's by up to {worst:.3g}")
+    print(f"{what}: weights equal to the uninterrupted run's bit for bit [{card}]", flush=True)
+
+
+def lifecycle_slice(torch, card):
+    """Phase 26; returns (K1 launches, K2 launches)."""
+    import tempfile
+
+    from satflow_tpu_torch.core.config import compose, default_config_dir
+    from satflow_tpu_torch.core.utils import extras, seed_everything
+    from satflow_tpu_torch.eval import evaluate
+    from satflow_tpu_torch.experiments.train import instantiate, train
+    from satflow_tpu_torch.models import create_model
+    from satflow_tpu_torch.ops.fused_convlstm_step import fused_convlstm_step, gate_bwd
+    from satflow_tpu_torch.serve import InferenceSession
+    from satflow_tpu_torch.train import Trainer
+    from satflow_tpu_torch.train.callbacks import ModelCheckpoint
+    from satflow_tpu_torch.train.checkpoint import (
+        load_model_from_checkpoint,
+        restore_checkpoint,
+        save_checkpoint,
+    )
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_lifecycle_")
+    config = extras(compose(default_config_dir(), "config.yaml", [
+        "callbacks=default", f"trainer.device={DEVICE}", "trainer.precision=bf16",
+        f"trainer.max_steps={LIFE_STEPS}", "trainer.max_epochs=1", "trainer.log_every_n_steps=1",
+        f"model.remat_chunk={REMAT_CHUNK}", f"datamodule.n_train_data={LIFE_STEPS}",
+        "datamodule.n_val_data=1", f"datamodule.history_minutes={5 * (T - 1)}",
+        f"datamodule.fake_kwargs.batch_size={B}", f"datamodule.fake_kwargs.width={W}",
+        f"datamodule.fake_kwargs.height={H}", "datamodule.num_workers=4", "work_dir=null",
+        "print_config=false"]))
+    m = config["model"]
+    if (m["hidden_dim"], m["input_channels"], m["out_channels"], m["forecast_steps"]) != (
+            HIDDEN, CIN, COUT, STEPS):
+        fail(f"convlstm.yaml is no longer the full-width model: {m}")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        # 1. the normal entry point on the default config (callbacks=default)
+        fused_convlstm_step.launches = gate_bwd.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.chdir(root):
+            val_loss = train(config)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1, k2 = fused_convlstm_step.launches, gate_bwd.launches
+        # LIFE_STEPS train steps, then one validation and one test forward
+        want = (LIFE_STEPS * K1_PER_TRAIN_STEP + 2 * LAUNCHES_PER_FORWARD,
+                LIFE_STEPS * K2_PER_TRAIN_STEP)
+        if (k1, k2) != want:
+            fail(f"the default config's run launched K1 {k1} and K2 {k2} times, expected {want}")
+        for sub in ("checkpoints/best", "checkpoints/last", "artifacts/final"):
+            if not os.path.exists(os.path.join(root, sub, "state.pt")):
+                fail(f"the default config's run wrote no {sub}")
+        last = os.path.join(root, "checkpoints", "last")
+        saved = restore_checkpoint(last, map_location=DEVICE)
+        if saved["step"] != LIFE_STEPS or val_loss is None or not np.isfinite(val_loss):
+            fail(f"checkpoints/last holds step {saved['step']}, val/loss {val_loss}")
+        print(f"python -m satflow_tpu_torch.run's train() on the default config (callbacks=default, "
+              f"convlstm.yaml: hidden {HIDDEN}, {CIN} channels, {T} in / {STEPS} out; bf16, "
+              f"remat_chunk {REMAT_CHUNK}, fake b{B} {H}x{W}): {LIFE_STEPS} steps, a validation "
+              f"and a test batch in {wall:.2f} s wall with data generation; val/loss "
+              f"{val_loss:.6f}; K1 {k1}, K2 {k2} launches; wrote checkpoints/best, "
+              f"checkpoints/last (step {saved['step']}) and artifacts/final [{card}]", flush=True)
+
+        # 2. resume from `last` for LIFE_RESUMED more steps, against the run
+        # that goes straight through from the same weights (the seed's)
+        def build():
+            return instantiate(config["datamodule"]), instantiate(config["model"])
+
+        trainer_kw = dict(precision="bf16", device=DEVICE, log_every_n_steps=1)
+        dm, model = build()
+        start, counter = StateAtStart(), LaunchesPerStep(fused_convlstm_step, gate_bwd)
+        resumed = Trainer(max_steps=LIFE_STEPS + LIFE_RESUMED, resume_from_checkpoint=last,
+                          callbacks=[start, counter,
+                                     ModelCheckpoint(dirpath=os.path.join(root, "resumed"))],
+                          **trainer_kw)
+        fused_convlstm_step.launches = gate_bwd.launches = 0
+        resumed.fit(model, dm)
+        r1, r2 = fused_convlstm_step.launches, gate_bwd.launches
+        _same_tree(torch, start.state, saved, "the resumed state")
+        want_step = (K1_PER_TRAIN_STEP, K2_PER_TRAIN_STEP)
+        if resumed.global_step != LIFE_STEPS + LIFE_RESUMED or counter.per_step != (
+                [want_step] * LIFE_RESUMED):
+            fail(f"resume ran to step {resumed.global_step} with (K1, K2) launches per step "
+                 f"{counter.per_step}, expected {want_step} x {LIFE_RESUMED}")
+        if (r1, r2) != (LIFE_RESUMED * K1_PER_TRAIN_STEP + LAUNCHES_PER_FORWARD,
+                        LIFE_RESUMED * K2_PER_TRAIN_STEP):
+            fail(f"the resumed fit launched K1 {r1} and K2 {r2} times")
+        seed_everything(config["seed"])
+        dm0, model0 = build()
+        # no validation: nothing reads it, and its batch costs a host generation
+        straight = Trainer(max_epochs=2, max_steps=LIFE_STEPS + LIFE_RESUMED,
+                           check_val_every_n_epoch=3, **trainer_kw)
+        fused_convlstm_step.launches = gate_bwd.launches = 0
+        straight.fit(model0, dm0)
+        s1, s2 = fused_convlstm_step.launches, gate_bwd.launches
+        print(f"resumed from checkpoints/last (step {LIFE_STEPS}): the restored state equals the "
+              f"saved one bit for bit (weights, Adam's moments, step); {LIFE_RESUMED} more steps "
+              f"at K1 {want_step[0]} and K2 {want_step[1]} launches each (remat schedule), fit "
+              f"total K1 {r1}, K2 {r2} with one validation forward; the uninterrupted "
+              f"{LIFE_STEPS + LIFE_RESUMED}-step run K1 {s1}, K2 {s2} [{card}]", flush=True)
+        _hold_resumed(torch, resumed, straight, "resumed ConvLSTM (bf16, full width)", card)
+
+        # 3. serve `local:` behind NowcastServer with no weights argument
+        best = os.path.join(root, "resumed", "best")
+        served = InferenceSession(create_model(f"local:{best}"), max_batch=B,
+                                  dtype=torch.bfloat16, device=DEVICE)
+        requests = convlstm_requests(seed=5)
+        replies, swall, forwards, (served_k1,) = drive_server(served, requests,
+                                                              [fused_convlstm_step])
+        check_frames(requests, replies, "local: serving")
+        if forwards < 1 or served_k1 != LAUNCHES_PER_FORWARD * forwards:
+            fail(f"local: serving launched K1 {served_k1} times in {forwards} forwards")
+        memory = InferenceSession(resumed.model, max_batch=B,
+                                  state_dict=resumed.model.module.state_dict(),
+                                  dtype=torch.bfloat16, device=DEVICE)
+        fused_convlstm_step.launches = 0
+        in_memory = memory.predict(requests[0])
+        served_k1 += fused_convlstm_step.launches
+        if not np.array_equal(in_memory, replies[0][1]):
+            fail(f"local: reply differs from the in-memory weights' reply: max|diff| "
+                 f"{np.abs(in_memory - replies[0][1]).max():.3g}")
+        print(f"local:{os.path.relpath(best, root)} served {len(requests)} requests (6 samples) "
+              f"in {forwards} forward(s) of b{B}, {swall:.3f} s wall, K1 launches "
+              f"{LAUNCHES_PER_FORWARD} x {forwards}; one reply equal bit for bit to a session on "
+              f"the trainer's in-memory weights [{card}]", flush=True)
+
+        # 4. score the default run's best checkpoint with the eval CLI on the card
+        fused_convlstm_step.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            evaluate.main(["--checkpoint", os.path.join(root, "checkpoints", "best"),
+                           "--batches", "1", "--size", str(H), "--device", DEVICE,
+                           "--history-minutes", str(5 * (T - 1)),
+                           "--output", os.path.join(root, "eval")])
+        ewall = time.perf_counter() - t0
+        eval_k1 = fused_convlstm_step.launches
+        summary = json.loads(out.getvalue().strip().splitlines()[-1])
+        if eval_k1 != LAUNCHES_PER_FORWARD or not all(np.isfinite(list(summary.values()))):
+            fail(f"eval --checkpoint: K1 {eval_k1} launches, summary {summary}")
+        print(f"eval.evaluate.main --checkpoint checkpoints/best (float32, one b4 advection batch "
+              f"of {H}x{W}x{CIN}): {summary} in {ewall:.2f} s wall, K1 launches {eval_k1} "
+              f"[{card}]", flush=True)
+
+        # 5. what a checkpoint costs
+        torch.cuda.synchronize()
+        timed = os.path.join(root, "timed")
+        t0 = time.perf_counter()
+        save_checkpoint(timed, resumed.state, resumed.model, {"val/loss": float(val_loss)})
+        save_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        restore_checkpoint(timed, map_location=DEVICE)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        load_model_from_checkpoint(timed)
+        rebuild_ms = (time.perf_counter() - t0) * 1e3
+        print(f"checkpoint of the full-width ConvLSTM train state: {_dir_bytes(timed)} bytes "
+              f"(state.pt {os.path.getsize(os.path.join(timed, 'state.pt'))}, weights, Adam's "
+              f"two moments, step); save {save_ms:.1f} ms from the card, load onto the card "
+              f"{load_ms:.1f} ms, local: rebuild on the host {rebuild_ms:.1f} ms [{card}]",
+              flush=True)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return k1 + r1 + s1 + served_k1 + eval_k1, k2 + r2 + s2
+
+
+def metnet_resume_and_profile(torch, card):
+    """Phase 27; returns (K1, K2, K3, K4 launches)."""
+    import tempfile
+
+    from satflow_tpu_torch.data import SatFlowDataModule
+    from satflow_tpu_torch.interop.jax_weights import params_from_flax
+    from satflow_tpu_torch.models.conv_lstm import EncoderDecoderConvLSTM
+    from satflow_tpu_torch.ops.axial_attention import axial_attention
+    from satflow_tpu_torch.ops.fused_convlstm_step import fused_convlstm_step, gate_bwd
+    from satflow_tpu_torch.ops.fused_lstm import fused_lstm_gates
+    from satflow_tpu_torch.train import Trainer
+    from satflow_tpu_torch.train.callbacks import ModelCheckpoint
+    from satflow_tpu_torch.train.checkpoint import restore_checkpoint
+    from satflow_tpu_torch.train.profiling import op_breakdown
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_metnet_")
+    variables = metnet_flax_variables(4 * MN_TRAIN_CIN + MN_F, seed=1)
+
+    def run(trainer):
+        model = _metnet(torch, warmup_steps=1000, total_steps=100_000)
+        model.module.load_state_dict(model.state_dict_from_flax(variables))
+        dm = SatFlowDataModule(fake_data=True, num_workers=4, n_train_data=MN_LIFE_STEPS,
+                               n_val_data=1, history_minutes=5 * (T - 1),
+                               forecast_minutes=5 * MN_F,
+                               fake_kwargs=dict(batch_size=B, width=W, height=H))
+        trainer.fit(model, dm)
+        return trainer
+
+    kw = dict(precision="bf16", device=DEVICE, log_every_n_steps=1)
+    fused_lstm_gates.launches = axial_attention.launches = 0
+    run(Trainer(max_steps=MN_LIFE_STEPS, max_epochs=1,
+                callbacks=[ModelCheckpoint(dirpath=os.path.join(root, "ck"))], **kw))
+    last = os.path.join(root, "ck", "last")
+    saved = restore_checkpoint(last, map_location=DEVICE)
+    lrs, counter = LrPerStep(), LaunchesPerStep(fused_lstm_gates, axial_attention)
+    total = MN_LIFE_STEPS + MN_LIFE_RESUMED
+    # the resumed and the uninterrupted run validate nothing (nothing reads it)
+    resumed = run(Trainer(max_steps=total, resume_from_checkpoint=last, callbacks=[lrs, counter],
+                          check_val_every_n_epoch=2, **kw))
+    _same_tree(torch, lrs.state, saved, "the resumed MetNet state")
+    straight_lrs = LrPerStep()
+    run(Trainer(max_epochs=2, max_steps=total, callbacks=[straight_lrs],
+                check_val_every_n_epoch=3, **kw))
+    k3, k4 = fused_lstm_gates.launches, axial_attention.launches
+    want_step = (MN_K3_PER_FORWARD, MN_K4_PER_FORWARD)
+    schedule = [resumed.model.lr_schedule(i) for i in range(MN_LIFE_STEPS, total)]
+    if lrs.lrs != straight_lrs.lrs[MN_LIFE_STEPS:] or lrs.lrs != schedule:
+        fail(f"resumed MetNet learning rates {lrs.lrs}, uninterrupted "
+             f"{straight_lrs.lrs[MN_LIFE_STEPS:]}, schedule {schedule}")
+    if counter.per_step != [want_step] * MN_LIFE_RESUMED:
+        fail(f"resumed MetNet (K3, K4) launches per step {counter.per_step}, expected {want_step}")
+    bn = [k for k in saved["model"] if ".bn" in k and k.endswith((".mean", ".var"))]
+    print(f"MetNet (metnet.yaml, bf16, b{B} {H}x{W}x{MN_TRAIN_CIN}, warmup_cosine): "
+          f"{MN_LIFE_STEPS} steps, checkpoint, resume, {MN_LIFE_RESUMED} more: the restored "
+          f"state equals the saved one bit for bit ({len(bn)} BatchNorm running statistics "
+          f"among it); learning rates of the resumed steps "
+          + ", ".join(f"{v:.6g}" for v in lrs.lrs) + " = the uninterrupted run's = the "
+          f"schedule at steps {MN_LIFE_STEPS}-{total - 1}; launches per resumed step K3 "
+          f"{want_step[0]}, K4 {want_step[1]}; phase total K3 {k3}, K4 {k4} [{card}]", flush=True)
+
+    # one fused ConvLSTM train step (phase 8's) under Trainer(profiler=...)
+    model = EncoderDecoderConvLSTM(hidden_dim=HIDDEN, input_channels=CIN, out_channels=COUT,
+                                   forecast_steps=STEPS, remat=True, remat_chunk=REMAT_CHUNK)
+    model.module.load_state_dict(params_from_flax(flax_params(0, HIDDEN)))
+    dm = SatFlowDataModule(fake_data=True, num_workers=0, n_train_data=1, n_val_data=1,
+                           history_minutes=5 * (T - 1), forecast_minutes=5 * STEPS,
+                           fake_kwargs=dict(batch_size=B, width=W, height=H))
+    trainer = Trainer(max_steps=1, check_val_every_n_epoch=2, profiler="pytorch",
+                      profile_dir=os.path.join(root, "profile"), **kw)
+    fused_convlstm_step.launches = gate_bwd.launches = 0
+    trainer.fit(model, dm)
+    k1, k2 = fused_convlstm_step.launches, gate_bwd.launches
+    if (k1, k2) != (K1_PER_TRAIN_STEP, K2_PER_TRAIN_STEP):
+        fail(f"the profiled train step launched K1 {k1}, K2 {k2} times")
+    rows = op_breakdown(trainer.profile_path, top_k=10_000)
+    if not rows or rows[0]["device"] != "cuda":
+        fail("the profiler saw no device kernel in the fused train step")
+    device_ms = sum(r["us"] for r in rows) / 1e3
+    print(f"fused ConvLSTM train step under Trainer(profiler='pytorch') (bf16, b{B} {H}x{W}, "
+          f"{T} in / {STEPS} out, remat_chunk {REMAT_CHUNK}; K1 {k1}, K2 {k2} launches): device "
+          f"time {device_ms:.2f} ms over {sum(r['calls'] for r in rows)} kernels; the top "
+          f"{PROFILE_TOP} kernels by device time, with the aten op that launched each "
+          f"[{card}]:", flush=True)
+    for r in rows[:PROFILE_TOP]:
+        print(f"  {r['us'] / 1e3:9.2f} ms {100 * r['share']:5.1f} % {r['calls']:5d} x  "
+              f"{r['name'][:72]}  <- {r['op']} <- {r['caller']}", flush=True)
+    by_op = {}
+    for r in rows:
+        if "elementwise" in r["name"] or "reduce" in r["name"] or "cat" in r["name"].lower():
+            key = f"{r['op']} <- {r['caller']}"
+            by_op[key] = by_op.get(key, 0.0) + r["us"] / 1e3
+    print("glue kernels (elementwise, reduce, cat) by the aten op that launched them <- the op "
+          "that called it: " + "; ".join(f"{op} {ms:.2f} ms" for op, ms in
+                                         sorted(by_op.items(), key=lambda e: -e[1])[:12])
+          + f" [{card}]", flush=True)
+    return k1, k2, k3, k4
+
+
+def preemption_and_tuning(torch, card):
+    """Phase 28; returns (K1 launches, K2 launches)."""
+    import signal
+    import tempfile
+
+    from satflow_tpu_torch.data import SatFlowDataModule
+    from satflow_tpu_torch.models import create_model
+    from satflow_tpu_torch.ops.fused_convlstm_step import fused_convlstm_step, gate_bwd
+    from satflow_tpu_torch.train import Trainer
+    from satflow_tpu_torch.train.callbacks import ModelCheckpoint
+    from satflow_tpu_torch.train.checkpoint import restore_checkpoint
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_preempt_")
+    hh, ww = SMALL_LIFE_HW
+
+    def model():
+        return create_model("encoderdecoderconvlstm", hidden_dim=SMALL_LIFE_HIDDEN,
+                            input_channels=CIN, out_channels=COUT, forecast_steps=STEPS,
+                            remat_chunk=REMAT_CHUNK, generator=torch.Generator().manual_seed(0))
+
+    def dm():
+        """Fake b4 data; its ``batch_size`` is what ``scale_batch_size`` sets."""
+        return SatFlowDataModule(fake_data=True, num_workers=0, n_train_data=4, n_val_data=1,
+                                 history_minutes=5 * (T - 1), forecast_minutes=5 * STEPS,
+                                 fake_kwargs=dict(batch_size=4, width=ww, height=hh))
+
+    class PreemptAtStep2(StateAtStart):
+        def on_train_batch_end(self, engine, metrics, step) -> None:
+            if step == 2:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+    kw = dict(precision="bf16", device=DEVICE, log_every_n_steps=1)
+    before = signal.getsignal(signal.SIGTERM)
+    fused_convlstm_step.launches = gate_bwd.launches = 0
+    preempted = Trainer(max_epochs=50, callbacks=[PreemptAtStep2(), ModelCheckpoint(
+        dirpath=os.path.join(root, "ck"))], **kw)
+    preempted.fit(model(), dm())
+    last = os.path.join(root, "ck", "last")
+    step = restore_checkpoint(last)["step"]
+    if not preempted.preempted or preempted.global_step != 2 or step != 2:
+        fail(f"SIGTERM at step 2: preempted {preempted.preempted}, stopped at step "
+             f"{preempted.global_step}, last holds step {step}")
+    if signal.getsignal(signal.SIGTERM) != before:
+        fail("the Trainer left its SIGTERM handler installed")
+    resumed = Trainer(max_steps=3, resume_from_checkpoint=last, **kw)
+    resumed.fit(model(), dm())
+    if resumed.global_step != 3 or resumed.state.step != 3:
+        fail(f"the preempted run resumed to step {resumed.global_step}, not 3")
+    print(f"SIGTERM at step 2 (hidden {SMALL_LIFE_HIDDEN}, b4 {hh}x{ww}, bf16): the step "
+          f"finished, last holds step {step}, fit stopped, the SIGTERM handler was restored; "
+          f"resumed from last to step {resumed.global_step} [{card}]", flush=True)
+
+    data = dm()
+    t0 = time.perf_counter()
+    size = Trainer(**kw).scale_batch_size(model(), data, init_val=2, max_trials=4)
+    scale_s = time.perf_counter() - t0
+    loaded = next(iter(data.train_dataloader()))[0]["sat_data"].shape[0]
+    if size != 16 or data.batch_size != 16 or loaded != 16:
+        fail(f"scale_batch_size picked {size} (datamodule {data.batch_size}, its loader "
+             f"{loaded}), expected 16: 2, 4, 8 and 16 fit in 80 GB at {hh}x{ww}")
+    tuned = model()
+    t0 = time.perf_counter()
+    lr = Trainer(**kw).tune(tuned, dm(), num_steps=12)
+    tune_s = time.perf_counter() - t0
+    if not (np.isfinite(lr) and lr > 0 and tuned.lr == lr):
+        fail(f"tune returned {lr}")
+    print(f"scale_batch_size(max_trials=4): {size} (probes 2, 4, 8, 16, the real step with "
+          f"Adam), set on the datamodule, whose train loader then gives b{loaded}, {scale_s:.2f} s; tune: suggested lr {lr:.3g} after a "
+          f"12-step range test, {tune_s:.2f} s; phase K1 {fused_convlstm_step.launches}, K2 "
+          f"{gate_bwd.launches} launches [{card}]", flush=True)
+    return fused_convlstm_step.launches, gate_bwd.launches
+
+
 def main() -> None:
     try:
         import torch
@@ -3277,8 +3725,17 @@ def main() -> None:
     # phase 25: the accuracy gate (counts set to 0 inside, just before each arm)
     gate_k1, gate_k2, _ = gate_slice(torch, card)
     phase_done("phase 25 (accuracy gate)")
+    # phases 26-28 (counts set to 0 inside, just before each path is driven)
+    life_k1, life_k2 = lifecycle_slice(torch, card)
+    phase_done("phase 26 (ConvLSTM lifecycle: default config, resume, local: serving, eval)")
+    prof_k1, prof_k2, life_k3, life_k4 = metnet_resume_and_profile(torch, card)
+    phase_done("phase 27 (MetNet resume, the profiler)")
+    pre_k1, pre_k2 = preemption_and_tuning(torch, card)
+    phase_done("phase 28 (preemption, scale_batch_size, tune)")
+    life_k1 += prof_k1 + pre_k1
+    life_k2 += prof_k2 + pre_k2
 
-    # phase 26
+    # phase 29
     def kernel(name, source, replaces, launches, err, t, library=None):
         return {"name": name, "route": "cuda", "source": f"satflow_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -3289,32 +3746,35 @@ def main() -> None:
     print(json.dumps({"kernels": [
         # K1: bf16 serving + training + the channel-major rollout's encoder +
         # the yardstick of the tap9 study tool + the hidden 16, 32, 24 and 12
-        # models + eval + the accuracy gate's training and eval
+        # models + eval + the accuracy gate's training and eval + the
+        # lifecycle phases (train, resume, local: serving, eval, profile,
+        # preemption, probes)
         kernel("fused_convlstm_step", "fused_convlstm_step.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_step.py:453",
                serve_k1 + train_k1 + cm_k1 + cm32_k1 + st_k1 + widths_k1 + padded_k1 + eval_k1
-               + gate_k1, k1_err, per_call[HIDDEN]),
+               + gate_k1 + life_k1, k1_err, per_call[HIDDEN]),
         # the TPU's unpadded sibling of K1: the port's K1 is that kernel (its
         # tensors are unpadded NHWC), so this row repeats K1's numbers
         kernel("fused_convlstm_step (unpadded NHWC)", "fused_convlstm_step.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_step.py:380",
                serve_k1 + train_k1 + cm_k1 + cm32_k1 + st_k1 + widths_k1 + padded_k1 + eval_k1
-               + gate_k1, k1_err, per_call[HIDDEN]),
+               + gate_k1 + life_k1, k1_err, per_call[HIDDEN]),
         kernel("fused_convlstm_step_halo", "fused_convlstm_step_halo.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_step.py:266",
                halo_serve + halo_train_k1h, k1h_err, study["K1h"]),
         kernel("gate_bwd", "fused_convlstm_step_bwd.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_step.py:833",
-               train_k2 + halo_train_k2 + widths_k2 + padded_k2 + gate_k2, k2_err,
+               train_k2 + halo_train_k2 + widths_k2 + padded_k2 + gate_k2 + life_k2, k2_err,
                per_call_bwd[HIDDEN]),
         kernel("fused_lstm_gates", "fused_lstm_gates.cu",
                "satflow_tpu/ops/pallas/fused_lstm.py:75",
-               # MetNet serving + training (mse and ssim), the concat/split/hybrid cells
-               serve_k3 + train_k3 + ssim_k3 + sum(cells_k3.values()) + cells_train_k3, k3_err,
-               k3_ms),
+               # MetNet serving + training (mse and ssim) + its resume, the
+               # concat/split/hybrid cells
+               serve_k3 + train_k3 + ssim_k3 + life_k3 + sum(cells_k3.values())
+               + cells_train_k3, k3_err, k3_ms),
         kernel("axial_attention", "axial_attention.cu",
                "satflow_tpu/ops/pallas/axial_attention.py:60",
-               serve_k4 + train_k4 + ssim_k4, k4_err, k4_t, library=k4_t["library"]),
+               serve_k4 + train_k4 + ssim_k4 + life_k4, k4_err, k4_t, library=k4_t["library"]),
         kernel("fused_convlstm_step_int8", "fused_convlstm_int8.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_int8.py:172",
                serve_k5 + int8_32_k5, k5_err, serving[f"K5.{HIDDEN}"]),

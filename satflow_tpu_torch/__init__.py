@@ -17,12 +17,17 @@ Subpackages
                    types, axial attention, MetNet's blocks) and the loss
                    registry (mse, l1, huber, bce, focal, ssim, ms_ssim, nll).
 - ``models``:      the model zoo: ``EncoderDecoderConvLSTM`` and ``LitMetNet``.
-- ``interop``:     the flax -> PyTorch weight bridge and the ``.npz`` format.
+- ``interop``:     the flax -> PyTorch weight bridge and the ``.npz`` format;
+                   reference-format torch state dicts and Lightning ``.ckpt``
+                   files (the ``torch:`` model source).
 - ``data``:        the datasets, the fake data and the data module, the
                    port's own (numpy and torch loaders; nothing of JAX).
 - ``train``:       train state, schedules, train/eval steps, callbacks,
-                   loggers and the ``Trainer``.
-- ``experiments``: the experiment entry point behind ``python -m satflow_tpu_torch.run``.
+                   loggers, checkpoints (``local:`` directories, resume),
+                   profiling, image grids and the ``Trainer`` (with its
+                   batch-size and LR probes).
+- ``experiments``: the experiment entry point behind ``python -m satflow_tpu_torch.run``
+                   and the TPE hyperparameter sweep behind ``--multirun``.
 - ``serve``:       inference sessions, micro-batching and the HTTP server.
 - ``eval``:        per-lead-time MSE / SSIM / MS-SSIM curves and ensemble CRPS.
 - ``baseline``:    the optical-flow and persistence baselines.

@@ -10,6 +10,8 @@ a CUDA device. Sharding a batch over a mesh of devices is not ported.
 
 from __future__ import annotations
 
+import inspect
+import logging
 import os
 import queue
 import threading
@@ -21,6 +23,8 @@ import torch
 from satflow_tpu_torch.data import consts
 from satflow_tpu_torch.data.datasets import SatFlowDataset
 from satflow_tpu_torch.data.fake import FakeDataset
+
+log = logging.getLogger(__name__)
 
 
 def to_device(tree: Any, device: torch.device) -> Any:
@@ -305,6 +309,24 @@ class SatFlowDataModule:
                 "(ROADMAP queue 1 item 13)"
             )
         self._device = None if device is None else torch.device(device)
+
+    @property
+    def batch_size(self) -> Optional[int]:
+        """The fake data's batch, which the loaders read and
+        :meth:`Trainer.scale_batch_size <satflow_tpu_torch.train.Trainer.scale_batch_size>`
+        sets; None for data read from files, whose batch the files fix."""
+        if not self.fake_data:
+            return None
+        return int(self.fake_kwargs.get(
+            "batch_size", inspect.signature(FakeDataset).parameters["batch_size"].default))
+
+    @batch_size.setter
+    def batch_size(self, size: int) -> None:
+        if not self.fake_data:
+            log.warning("batch_size=%d not applied: the batch of data read from files is "
+                        "fixed by the files", size)
+            return
+        self.fake_kwargs = {**self.fake_kwargs, "batch_size": int(size)}
 
     def _device_put(self):
         if self.device is None:

@@ -101,8 +101,8 @@ def save_results(results: Dict[str, np.ndarray], output_dir: str) -> None:
 def main(argv=None):  # pragma: no cover - CLI convenience
     import argparse
 
+    from satflow_tpu_torch import resolve_device
     from satflow_tpu_torch.core.registry import create_model
-    import satflow_tpu_torch.models  # noqa: F401 - populate the registry
     from satflow_tpu_torch.data.fake import AdvectionDataset, FakeDataset
 
     p = argparse.ArgumentParser(description="Evaluate a checkpoint")
@@ -120,8 +120,7 @@ def main(argv=None):  # pragma: no cover - CLI convenience
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
-    # local: checkpoints raise here, naming their ROADMAP item, until it lands
-    model = create_model(f"local:{args.checkpoint}").to(args.device)
+    model = create_model(f"local:{args.checkpoint}").to(resolve_device(args.device))
     ds_cls = AdvectionDataset if args.dataset == "advection" else FakeDataset
     ds = ds_cls(
         batch_size=4, width=args.size, height=args.size,

@@ -48,8 +48,8 @@ def _counterpart(target: str):
         from satflow_tpu_torch.data.datamodule import SatFlowDataModule
 
         return SatFlowDataModule
-    if module in ("satflow_tpu.train.loggers", "satflow_tpu.train.callbacks"):
-        # the checkpoint callbacks raise NotImplementedError when built
+    if module in ("satflow_tpu.train.loggers", "satflow_tpu.train.callbacks",
+                  "satflow_tpu.train.visualize"):
         ported = module.replace("satflow_tpu", "satflow_tpu_torch", 1)
         return getattr(importlib.import_module(ported), name)
     raise NotImplementedError(f"{target!r} has no counterpart in the port yet (see ROADMAP.md)")
@@ -63,16 +63,15 @@ def instantiate(cfg: Any, **kwargs) -> Any:
 
 def train(config: Dict[str, Any]) -> Optional[float]:
     """Seed, instantiate, fit, test (unless ``fast_dev_run``); returns the
-    ``optimized_metric`` for sweeps."""
+    ``optimized_metric`` for sweeps. Trains on the card unless
+    ``trainer.device`` names another device."""
     from satflow_tpu_torch.train.engine import Trainer
 
     trainer_conf = dict(config.get("trainer") or {})
     trainer_conf.pop("_target_", None)
-    if trainer_conf.pop("auto_lr_find", False) or trainer_conf.pop("auto_scale_batch_size", False):
-        raise NotImplementedError(
-            "trainer.tune (auto_lr_find, auto_scale_batch_size) is not ported yet "
-            "(ROADMAP queue 1 item 6)"
-        )
+    # the card unless the config asks for another device (trainer.device=cpu);
+    # without a card the Trainer raises
+    trainer_conf.setdefault("device", "cuda")
     if config.get("debug") or trainer_conf.get("detect_anomaly"):
         torch.autograd.set_detect_anomaly(True)
 
@@ -96,6 +95,11 @@ def train(config: Dict[str, Any]) -> Optional[float]:
 
     trainer = Trainer(**trainer_conf, callbacks=callbacks, logger=loggers,
                       seed=config.get("seed", 0))
+    if trainer_conf.get("auto_lr_find") or trainer_conf.get("auto_scale_batch_size"):
+        log.info("Running trainer.tune (reference train.py:81-83)")
+        trainer.tune(model, datamodule,
+                     auto_lr_find=bool(trainer_conf.get("auto_lr_find")),
+                     auto_scale_batch_size=bool(trainer_conf.get("auto_scale_batch_size")))
     log.info("Starting training")
     trainer.fit(model, datamodule)
     log_hyperparameters(config, model, loggers)
@@ -104,6 +108,10 @@ def train(config: Dict[str, Any]) -> Optional[float]:
         trainer.test(model, datamodule)
         for lg in loggers:  # the engine finalizes at the end of fit only
             lg.finalize()
+    for cb in callbacks:
+        best = getattr(cb, "best_model_path", None)
+        if best:
+            log.info("Best checkpoint: %s", best)
 
     metric = config.get("optimized_metric")
     if metric and metric in trainer.callback_metrics:

@@ -2,11 +2,19 @@
 
 Composes the JAX package's config tree (``satflow_tpu/configs``) with the
 same Hydra-style overrides as ``python -m satflow_tpu.run``, applies
-``extras``, enters the per-run directory and trains through the port.
+``extras``, enters the per-run directory and trains through the port; with
+``--multirun`` (or ``-m``) and an ``hparams_search`` group it runs the sweep
+(:mod:`satflow_tpu_torch.experiments.sweep`) instead. The default config's
+callbacks write ``checkpoints/best``, ``checkpoints/last`` and
+``artifacts/final`` in the run directory.
 
-Examples (``trainer.device=cuda`` trains on the card):
+It trains on the card unless ``trainer.device=cpu`` asks for the CPU.
+
+Examples:
+    python -m satflow_tpu_torch.run
     python -m satflow_tpu_torch.run model=convlstm datamodule=fake trainer=minimal \\
-        callbacks=none model.hidden_dim=8 model.forecast_steps=2 trainer.max_steps=2
+        model.hidden_dim=8 model.forecast_steps=2 trainer.max_steps=2 trainer.device=cpu
+    python -m satflow_tpu_torch.run --multirun hparams_search=convlstm_optuna
 """
 
 from __future__ import annotations
@@ -24,12 +32,17 @@ log = get_logger(__name__)
 
 def main(argv: Optional[List[str]] = None) -> Optional[float]:
     argv = list(sys.argv[1:] if argv is None else argv)
-    if "--multirun" in argv or "-m" in argv:
-        raise NotImplementedError("--multirun sweeps are not ported yet (ROADMAP queue 1 item 6)")
+    multirun = "--multirun" in argv or "-m" in argv
+    argv = [a for a in argv if a not in ("--multirun", "-m")]
     config = extras(compose(default_config_dir(), "config.yaml", argv))
     _enter_run_dir(config)
     if config.get("print_config", True):
         print_config(config)
+
+    if multirun and config.get("hparams_search"):
+        from satflow_tpu_torch.experiments.sweep import sweep
+
+        return sweep(config)
 
     from satflow_tpu_torch.experiments.train import train
 

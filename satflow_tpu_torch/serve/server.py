@@ -12,11 +12,15 @@ Client faults answer 400, timeouts 503 and server faults 500.
 
 Run::
 
-    python -m satflow_tpu_torch.serve.server {convlstm,metnet} --weights params.npz \\
-        [--bf16] [--out-f16] [--device cuda]
+    python -m satflow_tpu_torch.serve.server local:checkpoints/best [--bf16] \\
+        [--out-f16] [--device cuda]
+    python -m satflow_tpu_torch.serve.server {convlstm,metnet} --weights params.npz
 
-``--weights`` is a flat ``.npz`` of the JAX model's flax variables
-(:func:`satflow_tpu_torch.interop.jax_weights.save_npz` writes one).
+The model is a ``create_model`` source (``local:<dir>``, a checkpoint
+directory of the port's training; ``torch:<file.ckpt>``; ``hf_hub:<repo>``),
+whose weights it serves, or a config name (``convlstm``, ``metnet``) or
+registry name with ``--weights``, a flat ``.npz`` of the JAX model's flax
+variables (:func:`satflow_tpu_torch.interop.jax_weights.save_npz` writes one).
 """
 
 from __future__ import annotations
@@ -49,7 +53,8 @@ MODEL_CONFIGS = {
 
 
 def build_model(name: str):
-    """A model by config name (``convlstm``, ``metnet``) or registry name."""
+    """A model by ``create_model`` source (``local:<dir>``, ...), config name
+    (``convlstm``, ``metnet``) or registry name."""
     from satflow_tpu_torch.core.registry import create_model
     import satflow_tpu_torch.models  # noqa: F401 - populate the registry
 
@@ -86,7 +91,7 @@ class NowcastServer:
             self.session = InferenceSession(
                 model, max_batch=max_batch if max_batch is not None else 8,
                 variables=variables, state_dict=state_dict, dtype=dtype,
-                out_dtype=out_dtype, device=device,
+                out_dtype=out_dtype, device="cuda" if device is None else device,
             )
         self.batcher = MicroBatcher(self.session, window_ms=window_ms)
         handler = _make_handler(self)
@@ -193,14 +198,14 @@ def _make_handler(server: NowcastServer):
     return Handler
 
 
-def serve(model: str, weights: str, host: str = "0.0.0.0", port: int = 8500,
+def serve(model: str, weights: Optional[str] = None, host: str = "0.0.0.0", port: int = 8500,
           max_batch: int = 8, window_ms: float = 5.0, dtype=None,
           out_dtype=None, device="cuda") -> None:
     from satflow_tpu_torch.interop.jax_weights import read_npz
 
     srv = NowcastServer(build_model(model), host=host, port=port,
                         max_batch=max_batch, window_ms=window_ms,
-                        variables=read_npz(weights), dtype=dtype,
+                        variables=None if weights is None else read_npz(weights), dtype=dtype,
                         out_dtype=out_dtype, device=device)
     print(f"serving {model} on {host}:{srv.port} (max_batch={max_batch}, "
           f"device={srv.session.device})")
@@ -215,9 +220,11 @@ def main(argv=None) -> None:
 
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("model", help="config name (convlstm, metnet) or registry name")
-    p.add_argument("--weights", required=True,
-                   help="flat .npz of flax variables (interop.jax_weights.save_npz)")
+    p.add_argument("model", help="create_model source (local:<dir>, torch:<file.ckpt>, "
+                   "hf_hub:<repo>), config name (convlstm, metnet) or registry name")
+    p.add_argument("--weights", default=None,
+                   help="flat .npz of flax variables (interop.jax_weights.save_npz); "
+                   "a source's own weights are served without it")
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8500)
     p.add_argument("--max-batch", type=int, default=8)

@@ -30,13 +30,18 @@ class InferenceSession:
 
     Parameters
     ----------
-    model: a BaseModel instance, or a registry name.
+    model: a BaseModel instance, or a ``create_model`` source string
+        (``local:<dir>``, ``torch:<file.ckpt>``, ``hf_hub:<repo>``).
     max_batch: the batch every forward runs at; requests are padded up to it.
     variables: flax variables (``{"params": tree}``, with ``"batch_stats"``
         for a model that has them; numpy leaves), converted by the model's
         own converter (``model.state_dict_from_flax``).
     state_dict: the core's state_dict, as that converter returns it.
-        Exactly one of ``variables`` and ``state_dict`` is required.
+        At most one of ``variables`` and ``state_dict``; with neither, the
+        session serves the weights a loader restored into the model
+        (``model.restored_from``, set by ``create_model``'s sources and
+        :mod:`satflow_tpu_torch.train.checkpoint`), and raises for a model
+        that holds none.
     dtype: compute dtype (e.g. ``torch.bfloat16``): the input is cast to it
         and the model computes in it (``set_compute_dtype``; f32 weights
         stay); None leaves the model's own and feeds float32.
@@ -46,8 +51,8 @@ class InferenceSession:
         on the card): weights are quantized once here, the inputs of every
         request must lie in [-1, 1] (:meth:`check_input_range`), and
         ``dtype`` does not apply, since the rollout quantizes its own inputs.
-    device: where the model runs; None keeps the model's current device.
-        ``"cuda"`` without a card raises.
+    device: where the model runs, the card unless the caller asks for
+        another (``device="cpu"``); without a card ``"cuda"`` raises.
     donate: accepted for the JAX session's signature and ignored: there it
         hands the padded input's buffer to XLA, which has no counterpart in
         an eager forward. With ``quantize="int8"`` it raises, as there.
@@ -63,7 +68,7 @@ class InferenceSession:
         out_dtype: Optional[torch.dtype] = None,
         quantize: Optional[str] = None,
         mesh: Any = None,
-        device: Any = None,
+        device: Any = "cuda",
         donate: bool = False,
     ):
         if quantize not in (None, "int8"):
@@ -88,16 +93,30 @@ class InferenceSession:
             raise NotImplementedError(
                 "GAN sampling is not ported yet (ROADMAP queue 1 item 11)"
             )
-        if (variables is None) == (state_dict is None):
-            raise ValueError("pass exactly one of variables= (flax) or state_dict=")
+        # MetNet has no cell_impl; a conv type other than "standard" runs the
+        # concat cells whatever cell_impl says
+        if quantize and (getattr(model, "cell_impl", None) != "fused"
+                         or not getattr(model.module, "is_fused", False)):
+            raise ValueError(
+                "int8 serving requires a fused-cell ConvLSTM model "
+                "(EncoderDecoderConvLSTM with cell_impl='fused')"
+            )
+        if variables is not None and state_dict is not None:
+            raise ValueError("pass at most one of variables= (flax) or state_dict=")
+        if variables is None and state_dict is None and getattr(model, "restored_from",
+                                                                 None) is None:
+            raise ValueError(
+                "model has no restored_variables; load it from a checkpoint "
+                "(local:/torch:/hf_hub:) or pass variables= explicitly"
+            )
         if variables is not None:
             state_dict = model.state_dict_from_flax(variables)
         out_dtype = out_dtype or torch.float32
         if out_dtype not in _OUT_DTYPES:
             raise ValueError(f"out_dtype must be one of {_OUT_DTYPES}, got {out_dtype}")
-        self.device = (resolve_device(device) if device is not None
-                       else next(model.parameters()).device)
-        model.module.load_state_dict(state_dict)
+        self.device = resolve_device(device)
+        if state_dict is not None:
+            model.module.load_state_dict(state_dict)
         if dtype is not None:
             model.set_compute_dtype(dtype)
         self.model = model.to(self.device).eval()
@@ -106,14 +125,6 @@ class InferenceSession:
         if quantize == "int8":
             from satflow_tpu_torch.ops.fused_convlstm_int8 import quantize_convlstm_params
 
-            # MetNet has no cell_impl; a conv type other than "standard" runs
-            # the concat cells whatever cell_impl says
-            if (getattr(model, "cell_impl", None) != "fused"
-                    or not getattr(model.module, "is_fused", False)):
-                raise ValueError(
-                    "int8 serving requires a fused-cell ConvLSTM model "
-                    "(EncoderDecoderConvLSTM with cell_impl='fused')"
-                )
             self.qparams = quantize_convlstm_params(model.module)
         self.max_batch = int(max_batch)
         self.dtype = dtype

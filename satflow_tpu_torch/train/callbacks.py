@@ -1,17 +1,18 @@
-"""Callbacks: early stopping and the LR monitor; the checkpoint callbacks raise.
+"""Callbacks: checkpoint best/last, early stopping, LR monitor, model artifacts.
 
 Counterpart of ``satflow_tpu/train/callbacks.py`` (the reference's callback
-group, reference satflow/configs/callbacks/default.yaml): EarlyStopping
-patience 10 and LearningRateMonitor are carried over as they are.
-ModelCheckpoint and ModelArtifactLogger keep their names, so that the config
-tree's ``_target_`` strings resolve, and raise ``NotImplementedError`` until
-checkpoints are ported.
+group, reference satflow/configs/callbacks/default.yaml): ModelCheckpoint
+monitoring ``val/loss`` with save_top_k=1 and save_last, EarlyStopping
+patience 10, LearningRateMonitor, and ModelArtifactLogger, which writes the
+final checkpoint (the stand-in for the external NeptuneModelLogger).
+Checkpoints are :mod:`satflow_tpu_torch.train.checkpoint` directories.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict
+import os
+from typing import Dict, Optional
 
 
 class Callback:
@@ -27,14 +28,52 @@ class Callback:
     def on_train_end(self, engine) -> None: ...
 
 
-_CHECKPOINTS = "checkpoints are not ported yet (ROADMAP queue 1 item 6)"
-
-
 class ModelCheckpoint(Callback):
-    """Best/last checkpoints by a monitored metric; not ported yet."""
+    """Save the best (by the monitored metric) and the last checkpoint."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"callback ModelCheckpoint is not ported yet: {_CHECKPOINTS}")
+    def __init__(
+        self,
+        monitor: str = "val/loss",
+        dirpath: str = "checkpoints/",
+        save_top_k: int = 1,
+        save_last: bool = True,
+        mode: str = "min",
+        verbose: bool = False,
+        filename: str = "best",
+    ):
+        self.monitor = monitor
+        self.dirpath = dirpath
+        self.save_top_k = save_top_k
+        self.save_last = save_last
+        self.mode = mode
+        self.verbose = verbose
+        self.filename = filename
+        self.best_score = math.inf if mode == "min" else -math.inf
+        self.best_model_path: Optional[str] = None
+
+    def _improved(self, value: float) -> bool:
+        return value < self.best_score if self.mode == "min" else value > self.best_score
+
+    def on_validation_end(self, engine, metrics: Dict[str, float], epoch: int) -> None:
+        from satflow_tpu_torch.train.checkpoint import save_checkpoint
+
+        value = metrics.get(self.monitor)
+        if value is not None and self.save_top_k > 0 and self._improved(value):
+            self.best_score = value
+            path = os.path.join(self.dirpath, self.filename)
+            save_checkpoint(path, engine.state, engine.model, metrics=metrics)
+            self.best_model_path = path
+        if self.save_last:
+            save_checkpoint(os.path.join(self.dirpath, "last"), engine.state, engine.model,
+                            metrics=metrics)
+
+    def on_preemption(self, engine) -> None:
+        """Emergency ``last`` checkpoint, so that a preempted run resumes with
+        its optimizer state and step counters (``resume_from_checkpoint``)."""
+        from satflow_tpu_torch.train.checkpoint import save_checkpoint
+
+        save_checkpoint(os.path.join(self.dirpath, "last"), engine.state, engine.model,
+                        metrics=dict(engine.callback_metrics))
 
 
 class EarlyStopping(Callback):
@@ -85,9 +124,13 @@ class LearningRateMonitor(Callback):
 
 
 class ModelArtifactLogger(Callback):
-    """Copy the final checkpoint somewhere (NeptuneModelLogger stand-in); not
-    ported yet."""
+    """Write the final checkpoint to ``<dirpath>/final`` at the end of fit
+    (the NeptuneModelLogger stand-in)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"callback ModelArtifactLogger is not ported yet: {_CHECKPOINTS}")
+    def __init__(self, dirpath: str = "artifacts/"):
+        self.dirpath = dirpath
+
+    def on_train_end(self, engine) -> None:
+        from satflow_tpu_torch.train.checkpoint import save_checkpoint
+
+        save_checkpoint(os.path.join(self.dirpath, "final"), engine.state, engine.model)

@@ -11,6 +11,19 @@ The same knobs and loop as the JAX Trainer, on one device:
   late so that the check does not wait for the device.
 - ``fast_dev_run`` / ``limit_*_batches`` / ``overfit_batches`` / ``max_steps``
   -> loop limits.
+- ``resume_from_checkpoint``       -> weights, buffers, optimizer state,
+  accumulation and step restored after the state is built
+  (train/checkpoint.py).
+- ``profiler`` (any value)         -> one ``torch.profiler`` trace of the
+  fit, ``<profile_dir>/trace.json`` (train/profiling.py), its path on
+  ``Trainer.profile_path``.
+- SIGTERM (``handle_preemption``)  -> finish the step in flight, fire the
+  callbacks' ``on_preemption`` (``ModelCheckpoint`` writes ``last``), stop.
+- :meth:`Trainer.scale_batch_size` and :meth:`Trainer.tune` -> the
+  power-of-two batch probe and the LR range test. Unlike the JAX probe,
+  which backs off on any exception, the batch probe backs off on
+  ``torch.OutOfMemoryError`` only: a kernel that fails to build or launch
+  raises.
 
 Metrics are logged under the JAX keys (``train/loss``,
 ``train/frame_{f}_loss``, ``train/grad_norm``, ``train/steps_per_sec``,
@@ -21,6 +34,7 @@ no-ops.
 
 from __future__ import annotations
 
+import copy
 import logging
 import math
 import signal
@@ -28,6 +42,7 @@ import threading
 import time
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 from torch.nn.parameter import is_lazy
 
@@ -35,6 +50,8 @@ from satflow_tpu_torch import resolve_device
 from satflow_tpu_torch.data.datamodule import to_device
 from satflow_tpu_torch.models.base import expand_frame_metrics
 from satflow_tpu_torch.train.loggers import HistoryLogger
+from satflow_tpu_torch.train.profiling import make_profiler, write_trace
+from satflow_tpu_torch.train.schedules import scheduled
 from satflow_tpu_torch.train.state import TrainState
 from satflow_tpu_torch.train.steps import make_eval_step, make_train_step
 
@@ -57,7 +74,7 @@ class Trainer:
         log_every_n_steps: int = 10,
         terminate_on_nan: bool = False,
         profiler: Optional[str] = None,
-        profile_dir: str = "logs/profile",  # read with profiler, which raises
+        profile_dir: str = "logs/profile",
         zero_sharding: bool = False,
         spatial: Optional[str] = None,
         gan_step_mode: str = "fused",  # read by GAN training, which raises
@@ -76,9 +93,6 @@ class Trainer:
         **_: Any,
     ):
         unported = {
-            "profiler": (profiler, "ROADMAP queue 1 item 6 (torch.profiler)"),
-            "resume_from_checkpoint": (resume_from_checkpoint,
-                                       "ROADMAP queue 1 item 6 (checkpoints)"),
             "zero_sharding": (zero_sharding, "ROADMAP queue 1 item 13 (FSDP)"),
             "spatial": (spatial, "ROADMAP queue 1 item 13 (spatial sharding)"),
         }
@@ -99,11 +113,15 @@ class Trainer:
         self.check_val_every_n_epoch = check_val_every_n_epoch
         self.log_every_n_steps = log_every_n_steps
         self.terminate_on_nan = terminate_on_nan
+        self.profiler = profiler
+        self.profile_dir = profile_dir
+        self.profile_path: Optional[str] = None
         self.handle_preemption = handle_preemption
         self.callbacks = list(callbacks or [])
         self.history = HistoryLogger()
         self.loggers: List = [self.history] + list(logger or [])
         self.seed = seed
+        self.resume_from_checkpoint = resume_from_checkpoint
         self.device = None if device is None else resolve_device(device)
 
         self.state: Optional[TrainState] = None
@@ -158,8 +176,12 @@ class Trainer:
             n_train = 1
         epochs = 1 if self.fast_dev_run else self.max_epochs
 
+        profile = make_profiler(self.device) if self.profiler else None
+        if profile is not None:
+            profile.__enter__()
+
         # SIGTERM: finish the in-flight step, fire the callbacks'
-        # on_preemption hooks, and stop cleanly
+        # on_preemption hooks (ModelCheckpoint writes `last`), and stop
         prev_handler = None
         if self.handle_preemption and threading.current_thread() is threading.main_thread():
             def _on_sigterm(signum, frame):  # noqa: ARG001
@@ -223,6 +245,14 @@ class Trainer:
                     for cb in self.callbacks:
                         cb.on_validation_end(self, val_metrics, epoch)
         finally:
+            if profile is not None:
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                profile.__exit__(None, None, None)
+                self.profile_path = write_trace(profile, self.profile_dir)
+                log.info("profile: %s", self.profile_path)
+            # our handler stays installed through the emergency checkpoint: a
+            # repeated SIGTERM must not kill the process mid-save
             try:
                 if self.preempted:
                     for cb in self.callbacks:
@@ -263,7 +293,7 @@ class Trainer:
         # precision 16/"bf16": bf16 compute, the f32 parameters stay as they
         # are (the JAX Trainer rebuilds its module before initialising; here
         # the weights may have been loaded already)
-        if str(self.precision) in ("16", "bf16", "bfloat16") and getattr(model, "dtype", None) is None:
+        if self._bf16 and getattr(model, "dtype", None) is None:
             model.set_compute_dtype(torch.bfloat16)
         if hasattr(datamodule, "device"):
             datamodule.device = self.device
@@ -277,6 +307,15 @@ class Trainer:
             gradient_clip_val=self.gradient_clip_val,
             accumulate_grad_batches=self.accumulate_grad_batches,
         )
+        if self.resume_from_checkpoint:
+            from satflow_tpu_torch.train.checkpoint import resume_state
+
+            # after the materialize and the optimizer, which the saved state fills
+            self.state, self.global_step = resume_state(self.state, self.resume_from_checkpoint)
+
+    @property
+    def _bf16(self) -> bool:
+        return str(self.precision) in ("16", "bf16", "bfloat16")
 
     def _run_eval(self, eval_step, loader, split: str) -> Dict[str, float]:
         n = self._limit(len(loader), self.limit_val_batches)
@@ -300,6 +339,131 @@ class Trainer:
         if isinstance(limit, float) and limit <= 1.0:
             return max(1, int(n * limit))
         return min(n, int(limit))
+
+    def _probe_model(self, model, batch):
+        """A copy of ``model`` on this trainer's device, at its precision and
+        materialized from ``batch``, for the probes of :meth:`scale_batch_size`
+        and :meth:`tune`: the model's own weights do not move. Returns
+        ``(copy, batch on the device)``."""
+        device = self.device or next(model.parameters()).device
+        probe = copy.deepcopy(model).to(device)
+        if self._bf16 and getattr(probe, "dtype", None) is None:
+            probe.set_compute_dtype(torch.bfloat16)
+        batch = to_device(batch, device)
+        probe.materialize(batch)
+        return probe, batch
+
+    def scale_batch_size(
+        self,
+        model,
+        datamodule,
+        init_val: int = 2,
+        max_trials: int = 6,
+        max_batch_size: Optional[int] = None,
+    ) -> int:
+        """Power-scaling batch-size finder (the reference's
+        ``trainer.tune(auto_scale_batch_size="power")``, train.py:81-83):
+        double the batch until the train step runs out of device memory, and
+        keep the last size that ran. Each probe is the real train step with
+        the model's optimizer (Adam) on a copy of the model, so that its
+        moments count. Only ``torch.OutOfMemoryError`` backs off; any other
+        error raises. Sets ``datamodule.batch_size`` where the attribute exists."""
+        first = next(iter(datamodule.train_dataloader()))
+
+        def probe(size: int) -> None:
+            probe_model, batch = self._probe_model(model, _tile_batch(first, size))
+            state = TrainState(probe_model, probe_model.make_optimizer(),
+                               gradient_clip_val=self.gradient_clip_val)
+            metrics = make_train_step(probe_model)(state, batch)
+            float(metrics["loss"])  # waits for the device
+
+        good = 0
+        size = max(1, init_val)
+        for _ in range(max_trials):
+            if max_batch_size and size > max_batch_size:
+                break
+            try:
+                probe(size)
+            except torch.OutOfMemoryError as e:
+                log.info("scale_batch_size: %d ran out of memory (%s); keeping %d",
+                         size, str(e).splitlines()[0], good)
+                break
+            finally:
+                if torch.cuda.is_available():
+                    torch.cuda.empty_cache()
+            good = size
+            size *= 2
+        if good == 0:
+            raise RuntimeError(
+                f"scale_batch_size: even batch {init_val} ran out of memory; "
+                f"not overriding the configured batch size"
+            )
+        if hasattr(datamodule, "batch_size"):
+            datamodule.batch_size = good
+        log.info("scale_batch_size: selected %d", good)
+        return good
+
+    def tune(self, model, datamodule, num_steps: int = 30,
+             min_lr: float = 1e-6, max_lr: float = 1.0,
+             auto_lr_find: bool = True,
+             auto_scale_batch_size: bool = False) -> float:
+        """LR range test and optional batch-size scaling (the reference's
+        trainer.tune, train.py:81-83): SGD on a copy of the model with the LR
+        growing as ``min_lr * (max_lr / min_lr) ** (i / num_steps)`` (optax's
+        ``exponential_decay``) until the loss is not finite; the suggestion is
+        one decade below the LR of the steepest descent, set as
+        ``model.lr``. With ``auto_scale_batch_size``, first runs
+        :meth:`scale_batch_size`."""
+        if auto_scale_batch_size:
+            self.scale_batch_size(model, datamodule)
+        if not auto_lr_find:
+            return model.lr
+        loader = datamodule.train_dataloader()
+        probe_model, _ = self._probe_model(model, next(iter(loader)))
+        device = next(probe_model.parameters()).device
+
+        def schedule(i: int) -> float:
+            return min_lr * (max_lr / min_lr) ** (i / num_steps)
+
+        state = TrainState(probe_model, scheduled(
+            torch.optim.SGD(probe_model.parameters(), lr=min_lr), schedule))
+        step = make_train_step(probe_model)
+        losses, lrs = [], []
+        it = iter(loader)
+        for i in range(num_steps):
+            try:
+                batch = next(it)
+            except StopIteration:
+                it = iter(loader)
+                batch = next(it)
+            loss = float(step(state, to_device(batch, device))["loss"])
+            if not math.isfinite(loss):
+                break
+            losses.append(loss)
+            lrs.append(schedule(i))
+        if len(losses) < 3:
+            return model.lr
+        # steepest descent point, one decade of headroom
+        best = int(np.argmin(np.gradient(np.asarray(losses))))
+        suggestion = max(lrs[best] / 10.0, min_lr)
+        log.info("tune: suggested lr %.2e", suggestion)
+        model.lr = suggestion
+        return suggestion
+
+
+def _tile_batch(batch: Any, n: int) -> Any:
+    """Every array or tensor of a nested batch repeated along its first axis
+    to ``n`` rows."""
+    if isinstance(batch, dict):
+        return {k: _tile_batch(v, n) for k, v in batch.items()}
+    if isinstance(batch, (tuple, list)):
+        return type(batch)(_tile_batch(v, n) for v in batch)
+    if isinstance(batch, (np.ndarray, torch.Tensor)):
+        reps = (n + batch.shape[0] - 1) // batch.shape[0]
+        tiled = (np.tile(batch, (reps,) + (1,) * (batch.ndim - 1)) if isinstance(batch, np.ndarray)
+                 else batch.repeat(reps, *(1,) * (batch.dim() - 1)))
+        return tiled[:n]
+    return batch
 
 
 def _device_memory_metrics(device: Optional[torch.device]) -> Dict[str, float]:

@@ -5,12 +5,20 @@ The JAX state is a pytree whose ``tx`` is the optax chain the engine built:
 ``MultiSteps(chain(clip_by_global_norm, adam))``. Here the model and the
 optimizer hold the weights and moments in place, and :meth:`TrainState.apply_gradients`
 runs the same chain on the gradients that ``backward`` left in ``.grad``.
+
+:meth:`TrainState.state_dict` is what a checkpoint holds, as the JAX
+checkpoint holds ``params``, ``model_state``, ``opt_state`` and ``step``:
+the model's ``state_dict`` (weights and the BatchNorm buffers), the
+optimizer's (Adam's moments and, for a scheduled optimizer, the schedule's
+count), ``step``, and the accumulation's ``mini_step`` and running mean
+(``MultiSteps``' ``mini_step`` and ``acc_grads``), so that a checkpoint taken
+between two updates resumes there.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 from torch import nn
@@ -41,6 +49,30 @@ class TrainState:
     step: int = 0
     mini_step: int = 0
     _acc: Optional[List[torch.Tensor]] = field(default=None, repr=False)
+
+    def state_dict(self) -> Dict[str, Any]:
+        """The state to save (tensors by reference, on their devices)."""
+        return {
+            "model": self.model.state_dict(),
+            "optimizer": self.optimizer.state_dict(),
+            "step": self.step,
+            "mini_step": self.mini_step,
+            "accumulate_grad_batches": self.accumulate_grad_batches,
+            "acc": self._acc,
+        }
+
+    def load_state_dict(self, state: Dict[str, Any], weights_only: bool = False) -> None:
+        """Restore what :meth:`state_dict` gave, onto this state's devices;
+        ``weights_only`` restores the model's ``state_dict`` and ``step`` and
+        leaves the optimizer and the accumulation as they are."""
+        self.model.load_state_dict(state["model"])
+        self.step = int(state["step"])
+        if weights_only:
+            return
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.mini_step = int(state["mini_step"])
+        device = self.params()[0].device
+        self._acc = None if state["acc"] is None else [a.to(device) for a in state["acc"]]
 
     def params(self) -> List[nn.Parameter]:
         return [p for group in self.optimizer.param_groups for p in group["params"]]

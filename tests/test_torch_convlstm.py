@@ -145,12 +145,23 @@ def test_hparams_match_jax():
     assert registry.create_model("encoderdecoderconvlstm", **KW).hparams() == jmodel.hparams()
 
 
-def test_registries_are_separate():
+def test_registries_are_separate(monkeypatch):
+    """Each registry holds its own classes; each checkpoint source goes to
+    the port's loader (here each finds no file; ``hf_hub:`` downloads
+    nothing: ``snapshot_download`` is stubbed)."""
+    import sys
+    import types
+
     assert registry.list_models() == ["encoderdecoderconvlstm", "litmetnet"]
     for name in registry.list_models():
         assert registry.get_model(name) is not jax_registry.get_model(name)
-    for source in ("local:/ckpt", "torch:/m.ckpt", "hf_hub:org/repo"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
+    hub = types.ModuleType("huggingface_hub")
+    hub.snapshot_download = lambda repo_id: f"/no/such/snapshot/{repo_id}"
+    monkeypatch.setitem(sys.modules, "huggingface_hub", hub)
+    for source, missing in (("local:/ckpt", "/ckpt/hparams.json"),
+                            ("torch:/m.ckpt", "/m.ckpt"),
+                            ("hf_hub:org/repo", "/no/such/snapshot/org/repo/hparams.json")):
+        with pytest.raises(FileNotFoundError, match=missing):
             registry.create_model(source)
 
 

@@ -143,9 +143,15 @@ def test_loggers_and_callbacks_carry_over(tmp_path):
     for epoch, loss in enumerate([1.0, 1.1, 1.2]):
         stop.on_validation_end(engine, {"val/loss": loss}, epoch)
     assert engine.should_stop
+    # the checkpoint callbacks carry over with the JAX constructors' defaults
+    import inspect
+
+    from satflow_tpu.train import callbacks as jax_callbacks
+
     for name in ("ModelCheckpoint", "ModelArtifactLogger"):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            getattr(callbacks, name)()
+        mine, ref = getattr(callbacks, name)(), getattr(jax_callbacks, name)()
+        assert str(inspect.signature(type(mine))) == str(inspect.signature(type(ref))), name
+        assert vars(mine) == vars(ref), name
 
 
 # ---------------------------------------------------------------------------

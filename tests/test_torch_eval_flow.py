@@ -196,10 +196,13 @@ def test_evaluate_model_matches_jax(convlstm_pair, ms, tmp_path):
     assert json.loads((tmp_path / "summary.json").read_text())["mse_mean"] == got["mse_mean"]
 
 
-def test_evaluate_model_forward_kwargs_and_errors(convlstm_pair):
+def test_evaluate_model_forward_kwargs_and_errors(convlstm_pair, tmp_path):
     """``forward_kwargs`` reach the forward (here the plain step itself);
-    an empty dataset raises; the CLI's ``local:`` checkpoint names item 6."""
+    an empty dataset raises; the CLI scores a ``local:`` checkpoint of the
+    model as ``evaluate_model`` scores the model."""
     from satflow_tpu_torch.ops.fused_convlstm_step import fused_convlstm_step_ref
+    from satflow_tpu_torch.train import TrainState
+    from satflow_tpu_torch.train.checkpoint import save_checkpoint
 
     _, _, model = convlstm_pair
     ds = AdvectionDataset(batch_size=2, width=16, height=16, number_sat_channels=2,
@@ -209,8 +212,16 @@ def test_evaluate_model_forward_kwargs_and_errors(convlstm_pair):
     np.testing.assert_allclose(a["mse"], b["mse"], rtol=1e-6)
     with pytest.raises(ValueError, match="empty"):
         evaluate.evaluate_model(model, ds, max_batches=0)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        evaluate.main(["--checkpoint", "ckpt", "--device", "cpu"])
+    save_checkpoint(str(tmp_path / "ck"), TrainState(model, model.make_optimizer()), model)
+    evaluate.main(["--checkpoint", str(tmp_path / "ck"), "--device", "cpu", "--size", "16",
+                   "--channels", "2", "--history-minutes", "15", "--batches", "1",
+                   "--output", str(tmp_path / "out")])
+    ds = AdvectionDataset(batch_size=4, width=16, height=16, number_sat_channels=2,
+                          history_minutes=15, forecast_minutes=15, length=1)
+    want = evaluate.evaluate_model(model, ds, 1)
+    np.testing.assert_allclose(np.load(tmp_path / "out" / "mse.npy"), want["mse"], rtol=1e-6)
+    summary = json.loads((tmp_path / "out" / "summary.json").read_text())
+    assert summary["ssim_mean"] == pytest.approx(want["ssim_mean"], rel=1e-6)
 
 
 # -- flow ops -------------------------------------------------------------------
@@ -439,7 +450,8 @@ def test_port_trained_convlstm_beats_persistence_and_flow():
 # comes with a later ROADMAP queue 1 item (not stubbed before it)
 PENDING = {"GANLoss": 11, "gradient_penalty": 11, "condition_time": 11, "ConditionTime": 11,
            "ConvGRUCell": 11, "reverse_space_to_depth": 10, "TimeDistributed": 12,
-           "time_distributed": 12, "SpatioTemporalLSTMCell": 12, "scan_cell": 12}
+           "time_distributed": 12, "SpatioTemporalLSTMCell": 12, "scan_cell": 12,
+           "load_torch_perceiver": 10}
 
 
 def _jax_exports():
@@ -478,7 +490,10 @@ def test_package_exports_match_the_jax_package():
                  "satflow_tpu_torch.core.register_model", "satflow_tpu_torch.nn.get_loss",
                  "satflow_tpu_torch.data.write_fake_store", "satflow_tpu_torch.eval.evaluate_model",
                  "satflow_tpu_torch.baseline.run_baseline",
-                 "satflow_tpu_torch.experiments.train"):
+                 "satflow_tpu_torch.experiments.train",
+                 "satflow_tpu_torch.interop.load_torch_convlstm",
+                 "satflow_tpu_torch.interop.load_torch_state_dict",
+                 "satflow_tpu_torch.train.Trainer"):
         assert must in checked, must
     from satflow_tpu_torch.models import BaseModel, create_model, list_models  # noqa: F401
 

@@ -1187,3 +1187,75 @@ def test_evaluate_model_on_card_through_k1():
     for key in ("ssim", "ms_ssim"):
         torch.testing.assert_close(torch.from_numpy(got[key]), torch.from_numpy(want[key]),
                                    rtol=0, atol=1e-5)
+
+
+def _fake_dm(n_train):
+    from satflow_tpu_torch.data import SatFlowDataModule
+
+    return SatFlowDataModule(fake_data=True, num_workers=0, n_train_data=n_train, n_val_data=1,
+                             history_minutes=10, forecast_minutes=10,
+                             fake_kwargs=dict(batch_size=2, width=20, height=36,
+                                              number_sat_channels=12))
+
+
+def _small_convlstm():
+    from satflow_tpu_torch.models import create_model
+
+    return create_model("encoderdecoderconvlstm", input_channels=12, out_channels=12,
+                        forecast_steps=2, hidden_dim=16,
+                        generator=torch.Generator().manual_seed(0))
+
+
+@pytest.mark.gpu
+def test_checkpoint_saved_on_card_loads_on_the_cpu(tmp_path):
+    """A state trained through K1 and K2 on the card, saved there, reads
+    back with ``map_location="cpu"`` equal to the card's tensors, and
+    ``local:`` rebuilds the model on the CPU."""
+    from satflow_tpu_torch.models import create_model
+    from satflow_tpu_torch.train import Trainer
+    from satflow_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+
+    _card()
+    trainer = Trainer(max_steps=1, device="cuda")
+    before = P.fused_convlstm_step.launches, P.gate_bwd.launches
+    trainer.fit(_small_convlstm(), _fake_dm(1))
+    assert P.fused_convlstm_step.launches > before[0] and P.gate_bwd.launches > before[1]
+    save_checkpoint(str(tmp_path / "ck"), trainer.state, trainer.model)
+    saved = restore_checkpoint(tmp_path / "ck", map_location="cpu")
+    for k, v in trainer.model.state_dict().items():
+        assert saved["model"][k].device.type == "cpu" and torch.equal(saved["model"][k], v.cpu())
+    for i, st in trainer.state.optimizer.state_dict()["state"].items():
+        for k, v in st.items():
+            assert torch.equal(saved["optimizer"]["state"][i][k], v.cpu()), (i, k)
+    loaded = create_model(f"local:{tmp_path / 'ck'}")
+    assert next(loaded.parameters()).device.type == "cpu" and saved["step"] == 1
+
+
+@pytest.mark.gpu
+def test_resume_on_card_through_k1_and_k2(tmp_path):
+    """2 steps, a checkpoint, 2 more through K1 and K2 on the card, against
+    4 steps straight: the same step count and launches per step, and the
+    weights within 2e-2 x lr (Adam scales each update to about lr; cuDNN's
+    weight-grad convs may sum in another order between runs)."""
+    from satflow_tpu_torch.train import Trainer
+    from satflow_tpu_torch.train.callbacks import ModelCheckpoint
+
+    _card()
+    first = Trainer(max_steps=2, device="cuda",
+                    callbacks=[ModelCheckpoint(dirpath=str(tmp_path / "ck"))])
+    first.fit(_small_convlstm(), _fake_dm(2))
+    k1, k2 = P.fused_convlstm_step.launches, P.gate_bwd.launches
+    resumed = Trainer(max_steps=4, device="cuda",
+                      resume_from_checkpoint=str(tmp_path / "ck" / "last"))
+    resumed.fit(_small_convlstm(), _fake_dm(2))
+    # 2 steps of (forward + remat recompute) K1 and backward K2, one validation forward
+    per_forward = 2 * 3 + 2 * 2
+    assert P.fused_convlstm_step.launches - k1 == 2 * 2 * per_forward + per_forward
+    assert P.gate_bwd.launches - k2 == 2 * per_forward
+    straight = Trainer(max_epochs=2, max_steps=4, device="cuda")
+    straight.fit(_small_convlstm(), _fake_dm(2))
+    assert resumed.global_step == resumed.state.step == straight.state.step == 4
+    lr = resumed.model.lr
+    want = straight.model.state_dict()
+    for k, v in resumed.model.state_dict().items():
+        assert (v - want[k]).abs().max().item() <= 2e-2 * lr, k

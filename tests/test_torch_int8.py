@@ -392,7 +392,7 @@ def served():
 
 def _session(v, **kw):
     return InferenceSession(create_model("encoderdecoderconvlstm", **SKW), max_batch=2,
-                            variables=v, **kw)
+                            variables=v, device="cpu", **kw)
 
 
 def test_int8_session_close_to_bf16_and_to_jax(served):

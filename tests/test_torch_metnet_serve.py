@@ -64,7 +64,8 @@ def test_session_matches_jax_session(variables):
     x = _x()
     want = JaxSession(jax_create_model("litmetnet", **KW), max_batch=2,
                       variables=variables).predict(x)
-    s = InferenceSession(create_model("litmetnet", **KW), max_batch=2, variables=variables)
+    s = InferenceSession(create_model("litmetnet", **KW), max_batch=2, variables=variables,
+                         device="cpu")
     got = s.predict(x)
     assert got.shape == want.shape == (B, F, H // 16, W // 16, C)
     np.testing.assert_allclose(got, want, atol=1e-4)
@@ -78,7 +79,7 @@ def test_session_by_registry_name_and_bf16():
     output as float16 when asked."""
     v = _variables(seed=2, forecast_steps=48, hidden_dim=64)
     s = InferenceSession("litmetnet", max_batch=1, variables=v, dtype=torch.bfloat16,
-                         out_dtype=torch.float16)
+                         out_dtype=torch.float16, device="cpu")
     assert s.model.module.dtype == torch.bfloat16
     y = s.predict(_x(seed=3, b=1))
     assert y.shape == (1, 48, H // 16, W // 16, C) and y.dtype == np.float16
@@ -101,7 +102,7 @@ def test_server_config_and_http_round_trip(variables):
     assert type(model).__name__ == "LitMetNet" and model.forecast_steps == 24
     assert model.hidden_dim == 64 and model.output_channels == 12 and model.input_size == 64
     srv = NowcastServer(create_model("litmetnet", **KW), port=0, max_batch=2,
-                        variables=variables)
+                        variables=variables, device="cpu")
     srv.start()
     try:
         x = _x(seed=4, b=1)[0]
@@ -144,7 +145,7 @@ def test_cli_trains_metnet(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     result = main(["model=metnet", "datamodule=fake", "trainer=minimal", "callbacks=none",
                    "model.hidden_dim=8", "model.forecast_steps=2", "trainer.max_steps=2",
-                   "trainer.log_every_n_steps=1", f"work_dir={tmp_path / 'runs'}",
+                   "trainer.log_every_n_steps=1", "trainer.device=cpu", f"work_dir={tmp_path / 'runs'}",
                    "print_config=false"])
     assert result is not None and np.isfinite(result)
     csvs = list((tmp_path / "runs").rglob("metrics.csv"))
@@ -161,7 +162,7 @@ def test_metnet_training_imports_no_jax(tmp_path):
         from satflow_tpu_torch.run import main
         result = main(["model=metnet", "datamodule=fake", "trainer=minimal",
                        "callbacks=none", "model.hidden_dim=8", "model.forecast_steps=2",
-                       "trainer.max_steps=2", "work_dir={tmp_path / 'runs'}",
+                       "trainer.max_steps=2", "trainer.device=cpu", "work_dir={tmp_path / 'runs'}",
                        "print_config=false"])
         assert result is not None
         print(sorted(m for m in sys.modules

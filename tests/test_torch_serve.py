@@ -36,9 +36,9 @@ def variables():
         lambda a: (rng.normal(size=a.shape) * 0.3).astype(np.float32), v)
 
 
-def _session(variables, **kwargs):
+def _session(variables, device="cpu", **kwargs):
     return InferenceSession(create_model("encoderdecoderconvlstm", **KW),
-                            variables=variables, **kwargs)
+                            variables=variables, device=device, **kwargs)
 
 
 def test_predict_matches_jax_session(variables):
@@ -62,8 +62,11 @@ def test_session_options(variables):
     with pytest.raises(ValueError, match="expected"):
         s.predict(np.zeros((1, T, H, W, C + 1), np.float32))
     model = create_model("encoderdecoderconvlstm", **KW)
-    with pytest.raises(ValueError, match="exactly one"):
+    # no weights given and none restored into the model: the JAX message
+    with pytest.raises(ValueError, match="has no restored_variables"):
         InferenceSession(model)
+    with pytest.raises(ValueError, match="at most one"):
+        InferenceSession(model, variables=variables, state_dict={})
     with pytest.raises(NotImplementedError, match="item 13"):
         InferenceSession(model, variables=variables, mesh=object())
     with pytest.raises(ValueError, match="unknown quantize mode"):
@@ -76,6 +79,8 @@ def test_cuda_without_a_card_raises(variables, monkeypatch):
         satflow_tpu_torch.resolve_device("cuda")
     with pytest.raises(RuntimeError, match="is_available"):
         _session(variables, device="cuda")
+    with pytest.raises(RuntimeError, match="is_available"):  # the card by default
+        InferenceSession(create_model("encoderdecoderconvlstm", **KW), variables=variables)
 
 
 def test_microbatcher_coalesces_concurrent_requests(variables):
@@ -105,7 +110,7 @@ def test_microbatcher_coalesces_concurrent_requests(variables):
 
 def test_http_round_trip(variables):
     srv = NowcastServer(create_model("encoderdecoderconvlstm", **KW), port=0,
-                        max_batch=2, variables=variables)
+                        max_batch=2, variables=variables, device="cpu")
     srv.start()
     base = f"http://127.0.0.1:{srv.port}"
     try:

@@ -296,14 +296,34 @@ def test_terminate_on_nan_stops_one_step_late(tmp_path):
 
 
 @pytest.mark.parametrize("knob, item", [
-    (dict(profiler="simple"), "item 6"),
-    (dict(resume_from_checkpoint="ckpt"), "item 6"),
     (dict(zero_sharding=True), "item 13"),
     (dict(spatial="2x4"), "item 13"),
 ])
 def test_unported_trainer_knobs_raise(knob, item):
     with pytest.raises(NotImplementedError, match=item):
         Trainer(**knob)
+
+
+@pytest.mark.parametrize("knob", ["profiler", "resume_from_checkpoint"])
+def test_item6_trainer_knobs_work(tmp_path, knob):
+    """The two knobs item 6 ported: ``profiler`` writes a trace of the fit
+    to ``profile_dir``; ``resume_from_checkpoint`` goes on from a saved
+    state's step and weights."""
+    from satflow_tpu_torch.train.callbacks import ModelCheckpoint
+
+    if knob == "profiler":
+        trainer, _ = _fit(tmp_path, max_steps=1, profiler="simple",
+                          profile_dir=str(tmp_path / "prof"))
+        assert os.path.exists(tmp_path / "prof" / "trace.json")
+        assert trainer.profile_path == str(tmp_path / "prof" / "trace.json")
+        return
+    first, model = _fit(tmp_path, max_steps=2,
+                        callbacks=[ModelCheckpoint(dirpath=str(tmp_path / "ck"))])
+    trainer = Trainer(max_epochs=0, resume_from_checkpoint=str(tmp_path / "ck" / "last"))
+    trainer.fit(_port(_flax_params(seed=1)), SatFlowDataModule(**DM_KW))
+    assert trainer.global_step == trainer.state.step == first.global_step == 2
+    for k, v in model.state_dict().items():
+        assert torch.equal(trainer.model.state_dict()[k], v), k
 
 
 def test_unported_losses_and_gan_models_raise():
@@ -325,13 +345,21 @@ def test_unported_losses_and_gan_models_raise():
 
 
 def test_unported_config_targets_raise():
+    """The Perceiver (item 10) raises; the checkpoint callbacks of the
+    default ``callbacks`` group (item 6) build the port's callbacks with the
+    config's arguments."""
     from satflow_tpu_torch.experiments.train import instantiate
+    from satflow_tpu_torch.train import callbacks
 
-    for target, item in (("satflow_tpu.train.callbacks.ModelCheckpoint", "item 6"),
-                         ("satflow_tpu.train.callbacks.ModelArtifactLogger", "item 6"),
-                         ("satflow_tpu.models.perceiver.Perceiver", "item 10")):
-        with pytest.raises(NotImplementedError, match=item):
-            instantiate({"_target_": target})
+    with pytest.raises(NotImplementedError, match="item 10"):
+        instantiate({"_target_": "satflow_tpu.models.perceiver.Perceiver"})
+    cb = instantiate({"_target_": "satflow_tpu.train.callbacks.ModelCheckpoint",
+                      "monitor": "val/loss", "dirpath": "ck/", "save_top_k": 1, "mode": "max"})
+    assert type(cb) is callbacks.ModelCheckpoint and (cb.dirpath, cb.mode) == ("ck/", "max")
+    assert cb.best_score == -float("inf")
+    cb = instantiate({"_target_": "satflow_tpu.train.callbacks.ModelArtifactLogger",
+                      "dirpath": "art/"})
+    assert type(cb) is callbacks.ModelArtifactLogger and cb.dirpath == "art/"
     cb = instantiate({"_target_": "satflow_tpu.train.callbacks.EarlyStopping", "patience": 3})
     assert type(cb).__name__ == "EarlyStopping" and cb.patience == 3
 
@@ -361,7 +389,7 @@ def test_cli_example_runs(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)  # main chdirs into the run dir; undone at teardown
     result = main(["model=convlstm", "datamodule=fake", "trainer=minimal", "callbacks=none",
                    "model.hidden_dim=8", "model.forecast_steps=2", "trainer.max_steps=2",
-                   f"work_dir={tmp_path / 'runs'}", "print_config=false"])
+                   "trainer.device=cpu", f"work_dir={tmp_path / 'runs'}", "print_config=false"])
     assert result is not None and np.isfinite(result)  # optimized_metric val/loss
     csvs = list((tmp_path / "runs").rglob("metrics.csv"))
     assert len(csvs) == 1
@@ -378,7 +406,7 @@ def test_training_imports_no_jax(tmp_path):
         from satflow_tpu_torch.run import main
         result = main(["model=convlstm", "datamodule=fake", "trainer=minimal",
                        "callbacks=none", "model.hidden_dim=8", "model.forecast_steps=2",
-                       "trainer.max_steps=2", "work_dir={tmp_path / 'runs'}",
+                       "trainer.max_steps=2", "trainer.device=cpu", "work_dir={tmp_path / 'runs'}",
                        "print_config=false"])
         assert result is not None
         print(sorted(m for m in sys.modules

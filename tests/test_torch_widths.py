@@ -352,7 +352,7 @@ def test_session_forecast_steps_and_donate(served):
     jmodel, v = served
     want = JaxSession(jmodel, max_batch=2, variables=v, donate=True)
     model = registry.create_model("encoderdecoderconvlstm", **SKW)
-    got = InferenceSession(model, max_batch=2, variables=v, donate=True)
+    got = InferenceSession(model, max_batch=2, variables=v, donate=True, device="cpu")
     assert got.forecast_steps == want.forecast_steps == 2
     x = np.random.default_rng(1).random((2, 3, 16, 16, 4)).astype(np.float32)
     np.testing.assert_allclose(got.predict(x), want.predict(x), atol=1e-5)
