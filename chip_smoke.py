@@ -195,6 +195,26 @@ Phases, in order; any failure exits non-zero before the last line:
    ``scale_batch_size(max_trials=4)`` picks 16 and sets it on the shipped
    datamodule, whose train loader then gives batches of 16;
    ``tune`` returns a finite learning rate;
+28a. the channels-stacked zoo at its shipped configs' width (``unet``,
+   ``runet``, ``attention_unet``, ``attention_runet``, ``fcn_r50``,
+   ``deeplabv3_r101`` and ``pixelcnn`` at its defaults; b8, 7 x 256x256x12
+   in, 24 out, bf16 compute on f32 weights from numpy seed 0 in the flax
+   layout, carried by the bridge): each b8 forward timed with CUDA events,
+   with its peak memory, and one sample's float32 reply on the card held
+   against the same forward on the CPU; ``unet`` behind ``NowcastServer``
+   answers 5 concurrent requests;
+28b. ``unet``, ``attention_runet``, ``deeplabv3_r101`` and ``pixelcnn``
+   train 3 Adam steps through ``Trainer(precision="bf16").fit`` on fake b8
+   256x256 data: losses finite, every BatchNorm statistic moved, every
+   parameter's gradient finite and nonzero, the train step timed; then
+   ``python -m satflow_tpu_torch.run experiment=unet_simple`` through the CLI;
+28c. the full-width fused ConvLSTM, MetNet and UNet exported at b8
+   (``serve/export.py``), each loaded in a fresh process that imports torch
+   and ``satflow_tpu_torch.ops`` only: the reply held against the
+   ``InferenceSession`` reply, K1's 62 launches a call (K3 7, K4 2 for
+   MetNet), the artifact's bytes and its load time printed;
+28d. ``examples/metnet_example.py`` on the card (7 K3 and 2 K4 launches a
+   forward: the one that makes the lazy input width, and the example's);
 29. a JSON line of the kernels with each one's bound on this card, and last
    a JSON line ``{"ok": true, "device": {...}}``.
 
@@ -207,6 +227,7 @@ import contextlib
 import http.client
 import io
 import json
+import keyword
 import os
 import re
 import subprocess
@@ -1205,11 +1226,14 @@ def metnet_timings(torch, model, card):
     path's shapes, the b8 forward both ways, one forward profiled. Returns
     (K3 ms {"kernel", "plain"}, {K4 shape: ms})."""
     from satflow_tpu_torch.ops.axial_attention import attention_kernel, axial_attention_ref
-    from satflow_tpu_torch.ops.fused_lstm import _gates, fused_lstm_gates_ref
+    from satflow_tpu_torch.ops.fused_lstm import _gates, _launch, fused_lstm_gates_ref
 
     gates = _randn(torch, MN_ROWS, 4 * MN_HIDDEN, seed=50, scale=2.0).to(torch.bfloat16)
     c = _randn(torch, MN_ROWS, MN_HIDDEN, seed=51).to(torch.bfloat16)
-    k3 = per_call_ms(torch, _gates, fused_lstm_gates_ref, (gates, c))
+    # the launch itself, and through the dispatcher op that the path calls
+    k3 = per_call_ms(torch, _launch, fused_lstm_gates_ref, (gates, c))
+    with torch.no_grad():
+        k3_op = sum(cuda_ms(torch, lambda: _gates(gates, c), 20) for _ in range(2)) / 2
     k3_bytes = gates.numel() * 2 + c.numel() * 2 * 3
     # ~30 f32 operations per state element: three sigmoids, two tanh, the sums
     k3["bound"] = bound_ms((gates, c, c, c), 30 * c.numel(), "f32")
@@ -1219,7 +1243,8 @@ def metnet_timings(torch, model, card):
                                                                 v[:, None])[:, 0]
 
     print(f"time per K3 call, bf16 ({MN_ROWS}, {4 * MN_HIDDEN}): kernel {k3['kernel'] * 1e3:.2f} us "
-          f"({k3_bytes / k3['kernel'] / 1e6:.0f} GB/s), plain {k3['plain'] * 1e3:.2f} us; bound "
+          f"({k3_bytes / k3['kernel'] / 1e6:.0f} GB/s; {k3_op * 1e3:.2f} us through the op "
+          f"satflow::fused_lstm_gates), plain {k3['plain'] * 1e3:.2f} us; bound "
           f"{k3['bound'][0] * 1e3:.2f} us by {k3['bound'][1]} [{card}]", flush=True)
     k4 = {}
     for shape in K4_SHAPES:
@@ -3579,6 +3604,374 @@ def preemption_and_tuning(torch, card):
     return fused_convlstm_step.launches, gate_bwd.launches
 
 
+# Phases 28a-28d: the channels-stacked zoo at its shipped configs' width (b8, 7
+# x 256x256x12 in, 24 out, bf16 compute on f32 weights; pixelcnn, which ships
+# no config, at its defaults: hidden 64, 5 blocks), served, trained and run
+# through the CLI; the export of the ConvLSTM, MetNet and UNet reloaded in a
+# fresh process; the MetNet example.
+ZOO_SERVE = (("unet", "unet"), ("runet", "runet"), ("attentionunet", "attention_unet"),
+             ("attentionrunet", "attention_runet"), ("fcn", "fcn_r50"),
+             ("deeplabv3", "deeplabv3_r101"), ("pixelcnn", None))
+ZOO_TRAIN = (("unet", "unet"), ("attentionrunet", "attention_runet"),
+             ("deeplabv3", "deeplabv3_r101"), ("pixelcnn", None))
+ZOO_TRAIN_STEPS = 3
+# Tolerances:
+# - one sample's float32 reply on the card (cuDNN, TF32 off) against the same
+#   forward on the host's CPU: the same f32 convs summed in another order by
+#   another library, through up to 104 BatchNorms (ResNet-101) and 27 convs a
+#   pixel deep (R2AttU-Net); measured below 1e-5 x max|cpu| on the CPU against
+#   the JAX package (tests/test_torch_zoo.py holds 1e-4 there).
+TOL_ZOO_F32 = 1e-3  # x max|cpu|
+# - the exported program's reply against the session's on the same input:
+#   the same kernels and library calls on the same tensors, so bit-equal is
+#   expected; held to one bf16 step of the largest reply.
+TOL_EXPORT = 2 ** -8  # x max|session|
+
+
+def zoo_model(torch, name: str, config):
+    """The zoo model as its shipped ``configs/model/<config>.yaml`` builds it
+    (through the experiment entry point's mapping), or, with no config, the
+    registry's defaults at 12 channels and 24 lead times; its input width
+    (7 x 12 stacked) made from a small batch on the host."""
+    from satflow_tpu_torch.core import config as config_lib
+    from satflow_tpu_torch.experiments.train import instantiate
+    from satflow_tpu_torch.models import create_model
+
+    if config is None:
+        model = create_model(name, input_channels=CIN, forecast_steps=STEPS)
+    else:
+        cfg = config_lib.compose(config_lib.default_config_dir(), "config.yaml",
+                                 [f"model={config}"])["model"]
+        model = instantiate(cfg)
+    if (model.input_channels, model.forecast_steps) != (CIN, STEPS):
+        fail(f"{name}: config gives {model.input_channels} channels, {model.forecast_steps} "
+             f"steps, not {CIN}, {STEPS}")
+    small = torch.zeros(1, T, 32, 32, CIN)
+    model.materialize((small, small))
+    return model
+
+
+def zoo_flax_variables(model, seed: int = 0) -> dict:
+    """Random weights in the JAX model's flax tree, as flax initialises them
+    (lecun-normal kernels, zero biases, unit scales, running statistics
+    (0, 1)), from numpy seed ``seed``. The tree is read off the port's module
+    names (the bridge's inverse): a (O, I, 1, k) weight is flax's 1-D (k, I, O)
+    kernel of an int kernel size, any other (O, I, kh, kw) an HWIO one, and a
+    module named ``<keyword>_`` is flax's ``<keyword>``."""
+    rng = np.random.default_rng(seed)
+    tree = {"params": {}, "batch_stats": {}}
+    for key, t in model.module.state_dict().items():
+        *mods, leaf = [m[:-1] if m.endswith("_") and keyword.iskeyword(m[:-1]) else m
+                       for m in key.split(".")]
+        shape = tuple(t.shape)
+        if leaf == "weight":
+            o, i, kh, kw = shape
+            leaf, value = "kernel", lecun_normal(rng, (kw, i, o) if kh == 1 and kw > 1
+                                                 else (kh, kw, i, o))
+        elif leaf in ("bias", "mean"):
+            value = np.zeros(shape, np.float32)
+        elif leaf in ("scale", "var"):
+            value = np.ones(shape, np.float32)
+        else:
+            fail(f"zoo_flax_variables: unexpected state_dict key {key}")
+        node = tree["batch_stats" if leaf in ("mean", "var") else "params"]
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = value
+    return tree
+
+
+def zoo_serve_slice(torch, card):
+    """Phase 28a; returns {model: (forward ms, peak GiB)}."""
+    import copy
+
+    from satflow_tpu_torch.serve import InferenceSession
+
+    x = torch.from_numpy(np.random.default_rng(11).random((B, T, H, W, CIN),
+                                                           dtype=np.float32)).to(DEVICE)
+    rows = {}
+    for name, config in ZOO_SERVE:
+        model = zoo_model(torch, name, config)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()  # what earlier phases still hold
+        session = InferenceSession(model, max_batch=B, variables=zoo_flax_variables(model, 0),
+                                   dtype=torch.bfloat16, device=DEVICE)
+        n_params = sum(p.numel() for p in model.parameters())
+        y = session._forward(x)  # warm-up (cuDNN picks its algorithms)
+        ms = cuda_ms(torch, lambda: session._forward(x), 5)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        if tuple(y.shape) != (B, STEPS, H, W, 1) or not bool(torch.isfinite(y).all()):
+            fail(f"{name}: b{B} reply of shape {tuple(y.shape)}, finite "
+                 f"{bool(torch.isfinite(y).all())}")
+        # one sample in float32 on the card against the same forward on the CPU
+        model.set_compute_dtype(None)
+        with torch.inference_mode():
+            got = model(x[:1]).cpu()
+            want = copy.deepcopy(model).cpu()(x[:1].cpu())
+        model.set_compute_dtype(torch.bfloat16)
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        if not err <= TOL_ZOO_F32 * scale:
+            fail(f"{name}: float32 reply on the card vs the CPU: max|diff| {err:.3g} > "
+                 f"{TOL_ZOO_F32} x max|cpu| {scale:.3g}")
+        rows[name] = (ms, peak)
+        print(f"{name} ({config or 'registry defaults'}, {n_params} parameters): b{B} forward "
+              f"(bf16, {T} x {H}x{W}x{CIN} in, {STEPS} out) {ms:.2f} ms, "
+              f"{B * STEPS / (ms / 1e3):.1f} frames/s, peak device memory {peak:.2f} GiB (weights "
+              f"and the forward, above what earlier phases hold); "
+              f"float32 sample vs the CPU: max|diff| {err:.3g} <= {TOL_ZOO_F32} x max|cpu| "
+              f"{scale:.3g} ok [{card}]", flush=True)
+        if name == "unet":
+            requests = convlstm_requests(seed=12)
+            replies, wall, forwards, _ = drive_server(session, requests, [])
+            for req, (status, reply) in zip(requests, replies):
+                want_shape = req.shape[:-4] + (STEPS, H, W, 1)
+                if status != 200 or reply.shape != want_shape or not np.isfinite(reply).all():
+                    fail(f"unet served: status {status}, reply "
+                         f"{getattr(reply, 'shape', reply)!r}"[:300])
+            print(f"unet served {len(requests)} concurrent requests (6 samples) in {forwards} "
+                  f"forward(s) of b{B}, {wall:.3f} s wall [{card}]", flush=True)
+        del session, model
+        torch.cuda.empty_cache()
+    return rows
+
+
+def zoo_train_slice(torch, card):
+    """Phase 28b; returns {model: (train step ms, peak GiB)}."""
+    from satflow_tpu_torch.data import SatFlowDataModule
+    from satflow_tpu_torch.data.datamodule import to_device
+    from satflow_tpu_torch.interop.jax_weights import zoo_state_dict_from_flax
+    from satflow_tpu_torch.train import Trainer
+    from satflow_tpu_torch.train.steps import make_train_step
+
+    dm = SatFlowDataModule(fake_data=True, num_workers=0, n_train_data=ZOO_TRAIN_STEPS,
+                           n_val_data=1, history_minutes=5 * (T - 1),
+                           forecast_minutes=5 * STEPS,
+                           fake_kwargs=dict(batch_size=B, width=W, height=H))
+    rows = {}
+    for name, config in ZOO_TRAIN:
+        model = zoo_model(torch, name, config)
+        model.module.load_state_dict(zoo_state_dict_from_flax(zoo_flax_variables(model, 0)))
+        stats0 = {k: v.clone() for k, v in model.module.state_dict().items()
+                  if k.endswith((".mean", ".var"))}
+        trainer = Trainer(max_steps=ZOO_TRAIN_STEPS, precision="bf16", log_every_n_steps=1,
+                          device=DEVICE)
+        t0 = time.perf_counter()
+        trainer.fit(model, dm)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        losses = [e["train/loss"] for e in trainer.history.history if "train/loss" in e]
+        val_loss = trainer.callback_metrics.get("val/loss", float("nan"))
+        if trainer.global_step != ZOO_TRAIN_STEPS or len(losses) != ZOO_TRAIN_STEPS \
+                or not all(np.isfinite(losses + [val_loss])):
+            fail(f"{name}: fit took {trainer.global_step} steps; losses {losses}, val {val_loss}")
+        state = model.module.state_dict()
+        still = [k for k, v in stats0.items() if torch.equal(state[k].cpu(), v)]
+        if still:  # pixelcnn has no BatchNorm
+            fail(f"{name}: BatchNorm statistics that did not move: {still[:5]} of {len(stats0)}")
+        batch = to_device(next(iter(dm.train_dataloader())), torch.device(DEVICE))
+        model.train()
+        model.zero_grad(set_to_none=True)
+        loss, _ = model.loss(batch)
+        loss.backward()
+        bad = [n for n, p in model.named_parameters()
+               if p.grad is None or not bool(torch.isfinite(p.grad).all())
+               or not bool((p.grad != 0).any())]
+        if bad:
+            fail(f"{name}: gradients missing, non-finite or all zero: {bad[:5]}")
+        n_params = sum(1 for _ in model.parameters())
+        step = make_train_step(model)
+        step(trainer.state, batch)  # warm-up
+        runs = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() - sum(  # earlier phases' tensors, not this model's
+            t.numel() * t.element_size() for t in (*model.parameters(), *model.buffers()))
+        base -= sum(t.numel() * t.element_size() for s in trainer.state.optimizer.state.values()
+                    for t in s.values() if torch.is_tensor(t))
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            step(trainer.state, batch)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t1) * 1e3)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        rows[name] = (sum(runs) / len(runs), peak)
+        print(f"{name} ({config or 'registry defaults'}): trained {ZOO_TRAIN_STEPS} Adam steps "
+              f"(bf16, b{B} {H}x{W}, {T} in / {STEPS} out) in {wall:.2f} s wall with data "
+              f"generation: losses " + ", ".join(f"{v:.6f}" for v in losses)
+              + f", val {val_loss:.6f}; {len(stats0)} BatchNorm statistics moved; all "
+              f"{n_params} parameter gradients finite and nonzero; train step "
+              f"{rows[name][0]:.2f} ms (runs {', '.join(f'{r:.2f}' for r in runs)}), "
+              f"{B * STEPS / (rows[name][0] / 1e3):.1f} frames/s, peak device memory "
+              f"{peak:.2f} GiB (weights, Adam's moments, the batch and the step, above what "
+              f"earlier phases hold) [{card}]", flush=True)
+        del trainer, model, step
+        torch.cuda.empty_cache()
+
+    # the shipped experiment through the CLI, as a user runs it, on the card
+    import tempfile
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "satflow_tpu_torch.run", "experiment=unet_simple",
+             f"work_dir={work}/runs", "print_config=false"],
+            capture_output=True, text=True, cwd=work, timeout=600,
+            env={**os.environ, "PYTHONPATH": repo})
+        wall = time.perf_counter() - t0
+        csvs = [os.path.join(d, f) for d, _, fs in os.walk(work) for f in fs
+                if f == "metrics.csv"]
+        if out.returncode != 0 or len(csvs) != 1:
+            fail(f"python -m satflow_tpu_torch.run experiment=unet_simple: exit "
+                 f"{out.returncode}, {len(csvs)} metrics.csv; {out.stderr[-1500:]}")
+        header = open(csvs[0]).read().splitlines()[0].split(",")
+        if not {"train/loss", "val/loss", "test/loss"} <= set(header):
+            fail(f"experiment=unet_simple: metrics.csv columns {header[:10]}")
+    print(f"python -m satflow_tpu_torch.run experiment=unet_simple on the card: exit 0 in "
+          f"{wall:.1f} s wall, train/val/test losses logged [{card}]", flush=True)
+    return rows
+
+
+EXPORT_LOADER = """
+import io, json, struct, sys, time
+import numpy as np
+import torch
+import satflow_tpu_torch.ops
+from satflow_tpu_torch.ops.axial_attention import axial_attention
+from satflow_tpu_torch.ops.fused_convlstm_step import fused_convlstm_step
+from satflow_tpu_torch.ops.fused_lstm import fused_lstm_gates
+path, x_path, y_path = sys.argv[1:4]
+t0 = time.perf_counter()
+with open(path, "rb") as f:
+    assert f.read(8) == b"SFXP0001"
+    (n,) = struct.unpack("<I", f.read(4))
+    meta = json.loads(f.read(n).decode())
+    fn = torch.export.load(io.BytesIO(f.read())).module()
+load_s = time.perf_counter() - t0
+x = torch.from_numpy(np.load(x_path)).to(meta["platforms"][0])
+with torch.no_grad():
+    counters = (fused_convlstm_step, fused_lstm_gates, axial_attention)
+    for c in counters:
+        c.launches = 0
+    y = fn(x)
+    launches = [c.launches for c in counters]
+np.save(y_path, y.cpu().numpy())
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax", "satflow_tpu")
+             or m.startswith(("satflow_tpu_torch.models", "satflow_tpu_torch.core",
+                              "satflow_tpu_torch.serve", "satflow_tpu_torch.nn")))
+print(json.dumps({"load_s": load_s, "launches": launches, "bad": bad}))
+"""
+
+
+def export_slice(torch, card):
+    """Phase 28c; returns the (K1, K3, K4) launches of the phase (the
+    sessions' forwards here and the exported programs' calls there)."""
+    import tempfile
+
+    from satflow_tpu_torch.interop.jax_weights import params_from_flax
+    from satflow_tpu_torch.models.conv_lstm import EncoderDecoderConvLSTM
+    from satflow_tpu_torch.ops.axial_attention import axial_attention
+    from satflow_tpu_torch.ops.fused_convlstm_step import fused_convlstm_step
+    from satflow_tpu_torch.ops.fused_lstm import fused_lstm_gates
+    from satflow_tpu_torch.serve import InferenceSession
+    from satflow_tpu_torch.serve.export import export_model
+
+    counters = (fused_convlstm_step, fused_lstm_gates, axial_attention)
+    cases = (
+        ("convlstm", lambda: (EncoderDecoderConvLSTM(hidden_dim=HIDDEN, input_channels=CIN,
+                                                     out_channels=COUT, forecast_steps=STEPS),
+                              dict(state_dict=params_from_flax(flax_params(0)))),
+         CIN, (LAUNCHES_PER_FORWARD, 0, 0)),
+        ("metnet", lambda: (_metnet(torch),
+                            dict(variables=metnet_flax_variables(4 * MN_CIN + MN_F))),
+         MN_CIN, (0, MN_K3_PER_FORWARD, MN_K4_PER_FORWARD)),
+        ("unet", lambda: (lambda m: (m, dict(variables=zoo_flax_variables(m, 0))))(
+            zoo_model(torch, "unet", "unet")), CIN, (0, 0, 0)),
+    )
+    repo = os.path.dirname(os.path.abspath(__file__))
+    totals = [0, 0, 0]
+    with tempfile.TemporaryDirectory() as tmp:
+        exported = []
+        for name, build, cin, want_launches in cases:
+            model, weights = build()
+            session = InferenceSession(model, max_batch=B, dtype=torch.bfloat16, device=DEVICE,
+                                       **weights)
+            x = np.random.default_rng(13).random((B, T, H, W, cin), dtype=np.float32)
+            for c in counters:
+                c.launches = 0
+            want = session.predict(x)
+            totals = [a + c.launches for a, c in zip(totals, counters)]
+            path, x_path = os.path.join(tmp, f"{name}.pt2"), os.path.join(tmp, f"{name}_x.npy")
+            t0 = time.perf_counter()
+            meta = export_model(session, None, path, batch=B, history=T, size=H,
+                                channels=cin)  # in the session's bf16
+            export_s = time.perf_counter() - t0
+            np.save(x_path, x)
+            exported.append((name, path, x_path, want, meta, export_s, want_launches))
+            del session, model
+            torch.cuda.empty_cache()
+        # each artifact loaded in a fresh process of its own, the three at once
+        procs = [subprocess.Popen([sys.executable, "-c", EXPORT_LOADER, path, x_path,
+                                   os.path.join(tmp, f"{name}_y.npy")],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                  env={**os.environ, "PYTHONPATH": repo})
+                 for name, path, x_path, *_ in exported]
+        outs = [proc.communicate(timeout=600) + (proc.returncode,) for proc in procs]
+        for (name, path, _, want, meta, export_s, want_launches), (stdout, stderr, rc) in zip(
+                exported, outs):
+            if rc != 0:
+                fail(f"loading the exported {name} in a fresh process: {stderr[-2000:]}")
+            res = json.loads(stdout.strip().splitlines()[-1])
+            got = np.load(os.path.join(tmp, f"{name}_y.npy"))
+            totals = [a + b for a, b in zip(totals, res["launches"])]
+            if res["bad"]:
+                fail(f"loading the exported {name} imported {res['bad'][:8]}")
+            if tuple(res["launches"]) != want_launches:
+                fail(f"exported {name}: (K1, K3, K4) launches a call {res['launches']}, "
+                     f"expected {want_launches}")
+            if got.shape != want.shape or list(got.shape) != meta["out_shape"]:
+                fail(f"exported {name}: reply {got.shape}, session {want.shape}, "
+                     f"meta {meta['out_shape']}")
+            err, scale = float(np.abs(got - want).max()), float(np.abs(want).max())
+            if not err <= TOL_EXPORT * scale:
+                fail(f"exported {name} vs the session: max|diff| {err:.3g} > {TOL_EXPORT} x "
+                     f"{scale:.3g}")
+            print(f"exported {name} (b{B}, bf16 on f32 weights): {os.path.getsize(path)} bytes, "
+                  f"export {export_s:.2f} s; a fresh process importing torch and "
+                  f"satflow_tpu_torch.ops only (three at once) loads it in {res['load_s']:.3f} s "
+                  f"(torch.export's own imports included), and its call launches (K1, K3, K4) "
+                  f"{tuple(res['launches'])}; reply vs the session: max|diff| {err:.3g} "
+                  f"({'bit-equal' if err == 0 else f'<= {TOL_EXPORT} x {scale:.3g}'}) [{card}]",
+                  flush=True)
+    return tuple(totals)
+
+
+def example_slice(torch, card):
+    """Phase 28d; returns the (K3, K4) launches of the example."""
+    from satflow_tpu_torch.examples import metnet_example
+    from satflow_tpu_torch.ops.axial_attention import axial_attention
+    from satflow_tpu_torch.ops.fused_lstm import fused_lstm_gates
+
+    fused_lstm_gates.launches = axial_attention.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        y = metnet_example.main([])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k3, k4 = fused_lstm_gates.launches, axial_attention.launches
+    if tuple(y.shape) != (1, STEPS, 16, 16, 1) or not bool(torch.isfinite(y).all()) \
+            or y.device.type != "cuda":
+        fail(f"metnet_example: {tuple(y.shape)} on {y.device}")
+    # two forwards: the one sample that makes the input width, and the example's
+    if (k3, k4) != (2 * T, 2 * 2):
+        fail(f"metnet_example launched K3 {k3}, K4 {k4} times, expected {2 * T}, 4")
+    print(f"examples/metnet_example.py on the card: {printed.getvalue().strip().splitlines()[-1]}"
+          f"; {wall:.2f} s wall, K3 {k3} and K4 {k4} launches [{card}]", flush=True)
+    return k3, k4
+
+
 def main() -> None:
     try:
         import torch
@@ -3732,6 +4125,15 @@ def main() -> None:
     phase_done("phase 27 (MetNet resume, the profiler)")
     pre_k1, pre_k2 = preemption_and_tuning(torch, card)
     phase_done("phase 28 (preemption, scale_batch_size, tune)")
+    # phases 28a-28d: the zoo, export, the example (counts set to 0 inside)
+    zoo_serve_slice(torch, card)
+    phase_done("phase 28a (the zoo served)")
+    zoo_train_slice(torch, card)
+    phase_done("phase 28b (the zoo trained, experiment=unet_simple)")
+    exp_k1, exp_k3, exp_k4 = export_slice(torch, card)
+    phase_done("phase 28c (export of the ConvLSTM, MetNet, UNet)")
+    ex_k3, ex_k4 = example_slice(torch, card)
+    phase_done("phase 28d (examples/metnet_example.py)")
     life_k1 += prof_k1 + pre_k1
     life_k2 += prof_k2 + pre_k2
 
@@ -3752,13 +4154,13 @@ def main() -> None:
         kernel("fused_convlstm_step", "fused_convlstm_step.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_step.py:453",
                serve_k1 + train_k1 + cm_k1 + cm32_k1 + st_k1 + widths_k1 + padded_k1 + eval_k1
-               + gate_k1 + life_k1, k1_err, per_call[HIDDEN]),
+               + gate_k1 + life_k1 + exp_k1, k1_err, per_call[HIDDEN]),
         # the TPU's unpadded sibling of K1: the port's K1 is that kernel (its
         # tensors are unpadded NHWC), so this row repeats K1's numbers
         kernel("fused_convlstm_step (unpadded NHWC)", "fused_convlstm_step.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_step.py:380",
                serve_k1 + train_k1 + cm_k1 + cm32_k1 + st_k1 + widths_k1 + padded_k1 + eval_k1
-               + gate_k1 + life_k1, k1_err, per_call[HIDDEN]),
+               + gate_k1 + life_k1 + exp_k1, k1_err, per_call[HIDDEN]),
         kernel("fused_convlstm_step_halo", "fused_convlstm_step_halo.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_step.py:266",
                halo_serve + halo_train_k1h, k1h_err, study["K1h"]),
@@ -3771,10 +4173,11 @@ def main() -> None:
                # MetNet serving + training (mse and ssim) + its resume, the
                # concat/split/hybrid cells
                serve_k3 + train_k3 + ssim_k3 + life_k3 + sum(cells_k3.values())
-               + cells_train_k3, k3_err, k3_ms),
+               + cells_train_k3 + exp_k3 + ex_k3, k3_err, k3_ms),
         kernel("axial_attention", "axial_attention.cu",
                "satflow_tpu/ops/pallas/axial_attention.py:60",
-               serve_k4 + train_k4 + ssim_k4 + life_k4, k4_err, k4_t, library=k4_t["library"]),
+               serve_k4 + train_k4 + ssim_k4 + life_k4 + exp_k4 + ex_k4, k4_err, k4_t,
+               library=k4_t["library"]),
         kernel("fused_convlstm_step_int8", "fused_convlstm_int8.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_int8.py:172",
                serve_k5 + int8_32_k5, k5_err, serving[f"K5.{HIDDEN}"]),

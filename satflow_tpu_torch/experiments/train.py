@@ -37,13 +37,11 @@ def _counterpart(target: str):
         from satflow_tpu_torch.core.registry import get_model
         import satflow_tpu_torch.models  # noqa: F401 - populate the registry
 
-        try:
-            return get_model(name)
-        except KeyError:
-            item = _UNPORTED_MODELS.get(module.rsplit(".", 1)[-1], 12)
+        item = _UNPORTED_MODELS.get(module.rsplit(".", 1)[-1])
+        if item is not None:
             raise NotImplementedError(
-                f"model {target!r} is not ported yet (ROADMAP queue 1 item {item})"
-            ) from None
+                f"model {target!r} is not ported yet (ROADMAP queue 1 item {item})")
+        return get_model(name)
     if target == "satflow_tpu.data.datamodule.SatFlowDataModule":
         from satflow_tpu_torch.data.datamodule import SatFlowDataModule
 
@@ -53,6 +51,30 @@ def _counterpart(target: str):
         ported = module.replace("satflow_tpu", "satflow_tpu_torch", 1)
         return getattr(importlib.import_module(ported), name)
     raise NotImplementedError(f"{target!r} has no counterpart in the port yet (see ROADMAP.md)")
+
+
+# The keys that the default model config (model/convlstm.yaml) leaves in the
+# model node of an experiment that picks another model in its own defaults
+# list, which the config tree merges over the default one:
+# experiment=unet_simple keeps the ConvLSTM's out_channels and hidden_dim. A
+# channels-stacked model takes neither (it sets its core's out_channels), and
+# the JAX package raises a TypeError on them; here these two are dropped from
+# such a model's node, and any other key that a model does not take raises.
+_DEFAULT_MODEL_KEYS = ("out_channels", "hidden_dim")
+
+
+def _model_node(node: Dict[str, Any]) -> Dict[str, Any]:
+    """The composed model node without the default model's keys that a
+    channels-stacked model does not take (:data:`_DEFAULT_MODEL_KEYS`)."""
+    from satflow_tpu_torch.models.unet_family import StackedImageModel
+
+    cls = _counterpart(node["_target_"])
+    dropped = [k for k in _DEFAULT_MODEL_KEYS if k in node]
+    if not (isinstance(cls, type) and issubclass(cls, StackedImageModel)) or not dropped:
+        return node
+    log.warning("%s takes no %s (the default model config's): dropped", cls.__name__,
+                ", ".join(dropped))
+    return {k: v for k, v in node.items() if k not in dropped}
 
 
 def instantiate(cfg: Any, **kwargs) -> Any:
@@ -80,7 +102,7 @@ def train(config: Dict[str, Any]) -> Optional[float]:
     log.info("Instantiating datamodule <%s>", config["datamodule"].get("_target_"))
     datamodule = instantiate(config["datamodule"])
     log.info("Instantiating model <%s>", config["model"].get("_target_"))
-    model = instantiate(config["model"])
+    model = instantiate(_model_node(config["model"]))
 
     callbacks: List[Any] = []
     for cb_conf in (config.get("callbacks") or {}).values():

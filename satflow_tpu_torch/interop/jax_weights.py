@@ -1,4 +1,4 @@
-"""flax variables -> PyTorch state_dict for the port's ConvLSTM and MetNet cores.
+"""flax variables -> PyTorch state_dict for the port's ConvLSTM, MetNet and zoo cores.
 
 The inverse direction of ``satflow_tpu/interop/torch_weights.py``. Its
 layout rule, read backwards: a flax conv kernel (kh, kw, I, O) becomes an
@@ -30,6 +30,9 @@ kernels (C, heads, d) and (heads, d, C) -> ``nn.Linear`` weights, LayerNorm
 ``scale`` -> ``weight``; BatchNorm ``scale``/``bias``, ``pos_emb`` and the
 running ``mean``/``var`` keep their names.
 
+:func:`zoo_state_dict_from_flax` converts the channels-stacked zoo (the U-Net
+family, FCN / DeepLabV3, PixelCNN) by one walk of the tree.
+
 A flat ``.npz`` (:func:`save_npz`) holds the params under their paths and a
 ``batch_stats`` collection under ``batch_stats/``. Pure numpy: no jax is
 needed to read the weights.
@@ -37,6 +40,7 @@ needed to read the weights.
 
 from __future__ import annotations
 
+import keyword
 from collections import OrderedDict
 from typing import Any, Dict, Mapping
 
@@ -179,6 +183,45 @@ def metnet_state_dict_from_flax(variables: Mapping[str, Any]) -> "OrderedDict[st
     for path, a in flatten_tree(variables.get("batch_stats", {})).items():
         sd[path.replace("/", ".")] = torch.from_numpy(np.array(a, dtype=np.float32))
     return sd
+
+
+def zoo_state_dict_from_flax(variables: Mapping[str, Any],
+                             dtype=np.float32) -> "OrderedDict[str, torch.Tensor]":
+    """flax variables (``{"params": ..., "batch_stats": ...}``, numpy leaves)
+    of a channels-stacked zoo model (``Unet``, ``RUnet``, ``AttentionUnet``,
+    ``AttentionRUnet``, ``FCN``, ``DeeplabV3``, ``PixelCNN``) -> the state_dict
+    of the port's core, by one walk of the tree: the port names its
+    submodules as flax does, so a leaf's path is its key. A conv ``kernel``
+    (kh, kw, I, O) becomes ``weight`` (O, I, kh, kw); a 1-D one (k, I, O),
+    which flax makes of an int kernel size, becomes (O, I, 1, k) (the port's
+    (1, k) conv along W); ``bias`` and BatchNorm's ``scale`` keep their names,
+    a module named as a Python keyword takes a trailing underscore (``in`` ->
+    ``in_``),
+    as do the ``coord`` / ``antialiased`` convs' ``Conv_0`` level and the
+    ``batch_stats`` ``mean`` / ``var`` (buffers of the shared BatchNorm).
+    MaskedConv's kernel is a plain conv kernel (its mask is applied per call).
+    Leaves are cast to ``dtype`` (the port's weights are float32)."""
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    for path, a in flatten_tree(variables["params"]).items():
+        *mods, leaf = path.split("/")
+        a = np.asarray(a, dtype=dtype)
+        if leaf == "kernel" and a.ndim == 4:
+            a, leaf = a.transpose(3, 2, 0, 1), "weight"
+        elif leaf == "kernel" and a.ndim == 3:
+            a, leaf = a.transpose(2, 1, 0)[:, :, None, :], "weight"
+        elif leaf not in ("bias", "scale"):
+            raise KeyError(f"unexpected flax param {path!r}")
+        sd[_module_key(mods + [leaf])] = torch.from_numpy(np.array(a, order="C"))
+    for path, a in flatten_tree(variables.get("batch_stats", {})).items():
+        sd[_module_key(path.split("/"))] = torch.from_numpy(np.array(a, dtype=dtype))
+    return sd
+
+
+def _module_key(names) -> str:
+    """A flax path's state_dict key; a flax module name that is a Python
+    keyword (PixelCNN's ``in``) takes a trailing underscore in the port,
+    where module names are attributes."""
+    return ".".join(f"{n}_" if keyword.iskeyword(n) else n for n in names)
 
 
 def save_npz(path, tree: Mapping[str, Any]) -> None:

@@ -28,131 +28,48 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.nn.modules.lazy import LazyModuleMixin
-from torch.nn.parameter import UninitializedParameter
 
 from satflow_tpu_torch.core.registry import register_model
 from satflow_tpu_torch.models.base import BaseModel
 from satflow_tpu_torch.nn.attention import AxialAttentionBlock
+from satflow_tpu_torch.nn.conv import Conv, DtypedModule
 from satflow_tpu_torch.nn.losses import get_loss
-from satflow_tpu_torch.nn.misc import compute_dtype, conv2d_nhwc, crop_center, space_to_depth
-from satflow_tpu_torch.nn.recurrent import ConvLSTMCell, lecun_normal_
+from satflow_tpu_torch.nn.misc import (
+    BatchNorm,
+    compute_dtype,
+    crop_center,
+    max_pool,
+    space_to_depth,
+)
+from satflow_tpu_torch.nn.recurrent import ConvLSTMCell
 from satflow_tpu_torch.ops.axial_attention import axial_attention
 from satflow_tpu_torch.ops.fused_lstm import fused_lstm_gates
 
 
-def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``conv`` on NHWC ``x`` in ``dtype`` (its f32 weights cast per call)."""
-    return conv2d_nhwc(x.to(dtype), conv.weight.to(dtype), conv.bias.to(dtype))
-
-
-def _flax_conv(in_channels: int, out_channels: int, kernel_size: int,
-               generator: Optional[torch.Generator]) -> nn.Conv2d:
-    """An ``nn.Conv2d`` (SAME padding) with flax's init: lecun-normal, zero bias."""
-    conv = nn.Conv2d(in_channels, out_channels, kernel_size, padding="same")
-    lecun_normal_(conv.weight, in_channels * kernel_size ** 2, generator)
-    nn.init.zeros_(conv.bias)
-    return conv
-
-
-class _LazyConv(LazyModuleMixin, nn.Conv2d):
-    """An ``nn.Conv2d`` (SAME padding, flax's init) whose input width comes
-    from its first NHWC input or from a state_dict."""
-
-    cls_to_become = None  # stays this class once the weights exist
-
-    def __init__(self, out_channels: int, kernel_size: int,
-                 generator: Optional[torch.Generator] = None):
-        super().__init__(0, out_channels, kernel_size, padding="same")
-        self.weight = UninitializedParameter()
-        self.bias = UninitializedParameter()
-        self._generator = generator
-
-    def reset_parameters(self) -> None:
-        """Nothing to reset before the width is known (``nn.Conv2d.__init__``
-        calls this); :meth:`initialize_parameters` initialises."""
-
-    def initialize_parameters(self, x: torch.Tensor, *args, **kwargs) -> None:  # noqa: ARG002
-        if self.has_uninitialized_params():
-            self.in_channels = x.shape[-1]
-            shape = (self.out_channels, self.in_channels, *self.kernel_size)
-            weight = torch.empty(shape)  # drawn on the host: the generator may be a CPU one
-            lecun_normal_(weight, weight[0].numel(), self._generator)
-            with torch.no_grad():
-                self.weight.materialize(shape)
-                self.weight.copy_(weight)
-                self.bias.materialize((self.out_channels,))
-                self.bias.zero_()
-
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        return _conv(self, x, dtype)
-
-
-class _BatchNorm(nn.Module):
-    """flax ``BatchNorm`` over the channels of an NHWC tensor.
-
-    Training: normalise with the batch's f32 mean and biased variance and
-    move the running statistics by flax's rule, ``ra = momentum·ra + (1 -
-    momentum)·batch`` with momentum 0.99; ``torch.nn.BatchNorm2d`` would keep
-    the unbiased variance. The variance is taken as E[(x - E[x])²]: flax's
-    E[x²] - E[x]² is the same value up to f32 rounding, but its gradient,
-    the difference of two nearly equal terms, loses most of its digits in
-    f32 where a channel's mean is large against its spread.
-    Eval: normalise with the running statistics. The normalisation is f32,
-    rounded to the compute dtype.
-    """
-
-    def __init__(self, features: int, momentum: float = 0.99, eps: float = 1e-5):
-        super().__init__()
-        self.momentum = momentum
-        self.eps = eps
-        self.scale = nn.Parameter(torch.ones(features))
-        self.bias = nn.Parameter(torch.zeros(features))
-        self.register_buffer("mean", torch.zeros(features))
-        self.register_buffer("var", torch.ones(features))
-
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        xf = x.float()
-        if self.training:
-            dims = tuple(range(x.dim() - 1))
-            mean = xf.mean(dim=dims)
-            var = torch.square(xf - mean).mean(dim=dims)
-            with torch.no_grad():
-                self.mean.mul_(self.momentum).add_((1.0 - self.momentum) * mean)
-                self.var.mul_(self.momentum).add_((1.0 - self.momentum) * var)
-        else:
-            mean, var = self.mean, self.var
-        return ((xf - mean) * (torch.rsqrt(var + self.eps) * self.scale) + self.bias).to(dtype)
-
-
-def _max_pool(x: torch.Tensor) -> torch.Tensor:
-    """2x2 max-pool, stride 2, of an NHWC tensor."""
-    return F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
-
-
-class _Downsampler(nn.Module):
+class _Downsampler(DtypedModule):
     """MetNet image encoder: conv 160 -> pool -> BN -> conv 256 x3 (BN after
-    the second) -> pool: H -> H/4."""
+    the second) -> pool: H -> H/4. The first conv's input width comes from
+    its first input or from a state_dict."""
 
     def __init__(self, dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.c0 = Conv(None, 160, 3, generator=generator)
+        self.bn0 = BatchNorm(160)
+        self.c1 = Conv(160, 256, 3, generator=generator)
+        self.c2 = Conv(256, 256, 3, generator=generator)
+        self.bn1 = BatchNorm(256)
+        self.c3 = Conv(256, 256, 3, generator=generator)
         self.dtype = dtype
-        self.c0 = _LazyConv(160, 3, generator)
-        self.bn0 = _BatchNorm(160)
-        self.c1 = _flax_conv(160, 256, 3, generator)
-        self.c2 = _flax_conv(256, 256, 3, generator)
-        self.bn1 = _BatchNorm(256)
-        self.c3 = _flax_conv(256, 256, 3, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cdtype = compute_dtype(self.dtype, x)
-        x = _max_pool(self.c0(x, cdtype))
+        x = max_pool(self.c0(x), 2)
         x = F.relu(self.bn0(x, cdtype))
-        x = F.relu(_conv(self.c1, x, cdtype))
-        x = F.relu(_conv(self.c2, x, cdtype))
-        x = _conv(self.c3, self.bn1(x, cdtype), cdtype)
-        return F.relu(_max_pool(x))
+        x = F.relu(self.c1(x))
+        x = F.relu(self.c2(x))
+        x = self.c3(self.bn1(x, cdtype))
+        return F.relu(max_pool(x, 2))
 
 
 class MetNetCore(nn.Module):
@@ -190,7 +107,7 @@ class MetNetCore(nn.Module):
         for i in range(num_att_layers):
             self.add_module(f"axial{i}", AxialAttentionBlock(
                 hidden_dim, heads=att_heads, axes=(-3, -2), dtype=dtype, generator=generator))
-        self.head = _flax_conv(hidden_dim, out_channels, 1, generator)
+        self.head = Conv(hidden_dim, out_channels, 1, generator=generator)
 
     def set_compute_dtype(self, dtype: Optional[torch.dtype]) -> None:
         """Compute in ``dtype`` from now on (None: flax's promotion, f32 for
@@ -249,7 +166,7 @@ class MetNetCore(nn.Module):
             z = getattr(self, f"axial{i}")(z, attention)
 
         # 6. head, in flax's promotion of z and the f32 kernel (no dtype)
-        out = _conv(self.head, z, compute_dtype(None, z))
+        out = self.head(z)
         return out.reshape(f, b, eh, ew, -1).transpose(0, 1)
 
 

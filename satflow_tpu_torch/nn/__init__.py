@@ -8,5 +8,14 @@ from satflow_tpu_torch.nn.conv import (  # noqa: F401
     get_conv_layer,
 )
 from satflow_tpu_torch.nn.losses import get_loss  # noqa: F401
-from satflow_tpu_torch.nn.misc import crop_center, space_to_depth  # noqa: F401
-from satflow_tpu_torch.nn.recurrent import ConvLSTMCell  # noqa: F401
+from satflow_tpu_torch.nn.misc import (  # noqa: F401
+    TimeDistributed,
+    crop_center,
+    space_to_depth,
+    time_distributed,
+)
+from satflow_tpu_torch.nn.recurrent import (  # noqa: F401
+    ConvLSTMCell,
+    SpatioTemporalLSTMCell,
+    scan_cell,
+)

@@ -1,10 +1,17 @@
-"""Tensor helpers, counterpart of ``satflow_tpu/nn/misc.py`` (NHWC / NTHWC)."""
+"""Tensor helpers, counterpart of ``satflow_tpu/nn/misc.py`` (NHWC / NTHWC):
+space-to-depth, center crop, the per-timestep wrappers ``time_distributed`` /
+:class:`TimeDistributed`, and the flax layers the port's models share that
+torch has no exact match for: :class:`BatchNorm` and :func:`max_pool` (flax's
+``SAME`` padding, -inf in the padded cells).
+"""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.nn.functional as F
+from torch import nn
 
 
 def compute_dtype(dtype: Optional[torch.dtype], x: torch.Tensor) -> torch.dtype:
@@ -40,3 +47,93 @@ def conv2d_nhwc(x: torch.Tensor, weight: torch.Tensor, bias=None, padding="same"
     and column of an even kernel at the end)."""
     y = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), weight, bias, padding=padding)
     return y.permute(0, 2, 3, 1)
+
+
+def time_distributed(fn: Callable, x: torch.Tensor, *args, **kwargs) -> torch.Tensor:
+    """Apply ``fn`` per timestep of a (B, T, ...) tensor by folding T into
+    the batch: one reshape in, one reshape out."""
+    b, t = x.shape[:2]
+    y = fn(x.reshape(b * t, *x.shape[2:]), *args, **kwargs)
+    return y.reshape(b, t, *y.shape[1:])
+
+
+class TimeDistributed(nn.Module):
+    """Wraps a module to apply it independently per timestep (T folded into
+    the batch); its parameters are the wrapped module's, under ``module``."""
+
+    def __init__(self, module: nn.Module):
+        super().__init__()
+        self.module = module
+
+    def forward(self, x: torch.Tensor, *args, **kwargs) -> torch.Tensor:
+        return time_distributed(self.module, x, *args, **kwargs)
+
+
+class BatchNorm(nn.Module):
+    """flax ``BatchNorm`` over the channels of an NHWC tensor.
+
+    Training: normalise with the batch's f32 mean and biased variance and
+    move the running statistics by flax's rule, ``ra = momentum·ra + (1 -
+    momentum)·batch`` with momentum 0.99; ``torch.nn.BatchNorm2d`` would keep
+    the unbiased variance and the other momentum convention. The variance is
+    taken as E[(x - E[x])²]: flax's E[x²] - E[x]² is the same value up to f32
+    rounding, but its gradient, the difference of two nearly equal terms,
+    loses most of its digits in f32 where a channel's mean is large against
+    its spread. Eval: normalise with the running statistics. The
+    normalisation is f32, rounded to ``dtype`` (the caller's compute dtype).
+    Parameters and buffers carry flax's names: ``scale``, ``bias`` and the
+    ``batch_stats`` ``mean``, ``var``.
+    """
+
+    def __init__(self, features: int, momentum: float = 0.99, eps: float = 1e-5):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        if self.training:
+            dims = tuple(range(x.dim() - 1))
+            mean = xf.mean(dim=dims)
+            var = torch.square(xf - mean).mean(dim=dims)
+            with torch.no_grad():
+                self.mean.mul_(self.momentum).add_((1.0 - self.momentum) * mean)
+                self.var.mul_(self.momentum).add_((1.0 - self.momentum) * var)
+        else:
+            mean, var = self.mean, self.var
+        return ((xf - mean) * (torch.rsqrt(var + self.eps) * self.scale) + self.bias).to(dtype)
+
+
+def same_padding(kernel: Sequence[int], strides: Sequence[int], height: int, width: int,
+                 dilation: Sequence[int] = (1, 1)) -> Tuple[int, int, int, int]:
+    """flax's ``SAME`` as F.pad's (left, right, top, bottom): the output is
+    ceil(size / stride), and an odd total puts the extra row or column last
+    (a dilated kernel counts as its spread, (k - 1)·d + 1)."""
+    pads = []
+    for size, k, s, d in ((width, kernel[1], strides[1], dilation[1]),
+                          (height, kernel[0], strides[0], dilation[0])):
+        total = max((-(-size // s) - 1) * s + (k - 1) * d + 1 - size, 0)
+        pads += [total // 2, total - total // 2]
+    return tuple(pads)  # type: ignore[return-value]
+
+
+def max_pool(x: torch.Tensor, window: Union[int, Sequence[int]],
+             strides: Union[int, Sequence[int], None] = None,
+             padding: str = "VALID") -> torch.Tensor:
+    """flax ``nn.max_pool`` of an NHWC tensor: ``"VALID"``, or ``"SAME"``
+    padded as flax pads (the extra row and column last) with -inf, which
+    ``F.max_pool2d``'s symmetric padding is not."""
+    window = (window, window) if isinstance(window, int) else tuple(window)
+    strides = window if strides is None else (
+        (strides, strides) if isinstance(strides, int) else tuple(strides))
+    y = x.permute(0, 3, 1, 2)
+    if padding == "SAME":
+        y = F.pad(y, same_padding(window, strides, y.shape[2], y.shape[3]),
+                  value=float("-inf"))
+    elif padding != "VALID":
+        raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
+    return F.max_pool2d(y, window, strides).permute(0, 2, 3, 1)

@@ -7,7 +7,10 @@ one conv ``gates`` over ``[x | h]`` to 4C (a library conv of any
 card). MetNet's temporal encoder and the ``concat`` ConvLSTM run it.
 :class:`SplitConvLSTMCell` and :class:`InputGateConv` are the ``split``
 formulation: separate input and hidden gate convs, the input one hoisted over
-the whole sequence, and the same gate tail.
+the whole sequence, and the same gate tail. :class:`SpatioTemporalLSTMCell`
+is the PredRNN-v2 cell (library convs, no kernel), and :func:`scan_cell`
+runs a cell over the time axis of a sequence with shared weights, as the
+JAX package's ``nn.scan`` wrapper does.
 
 :class:`FusedConvLSTMCell` keeps the JAX cell's parameter names and layouts
 (``x_gates_kernel`` (3, 3, Cx, 4Ch), ``h_gates_kernel`` (3, 3, Ch, 4Ch),
@@ -19,12 +22,13 @@ autograd the gradients flow back through that cast to the f32 parameters.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from satflow_tpu_torch.nn.conv import Conv, get_conv_layer, lecun_normal_  # noqa: F401
+from satflow_tpu_torch.nn.conv import Conv, DtypedModule, get_conv_layer, lecun_normal_  # noqa: F401
 from satflow_tpu_torch.nn.misc import compute_dtype
 from satflow_tpu_torch.ops.fused_convlstm_step import fused_convlstm_step
 from satflow_tpu_torch.ops.fused_lstm import fused_lstm_gates
@@ -72,23 +76,8 @@ class FusedConvLSTMCell(nn.Module):
         return zeros_carry(batch, h, w, features, 2, dtype, device)
 
 
-class _ConvCell(nn.Module):
-    """A module whose ``dtype`` (the compute dtype; None: the input's, at
-    least float32) is followed by every :class:`Conv` below it, so that
-    assigning ``cell.dtype`` re-types the whole cell."""
-
-    _dtype: Optional[torch.dtype] = None
-
-    @property
-    def dtype(self) -> Optional[torch.dtype]:
-        return self._dtype
-
-    @dtype.setter
-    def dtype(self, value: Optional[torch.dtype]) -> None:
-        self._dtype = value
-        for m in self.modules():
-            if isinstance(m, Conv):
-                m.dtype = value
+class _ConvCell(DtypedModule):
+    """A cell whose ``dtype`` every :class:`Conv` below it follows."""
 
     @staticmethod
     def init_carry(batch: int, h: int, w: int, features: int,
@@ -169,3 +158,113 @@ class InputGateConv(_ConvCell):
         b, t = x_seq.shape[:2]
         xg = self.x_gates(x_seq.reshape(b * t, *x_seq.shape[2:]))
         return xg.reshape(b, t, *xg.shape[1:])
+
+
+class _LayerNorm(nn.Module):
+    """flax ``LayerNorm`` over the last axis: f32 statistics, eps 1e-6
+    (flax's default; torch's is 1e-5), ``scale`` and ``bias`` under flax's
+    names, the result in ``dtype``."""
+
+    def __init__(self, features: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        y = F.layer_norm(x.float(), (x.shape[-1],), self.scale, self.bias, self.eps)
+        return y.to(dtype)
+
+
+class SpatioTemporalLSTMCell(DtypedModule):
+    """PredRNN-v2 cell with memory decoupling (dual memories c and m).
+
+    x contributes 7 gate maps (``conv_x``), h 4 (``conv_h``), m 3
+    (``conv_m``), each a bias-free ``kernel_size`` conv, optionally followed
+    by a LayerNorm over the channels (``conv_*_ln``); ``conv_o`` reads
+    [c' | m'] for the output gate and the 1x1 ``conv_last`` the memory that
+    tanh takes. ``forget_bias`` is added to both forget gates. Returns
+    ((h', c', m'), (h', Δc, Δm)), Δc and Δm being what the decoupling loss
+    reads. ``in_features=None`` takes x's width from the first input.
+    """
+
+    def __init__(self, in_features: Optional[int], features: int, kernel_size: int = 5,
+                 layer_norm: bool = True, forget_bias: float = 1.0,
+                 dtype: Optional[torch.dtype] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.features = features
+        self.layer_norm = layer_norm
+        self.forget_bias = forget_bias
+        for name, cin, mult in (("conv_x", in_features, 7), ("conv_h", features, 4),
+                                ("conv_m", features, 3), ("conv_o", 2 * features, 1)):
+            self.add_module(name, Conv(cin, mult * features, kernel_size, use_bias=False,
+                                       generator=generator))
+            if layer_norm:
+                self.add_module(f"{name}_ln", _LayerNorm(mult * features))
+        self.conv_last = Conv(2 * features, features, 1, use_bias=False, generator=generator)
+        self.dtype = dtype
+
+    def _gate_conv(self, name: str, inp: torch.Tensor) -> torch.Tensor:
+        y = getattr(self, name)(inp)
+        return getattr(self, f"{name}_ln")(y, y.dtype) if self.layer_norm else y
+
+    def forward(self, carry, x: torch.Tensor):
+        h, c, m = carry
+        i_x, f_x, g_x, i_xp, f_xp, g_xp, o_x = self._gate_conv("conv_x", x).chunk(7, dim=-1)
+        i_h, f_h, g_h, o_h = self._gate_conv("conv_h", h).chunk(4, dim=-1)
+        i_m, f_m, g_m = self._gate_conv("conv_m", m).chunk(3, dim=-1)
+
+        i_t = torch.sigmoid(i_x + i_h)
+        f_t = torch.sigmoid(f_x + f_h + self.forget_bias)
+        g_t = torch.tanh(g_x + g_h)
+        delta_c = i_t * g_t
+        c_next = f_t * c + delta_c
+
+        i_tp = torch.sigmoid(i_xp + i_m)
+        f_tp = torch.sigmoid(f_xp + f_m + self.forget_bias)
+        g_tp = torch.tanh(g_xp + g_m)
+        delta_m = i_tp * g_tp
+        m_next = f_tp * m + delta_m
+
+        mem = torch.cat([c_next, m_next], dim=-1)
+        o_t = torch.sigmoid(o_x + o_h + self._gate_conv("conv_o", mem))
+        h_next = o_t * torch.tanh(self.conv_last(mem))
+        return (h_next, c_next, m_next), (h_next, delta_c, delta_m)
+
+    @staticmethod
+    def init_carry(batch: int, h: int, w: int, features: int,
+                   dtype=torch.float32, device=None):
+        return zeros_carry(batch, h, w, features, 3, dtype, device)
+
+
+def _stack_outputs(ys: list) -> Any:
+    """A list over time of outputs (tensors, or tuples of them) -> the same
+    structure with each leaf stacked on axis 1."""
+    if isinstance(ys[0], torch.Tensor):
+        return torch.stack(ys, dim=1)
+    return type(ys[0])(_stack_outputs([y[i] for y in ys]) for i in range(len(ys[0])))
+
+
+class ScanCell(nn.Module):
+    """A cell run over axis 1 of a (B, T, ...) input with one set of weights
+    (the wrapped ``cell``'s): ``(carry, xs) -> (carry, ys)``, the outputs
+    stacked on axis 1, as ``nn.scan(in_axes=1, out_axes=1)``."""
+
+    def __init__(self, cell: nn.Module):
+        super().__init__()
+        self.cell = cell
+
+    def forward(self, carry, xs: torch.Tensor, *args, **kwargs):
+        ys = []
+        for t in range(xs.shape[1]):
+            carry, y = self.cell(carry, xs[:, t], *args, **kwargs)
+            ys.append(y)
+        return carry, _stack_outputs(ys)
+
+
+def scan_cell(cell_cls: Callable[..., nn.Module], *args, **cell_kwargs) -> ScanCell:
+    """``cell_cls(*args, **cell_kwargs)`` wrapped in a :class:`ScanCell`, which
+    scans it over the time axis of a (B, T, H, W, C) input with its weights
+    shared across steps (the JAX ``scan_cell``)."""
+    return ScanCell(cell_cls(*args, **cell_kwargs))

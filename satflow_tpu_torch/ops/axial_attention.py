@@ -127,13 +127,32 @@ def attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch
     return out
 
 
+# K4 as the dispatcher op ``satflow::axial_attention``, so that torch.export
+# records it and an exported program runs it (with satflow_tpu_torch.ops
+# imported): attention_kernel for CUDA tensors, the plain version for CPU
+# ones, no autograd of its own (AxialAttention wraps it).
+_LIB = torch.library.Library("satflow", "FRAGMENT")
+_LIB.define("axial_attention(Tensor q, Tensor k, Tensor v) -> Tensor")
+# (each looked up when called, so that the module's names can be patched)
+_LIB.impl("axial_attention", lambda *a: attention_kernel(*a), "CUDA")
+_LIB.impl("axial_attention", lambda *a: axial_attention_ref(*a), "CPU")
+
+
+@torch.library.register_fake("satflow::axial_attention", lib=_LIB)
+def _attention_fake(q, k, v):
+    return torch.empty_like(q)
+
+
 def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Without autograd: the plain version for CPU tensors and for shapes
-    outside the kernel's domain, else K4."""
-    on_cpu = all(t.device.type == "cpu" for t in (q, k, v))
-    if on_cpu or not kernel_takes(q, k, v):
+    """Without autograd: the plain version for shapes outside the kernel's
+    domain, else K4's op (the plain version for CPU tensors, the kernel for
+    CUDA ones). Tensors on another device take the kernel's checks here,
+    which refuse them."""
+    if not kernel_takes(q, k, v):
         return axial_attention_ref(q, k, v)
-    return attention_kernel(q, k, v)
+    if any(t.device.type not in ("cpu", "cuda") for t in (q, k, v)):
+        _check(q, k, v)
+    return torch.ops.satflow.axial_attention.default(q, k, v)
 
 
 class AxialAttention(torch.autograd.Function):

@@ -281,10 +281,15 @@ def _check(x, h, c, wx, wh, b, **state_like) -> None:
                          f"got {tuple(x.shape)}")
     if x.device.type != "cuda":
         raise ValueError(f"the fused step runs on cpu or cuda tensors, not {x.device}")
-    # bfloat16 is copied 16 bytes at a time, float32 read and written as pairs;
-    # x and b are read by the element; at a width that is padded first the
-    # kernel sees the padded copies, which are fresh allocations
-    align = 16 if x.dtype == torch.bfloat16 else 8
+    _check_aligned(x.dtype, ch, **named)
+
+
+def _check_aligned(dtype: torch.dtype, ch: int, **named) -> None:
+    """Raise on a misaligned operand (read from the storage: real tensors
+    only). bfloat16 is copied 16 bytes at a time, float32 read and written as
+    pairs; x and b are read by the element; at a width that is padded first
+    the kernel sees the padded copies, which are fresh allocations."""
+    align = 16 if dtype == torch.bfloat16 else 8
     for name, t in named.items():
         if ch in KERNEL_HIDDEN_WIDTHS and name not in ("x", "b") and t.data_ptr() % align:
             raise ValueError(f"{name} must be {align}-byte aligned")
@@ -367,15 +372,44 @@ def fused_convlstm_step_halo(x, h, c, wx, wh, b, block_h: int = HALO_BLOCK_H
 fused_convlstm_step_halo.launches = 0
 
 
-def _step(x, h, c, wx, wh, b) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The step without autograd, by ``SATFLOW_STEP_VARIANT``: K1h under
-    ``halo``, else K1: the plain version for CPU tensors, else the kernel."""
-    if step_variant() == "halo":
-        return fused_convlstm_step_halo(x, h, c, wx, wh, b)
-    if all(t.device.type == "cpu" for t in (x, h, c, wx, wh, b)):
-        return fused_convlstm_step_ref(x, h, c, wx, wh, b)
+def _launch(x, h, c, wx, wh, b) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 on CUDA tensors: the checks, then the launch (a hidden width K1 is
+    not built for zero-padded inside, the outputs sliced back), counted in
+    ``fused_convlstm_step.launches``."""
     _check(x, h, c, wx, wh, b)
     return _launch_step(fused_convlstm_step, x, h, c, wx, wh, b, halo=False)
+
+
+# K1 as the dispatcher op ``satflow::fused_convlstm_step``, so that
+# torch.export records it and an exported program runs it (with
+# satflow_tpu_torch.ops imported): the launch for CUDA tensors, the plain
+# version for CPU ones, no autograd of its own (FusedConvLSTMStep wraps it).
+_LIB = torch.library.Library("satflow", "FRAGMENT")
+_LIB.define("fused_convlstm_step(Tensor x, Tensor h, Tensor c, Tensor wx, Tensor wh, "
+            "Tensor b) -> (Tensor, Tensor)")
+# (each looked up when called, so that the module's names can be patched)
+_LIB.impl("fused_convlstm_step", lambda *a: _launch(*a), "CUDA")
+_LIB.impl("fused_convlstm_step", lambda *a: fused_convlstm_step_ref(*a), "CPU")
+
+
+@torch.library.register_fake("satflow::fused_convlstm_step", lib=_LIB)
+def _step_fake(x, h, c, wx, wh, b):
+    """The shapes the launch returns: h' and c' of the unpadded hidden width,
+    in x's dtype."""
+    return x.new_empty(h.shape), x.new_empty(c.shape)
+
+
+def _step(x, h, c, wx, wh, b) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The step without autograd, by ``SATFLOW_STEP_VARIANT``: K1h under
+    ``halo``, else K1's op: the plain version for CPU tensors, else the
+    kernel. Tensors on another device (meta ones stand in for a card in the
+    tests) take the kernel's checks here, which refuse them."""
+    args = (x, h, c, wx, wh, b)
+    if step_variant() == "halo":
+        return fused_convlstm_step_halo(*args)
+    if any(t.device.type not in ("cpu", "cuda") for t in args):
+        _check(*args)
+    return torch.ops.satflow.fused_convlstm_step.default(*args)
 
 
 def gate_bwd(x, h, c, wx, wh, b, dh_next, dc_next) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -65,10 +65,9 @@ def _library() -> ctypes.CDLL:
         ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 
-def _gates(gates: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K3 without autograd: the plain version for CPU tensors, else the kernel."""
-    if gates.device.type == "cpu" and c.device.type == "cpu":
-        return fused_lstm_gates_ref(gates, c)
+def _launch(gates: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3 on CUDA tensors: the checks, then the launch on the current stream,
+    counted in ``fused_lstm_gates.launches``."""
     _check(gates, c)
     gates, c = gates.contiguous(), c.contiguous()
     lib = _library()
@@ -83,6 +82,33 @@ def _gates(gates: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Tensor, torch.Te
     _build.raise_on(err, lib, "fused_lstm_gates")
     fused_lstm_gates.launches += 1
     return h_out, c_out
+
+
+# K3 as the dispatcher op ``satflow::fused_lstm_gates``, so that torch.export
+# records it and an exported program runs it (with satflow_tpu_torch.ops
+# imported): the launch for CUDA tensors, the plain version for CPU ones, no
+# autograd of its own (FusedLSTMGates wraps it). A plain library registration,
+# not torch.library.custom_op, whose Python wrappers add host time to every
+# call of a host-bound path.
+_LIB = torch.library.Library("satflow", "FRAGMENT")
+_LIB.define("fused_lstm_gates(Tensor gates, Tensor c) -> (Tensor, Tensor)")
+# (each looked up when called, so that the module's names can be patched)
+_LIB.impl("fused_lstm_gates", lambda *a: _launch(*a), "CUDA")
+_LIB.impl("fused_lstm_gates", lambda *a: fused_lstm_gates_ref(*a), "CPU")
+
+
+@torch.library.register_fake("satflow::fused_lstm_gates", lib=_LIB)
+def _gates_fake(gates, c):
+    return torch.empty_like(c), torch.empty_like(c)
+
+
+def _gates(gates: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3's op without autograd: the plain version for CPU tensors, else the
+    kernel. Tensors on another device take the kernel's checks here, which
+    refuse them."""
+    if gates.device.type not in ("cpu", "cuda") or c.device.type not in ("cpu", "cuda"):
+        _check(gates, c)
+    return torch.ops.satflow.fused_lstm_gates.default(gates, c)
 
 
 def gates_bwd(gates, c, c_next, dh, dc_next) -> Tuple[torch.Tensor, torch.Tensor]:

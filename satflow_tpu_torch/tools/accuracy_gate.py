@@ -5,9 +5,10 @@ The port's copy of the JAX package's ``tools/accuracy_gate.py``, with its
 data (``DS_KW``, ``STEPS``, the ``DecayDM`` seeds, the eval set of 3 batches
 at seed 300) and its recipe. Ported arms: ``baselines`` (persistence, the
 Farneback flow as :func:`~satflow_tpu_torch.ops.flow.farneback_backend`
-resolves it, and Horn–Schunck) and ``convlstm`` (hidden 32, lr 3e-3, 30
-epochs). The other arms raise ``NotImplementedError`` naming the ROADMAP
-item that ports them.
+resolves it, and Horn–Schunck), ``convlstm`` (hidden 32, lr 3e-3, 30
+epochs) and the channels-stacked zoo (``STACKED_ARMS``: the U-Net family,
+FCN, DeepLabV3, PixelCNN, each at the JAX tool's recipe). The other arms
+raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 
     python -m satflow_tpu_torch.tools.accuracy_gate [--arms baselines,convlstm]
         [--out DIR] [--device cuda]
@@ -38,11 +39,21 @@ ALL_ARMS = ("baselines", "convlstm", "perceiver", "metnet", "metnet_stoch",
             "unet", "runet", "attentionunet", "attentionrunet", "fcn",
             "deeplabv3", "pixelcnn")
 EXTRA_ARMS = ("metnet_baselines",)
-PORTED_ARMS = ("baselines", "convlstm")
+PORTED_ARMS = ("baselines", "convlstm", "unet", "runet", "attentionunet", "attentionrunet",
+               "fcn", "deeplabv3", "pixelcnn")
 # the other arms, by the ROADMAP queue 1 item that ports them
-UNPORTED_ARMS = {"perceiver": 10, "metnet": 7, "metnet_stoch": 7, "metnet_baselines": 7,
-                 "unet": 12, "runet": 12, "attentionunet": 12, "attentionrunet": 12, "fcn": 12,
-                 "deeplabv3": 12, "pixelcnn": 12}
+UNPORTED_ARMS = {"perceiver": 10, "metnet": 7, "metnet_stoch": 7, "metnet_baselines": 7}
+# the channels-stacked arms, the JAX tool's recipes: (epochs, lr, model
+# keywords); all lead times as output channels, 4 x 2 input channels stacked
+STACKED_ARMS = {
+    "unet": (60, 3e-3, dict(features_start=32, depth=3)),
+    "runet": (100, 3e-3, dict(features_start=32, depth=3)),
+    "attentionunet": (60, 3e-3, dict(features_start=32, depth=3)),
+    "attentionrunet": (200, 3e-3, dict(features_start=64, depth=3)),
+    "fcn": (60, 3e-3, {}),
+    "deeplabv3": (150, 1e-3, {}),
+    "pixelcnn": (40, 1e-3, {}),
+}
 
 
 def make_dm():
@@ -119,6 +130,26 @@ def main(arms: Optional[Iterable[str]] = None, out: Optional[str] = None,
             "ms_ssim_t": np.asarray(curves["ms_ssim"]).tolist(),
             "ms_ssim": float(np.mean(curves["ms_ssim"])),
             "epochs": CONVLSTM_EPOCHS,
+            "train_seconds": train_s,
+        }
+
+    for name, (epochs, lr, extra) in STACKED_ARMS.items():
+        if name not in arms:
+            continue
+        model = create_model(name, input_channels=8, forecast_steps=STEPS,
+                             channels_per_timestep=2, lr=lr,
+                             generator=torch.Generator().manual_seed(0), **extra)
+        trainer = Trainer(max_epochs=epochs, log_every_n_steps=2000, device=device)
+        t0 = time.perf_counter()
+        trainer.fit(model, make_dm())
+        train_s = time.perf_counter() - t0
+        curves = evaluate_model(model, eval_ds, max_batches=3, compute_ms_ssim=True)
+        results[name] = {
+            "mse_t": np.mean(curves["mse"], axis=0).tolist(),
+            "mse": float(np.mean(curves["mse"])),
+            "ms_ssim_t": np.asarray(curves["ms_ssim"]).tolist(),
+            "ms_ssim": float(np.mean(curves["ms_ssim"])),
+            "epochs": epochs,
             "train_seconds": train_s,
         }
 

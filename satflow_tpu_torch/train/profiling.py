@@ -84,8 +84,9 @@ def op_breakdown(trace_or_profile, top_k: int = 20) -> List[Dict[str, Any]]:
 
     Each row: ``name`` (the kernel, or the op on the host), ``device``
     (``"cuda"`` or ``"cpu"``), ``us`` (total time), ``calls``, ``share`` (of
-    the total over all rows of its kind), ``op`` (the aten op that launched
-    the kernel; the op itself on the host) and ``caller`` (the op that
+    the total over all rows of its kind), ``op`` (the dispatcher op that
+    launched the kernel: an aten op, or one of the port's kernel ops,
+    ``satflow::...``; the op itself on the host) and ``caller`` (the op that
     encloses ``op``); ``"(none)"`` where there is none.
     """
     events = [e for e in _trace_events(trace_or_profile) if e.get("ph") == "X"]

@@ -152,7 +152,9 @@ def test_registries_are_separate(monkeypatch):
     import sys
     import types
 
-    assert registry.list_models() == ["encoderdecoderconvlstm", "litmetnet"]
+    assert registry.list_models() == [
+        "attentionrunet", "attentionunet", "deeplabv3", "encoderdecoderconvlstm", "fcn",
+        "litmetnet", "pixelcnn", "runet", "unet"]
     for name in registry.list_models():
         assert registry.get_model(name) is not jax_registry.get_model(name)
     hub = types.ModuleType("huggingface_hub")

@@ -1259,3 +1259,117 @@ def test_resume_on_card_through_k1_and_k2(tmp_path):
     want = straight.model.state_dict()
     for k, v in resumed.model.state_dict().items():
         assert (v - want[k]).abs().max().item() <= 2e-2 * lr, k
+
+
+# -- the channels-stacked zoo, export and the kernels' dispatcher ops --
+
+# the zoo at small widths: (registry name, keywords); FCN and DeepLabV3 on a
+# ResNet of stages (1, 1, 1, 1) and width 4 (the blocks are ResNet-50's)
+ZOO_SMALL = {
+    "unet": ("unet", dict(features_start=8, depth=3)),
+    "runet": ("runet", dict(features_start=8, depth=3)),
+    "runet_antialiased": ("runet", dict(features_start=8, depth=3, conv_type="antialiased")),
+    "attentionunet": ("attentionunet", dict(features_start=8, depth=3)),
+    "attentionrunet": ("attentionrunet", dict(features_start=8, depth=3, conv_type="coord")),
+    "fcn": ("fcn", {}),
+    "deeplabv3": ("deeplabv3", {}),
+    "pixelcnn": ("pixelcnn", dict(hidden_channels=16, num_blocks=2)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("key", list(ZOO_SMALL))
+def test_zoo_bf16_forward_on_card_matches_cpu_f32(key, monkeypatch):
+    """Each zoo model's bf16 eval forward on the card (f32 weights) against
+    its float32 forward on the CPU, b2 x 3 x 64x64x2: atol 5e-2 x max|cpu|
+    (bf16 rounds every conv and BatchNorm output, step 2^-8, a few layers
+    deep); and the float32 forward on the card to 1e-4 x max|cpu| (TF32 off)."""
+    import copy
+
+    import numpy as np
+
+    import satflow_tpu_torch.models  # noqa: F401 - populate the registry
+    import satflow_tpu_torch.models.segmentation as seg
+    from satflow_tpu_torch.core.registry import create_model
+    from satflow_tpu_torch.nn.resnet import ResNetBackbone
+
+    _card()
+    monkeypatch.setattr(seg, "ResNetBackbone", lambda stages, **kw: ResNetBackbone(
+        (1, 1, 1, 1), width=4, **kw))
+    name, kw = ZOO_SMALL[key]
+    model = create_model(name, input_channels=2, forecast_steps=2,
+                         generator=torch.Generator().manual_seed(0), **kw)
+    x = torch.from_numpy(np.random.default_rng(1).random((2, 3, 64, 64, 2), dtype=np.float32))
+    model.materialize((x, x))
+    model.eval()
+    with torch.no_grad():
+        want = model(x)
+        card = copy.deepcopy(model).cuda()
+        got32 = card(x.cuda()).cpu()
+        card.set_compute_dtype(torch.bfloat16)
+        got = card(x.cuda()).float().cpu()
+    scale = want.abs().max().item()
+    assert got.shape == want.shape == (2, 2, 64, 64, 1)
+    assert (got32 - want).abs().max().item() <= 1e-4 * scale
+    assert (got - want).abs().max().item() <= 5e-2 * scale
+
+
+@pytest.mark.gpu
+def test_export_fused_convlstm_roundtrip_on_card(tmp_path):
+    """The fused ConvLSTM (hidden 16) exported on the card holds K1 as the
+    op ``satflow::fused_convlstm_step``; the loaded program launches it once
+    a cell step (2 x 3 + 2 x 4 a call) and replies as the session does, bit
+    for bit (the same kernel on the same inputs)."""
+    import numpy as np
+
+    import satflow_tpu_torch.models  # noqa: F401 - populate the registry
+    from satflow_tpu_torch.core.registry import create_model
+    from satflow_tpu_torch.serve.export import export_model, load_exported
+    from satflow_tpu_torch.serve.session import InferenceSession
+
+    _card()
+    model = create_model("encoderdecoderconvlstm", input_channels=2, out_channels=2,
+                         forecast_steps=4, hidden_dim=16,
+                         generator=torch.Generator().manual_seed(0))
+    session = InferenceSession(model, max_batch=2, state_dict=model.module.state_dict(),
+                               dtype=torch.bfloat16, device="cuda")
+    path = str(tmp_path / "m.pt2")
+    meta = export_model(session.model, None, path, batch=2, history=3, size=24, channels=2,
+                        dtype=torch.bfloat16)
+    assert meta["platforms"] == ["cuda"]
+    art = load_exported(path)
+    assert {str(n.target) for n in art.program.graph.nodes if n.op == "call_function"
+            and str(n.target).startswith("satflow.")} == {"satflow.fused_convlstm_step.default"}
+    x = np.random.default_rng(2).random((2, 3, 24, 24, 2), dtype=np.float32)
+    want = session.predict(x)
+    before = P.fused_convlstm_step.launches
+    got = art(x)
+    assert P.fused_convlstm_step.launches - before == 2 * 3 + 2 * 4
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["fused_convlstm_step", "fused_lstm_gates", "axial_attention"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_kernel_ops_fake_match_real_on_card(op, dtype):
+    """``torch.library.opcheck`` on CUDA tensors: the fake implementation's
+    shapes, strides and dtypes against what the kernel returns (K1 also at a
+    hidden width it zero-pads inside the launch, 12, whose fake returns the
+    unpadded shapes)."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(3)
+
+    def t(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(dtype)
+
+    cases = {
+        "fused_convlstm_step": [(t(2, 5, 6, 3), t(2, 5, 6, ch), t(2, 5, 6, ch),
+                                 t(3, 3, 3, 4 * ch) * 0.1, t(3, 3, ch, 4 * ch) * 0.1,
+                                 t(4 * ch)) for ch in (8, 12)],
+        "fused_lstm_gates": [(t(7, 5, 32), t(7, 5, 8))],
+        "axial_attention": [(t(6, 16, 8), t(6, 16, 8), t(6, 16, 8)),
+                            (t(2, 64, 32), t(2, 64, 32), t(2, 64, 32))],
+    }[op]
+    for args in cases:
+        torch.library.opcheck(getattr(torch.ops.satflow, op).default, args,
+                              test_utils=("test_schema", "test_faketensor"))

@@ -150,6 +150,10 @@ def test_port_imports_no_jax():
         "import satflow_tpu_torch.ops.flow, satflow_tpu_torch.tools.accuracy_gate\n"
         "import satflow_tpu_torch.core, satflow_tpu_torch.nn, satflow_tpu_torch.data\n"
         "import satflow_tpu_torch.experiments\n"
+        "import satflow_tpu_torch.models.unet_family, satflow_tpu_torch.models.segmentation\n"
+        "import satflow_tpu_torch.models.pixel_cnn, satflow_tpu_torch.serve.export\n"
+        "import satflow_tpu_torch.data.convert, satflow_tpu_torch.data.transforms\n"
+        "import satflow_tpu_torch.data.geo, satflow_tpu_torch.examples.metnet_example\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "assert not any(m.startswith('satflow_tpu.') or m == 'satflow_tpu' for m in sys.modules)\n"
         "assert not {'flax', 'optax'} & set(sys.modules)\n"

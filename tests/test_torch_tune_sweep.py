@@ -365,8 +365,10 @@ def test_op_breakdown_of_a_cpu_forward(tmp_path):
                                                out_dir=str(tmp_path / "p"))
     assert (tmp_path / "p" / profiling.TRACE_FILE).exists() and trace_dir == str(tmp_path / "p")
     assert 0 < len(rows) <= 5 and all(r["device"] == "cpu" for r in rows)
-    assert all(r["name"].startswith("aten::") and r["op"] == r["name"] for r in rows)
-    assert all(r["caller"] == "(none)" or r["caller"].startswith("aten::") for r in rows)
+    # the dispatcher's ops: aten's and the port's kernel ops (K1 is satflow::...)
+    ops = ("aten::", "satflow::")
+    assert all(r["name"].startswith(ops) and r["op"] == r["name"] for r in rows)
+    assert all(r["caller"] == "(none)" or r["caller"].startswith(ops) for r in rows)
     assert rows == sorted(rows, key=lambda r: -r["us"]) and rows[0]["calls"] >= 1
     assert 0 < sum(r["share"] for r in rows) <= 1 + 1e-9
 
