@@ -215,6 +215,20 @@ Phases, in order; any failure exits non-zero before the last line:
    MetNet), the artifact's bytes and its load time printed;
 28d. ``examples/metnet_example.py`` on the card (7 K3 and 2 K4 launches a
    forward: the one that makes the lazy input width, and the example's);
+28e. the Perceiver family at its shipped configs' widths, random
+   weights from a seed, bf16 compute on f32 weights, b8 of the fake schema
+   (7 history frames, 24 lead times): ``perceiver.yaml`` (64², depth 6, 256
+   x 512 latents, 24 per-lead decodes under remat) forward timed with its
+   peak memory and one sample's float32 reply held against the CPU's, then
+   4 LAMB steps under ``warmup_cosine`` (``warmup_steps=0``) through
+   ``Trainer.fit`` on one advection batch (losses finite, the last below
+   the first),
+   every gradient finite and nonzero, the train step timed; ``hf_perceiver.yaml``
+   (not pretrained: depth 8, 512 latents) forward and one train step;
+   ``perceiver_encoder`` (which raises at 12 channels, as in the JAX
+   package, and runs at 1), ``perceiver_metnet`` and ``perceiver_single``
+   one forward each; ``experiment=perceiver_simple`` through the CLI; the
+   repo's kernels launched 0 times over the phase (the path has none);
 29. a JSON line of the kernels with each one's bound on this card, and last
    a JSON line ``{"ok": true, "device": {...}}``.
 
@@ -3972,6 +3986,290 @@ def example_slice(torch, card):
     return k3, k4
 
 
+# Phase 28e: the Perceiver family (configs/model/perceiver*.yaml and
+# hf_perceiver.yaml at their shipped widths, random weights from the port's
+# seeded generator; b8, bf16 compute on f32 weights; the fake datamodule's 7
+# history frames). Its attention is matmul and softmax, as in the JAX
+# package: none of the repo's kernels is on this path, and the phase holds
+# every kernel's launch count at 0 over it.
+PC_TRAIN_STEPS = 4
+PC_CONFIGS = ("perceiver_encoder", "perceiver_metnet", "perceiver_single")
+# Tolerances:
+# - one sample's float32 reply on the card (cuBLAS, TF32 off) against the
+#   same forward on the host's CPU: the same f32 matmuls summed in another
+#   order, through 24 lead steps of 8 blocks: TOL_ZOO_F32 x max|cpu|.
+
+
+def pc_model(torch, config: str, **overrides):
+    """The Perceiver of ``configs/model/<config>.yaml``, built through the
+    experiment entry point's mapping, with ``overrides``; weights drawn from
+    the port's seeded generator on the host."""
+    from satflow_tpu_torch.core import config as config_lib
+    from satflow_tpu_torch.experiments.train import _counterpart, _model_node
+
+    cfg = _model_node(config_lib.compose(config_lib.default_config_dir(), "config.yaml",
+                                         [f"model={config}"])["model"])
+    kw = {k: v for k, v in cfg.items() if k != "_target_"}
+    return _counterpart(cfg["_target_"])(**{**kw, **overrides},
+                                         generator=torch.Generator().manual_seed(0))
+
+
+def pc_batch(torch, px: int, channels=None):
+    """One b8 batch of the fake schema at ``px``², on the card: 7 history
+    frames, 24 targets, 12 channels unless ``channels``."""
+    from satflow_tpu_torch.data.datamodule import to_device
+    from satflow_tpu_torch.data.fake import FakeDataset
+
+    batch = FakeDataset(batch_size=B, width=px, height=px,
+                        number_sat_channels=channels or CIN,
+                        history_minutes=5 * (T - 1), forecast_minutes=5 * STEPS, length=1)[0]
+    return to_device(batch, torch.device(DEVICE))
+
+
+# kernel classes of a Perceiver profile (cuBLAS and CUTLASS matmuls under
+# their kernel names' fragments)
+PC_CLASSES = {"matmuls": ("gemm", "nvjet", "cutlass", "xmma", "sm90_"),
+              "softmax": ("softmax",), "layer norm": ("layer_norm", "layernorm")}
+
+
+def pc_forward(torch, model, batch, what: str, card, cpu_check: bool = False):
+    """The b8 bf16 forward of ``model`` on ``batch``: CUDA-event ms over 3
+    after a warm-up, the peak memory above what was held before, the reply
+    checked; with ``cpu_check`` one sample's float32 reply against the CPU's
+    and one forward profiled (device time by kernel class, the idle share,
+    the kernel launches). Returns (ms, peak GiB)."""
+    import copy
+
+    model.to(DEVICE)
+    model.materialize(batch)
+    model.set_compute_dtype(torch.bfloat16)
+    model.eval()
+    x, y = model.prepare_batch(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with torch.inference_mode():
+        out = model(x)
+        ms = cuda_ms(torch, lambda: model(x), 3)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    if tuple(out.shape) != tuple(y.shape) or not bool(torch.isfinite(out).all()):
+        fail(f"{what}: b{B} reply of shape {tuple(out.shape)} for targets {tuple(y.shape)}, "
+             f"finite {bool(torch.isfinite(out).all())}")
+    n_params = sum(p.numel() for p in model.parameters())
+    line = (f"{what} ({n_params} parameters): b{B} forward (bf16, "
+            f"{tuple(x['sat_data'].shape[1:])} satellite in, {tuple(out.shape[1:])} out) "
+            f"{ms:.2f} ms, {B * out.shape[1] / (ms / 1e3):.1f} frames/s, peak device memory "
+            f"{peak:.2f} GiB above the weights")
+    if cpu_check:
+        from torch.autograd import DeviceType
+
+        with torch.inference_mode():
+            wall, by_class, busy, others, prof = device_time_by_class(
+                torch, lambda: model(x), PC_CLASSES)
+        n_kernels = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+        print(f"{what}: one b{B} forward profiled: {wall:.2f} ms wall, device busy "
+              f"{busy:.2f} ms (idle {100 * (1 - busy / wall):.1f} %), {n_kernels} kernel "
+              f"launches; " + ", ".join(f"{k} {v:.2f} ms" for k, v in by_class.items())
+              + "; largest other: " + ", ".join(f"{n} {v:.2f}" for n, v in others[:4])
+              + f" [{card}]", flush=True)
+        model.set_compute_dtype(None)
+        one = {k: v[:1] for k, v in x.items()}
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            got = model(one).cpu()
+            want = copy.deepcopy(model).cpu()({k: v.cpu() for k, v in one.items()})
+        model.set_compute_dtype(torch.bfloat16)
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        if not err <= TOL_ZOO_F32 * scale:
+            fail(f"{what}: float32 reply on the card vs the CPU: max|diff| {err:.3g} > "
+                 f"{TOL_ZOO_F32} x max|cpu| {scale:.3g}")
+        line += (f"; float32 sample vs the CPU: max|diff| {err:.3g} <= {TOL_ZOO_F32} x "
+                 f"max|cpu| {scale:.3g} ok ({time.perf_counter() - t0:.1f} s)")
+    print(line + f" [{card}]", flush=True)
+    return ms, peak
+
+
+def pc_train_step(torch, model, batch, what: str, card, n: int = 3):
+    """Every parameter's gradient of one loss finite and nonzero, then the
+    LAMB train step timed (host clock, synchronised) over ``n`` after a
+    warm-up, with its peak memory above the weights and LAMB's moments.
+    Returns (ms, peak GiB)."""
+    from satflow_tpu_torch.train.state import TrainState
+    from satflow_tpu_torch.train.steps import make_train_step
+
+    model.train()
+    model.zero_grad(set_to_none=True)
+    loss, _ = model.loss(batch)
+    loss.backward()
+    bad = [k for k, p in model.named_parameters() if p.grad is None
+           or not bool(torch.isfinite(p.grad).all()) or not bool((p.grad != 0).any())]
+    if bad or not bool(torch.isfinite(loss)):
+        fail(f"{what}: loss {float(loss)}; gradients missing, non-finite or all zero: {bad[:5]}")
+    model.zero_grad(set_to_none=True)
+    state = TrainState(model, model.make_optimizer())
+    step = make_train_step(model)
+    step(state, batch)  # warm-up; LAMB's moments made
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    runs = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        metrics = step(state, batch)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    if not bool(metrics["finite"]):
+        fail(f"{what}: train step not finite")
+    ms = sum(runs) / len(runs)
+    print(f"{what}: all {sum(1 for _ in model.parameters())} parameter gradients finite and "
+          f"nonzero; LAMB train step (bf16, b{B}) {ms:.2f} ms (runs "
+          f"{', '.join(f'{r:.2f}' for r in runs)}), peak device memory {peak:.2f} GiB above "
+          f"the weights and LAMB's moments [{card}]", flush=True)
+    return ms, peak
+
+
+def perceiver_slice(torch, card):
+    """Phase 28e; returns {what: (ms, peak GiB)} and the kernels' launches
+    over the phase (all 0: the path runs none)."""
+    import tempfile
+
+    from satflow_tpu_torch.data import SatFlowDataModule
+    from satflow_tpu_torch.data.datamodule import to_device
+    from satflow_tpu_torch.ops.axial_attention import axial_attention
+    from satflow_tpu_torch.ops.cmajor_convlstm import cmajor_conv3x3, cmajor_convlstm_step
+    from satflow_tpu_torch.ops.fused_convlstm_int8 import fused_convlstm_step_int8
+    from satflow_tpu_torch.ops.fused_convlstm_step import (
+        fused_convlstm_step,
+        fused_convlstm_step_halo,
+        gate_bwd,
+    )
+    from satflow_tpu_torch.ops.fused_lstm import fused_lstm_gates
+    from satflow_tpu_torch.train import Trainer
+    from satflow_tpu_torch.train.lamb import Lamb
+
+    counters = (fused_convlstm_step, fused_convlstm_step_halo, gate_bwd, fused_lstm_gates,
+                axial_attention, fused_convlstm_step_int8, cmajor_convlstm_step, cmajor_conv3x3)
+    for c in counters:
+        c.launches = 0
+    rows = {}
+    t_phase = time.perf_counter()
+
+    # (a) perceiver.yaml at full width: 64², depth 6, 256 x 512 latents, 24
+    # per-lead decodes, each a whole Perceiver IO under remat
+    model = pc_model(torch, "perceiver")
+    px = model.input_size
+    rows["perceiver forward"] = pc_forward(torch, model, pc_batch(torch, px), "perceiver "
+                                           "(perceiver.yaml)", card, cpu_check=True)
+    # LAMB under warmup_cosine from step 0 (warmup_steps=0: the config's lr on
+    # the first step) on one advection batch, a signal the model can learn
+    model.warmup_steps = 0
+
+    class OneBatch(SatFlowDataModule):
+        def _dataset(self, split, n):
+            from satflow_tpu_torch.data import AdvectionDataset
+
+            return AdvectionDataset(batch_size=B, width=px, height=px, number_sat_channels=CIN,
+                                    history_minutes=5 * (T - 1), forecast_minutes=5 * STEPS,
+                                    length=1)
+
+    trainer = Trainer(max_epochs=PC_TRAIN_STEPS, overfit_batches=1, precision="bf16",
+                      log_every_n_steps=1, device=DEVICE)
+    t0 = time.perf_counter()
+    trainer.fit(model, OneBatch(fake_data=True, num_workers=0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [e["train/loss"] for e in trainer.history.history if "train/loss" in e]
+    if trainer.global_step != PC_TRAIN_STEPS or len(losses) != PC_TRAIN_STEPS:
+        fail(f"perceiver fit took {trainer.global_step} steps and logged {len(losses)} losses")
+    # LAMB moves every tensor by lr x its norm: at the config's lr without
+    # warm-up that changes a random model's loss by O(1) a step, so the loss
+    # falls, then overshoots (f32 on a CPU at 16²: 2.35, 0.98, 1.04, 1.26)
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fail(f"perceiver losses not finite or not below the first: {losses}")
+    if not isinstance(trainer.state.optimizer, Lamb):
+        fail(f"perceiver trained with {type(trainer.state.optimizer).__name__}, not LAMB")
+    lrs = [trainer.state.optimizer.param_groups[0]["lr"], model.lr]
+    print(f"perceiver (perceiver.yaml, warmup_steps=0) trained {PC_TRAIN_STEPS} bf16 LAMB steps "
+          f"on one b{B} {px}x{px}x{CIN} advection batch in {wall:.2f} s wall: losses "
+          + ", ".join(f"{v:.6f}" for v in losses) + f" (finite, the last below the first); "
+          f"last lr {lrs[0]:.3g}"
+          f" (config lr {lrs[1]:.3g}) [{card}]", flush=True)
+    rows["perceiver train step"] = pc_train_step(torch, model, trainer.last_batch,
+                                                 "perceiver (perceiver.yaml)", card)
+    del trainer, model
+    torch.cuda.empty_cache()
+
+    # (b) hf_perceiver.yaml as shipped (pretrained: false): depth 8, 512 x 512
+    # latents, the 2-channel flow head and the 1x1 channel change
+    model = pc_model(torch, "hf_perceiver")
+    if model.pretrained or (model.depth, model.num_latents) != (8, 512):
+        fail(f"hf_perceiver: pretrained {model.pretrained}, depth {model.depth}, "
+             f"latents {model.num_latents}")
+    batch = pc_batch(torch, model.input_size)
+    rows["hf_perceiver forward"] = pc_forward(torch, model, batch, "huggingfaceperceiver "
+                                              "(hf_perceiver.yaml)", card)
+    rows["hf_perceiver train step"] = pc_train_step(torch, model, batch, "huggingfaceperceiver "
+                                                    "(hf_perceiver.yaml)", card, n=1)
+    del model, batch
+    torch.cuda.empty_cache()
+
+    # (c) the other three configs, one b8 forward each at their shipped sizes;
+    # perceiver_encoder's one conv preprocessor is made for the satellite's
+    # channels and then meets the 1-channel topography: at 12 channels it
+    # raises, as the JAX package does, and runs at 1
+    for config in PC_CONFIGS:
+        model = pc_model(torch, config)
+        # the conv pre- and post-processors work at 1/4 of the data's size
+        px = model.input_size * (4 if model.postprocessor_type == "conv" else 1)
+        if config == "perceiver_encoder":
+            try:
+                model.to(DEVICE).materialize(pc_batch(torch, px))
+            except ValueError as e:
+                print(f"perceiver_encoder at its shipped 12 channels raises, as the JAX "
+                      f"package does: {str(e)[:120]}", flush=True)
+            else:
+                fail("perceiver_encoder at 12 channels built: the JAX package raises")
+            model = pc_model(torch, config, input_channels=1, sat_channels=1)
+            batch = pc_batch(torch, px, channels=1)
+        else:
+            batch = pc_batch(torch, px)
+        rows[f"{config} forward"] = pc_forward(torch, model, batch, f"perceiver ({config}.yaml)",
+                                               card)
+        del model, batch
+        torch.cuda.empty_cache()
+
+    # (d) the shipped experiment through the CLI, as a user runs it, on the card
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "satflow_tpu_torch.run", "experiment=perceiver_simple",
+             "trainer.max_steps=3", "trainer.log_every_n_steps=1", f"work_dir={work}/runs",
+             "print_config=false"],
+            capture_output=True, text=True, cwd=work, timeout=600,
+            env={**os.environ, "PYTHONPATH": repo})
+        wall = time.perf_counter() - t0
+        csvs = [os.path.join(d, f) for d, _, fs in os.walk(work) for f in fs
+                if f == "metrics.csv"]
+        if out.returncode != 0 or len(csvs) != 1:
+            fail(f"python -m satflow_tpu_torch.run experiment=perceiver_simple: exit "
+                 f"{out.returncode}, {len(csvs)} metrics.csv; {out.stderr[-1500:]}")
+        header = open(csvs[0]).read().splitlines()[0].split(",")
+        if not {"train/loss", "val/loss", "test/loss", "mem/peak_gb"} <= set(header):
+            fail(f"experiment=perceiver_simple: metrics.csv columns {header[:10]}")
+    print(f"python -m satflow_tpu_torch.run experiment=perceiver_simple on the card: exit 0 in "
+          f"{wall:.1f} s wall, train/val/test losses and the card's memory logged [{card}]",
+          flush=True)
+
+    launches = {c.__name__: c.launches for c in counters}
+    if any(launches.values()):
+        fail(f"the Perceiver path launched the repo's kernels: {launches}")
+    print(f"Perceiver phase: {time.perf_counter() - t_phase:.1f} s; launches of the repo's "
+          f"kernels over it: {launches} (none on this path) [{card}]", flush=True)
+    return rows
+
+
 def main() -> None:
     try:
         import torch
@@ -4134,6 +4432,9 @@ def main() -> None:
     phase_done("phase 28c (export of the ConvLSTM, MetNet, UNet)")
     ex_k3, ex_k4 = example_slice(torch, card)
     phase_done("phase 28d (examples/metnet_example.py)")
+    # phase 28e: the Perceiver family (counts set to 0 inside; it launches none)
+    perceiver_slice(torch, card)
+    phase_done("phase 28e (the Perceiver family)")
     life_k1 += prof_k1 + pre_k1
     life_k2 += prof_k2 + pre_k2
 

@@ -21,10 +21,7 @@ from satflow_tpu_torch.core.utils import get_logger, log_hyperparameters, seed_e
 log = get_logger(__name__)
 
 # JAX model modules without a port yet, by the ROADMAP item that ports them
-_UNPORTED_MODELS = {
-    "perceiver": 10, "hf_perceiver": 10, "dgmr": 11, "cloudgan": 11,
-    "pix2pix": 11, "gan_base": 11,
-}
+_UNPORTED_MODELS = {"dgmr": 11, "cloudgan": 11, "pix2pix": 11, "gan_base": 11}
 
 
 def _counterpart(target: str):
@@ -56,21 +53,25 @@ def _counterpart(target: str):
 # The keys that the default model config (model/convlstm.yaml) leaves in the
 # model node of an experiment that picks another model in its own defaults
 # list, which the config tree merges over the default one:
-# experiment=unet_simple keeps the ConvLSTM's out_channels and hidden_dim. A
-# channels-stacked model takes neither (it sets its core's out_channels), and
-# the JAX package raises a TypeError on them; here these two are dropped from
-# such a model's node, and any other key that a model does not take raises.
-_DEFAULT_MODEL_KEYS = ("out_channels", "hidden_dim")
+# experiment=unet_simple keeps the ConvLSTM's out_channels and hidden_dim,
+# experiment=perceiver_simple those and conv_type. The JAX package raises a
+# TypeError on those that the model does not take; here they are dropped
+# from its node, by its family (the base class's name), and any other key
+# that a model does not take raises.
+_DROPPED_DEFAULT_KEYS = {
+    "StackedImageModel": ("out_channels", "hidden_dim"),  # keeps conv_type
+    "Perceiver": ("out_channels", "hidden_dim", "conv_type"),
+}
 
 
 def _model_node(node: Dict[str, Any]) -> Dict[str, Any]:
-    """The composed model node without the default model's keys that a
-    channels-stacked model does not take (:data:`_DEFAULT_MODEL_KEYS`)."""
-    from satflow_tpu_torch.models.unet_family import StackedImageModel
-
+    """The composed model node without the default model's keys that its
+    family does not take (:data:`_DROPPED_DEFAULT_KEYS`)."""
     cls = _counterpart(node["_target_"])
-    dropped = [k for k in _DEFAULT_MODEL_KEYS if k in node]
-    if not (isinstance(cls, type) and issubclass(cls, StackedImageModel)) or not dropped:
+    families = [k.__name__ for k in getattr(cls, "__mro__", ())]
+    keys = next((_DROPPED_DEFAULT_KEYS[f] for f in families if f in _DROPPED_DEFAULT_KEYS), ())
+    dropped = [k for k in keys if k in node]
+    if not dropped:
         return node
     log.warning("%s takes no %s (the default model config's): dropped", cls.__name__,
                 ", ".join(dropped))

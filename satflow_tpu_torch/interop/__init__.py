@@ -6,5 +6,6 @@ from satflow_tpu_torch.interop.torch_weights import (  # noqa: F401
     conv_kernel,
     linear_kernel,
     load_torch_convlstm,
+    load_torch_perceiver,
     load_torch_state_dict,
 )

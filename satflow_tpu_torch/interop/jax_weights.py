@@ -1,4 +1,4 @@
-"""flax variables -> PyTorch state_dict for the port's ConvLSTM, MetNet and zoo cores.
+"""flax variables -> PyTorch state dicts of the port's ConvLSTM, MetNet, zoo and Perceiver cores.
 
 The inverse direction of ``satflow_tpu/interop/torch_weights.py``. Its
 layout rule, read backwards: a flax conv kernel (kh, kw, I, O) becomes an
@@ -31,7 +31,9 @@ kernels (C, heads, d) and (heads, d, C) -> ``nn.Linear`` weights, LayerNorm
 running ``mean``/``var`` keep their names.
 
 :func:`zoo_state_dict_from_flax` converts the channels-stacked zoo (the U-Net
-family, FCN / DeepLabV3, PixelCNN) by one walk of the tree.
+family, FCN / DeepLabV3, PixelCNN) by one walk of the tree, and
+:func:`perceiver_state_dict_from_flax` the Perceiver family the same way
+(Dense kernels transposed as well).
 
 A flat ``.npz`` (:func:`save_npz`) holds the params under their paths and a
 ``batch_stats`` collection under ``batch_stats/``. Pure numpy: no jax is
@@ -214,6 +216,29 @@ def zoo_state_dict_from_flax(variables: Mapping[str, Any],
         sd[_module_key(mods + [leaf])] = torch.from_numpy(np.array(a, order="C"))
     for path, a in flatten_tree(variables.get("batch_stats", {})).items():
         sd[_module_key(path.split("/"))] = torch.from_numpy(np.array(a, dtype=dtype))
+    return sd
+
+
+def perceiver_state_dict_from_flax(variables: Mapping[str, Any]
+                                   ) -> "OrderedDict[str, torch.Tensor]":
+    """flax variables (``{"params": ...}``, numpy leaves) of ``Perceiver`` or
+    ``HuggingFacePerceiver`` -> the state_dict of the port's core, by one
+    walk of the tree: a leaf's path is its key (``in`` -> ``in_``), its
+    array the value as float32, but for a kernel that the port lays out as
+    torch does, which becomes ``weight``: a Dense's (in, out) -> (out, in), a
+    conv's or a transposed conv's (*k, I, O) -> (O, I, *k). The attention's
+    DenseGeneral kernels, the only 3-D ones, keep their name and shape. The
+    per-lead core sits under ``steps/core/...`` (the scan's, shared by the
+    lead steps) or ``perceiver/...``, with ``query/...`` or
+    ``query_from_sat/...``, ``preprocessor/...``, ``postprocessor/...``; the
+    HF head's under ``core/...`` and ``channel_change/...``."""
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    for path, a in flatten_tree(variables.get("params", {})).items():
+        *mods, leaf = path.split("/")
+        a = np.asarray(a, dtype=np.float32)
+        if leaf == "kernel" and a.ndim != 3:
+            a, leaf = np.moveaxis(a, (-1, -2), (0, 1)), "weight"
+        sd[_module_key(mods + [leaf])] = torch.from_numpy(np.array(a, order="C"))
     return sd
 
 

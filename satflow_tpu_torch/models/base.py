@@ -88,7 +88,8 @@ class BaseModel(nn.Module):
         training = self.training
         self.eval()
         with torch.no_grad():
-            self(x[:1])
+            # one sample: of the tensor, or of each modality of a dict input
+            self({k: v[:1] for k, v in x.items()} if isinstance(x, dict) else x[:1])
         self.train(training)
 
     def forward(self, x: torch.Tensor, **kwargs) -> torch.Tensor:

@@ -11,6 +11,7 @@ from satflow_tpu_torch.nn.losses import get_loss  # noqa: F401
 from satflow_tpu_torch.nn.misc import (  # noqa: F401
     TimeDistributed,
     crop_center,
+    reverse_space_to_depth,
     space_to_depth,
     time_distributed,
 )

@@ -4,11 +4,11 @@ downsampling).
 
 Tensors are NHWC in and out, like the port's other modules; the convs are
 library convs (the JAX ones are plain XLA). Parameters sit where the flax
-modules have theirs: :class:`Conv` is flax's ``nn.Conv`` (``weight`` OIHW for
-its HWIO ``kernel``, ``bias``), and :class:`CoordConv` and
-:class:`AntialiasedConv` hold theirs one level down, under ``Conv_0``. Each
-takes ``in_features=None`` for an input width that comes from the data (a
-lazy weight, as flax infers it).
+modules have theirs: :class:`Conv` is flax's ``nn.Conv`` (``weight`` OIHW,
+or OIDHW for a 3-D kernel, for its HWIO ``kernel``, ``bias``), and
+:class:`CoordConv` and :class:`AntialiasedConv` hold theirs one level down,
+under ``Conv_0``. Each takes ``in_features=None`` for an input width that
+comes from the data (:class:`LazyWeight`, as flax infers it).
 """
 
 from __future__ import annotations
@@ -21,13 +21,17 @@ import torch.nn.functional as F
 from torch import nn
 from torch.nn.parameter import UninitializedParameter, is_lazy
 
-from satflow_tpu_torch.nn.misc import compute_dtype, same_padding
+from satflow_tpu_torch.nn.misc import DtypedModule, compute_dtype, same_padding
 
 
 def _pair(k: Union[int, Sequence[int]]) -> Tuple[int, int]:
     if isinstance(k, int):
         return (k, k)
     return tuple(k)  # type: ignore[return-value]
+
+
+def _ntuple(k: Union[int, Sequence[int]], n: int) -> Tuple[int, ...]:
+    return (k,) * n if isinstance(k, int) else tuple(k)
 
 
 def lecun_normal_(t: torch.Tensor, fan_in: int,
@@ -39,17 +43,78 @@ def lecun_normal_(t: torch.Tensor, fan_in: int,
         return nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=generator)
 
 
-class Conv(nn.Module):
-    """flax's ``nn.Conv`` on NHWC tensors: ``weight`` (O, I, kh, kw) and
-    ``bias``, padding ``"SAME"``, ``"VALID"`` or an int (pair), an optional
-    ``kernel_dilation``, computing in ``dtype`` (None: the input's, at least
-    float32).
+class LazyWeight(DtypedModule):
+    """A layer with a ``weight`` (O, I, ...) and an optional ``bias`` (O,),
+    drawn as flax draws a kernel (lecun-normal, fan-in ``weight[0].numel()``,
+    on the host from ``generator``; the bias zeros).
 
-    ``in_features=None`` makes the weight lazy, as flax infers a kernel's
-    input width: it is created (flax's lecun-normal init, drawn on the host
-    from ``generator``) from the first input's channels, or takes its shape
-    from a state_dict it is loaded from.
-    """
+    ``in_features=None`` makes both lazy, as flax infers a kernel's input
+    width: they are created from the first input's channels (its last
+    axis), or take their shapes from a state_dict they are loaded from.
+    Until then neither is saved nor reported missing, as flax's tree has no
+    such leaves before the module has seen an input."""
+
+    def _weight_shape(self, in_features: int) -> Tuple[int, ...]:
+        raise NotImplementedError
+
+    def _make_weight(self, in_features: Optional[int], features: int, use_bias: bool,
+                     generator: Optional[torch.Generator]) -> None:
+        self.features = features
+        self._generator = generator
+        if in_features is None:
+            self.weight = UninitializedParameter()
+            self.bias = UninitializedParameter() if use_bias else None
+        else:
+            self.weight = nn.Parameter(torch.empty(self._weight_shape(in_features)))
+            lecun_normal_(self.weight, self.weight[0].numel(), generator)
+            self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+
+    def _materialize(self, shape: Tuple[int, ...]) -> None:
+        with torch.no_grad():
+            self.weight.materialize(shape)
+            if self.bias is not None:
+                self.bias.materialize((self.features,))
+
+    def weight_for(self, x: torch.Tensor) -> torch.Tensor:
+        """The weight, created first from ``x``'s channels if lazy."""
+        if is_lazy(self.weight):
+            weight = torch.empty(self._weight_shape(x.shape[-1]))  # on the host
+            lecun_normal_(weight, weight[0].numel(), self._generator)
+            self._materialize(weight.shape)
+            with torch.no_grad():
+                self.weight.copy_(weight)
+                if self.bias is not None:
+                    self.bias.zero_()
+        elif x.shape[-1] != self.weight.shape[1]:
+            # a shared module whose weight was made from another input's channels
+            raise ValueError(
+                f"{type(self).__name__} weight {tuple(self.weight.shape)} was made for "
+                f"{self.weight.shape[1]} input channels, got an input of shape "
+                f"{tuple(x.shape)} (as flax's ScopeParamShapeError)")
+        return self.weight
+
+    def _save_to_state_dict(self, destination, prefix, keep_vars):
+        if not is_lazy(self.weight):
+            super()._save_to_state_dict(destination, prefix, keep_vars)
+
+    def _load_from_state_dict(self, state_dict, prefix, local_metadata, strict,
+                              missing_keys, unexpected_keys, error_msgs):
+        if is_lazy(self.weight):
+            saved = state_dict.get(prefix + "weight")
+            if saved is None:
+                return  # never created: nothing to load, nothing missing
+            self._materialize(saved.shape)
+        super()._load_from_state_dict(state_dict, prefix, local_metadata, strict,
+                                      missing_keys, unexpected_keys, error_msgs)
+
+
+class Conv(LazyWeight):
+    """flax's ``nn.Conv`` over the N spatial axes of a channels-last tensor
+    (N = 2, or 3 for a 3-tuple ``kernel_size``): ``weight`` (O, I, *k) for
+    its (*k, I, O) ``kernel``, and ``bias``; padding ``"SAME"``, ``"VALID"``
+    or an int, an optional ``kernel_dilation``, computing in ``dtype``
+    (None: the input's, at least float32). ``in_features=None`` makes the
+    weight lazy (:class:`LazyWeight`)."""
 
     def __init__(self, in_features: Optional[int], features: int,
                  kernel_size: Union[int, Sequence[int]] = 3,
@@ -58,58 +123,34 @@ class Conv(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  kernel_dilation: Union[int, Sequence[int]] = 1):
         super().__init__()
-        self.features = features
         self.kernel_size = _pair(kernel_size)
-        self.strides = _pair(strides)
-        self.dilation = _pair(kernel_dilation)
-        self.padding = padding if isinstance(padding, str) else _pair(padding)
+        n = len(self.kernel_size)
+        if n not in (2, 3):
+            raise ValueError(f"Conv takes a 2-D or 3-D kernel, got {self.kernel_size}")
+        self.strides = _ntuple(strides, n)
+        self.dilation = _ntuple(kernel_dilation, n)
+        self.padding = padding if isinstance(padding, str) else _ntuple(padding, n)
         self.dtype = dtype
-        if in_features is None:
-            self._generator = generator
-            self.weight = UninitializedParameter()
-            self.register_load_state_dict_pre_hook(Conv._materialize_from_state)
-        else:
-            self.weight = nn.Parameter(torch.empty(features, in_features, *self.kernel_size))
-            lecun_normal_(self.weight, in_features * self.kernel_size[0] * self.kernel_size[1],
-                          generator)
-        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+        self._make_weight(in_features, features, use_bias, generator)
 
-    def _materialize(self, in_features: int) -> None:
-        shape = (self.features, in_features, *self.kernel_size)
-        weight = torch.empty(shape)  # on the host: the generator may be a CPU one
-        lecun_normal_(weight, weight[0].numel(), self._generator)
-        with torch.no_grad():
-            self.weight.materialize(shape)
-            self.weight.copy_(weight)
-
-    @staticmethod
-    def _materialize_from_state(module, state_dict, prefix, *args) -> None:
-        """A lazy weight takes its shape from the state_dict it is loaded from."""
-        saved = state_dict.get(prefix + "weight")
-        if is_lazy(module.weight) and saved is not None and not is_lazy(saved):
-            with torch.no_grad():
-                module.weight.materialize(saved.shape)
-
-    def weight_for(self, x: torch.Tensor) -> torch.Tensor:
-        """The (O, I, kh, kw) weight, created first from ``x``'s channels if lazy."""
-        if is_lazy(self.weight):
-            self._materialize(x.shape[-1])
-        return self.weight
+    def _weight_shape(self, in_features: int) -> Tuple[int, ...]:
+        return (self.features, in_features, *self.kernel_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(x, self.weight_for(x))
 
     def conv(self, x: torch.Tensor, weight: torch.Tensor, with_bias: bool = True) -> torch.Tensor:
-        """This conv of NHWC ``x`` with ``weight`` (the parameter, or a masked
-        copy of it) and, ``with_bias``, the bias, in the compute dtype."""
+        """This conv of channels-last ``x`` with ``weight`` (the parameter,
+        or a masked copy of it) and, ``with_bias``, the bias, in the compute
+        dtype."""
         cdtype = compute_dtype(self.dtype, x)
-        x = x.to(cdtype).permute(0, 3, 1, 2)
-        if self.padding == "SAME" and self.strides == (1, 1) and all(
+        x = x.to(cdtype).movedim(-1, 1)
+        if self.padding == "SAME" and all(s == 1 for s in self.strides) and all(
                 k % 2 for k in self.kernel_size):
             # symmetric: the conv's own
             padding = tuple(d * (k // 2) for k, d in zip(self.kernel_size, self.dilation))
         elif self.padding == "SAME":
-            x = F.pad(x, same_padding(self.kernel_size, self.strides, x.shape[2], x.shape[3],
+            x = F.pad(x, same_padding(self.kernel_size, self.strides, x.shape[2:],
                                       self.dilation))
             padding = 0
         elif self.padding == "VALID":
@@ -117,28 +158,10 @@ class Conv(nn.Module):
         else:
             padding = self.padding
         bias = self.bias.to(cdtype) if with_bias and self.bias is not None else None
-        y = F.conv2d(x, weight.to(cdtype), bias, stride=self.strides, padding=padding,
-                     dilation=self.dilation)
-        return y.permute(0, 2, 3, 1)
-
-
-class DtypedModule(nn.Module):
-    """A module whose ``dtype`` (the compute dtype; None: the input's, at
-    least float32) every :class:`Conv` below it follows, so that assigning
-    ``module.dtype`` re-types the whole module."""
-
-    _dtype: Optional[torch.dtype] = None
-
-    @property
-    def dtype(self) -> Optional[torch.dtype]:
-        return self._dtype
-
-    @dtype.setter
-    def dtype(self, value: Optional[torch.dtype]) -> None:
-        self._dtype = value
-        for m in self.modules():
-            if isinstance(m, Conv):
-                m.dtype = value
+        conv = F.conv2d if len(self.kernel_size) == 2 else F.conv3d
+        y = conv(x, weight.to(cdtype), bias, stride=self.strides, padding=padding,
+                 dilation=self.dilation)
+        return y.movedim(1, -1)
 
 
 class AddCoords(nn.Module):

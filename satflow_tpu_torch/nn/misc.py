@@ -1,8 +1,9 @@
 """Tensor helpers, counterpart of ``satflow_tpu/nn/misc.py`` (NHWC / NTHWC):
-space-to-depth, center crop, the per-timestep wrappers ``time_distributed`` /
-:class:`TimeDistributed`, and the flax layers the port's models share that
-torch has no exact match for: :class:`BatchNorm` and :func:`max_pool` (flax's
-``SAME`` padding, -inf in the padded cells).
+space-to-depth and its inverse, center crop, the per-timestep wrappers
+``time_distributed`` / :class:`TimeDistributed`, the dtype-following base
+:class:`DtypedModule`, and the flax layers the port's models share that
+torch has no exact match for: :class:`BatchNorm`, :class:`LayerNorm` and
+:func:`max_pool` (flax's ``SAME`` padding, -inf in the padded cells).
 """
 
 from __future__ import annotations
@@ -20,6 +21,29 @@ def compute_dtype(dtype: Optional[torch.dtype], x: torch.Tensor) -> torch.dtype:
     return dtype or torch.promote_types(x.dtype, torch.float32)
 
 
+class DtypedModule(nn.Module):
+    """A module with a compute ``dtype`` (None: the input's, at least
+    float32) that every :class:`DtypedModule` below it follows, so that
+    assigning ``module.dtype`` re-types the whole module."""
+
+    _dtype: Optional[torch.dtype] = None
+
+    @property
+    def dtype(self) -> Optional[torch.dtype]:
+        return self._dtype
+
+    @dtype.setter
+    def dtype(self, value: Optional[torch.dtype]) -> None:
+        for m in self.modules():
+            if isinstance(m, DtypedModule):
+                m._dtype = value
+
+    def set_compute_dtype(self, dtype: Optional[torch.dtype]) -> None:
+        """Compute in ``dtype`` from now on (None: flax's promotion), the f32
+        weights kept as they are."""
+        self.dtype = dtype
+
+
 def space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
     """``b [t] (h dh) (w dw) c -> b [t] h w (dh dw c)`` for 4-D or 5-D input."""
     if x.dim() not in (4, 5):
@@ -30,6 +54,21 @@ def space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
     # (..., h, dh, w, dw, c) -> (..., h, w, dh, dw, c)
     x = x.permute(*range(n), n, n + 2, n + 1, n + 3, n + 4)
     return x.reshape(*lead, h // block, w // block, block * block * c)
+
+
+def reverse_space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
+    """``b [t] h w (dh dw c) -> b [t] (h dh) (w dw) c`` for 4-D or 5-D input:
+    the inverse of :func:`space_to_depth`."""
+    if x.dim() not in (4, 5):
+        raise ValueError(
+            f"reverse_space_to_depth expects 4D/5D input, got shape {tuple(x.shape)}")
+    *lead, h, w, c = x.shape
+    c //= block * block
+    x = x.reshape(*lead, h, w, block, block, c)
+    n = len(lead)
+    # (..., h, w, dh, dw, c) -> (..., h, dh, w, dw, c)
+    x = x.permute(*range(n), n, n + 2, n + 1, n + 3, n + 4)
+    return x.reshape(*lead, h * block, w * block, c)
 
 
 def crop_center(x: torch.Tensor, crop_h: int, crop_w: int) -> torch.Tensor:
@@ -108,17 +147,36 @@ class BatchNorm(nn.Module):
         return ((xf - mean) * (torch.rsqrt(var + self.eps) * self.scale) + self.bias).to(dtype)
 
 
-def same_padding(kernel: Sequence[int], strides: Sequence[int], height: int, width: int,
-                 dilation: Sequence[int] = (1, 1)) -> Tuple[int, int, int, int]:
-    """flax's ``SAME`` as F.pad's (left, right, top, bottom): the output is
-    ceil(size / stride), and an odd total puts the extra row or column last
-    (a dilated kernel counts as its spread, (k - 1)·d + 1)."""
+def same_padding(kernel: Sequence[int], strides: Sequence[int], sizes: Sequence[int],
+                 dilation: Optional[Sequence[int]] = None) -> Tuple[int, ...]:
+    """flax's ``SAME`` over spatial axes of ``sizes`` as F.pad's (before,
+    after) pairs, last axis first: the output is ceil(size / stride), and an
+    odd total puts the extra element last (a dilated kernel counts as its
+    spread, (k - 1)·d + 1)."""
+    dilation = dilation or (1,) * len(sizes)
     pads = []
-    for size, k, s, d in ((width, kernel[1], strides[1], dilation[1]),
-                          (height, kernel[0], strides[0], dilation[0])):
+    for size, k, s, d in reversed(list(zip(sizes, kernel, strides, dilation))):
         total = max((-(-size // s) - 1) * s + (k - 1) * d + 1 - size, 0)
         pads += [total // 2, total - total // 2]
-    return tuple(pads)  # type: ignore[return-value]
+    return tuple(pads)
+
+
+class LayerNorm(DtypedModule):
+    """flax ``nn.LayerNorm`` over the last axis: epsilon 1e-6 (torch's
+    default is 1e-5), f32 statistics and normalisation, ``scale`` and
+    ``bias`` under flax's names, the result in the compute dtype."""
+
+    def __init__(self, features: int, eps: float = 1e-6, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), (x.shape[-1],), self.scale.float(), self.bias.float(),
+                         self.eps)
+        return y.to(compute_dtype(self.dtype, x))
 
 
 def max_pool(x: torch.Tensor, window: Union[int, Sequence[int]],
@@ -132,7 +190,7 @@ def max_pool(x: torch.Tensor, window: Union[int, Sequence[int]],
         (strides, strides) if isinstance(strides, int) else tuple(strides))
     y = x.permute(0, 3, 1, 2)
     if padding == "SAME":
-        y = F.pad(y, same_padding(window, strides, y.shape[2], y.shape[3]),
+        y = F.pad(y, same_padding(window, strides, y.shape[2:]),
                   value=float("-inf"))
     elif padding != "VALID":
         raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")

@@ -25,11 +25,10 @@ from __future__ import annotations
 from typing import Any, Callable, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from satflow_tpu_torch.nn.conv import Conv, DtypedModule, get_conv_layer, lecun_normal_  # noqa: F401
-from satflow_tpu_torch.nn.misc import compute_dtype
+from satflow_tpu_torch.nn.misc import LayerNorm, compute_dtype
 from satflow_tpu_torch.ops.fused_convlstm_step import fused_convlstm_step
 from satflow_tpu_torch.ops.fused_lstm import fused_lstm_gates
 
@@ -160,22 +159,6 @@ class InputGateConv(_ConvCell):
         return xg.reshape(b, t, *xg.shape[1:])
 
 
-class _LayerNorm(nn.Module):
-    """flax ``LayerNorm`` over the last axis: f32 statistics, eps 1e-6
-    (flax's default; torch's is 1e-5), ``scale`` and ``bias`` under flax's
-    names, the result in ``dtype``."""
-
-    def __init__(self, features: int, eps: float = 1e-6):
-        super().__init__()
-        self.eps = eps
-        self.scale = nn.Parameter(torch.ones(features))
-        self.bias = nn.Parameter(torch.zeros(features))
-
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        y = F.layer_norm(x.float(), (x.shape[-1],), self.scale, self.bias, self.eps)
-        return y.to(dtype)
-
-
 class SpatioTemporalLSTMCell(DtypedModule):
     """PredRNN-v2 cell with memory decoupling (dual memories c and m).
 
@@ -201,13 +184,13 @@ class SpatioTemporalLSTMCell(DtypedModule):
             self.add_module(name, Conv(cin, mult * features, kernel_size, use_bias=False,
                                        generator=generator))
             if layer_norm:
-                self.add_module(f"{name}_ln", _LayerNorm(mult * features))
+                self.add_module(f"{name}_ln", LayerNorm(mult * features))
         self.conv_last = Conv(2 * features, features, 1, use_bias=False, generator=generator)
         self.dtype = dtype
 
     def _gate_conv(self, name: str, inp: torch.Tensor) -> torch.Tensor:
         y = getattr(self, name)(inp)
-        return getattr(self, f"{name}_ln")(y, y.dtype) if self.layer_norm else y
+        return getattr(self, f"{name}_ln")(y) if self.layer_norm else y
 
     def forward(self, carry, x: torch.Tensor):
         h, c, m = carry

@@ -6,9 +6,11 @@ data (``DS_KW``, ``STEPS``, the ``DecayDM`` seeds, the eval set of 3 batches
 at seed 300) and its recipe. Ported arms: ``baselines`` (persistence, the
 Farneback flow as :func:`~satflow_tpu_torch.ops.flow.farneback_backend`
 resolves it, and Horn–Schunck), ``convlstm`` (hidden 32, lr 3e-3, 30
-epochs) and the channels-stacked zoo (``STACKED_ARMS``: the U-Net family,
-FCN, DeepLabV3, PixelCNN, each at the JAX tool's recipe). The other arms
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+epochs), ``perceiver`` (``PERCEIVER``: LAMB under ``warmup_cosine``, every
+lead time decoded at once, 60 epochs) and the channels-stacked zoo
+(``STACKED_ARMS``: the U-Net family, FCN, DeepLabV3, PixelCNN), each at the
+JAX tool's recipe. The other arms raise ``NotImplementedError`` naming the
+ROADMAP item that ports them.
 
     python -m satflow_tpu_torch.tools.accuracy_gate [--arms baselines,convlstm]
         [--out DIR] [--device cuda]
@@ -39,10 +41,17 @@ ALL_ARMS = ("baselines", "convlstm", "perceiver", "metnet", "metnet_stoch",
             "unet", "runet", "attentionunet", "attentionrunet", "fcn",
             "deeplabv3", "pixelcnn")
 EXTRA_ARMS = ("metnet_baselines",)
-PORTED_ARMS = ("baselines", "convlstm", "unet", "runet", "attentionunet", "attentionrunet",
+PORTED_ARMS = ("baselines", "convlstm", "perceiver", "unet", "runet", "attentionunet", "attentionrunet",
                "fcn", "deeplabv3", "pixelcnn")
 # the other arms, by the ROADMAP queue 1 item that ports them
-UNPORTED_ARMS = {"perceiver": 10, "metnet": 7, "metnet_stoch": 7, "metnet_baselines": 7}
+UNPORTED_ARMS = {"metnet": 7, "metnet_stoch": 7, "metnet_baselines": 7}
+# the Perceiver arm, the JAX tool's recipe: (epochs, model keywords); at
+# full resolution like the ConvLSTM, 12 batches an epoch
+PERCEIVER_EPOCHS = 60
+PERCEIVER = dict(input_channels=2, sat_channels=2, base_channels=1, input_size=32,
+                 forecast_steps=STEPS, history_steps=4, depth=3, num_latents=64,
+                 latent_dim=128, dim=48, queries_dim=48, num_freq_bands=16,
+                 predict_timesteps_together=True, lr=2e-3, warmup_steps=100)
 # the channels-stacked arms, the JAX tool's recipes: (epochs, lr, model
 # keywords); all lead times as output channels, 4 x 2 input channels stacked
 STACKED_ARMS = {
@@ -133,13 +142,19 @@ def main(arms: Optional[Iterable[str]] = None, out: Optional[str] = None,
             "train_seconds": train_s,
         }
 
+    arm_models = {}
+    if "perceiver" in arms:
+        arm_models["perceiver"] = (PERCEIVER_EPOCHS, 500, lambda: create_model(
+            "perceiver", total_steps=PERCEIVER_EPOCHS * 12,
+            generator=torch.Generator().manual_seed(0), **PERCEIVER))
     for name, (epochs, lr, extra) in STACKED_ARMS.items():
-        if name not in arms:
-            continue
-        model = create_model(name, input_channels=8, forecast_steps=STEPS,
-                             channels_per_timestep=2, lr=lr,
-                             generator=torch.Generator().manual_seed(0), **extra)
-        trainer = Trainer(max_epochs=epochs, log_every_n_steps=2000, device=device)
+        if name in arms:
+            arm_models[name] = (epochs, 2000, lambda name=name, lr=lr, extra=extra: create_model(
+                name, input_channels=8, forecast_steps=STEPS, channels_per_timestep=2, lr=lr,
+                generator=torch.Generator().manual_seed(0), **extra))
+    for name, (epochs, log_every, make) in arm_models.items():
+        model = make()
+        trainer = Trainer(max_epochs=epochs, log_every_n_steps=log_every, device=device)
         t0 = time.perf_counter()
         trainer.fit(model, make_dm())
         train_s = time.perf_counter() - t0

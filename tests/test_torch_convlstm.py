@@ -154,7 +154,7 @@ def test_registries_are_separate(monkeypatch):
 
     assert registry.list_models() == [
         "attentionrunet", "attentionunet", "deeplabv3", "encoderdecoderconvlstm", "fcn",
-        "litmetnet", "pixelcnn", "runet", "unet"]
+        "huggingfaceperceiver", "litmetnet", "perceiver", "pixelcnn", "runet", "unet"]
     for name in registry.list_models():
         assert registry.get_model(name) is not jax_registry.get_model(name)
     hub = types.ModuleType("huggingface_hub")

@@ -366,8 +366,8 @@ def _load_jax_gate():
     return mod
 
 
-@pytest.mark.parametrize("arm, item", [("perceiver", 10), ("metnet_stoch", 7),
-                                       ("metnet", 7), ("metnet_baselines", 7)])
+@pytest.mark.parametrize("arm, item", [("metnet_stoch", 7), ("metnet", 7),
+                                       ("metnet_baselines", 7)])
 def test_accuracy_gate_unported_arms_raise(arm, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         accuracy_gate.main([arm, "baselines"], device="cpu")
@@ -449,7 +449,7 @@ def test_port_trained_convlstm_beats_persistence_and_flow():
 # names a JAX __init__ exports from a module the port has, whose definition
 # comes with a later ROADMAP queue 1 item (not stubbed before it)
 PENDING = {"GANLoss": 11, "gradient_penalty": 11, "condition_time": 11, "ConditionTime": 11,
-           "ConvGRUCell": 11, "reverse_space_to_depth": 10, "load_torch_perceiver": 10}
+           "ConvGRUCell": 11}
 
 
 def _jax_exports():
@@ -496,8 +496,8 @@ def test_package_exports_match_the_jax_package():
     from satflow_tpu_torch.models import BaseModel, create_model, list_models  # noqa: F401
 
     assert list_models() == ["attentionrunet", "attentionunet", "deeplabv3",
-                             "encoderdecoderconvlstm", "fcn", "litmetnet", "pixelcnn", "runet",
-                             "unet"]
+                             "encoderdecoderconvlstm", "fcn", "huggingfaceperceiver",
+                             "litmetnet", "perceiver", "pixelcnn", "runet", "unet"]
 
 
 def test_count_parameters_matches_jax():

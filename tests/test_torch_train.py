@@ -345,14 +345,14 @@ def test_unported_losses_and_gan_models_raise():
 
 
 def test_unported_config_targets_raise():
-    """The Perceiver (item 10) raises; the checkpoint callbacks of the
+    """A GAN model (item 11) raises; the checkpoint callbacks of the
     default ``callbacks`` group (item 6) build the port's callbacks with the
     config's arguments."""
     from satflow_tpu_torch.experiments.train import instantiate
     from satflow_tpu_torch.train import callbacks
 
-    with pytest.raises(NotImplementedError, match="item 10"):
-        instantiate({"_target_": "satflow_tpu.models.perceiver.Perceiver"})
+    with pytest.raises(NotImplementedError, match="item 11"):
+        instantiate({"_target_": "satflow_tpu.models.dgmr.NowcastingGAN"})
     cb = instantiate({"_target_": "satflow_tpu.train.callbacks.ModelCheckpoint",
                       "monitor": "val/loss", "dirpath": "ck/", "save_top_k": 1, "mode": "max"})
     assert type(cb) is callbacks.ModelCheckpoint and (cb.dirpath, cb.mode) == ("ck/", "max")

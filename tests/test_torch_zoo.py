@@ -226,11 +226,11 @@ def test_zoo_train_step_grads_match_jax(key):
 
 
 def test_zoo_hparams_and_registry_match_jax():
-    """The nine registered names, and each zoo model's hparams equal to the
+    """The eleven registered names, and each zoo model's hparams equal to the
     JAX model's (what ``hparams.json`` holds)."""
     assert registry.list_models() == [
         "attentionrunet", "attentionunet", "deeplabv3", "encoderdecoderconvlstm", "fcn",
-        "litmetnet", "pixelcnn", "runet", "unet"]
+        "huggingfaceperceiver", "litmetnet", "perceiver", "pixelcnn", "runet", "unet"]
     for key, (name, kw, _) in MODELS.items():
         want = jax_registry.create_model(name, input_channels=C, forecast_steps=F, **kw).hparams()
         assert registry.create_model(name, input_channels=C, forecast_steps=F,
