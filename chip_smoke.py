@@ -3754,7 +3754,7 @@ def zoo_train_slice(torch, card):
     """Phase 28b; returns {model: (train step ms, peak GiB)}."""
     from satflow_tpu_torch.data import SatFlowDataModule
     from satflow_tpu_torch.data.datamodule import to_device
-    from satflow_tpu_torch.interop.jax_weights import zoo_state_dict_from_flax
+    from satflow_tpu_torch.interop.jax_weights import flax_tree_state_dict
     from satflow_tpu_torch.train import Trainer
     from satflow_tpu_torch.train.steps import make_train_step
 
@@ -3765,7 +3765,7 @@ def zoo_train_slice(torch, card):
     rows = {}
     for name, config in ZOO_TRAIN:
         model = zoo_model(torch, name, config)
-        model.module.load_state_dict(zoo_state_dict_from_flax(zoo_flax_variables(model, 0)))
+        model.module.load_state_dict(flax_tree_state_dict(zoo_flax_variables(model, 0)))
         stats0 = {k: v.clone() for k, v in model.module.state_dict().items()
                   if k.endswith((".mean", ".var"))}
         trainer = Trainer(max_steps=ZOO_TRAIN_STEPS, precision="bf16", log_every_n_steps=1,
@@ -4270,6 +4270,412 @@ def perceiver_slice(torch, card):
     return rows
 
 
+# Phase 28f: the GAN family (nowcasting_gan, cloudgan_convlstm, cloudgan_runet,
+# pix2pix at their shipped configs' widths, random weights from seeds, the
+# fake schema; CloudGAN's ConvLSTM generator through K1 and K2)
+GAN_B = 4
+DGMR_T = 4  # DGMR's context: 4 frames (15 minutes), as in Ravuri et al.
+DGMR_HW = 128  # nowcasting_gan.yaml's output_shape
+DGMR_ROUNDS = 2
+PIX2PIX_HW = 128  # unet_128 takes 128² inputs
+# Tolerances:
+# - DGMR's float32 sample on the card (cuDNN, TF32 off) against the same
+#   forward on the host's CPU on one fixed latent: 24 lead times of a
+#   4-scale ConvGRU stack summed in another order by another library;
+#   tests/test_torch_gan_models.py holds the port to JAX at 1e-5 on the CPU.
+TOL_GAN_F32 = 1e-3  # x max|cpu|
+# - CloudGAN's float32 ConvLSTM rollout through K1 against the same rollout
+#   through the plain step (sigmoid outputs in [0, 1]): each of its 31
+#   recurrent steps (7 encoder + 24 decoder) within TOL_F32's atol 1e-4; their
+#   sum, 3.1e-3, bounds the drift where the recurrence does not amplify it.
+TOL_GAN_ROLLOUT_F32 = 5e-3
+# - the float32 generator step's gradients through K1 + K2 against the
+#   plain step's, both backwards taking the round's cotangent at the
+#   kernels' sample: one cell step's bound, TOL_GRAD_F32 (the weight-grad
+#   sums' rounding). A weight's gradient sums its 31 recurrent steps' parts,
+#   each within that rounding of its own size, and the forget gates damp
+#   what the hidden state's gradient carries back. On an NVIDIA H100 80GB
+#   HBM3 at 700 W the worst tensor read 2.2e-5 on the cotangent; on each
+#   forward's own loss, where the L1 term's signs flip between the two
+#   forwards, it read 1.07e-3 and 6.94e-4 (PERF.md §6).
+TOL_GAN_GRAD_F32 = TOL_GRAD_F32  # x max|grad| of each tensor
+MIN_GAN_GRAD_COS_F32 = 0.99999
+
+
+def gan_config(name: str, **overrides):
+    """The port's model of the shipped ``configs/model/<name>.yaml`` (through
+    the experiment entry point's mapping); weights from the default
+    generator, seeded by the caller."""
+    from satflow_tpu_torch.core import config as config_lib
+    from satflow_tpu_torch.experiments.train import instantiate
+
+    cfg = config_lib.compose(config_lib.default_config_dir(), "config.yaml",
+                             [f"model={name}"])["model"]
+    return instantiate(cfg, **overrides)
+
+
+def gan_dm(torch, hw: int, channels: int, frames: int, steps: int, b: int = GAN_B,
+           n_train: int = 1):
+    from satflow_tpu_torch.data import SatFlowDataModule
+
+    return SatFlowDataModule(fake_data=True, num_workers=0, n_train_data=n_train, n_val_data=1,
+                             history_minutes=5 * (frames - 1), forecast_minutes=5 * steps,
+                             fake_kwargs=dict(batch_size=b, width=hw, height=hw,
+                                              number_sat_channels=channels))
+
+
+def gan_sample(torch, model, x, what: str, card):
+    """A b4 sample through ``InferenceSession`` (the generator alone), its
+    device time by CUDA events over 3 calls after a warm-up and its peak
+    memory above what earlier phases hold; returns (reply, ms, peak GiB)."""
+    from satflow_tpu_torch.serve import InferenceSession
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    session = InferenceSession(model, max_batch=GAN_B, state_dict=model.module.state_dict(),
+                               device=DEVICE)
+    reply = session._forward(x)
+    ms = cuda_ms(torch, lambda: session._forward(x), 3)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    if not bool(torch.isfinite(reply).all()):
+        fail(f"{what}: sample not finite")
+    print(f"{what}: b{GAN_B} sample {tuple(reply.shape)} through InferenceSession "
+          f"{ms:.2f} ms (CUDA events, mean of 3), peak device memory {peak:.2f} GiB [{card}]",
+          flush=True)
+    return reply, ms, peak
+
+
+def gan_round(torch, model, dm, what: str, card, counters=(), want_per_step=None,
+              rounds: int = 1, zero_ok=()):
+    """``rounds`` GAN rounds through ``Trainer.fit`` (the counters set to 0
+    just before, read just after), losses finite; then every generator and
+    discriminator parameter's gradient of one G-loss and one D-loss finite
+    and nonzero (but ``zero_ok``'s, finite); then one more round timed on the
+    host clock (synchronised) with its peak memory above the weights and
+    both Adams' moments. Returns (fit launches, round ms, peak GiB, trainer)."""
+    from satflow_tpu_torch.data.datamodule import to_device
+    from satflow_tpu_torch.train import Trainer
+    from satflow_tpu_torch.train.steps import make_gan_train_step
+
+    counter = LaunchesPerStep(*counters)
+    trainer = Trainer(max_steps=rounds, log_every_n_steps=1, device=DEVICE, callbacks=[counter])
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    trainer.fit(model, dm)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = tuple(c.launches for c in counters)
+    g = [e["train/g_loss"] for e in trainer.history.history if "train/g_loss" in e]
+    d = [e["train/d_loss"] for e in trainer.history.history if "train/d_loss" in e]
+    if trainer.global_step != rounds or len(g) != rounds or not all(np.isfinite(g + d)):
+        fail(f"{what}: fit took {trainer.global_step} rounds; g {g}, d {d}")
+    if want_per_step is not None and counter.per_step != [tuple(want_per_step)] * rounds:
+        fail(f"{what}: launches per round {counter.per_step}, expected {tuple(want_per_step)}")
+    batch = to_device(next(iter(dm.train_dataloader())), torch.device(DEVICE))
+    for half in ("generator_loss", "discriminator_loss"):
+        model.zero_grad(set_to_none=True)
+        loss, _ = getattr(model, half)(batch)
+        loss.backward()
+        net = model.module if half == "generator_loss" else model.disc_module
+        bad = [k for k, p in net.named_parameters() if p.grad is None
+               or not bool(torch.isfinite(p.grad).all())
+               or (k not in zero_ok and not bool((p.grad != 0).any()))]
+        if bad or not bool(torch.isfinite(loss)):
+            fail(f"{what}: {half} {loss.item()}; gradients missing, non-finite or zero: "
+                 f"{bad[:5]}")
+    model.zero_grad(set_to_none=True)
+    step = make_gan_train_step(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    metrics = step(trainer.state, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    if not bool(metrics["finite"]):
+        fail(f"{what}: timed round not finite")
+    print(f"{what}: {rounds} round(s) of {getattr(model, 'disc_steps', 1)} D + 1 G update through "
+          f"Trainer.fit in {wall:.2f} s wall (g_loss {', '.join(f'{v:.4f}' for v in g)}, d_loss "
+          f"{', '.join(f'{v:.4f}' for v in d)}), every parameter's gradient finite and nonzero; "
+          f"launches per round {counter.per_step[:1]}, fit total {launches}; one more round "
+          f"{ms:.1f} ms (host clock, synchronised), peak device memory {peak:.2f} GiB above the "
+          f"weights and both Adams' moments [{card}]", flush=True)
+    return launches, ms, peak, trainer
+
+
+def gan_slice(torch, card):
+    """Phase 28f; returns ({what: (ms, peak GiB)}, K1 launches, K2 launches)."""
+    import copy
+    import tempfile
+
+    from satflow_tpu_torch.ops.axial_attention import axial_attention
+    from satflow_tpu_torch.ops.cmajor_convlstm import cmajor_conv3x3, cmajor_convlstm_step
+    from satflow_tpu_torch.ops.fused_convlstm_int8 import fused_convlstm_step_int8
+    from satflow_tpu_torch.ops.fused_convlstm_step import (
+        fused_convlstm_step,
+        fused_convlstm_step_halo,
+        fused_convlstm_step_ref,
+        gate_bwd,
+    )
+    from satflow_tpu_torch.data.datamodule import to_device
+    from satflow_tpu_torch.nn.norm import frozen_state
+    from satflow_tpu_torch.ops.fused_lstm import fused_lstm_gates
+    from satflow_tpu_torch.train.probabilistic import crps_finetune
+
+    others = (fused_convlstm_step_halo, fused_lstm_gates, axial_attention,
+              fused_convlstm_step_int8, cmajor_convlstm_step, cmajor_conv3x3)
+    everything = (fused_convlstm_step, gate_bwd) + others
+    rows = {}
+    k1 = k2 = 0
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(15)
+
+    def no_launches(what):
+        launches = {c.__name__: c.launches for c in everything}
+        if any(launches.values()):
+            fail(f"{what} launched the repo's kernels: {launches}")
+
+    # (a) nowcasting_gan.yaml: 128², 24 leads, context 384, latent 768, 3
+    # samples, 2 D updates a round, b4 on 4 context frames
+    torch.manual_seed(0)
+    for c in everything:
+        c.launches = 0
+    model = gan_config("nowcasting_gan")
+    if (model.output_shape, model.forecast_steps, model.context_channels,
+            model.latent_channels, model.num_samples, model.disc_steps) != (
+            DGMR_HW, STEPS, 384, 768, 3, 2):
+        fail(f"nowcasting_gan.yaml built {model.hparams()}")
+    x = torch.from_numpy(rng.random((GAN_B, DGMR_T, DGMR_HW, DGMR_HW, 1),
+                                    dtype=np.float32)).to(DEVICE)
+    y = torch.from_numpy(rng.random((GAN_B, STEPS, DGMR_HW, DGMR_HW, 1),
+                                    dtype=np.float32)).to(DEVICE)
+    model.to(DEVICE).materialize((x, y))
+    n_params = sum(p.numel() for p in model.parameters())
+    reply, ms, peak = gan_sample(torch, model, x, f"nowcastinggan (nowcasting_gan.yaml, "
+                                 f"{n_params} parameters)", card)
+    if tuple(reply.shape) != (GAN_B, STEPS, DGMR_HW, DGMR_HW, 1):
+        fail(f"nowcastinggan: sample of shape {tuple(reply.shape)}")
+    rows["nowcastinggan sample"] = (ms, peak)
+    z = torch.randn(1, DGMR_HW // 32, DGMR_HW // 32, 8, generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        got = model._sample(x[:1], None, False, 1, z=z.to(DEVICE))[0].cpu()
+        want = copy.deepcopy(model).cpu()._sample(x[:1].cpu(), None, False, 1, z=z)[0]
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    if not err <= TOL_GAN_F32 * scale:
+        fail(f"nowcastinggan: float32 sample on the card vs the CPU: max|diff| {err:.3g} > "
+             f"{TOL_GAN_F32} x max|cpu| {scale:.3g}")
+    print(f"nowcastinggan: one float32 sample on a fixed latent vs the CPU: max|diff| {err:.3g} "
+          f"<= {TOL_GAN_F32} x max|cpu| {scale:.3g} ok [{card}]", flush=True)
+    _, ms, peak, _ = gan_round(torch, model, gan_dm(torch, DGMR_HW, 1, DGMR_T, STEPS,
+                                                    n_train=DGMR_ROUNDS),
+                               "nowcastinggan (nowcasting_gan.yaml)", card, rounds=DGMR_ROUNDS,
+                               # the hinge gives a critic's output bias (#fakes - #reals inside
+                               # the margin) / B: zero when every score is inside it
+                               zero_ok=("spatial.out.bias", "temporal.out.bias"))
+    rows["nowcastinggan round"] = (ms, peak)
+    no_launches("nowcastinggan")
+    del model, x, y, reply
+    torch.cuda.empty_cache()
+
+    # (b) cloudgan_convlstm.yaml: the ConvLSTM generator (hidden 64) on 12
+    # channels at 256², 7 in / 24 out, b4; float32 as shipped and a bfloat16 build
+    x = torch.from_numpy(rng.random((GAN_B, T, H, W, CIN), dtype=np.float32)).to(DEVICE)
+    dm = gan_dm(torch, H, CIN, T, STEPS)
+    batch = None
+    for dtype in (None, torch.bfloat16):
+        label = f"cloudgan (cloudgan_convlstm.yaml, {'bf16' if dtype else 'float32'})"
+        torch.manual_seed(0)
+        model = gan_config("cloudgan_convlstm", dtype=dtype).to(DEVICE)
+        if (model.generator_model, model.num_filters, model.channels_per_timestep,
+                model.forecast_steps, model.condition_time) != ("convlstm", HIDDEN, CIN,
+                                                                STEPS, True):
+            fail(f"cloudgan_convlstm.yaml built {model.hparams()}")
+        model.materialize((x, x[:, :1].expand(-1, STEPS, -1, -1, -1)))
+        for c in everything:
+            c.launches = 0
+        reply, ms, peak = gan_sample(torch, model, x, label, card)
+        # the warm-up and 3 timed calls: 4 generator forwards
+        if fused_convlstm_step.launches != 4 * LAUNCHES_PER_FORWARD or gate_bwd.launches:
+            fail(f"{label}: K1 {fused_convlstm_step.launches}, K2 {gate_bwd.launches} launches "
+                 f"in 4 samples, expected {4 * LAUNCHES_PER_FORWARD} and 0")
+        k1 += fused_convlstm_step.launches
+        no_launches_other = {c.__name__: c.launches for c in others}
+        if any(no_launches_other.values()):
+            fail(f"{label}: other kernels launched: {no_launches_other}")
+        with torch.inference_mode():
+            plain = model.generate(x, False, None, step=fused_convlstm_step_ref)
+        err = float((reply.float() - plain.float()).abs().max())
+        tol = TOL_ROLLOUT if dtype else TOL_GAN_ROLLOUT_F32
+        if not err <= tol:
+            fail(f"{label}: sample through K1 vs the plain step: max|diff| {err:.3g} > {tol}")
+        rows[f"{label} sample"] = (ms, peak)
+        print(f"{label}: {LAUNCHES_PER_FORWARD} K1 launches a generator forward (2T + 2F), the "
+              f"sample vs the plain step max|diff| {err:.3g} <= {tol} ok [{card}]", flush=True)
+        # one round: the D step's eval-mode sample and the G step's forward,
+        # each 62 K1, and the G step's backward through K2 (62)
+        want = (2 * LAUNCHES_PER_FORWARD, LAUNCHES_PER_FORWARD)
+        _, ms, peak, trainer = gan_round(torch, model, dm, label, card,
+                                         (fused_convlstm_step, gate_bwd), want)
+        # set to 0 just before the fit: its rounds and validation, the
+        # gradient checks and the timed round
+        k1 += fused_convlstm_step.launches
+        k2 += gate_bwd.launches
+        rows[f"{label} round"] = (ms, peak)
+        batch = trainer.last_batch
+
+        # The generator step's gradients through K1 + K2 against the plain
+        # step's. Its loss is the adversarial term through the frozen-state
+        # discriminator plus lambda_l1 (100) x L1, whose gradient is the sign of
+        # y_hat - y: a one-bf16-step difference between the two forwards flips
+        # it wherever |y_hat - y| is below a bf16 step. So both backwards take
+        # the cotangent of the round's loss at the kernels' sample, dL/dy_hat,
+        # entering through the discriminator; the whole loss's gradients are
+        # printed beside it.
+        params = [p for _, p in model.module.named_parameters()]
+        names = [n for n, _ in model.module.named_parameters()]
+        model.zero_grad(set_to_none=True)
+        x_b, y_b = model.prepare_batch(batch)
+        y_hat = model.generate(x_b, True)
+        with frozen_state(model.disc_module):
+            score = model.discriminate(model.disc_input(x_b, y_hat), True)
+        loss = model.adv_loss(score, True) + model.lambda_l1 * model.criterion(y_hat, y_b)
+        (cot,) = torch.autograd.grad(loss, y_hat, retain_graph=True)
+        before = fused_convlstm_step.launches, gate_bwd.launches
+        got = dict(zip(names, torch.autograd.grad(y_hat, params, cot)))
+        del y_hat, score, loss
+        y_plain = model.generate(x_b, True, step=fused_convlstm_step_ref)
+        want_g = dict(zip(names, torch.autograd.grad(y_plain, params, cot)))
+        del y_plain
+        full = {}
+        for step_kw in ({}, {"step": fused_convlstm_step_ref}):
+            model.zero_grad(set_to_none=True)
+            model.generator_loss(batch, **step_kw)[0].backward()
+            full[bool(step_kw)] = {n: p.grad.float() for n, p in model.module.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        k1 += fused_convlstm_step.launches - before[0] + LAUNCHES_PER_FORWARD
+        k2 += gate_bwd.launches - before[1]
+        tol, min_cos = ((TOL_TRAIN_GRAD, MIN_TRAIN_GRAD_COS) if dtype
+                        else (TOL_GAN_GRAD_F32, MIN_GAN_GRAD_COS_F32))
+
+        def compare(a, b):
+            rel = (a.float() - b.float()).abs().max().item() / b.float().abs().max().item()
+            cos = torch.nn.functional.cosine_similarity(a.float().flatten(), b.float().flatten(),
+                                                        dim=0).item()
+            return rel, cos
+
+        worst, worst_cos = 0.0, 1.0
+        for name, g in got.items():
+            if not bool(torch.isfinite(g).all()) or not bool((g != 0).any()):
+                fail(f"{label}: generator gradient of {name} through the kernels not finite "
+                     "or zero")
+            rel, cos = compare(g, want_g[name])
+            worst, worst_cos = max(worst, rel), min(worst_cos, cos)
+            if not (rel <= tol and cos >= min_cos):
+                fail(f"{label}: generator gradient of {name} vs the plain step: "
+                     f"{rel:.3g} (tol {tol}), cosine {cos:.6f} (min {min_cos})")
+        whole = [compare(full[False][n], full[True][n]) for n in names]
+        print(f"{label}: the generator step's gradients through K1 + K2 vs the plain step on "
+              f"the round's cotangent: max|diff| / max|grad| {worst:.3g} <= {tol}, cosine "
+              f"{worst_cos:.6f} >= {min_cos} ok; on each forward's own loss (L1 signs flip): "
+              f"{max(r for r, _ in whole):.3g}, cosine {min(c for _, c in whole):.6f} [{card}]",
+              flush=True)
+        del model, trainer, reply, plain
+        torch.cuda.empty_cache()
+    del x, dm, batch
+
+    # (c) cloudgan_runet.yaml (256²) and pix2pix.yaml (unet_128, 128²): one
+    # sample and one round each, none of the repo's kernels
+    for config, hw in (("cloudgan_runet", H), ("pix2pix", PIX2PIX_HW)):
+        for c in everything:
+            c.launches = 0
+        torch.manual_seed(0)
+        model = gan_config(config).to(DEVICE)
+        x = torch.from_numpy(rng.random((GAN_B, T, hw, hw, CIN), dtype=np.float32)).to(DEVICE)
+        model.materialize((x, x[:, :1].expand(-1, STEPS, -1, -1, -1)))
+        n_params = sum(p.numel() for p in model.parameters())
+        reply, ms, peak = gan_sample(torch, model, x, f"{config}.yaml ({n_params} parameters)",
+                                     card)
+        if tuple(reply.shape) != (GAN_B, STEPS, hw, hw, CIN):
+            fail(f"{config}: sample of shape {tuple(reply.shape)}")
+        rows[f"{config} sample"] = (ms, peak)
+        _, ms, peak, _ = gan_round(torch, model, gan_dm(torch, hw, CIN, T, STEPS),
+                                   f"{config}.yaml", card)
+        rows[f"{config} round"] = (ms, peak)
+        no_launches(config)
+        del model, x, reply
+        torch.cuda.empty_cache()
+
+    # (d) experiment=nowcasting_gan_simple through the CLI on the card (its
+    # datamodule's 24 lead times against the model's 6 is a fault of the
+    # config, ROADMAP §3: the forecast window is set to the model's 6), the
+    # checkpoint monitored on val/g_loss, served through local:, and the
+    # eval CLI's --ensemble 3 on it
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": repo}
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "satflow_tpu_torch.run", "experiment=nowcasting_gan_simple",
+             "datamodule.forecast_minutes=30", "trainer.max_steps=3",
+             "trainer.log_every_n_steps=1", f"work_dir={work}/runs", "print_config=false"],
+            capture_output=True, text=True, cwd=work, timeout=600, env=env)
+        wall = time.perf_counter() - t0
+        bests = [d for d, _, fs in os.walk(work) if d.endswith(os.path.join("checkpoints", "best"))
+                 and "state.pt" in fs]
+        if out.returncode != 0 or len(bests) != 1:
+            fail(f"experiment=nowcasting_gan_simple: exit {out.returncode}, {len(bests)} best "
+                 f"checkpoints; {out.stderr[-1500:]}")
+        meta = json.load(open(os.path.join(bests[0], "hparams.json")))
+        if meta["hparams"]["class"] != "NowcastingGAN" or "val/g_loss" not in meta["metrics"]:
+            fail(f"experiment=nowcasting_gan_simple: best checkpoint {meta}")
+        from satflow_tpu_torch.serve import InferenceSession
+
+        session = InferenceSession("local:" + bests[0], max_batch=2, device=DEVICE)
+        frames = 30 // 5 + 1
+        sample = session.predict(rng.random((2, frames, 32, 32, 1), dtype=np.float32))
+        if sample.shape != (2, 6, 32, 32, 1) or not np.isfinite(sample).all():
+            fail(f"nowcasting_gan_simple served from local: {sample.shape}")
+        ev = subprocess.run(
+            [sys.executable, "-m", "satflow_tpu_torch.eval.evaluate", "--checkpoint", bests[0],
+             "--ensemble", "3", "--dataset", "fake", "--size", "32", "--channels", "1",
+             "--history-minutes", "30", "--batches", "2", "--output", f"{work}/eval"],
+            capture_output=True, text=True, cwd=work, timeout=600, env=env)
+        if ev.returncode != 0:
+            fail(f"eval --ensemble 3 on the GAN checkpoint: exit {ev.returncode}; "
+                 f"{ev.stderr[-1500:]}")
+        summary = json.loads(ev.stdout.strip().splitlines()[-1])
+        if not (np.isfinite(summary["crps_mean"]) and summary["sample_std"] > 0):
+            fail(f"eval --ensemble 3: {summary}")
+    print(f"python -m satflow_tpu_torch.run experiment=nowcasting_gan_simple "
+          f"datamodule.forecast_minutes=30 on the card: exit 0 in {wall:.1f} s wall, the best "
+          f"checkpoint on val/g_loss {meta['metrics']['val/g_loss']:.4f}; served from local: "
+          f"{sample.shape}; eval --ensemble 3: crps_mean {summary['crps_mean']:.4f}, sample_std "
+          f"{summary['sample_std']:.4f} [{card}]", flush=True)
+
+    # (e) crps_finetune at the experiment's size: 3 steps, finite fair CRPS
+    model = gan_config("nowcasting_gan", forecast_steps=6, output_shape=32,
+                       context_channels=64, latent_channels=128).to(DEVICE)
+    dm = gan_dm(torch, 32, 1, 7, 6)
+    batches = [to_device(next(iter(dm.train_dataloader())), torch.device(DEVICE))]
+    model.materialize(batches[0])
+    t0 = time.perf_counter()
+    _, history = crps_finetune(model, batches, steps=3, num_samples=3, lr=2e-3, log_every=1)
+    torch.cuda.synchronize()
+    if not all(np.isfinite(history)):
+        fail(f"crps_finetune: losses {history}")
+    print(f"crps_finetune (nowcasting_gan_simple's size, 3 samples): 3 steps in "
+          f"{time.perf_counter() - t0:.2f} s wall, fair CRPS "
+          + ", ".join(f"{v:.5f}" for v in history) + f" [{card}]", flush=True)
+    del model
+
+    print(f"GAN phase: {time.perf_counter() - t_phase:.1f} s; K1 {k1} and K2 {k2} launches on "
+          f"CloudGAN's ConvLSTM generator (samples, rounds, gradient checks) [{card}]", flush=True)
+    return rows, k1, k2
+
+
 def main() -> None:
     try:
         import torch
@@ -4435,6 +4841,9 @@ def main() -> None:
     # phase 28e: the Perceiver family (counts set to 0 inside; it launches none)
     perceiver_slice(torch, card)
     phase_done("phase 28e (the Perceiver family)")
+    # phase 28f: the GAN family (counts set to 0 inside, just before each path)
+    _, gan_k1, gan_k2 = gan_slice(torch, card)
+    phase_done("phase 28f (the GAN family)")
     life_k1 += prof_k1 + pre_k1
     life_k2 += prof_k2 + pre_k2
 
@@ -4451,23 +4860,24 @@ def main() -> None:
         # the yardstick of the tap9 study tool + the hidden 16, 32, 24 and 12
         # models + eval + the accuracy gate's training and eval + the
         # lifecycle phases (train, resume, local: serving, eval, profile,
-        # preemption, probes)
+        # preemption, probes) + CloudGAN's ConvLSTM generator (phase 28f)
         kernel("fused_convlstm_step", "fused_convlstm_step.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_step.py:453",
                serve_k1 + train_k1 + cm_k1 + cm32_k1 + st_k1 + widths_k1 + padded_k1 + eval_k1
-               + gate_k1 + life_k1 + exp_k1, k1_err, per_call[HIDDEN]),
+               + gate_k1 + life_k1 + exp_k1 + gan_k1, k1_err, per_call[HIDDEN]),
         # the TPU's unpadded sibling of K1: the port's K1 is that kernel (its
         # tensors are unpadded NHWC), so this row repeats K1's numbers
         kernel("fused_convlstm_step (unpadded NHWC)", "fused_convlstm_step.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_step.py:380",
                serve_k1 + train_k1 + cm_k1 + cm32_k1 + st_k1 + widths_k1 + padded_k1 + eval_k1
-               + gate_k1 + life_k1 + exp_k1, k1_err, per_call[HIDDEN]),
+               + gate_k1 + life_k1 + exp_k1 + gan_k1, k1_err, per_call[HIDDEN]),
         kernel("fused_convlstm_step_halo", "fused_convlstm_step_halo.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_step.py:266",
                halo_serve + halo_train_k1h, k1h_err, study["K1h"]),
         kernel("gate_bwd", "fused_convlstm_step_bwd.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_step.py:833",
-               train_k2 + halo_train_k2 + widths_k2 + padded_k2 + gate_k2 + life_k2, k2_err,
+               train_k2 + halo_train_k2 + widths_k2 + padded_k2 + gate_k2 + life_k2 + gan_k2,
+               k2_err,
                per_call_bwd[HIDDEN]),
         kernel("fused_lstm_gates", "fused_lstm_gates.cu",
                "satflow_tpu/ops/pallas/fused_lstm.py:75",

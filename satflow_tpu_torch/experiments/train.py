@@ -20,10 +20,6 @@ from satflow_tpu_torch.core.utils import get_logger, log_hyperparameters, seed_e
 
 log = get_logger(__name__)
 
-# JAX model modules without a port yet, by the ROADMAP item that ports them
-_UNPORTED_MODELS = {"dgmr": 11, "cloudgan": 11, "pix2pix": 11, "gan_base": 11}
-
-
 def _counterpart(target: str):
     """The port's class for a ``_target_`` path of the JAX config tree."""
     if not target.startswith("satflow_tpu."):
@@ -34,10 +30,6 @@ def _counterpart(target: str):
         from satflow_tpu_torch.core.registry import get_model
         import satflow_tpu_torch.models  # noqa: F401 - populate the registry
 
-        item = _UNPORTED_MODELS.get(module.rsplit(".", 1)[-1])
-        if item is not None:
-            raise NotImplementedError(
-                f"model {target!r} is not ported yet (ROADMAP queue 1 item {item})")
         return get_model(name)
     if target == "satflow_tpu.data.datamodule.SatFlowDataModule":
         from satflow_tpu_torch.data.datamodule import SatFlowDataModule
@@ -54,13 +46,15 @@ def _counterpart(target: str):
 # model node of an experiment that picks another model in its own defaults
 # list, which the config tree merges over the default one:
 # experiment=unet_simple keeps the ConvLSTM's out_channels and hidden_dim,
-# experiment=perceiver_simple those and conv_type. The JAX package raises a
-# TypeError on those that the model does not take; here they are dropped
-# from its node, by its family (the base class's name), and any other key
-# that a model does not take raises.
+# experiment=perceiver_simple those and conv_type, and
+# experiment=nowcasting_gan_simple those and lr and loss. The JAX package
+# raises a TypeError on those that the model does not take; here they are
+# dropped from its node, by its family (the first listed class of its MRO),
+# and any other key that a model does not take raises.
 _DROPPED_DEFAULT_KEYS = {
     "StackedImageModel": ("out_channels", "hidden_dim"),  # keeps conv_type
     "Perceiver": ("out_channels", "hidden_dim", "conv_type"),
+    "NowcastingGAN": ("out_channels", "hidden_dim", "lr", "loss"),  # keeps conv_type
 }
 
 

@@ -30,10 +30,12 @@ kernels (C, heads, d) and (heads, d, C) -> ``nn.Linear`` weights, LayerNorm
 ``scale`` -> ``weight``; BatchNorm ``scale``/``bias``, ``pos_emb`` and the
 running ``mean``/``var`` keep their names.
 
-:func:`zoo_state_dict_from_flax` converts the channels-stacked zoo (the U-Net
-family, FCN / DeepLabV3, PixelCNN) by one walk of the tree, and
-:func:`perceiver_state_dict_from_flax` the Perceiver family the same way
-(Dense kernels transposed as well).
+:func:`flax_tree_state_dict` converts the channels-stacked zoo (the U-Net
+family, FCN / DeepLabV3, PixelCNN) and each GAN network by one walk of the
+tree, :func:`perceiver_state_dict_from_flax` the Perceiver family the same
+way (its DenseGeneral kernels kept as they are), and
+:func:`gan_state_dict_from_flax` the GAN family's two networks with their
+``batch_stats`` and ``spectral`` collections.
 
 A flat ``.npz`` (:func:`save_npz`) holds the params under their paths and a
 ``batch_stats`` collection under ``batch_stats/``. Pure numpy: no jax is
@@ -44,7 +46,7 @@ from __future__ import annotations
 
 import keyword
 from collections import OrderedDict
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -187,38 +189,6 @@ def metnet_state_dict_from_flax(variables: Mapping[str, Any]) -> "OrderedDict[st
     return sd
 
 
-def zoo_state_dict_from_flax(variables: Mapping[str, Any],
-                             dtype=np.float32) -> "OrderedDict[str, torch.Tensor]":
-    """flax variables (``{"params": ..., "batch_stats": ...}``, numpy leaves)
-    of a channels-stacked zoo model (``Unet``, ``RUnet``, ``AttentionUnet``,
-    ``AttentionRUnet``, ``FCN``, ``DeeplabV3``, ``PixelCNN``) -> the state_dict
-    of the port's core, by one walk of the tree: the port names its
-    submodules as flax does, so a leaf's path is its key. A conv ``kernel``
-    (kh, kw, I, O) becomes ``weight`` (O, I, kh, kw); a 1-D one (k, I, O),
-    which flax makes of an int kernel size, becomes (O, I, 1, k) (the port's
-    (1, k) conv along W); ``bias`` and BatchNorm's ``scale`` keep their names,
-    a module named as a Python keyword takes a trailing underscore (``in`` ->
-    ``in_``),
-    as do the ``coord`` / ``antialiased`` convs' ``Conv_0`` level and the
-    ``batch_stats`` ``mean`` / ``var`` (buffers of the shared BatchNorm).
-    MaskedConv's kernel is a plain conv kernel (its mask is applied per call).
-    Leaves are cast to ``dtype`` (the port's weights are float32)."""
-    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
-    for path, a in flatten_tree(variables["params"]).items():
-        *mods, leaf = path.split("/")
-        a = np.asarray(a, dtype=dtype)
-        if leaf == "kernel" and a.ndim == 4:
-            a, leaf = a.transpose(3, 2, 0, 1), "weight"
-        elif leaf == "kernel" and a.ndim == 3:
-            a, leaf = a.transpose(2, 1, 0)[:, :, None, :], "weight"
-        elif leaf not in ("bias", "scale"):
-            raise KeyError(f"unexpected flax param {path!r}")
-        sd[_module_key(mods + [leaf])] = torch.from_numpy(np.array(a, order="C"))
-    for path, a in flatten_tree(variables.get("batch_stats", {})).items():
-        sd[_module_key(path.split("/"))] = torch.from_numpy(np.array(a, dtype=dtype))
-    return sd
-
-
 def perceiver_state_dict_from_flax(variables: Mapping[str, Any]
                                    ) -> "OrderedDict[str, torch.Tensor]":
     """flax variables (``{"params": ...}``, numpy leaves) of ``Perceiver`` or
@@ -239,6 +209,54 @@ def perceiver_state_dict_from_flax(variables: Mapping[str, Any]
         if leaf == "kernel" and a.ndim != 3:
             a, leaf = np.moveaxis(a, (-1, -2), (0, 1)), "weight"
         sd[_module_key(mods + [leaf])] = torch.from_numpy(np.array(a, order="C"))
+    return sd
+
+
+def flax_tree_state_dict(variables: Mapping[str, Any], dtype=np.float32
+                         ) -> "OrderedDict[str, torch.Tensor]":
+    """flax variables (``{"params": ..., "batch_stats": ..., "spectral":
+    ...}``, numpy leaves) of a channels-stacked zoo model (``Unet``,
+    ``RUnet``, ``AttentionUnet``, ``AttentionRUnet``, ``FCN``, ``DeeplabV3``,
+    ``PixelCNN``) or of one GAN network -> the state_dict of the port's
+    module, by one walk of each collection: the port names its submodules as
+    flax does, so a leaf's path is its key, and a module named as a Python
+    keyword takes a trailing underscore (``in`` -> ``in_``). A ``kernel``
+    becomes ``weight`` in torch's layout: a Dense's (I, O) -> (O, I), a
+    conv's or transposed conv's (*k, I, O) -> (O, I, *k), flax's 1-D conv
+    kernel (k, I, O) (an int kernel size) -> (O, I, 1, k) (the port's (1, k)
+    conv along W). Every other leaf keeps its name and array: biases,
+    scales, ``gamma``, ``embedding``, the fused ConvLSTM cells' HWIO
+    kernels, the BatchNorm ``mean`` / ``var`` and the spectral-norm ``u``
+    (the buffers ``...bn.mean``, ``...sn.u``). MaskedConv's kernel is a plain
+    conv kernel (its mask is applied per call). Leaves are cast to ``dtype``
+    (the port's weights are float32)."""
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    for coll, tree in variables.items():
+        for path, a in flatten_tree(tree).items():
+            *mods, leaf = path.split("/")
+            a = np.asarray(a, dtype=dtype)
+            if coll == "params" and leaf == "kernel":
+                if a.ndim == 3:
+                    a = a.transpose(2, 1, 0)[:, :, None, :]
+                else:
+                    a = np.moveaxis(a, (-1, -2), (0, 1))
+                leaf = "weight"
+            sd[_module_key(mods + [leaf])] = torch.from_numpy(np.array(a, order="C"))
+    return sd
+
+
+def gan_state_dict_from_flax(g_vars: Mapping[str, Any], d_vars: Optional[Mapping[str, Any]] = None
+                             ) -> "OrderedDict[str, torch.Tensor]":
+    """flax variables of a GAN model's generator and discriminator (each
+    ``{"params": ..., <state collections>}``, as ``init_gan_variables``
+    returns them) -> the state_dict of the port's GAN model: the generator
+    under ``module.``, the discriminator under ``disc_module.``
+    (:func:`flax_tree_state_dict` for each)."""
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    for prefix, variables in (("module.", g_vars), ("disc_module.", d_vars)):
+        if variables is not None:
+            sd.update((prefix + k, v)
+                      for k, v in flax_tree_state_dict(variables).items())
     return sd
 
 

@@ -9,7 +9,7 @@ models and PixelCNN share.
 
 Each core's submodules carry the flax names (``down{i}``, ``up{i}``,
 ``upconv{i}``, ``rrcnn{i}``, ``up_rrcnn{i}``, ``att{i}``, ``head``), so
-:func:`~satflow_tpu_torch.interop.jax_weights.zoo_state_dict_from_flax`
+:func:`~satflow_tpu_torch.interop.jax_weights.flax_tree_state_dict`
 converts the JAX model's variables with one tree walk. The first conv takes
 its input width (T·C) from the data, as flax infers it: the model is
 materialized from the first batch (``BaseModel.materialize``) or takes the
@@ -47,6 +47,14 @@ def _stack_time_into_channels(x: torch.Tensor) -> torch.Tensor:
     """(B, T, H, W, C) -> (B, H, W, T·C)."""
     b, t, h, w, c = x.shape
     return x.permute(0, 2, 3, 1, 4).reshape(b, h, w, t * c)
+
+
+def _unstack_channels_into_time(out: torch.Tensor, forecast_steps: int,
+                                channels_per_timestep: int) -> torch.Tensor:
+    """(B, H, W, forecast_steps·cpt) -> (B, forecast_steps, H, W, cpt)."""
+    b, h, w, _ = out.shape
+    out = out.reshape(b, h, w, forecast_steps, channels_per_timestep)
+    return out.permute(0, 3, 1, 2, 4)
 
 
 class _ZooCore(nn.Module):
@@ -245,17 +253,13 @@ class StackedImageModel(BaseModel):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.dim() == 5:
             x = _stack_time_into_channels(x)
-        return self._unstack(self.module(x))
-
-    def _unstack(self, out: torch.Tensor) -> torch.Tensor:
-        b, h, w, _ = out.shape
-        out = out.reshape(b, h, w, self.forecast_steps, self.channels_per_timestep)
-        return out.permute(0, 3, 1, 2, 4)  # (B, T_f, H, W, cpt)
+        return _unstack_channels_into_time(self.module(x), self.forecast_steps,
+                                           self.channels_per_timestep)
 
     def state_dict_from_flax(self, variables):
-        from satflow_tpu_torch.interop.jax_weights import zoo_state_dict_from_flax
+        from satflow_tpu_torch.interop.jax_weights import flax_tree_state_dict
 
-        return zoo_state_dict_from_flax(variables)
+        return flax_tree_state_dict(variables)
 
 
 @register_model

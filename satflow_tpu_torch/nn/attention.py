@@ -13,6 +13,14 @@ and ``gelu`` is the tanh approximation. The compute dtype of each layer is
 ``dtype``, or with None what flax promotes to: the input's, at least
 float32. A LayerNorm computes its statistics and its normalisation in f32 and
 rounds to that dtype, as flax does.
+
+The GAN attentions (:class:`SAGANAttention2d`, :class:`SelfAttention3d`,
+:class:`SeparableAttention` with its :class:`_GatedAxialCell`) are the JAX
+einsums as matmuls and a softmax in f32, with k and v max-pooled and a
+``gamma`` residual gate that starts at 0. Their 1x1 projections are
+:class:`~satflow_tpu_torch.nn.conv.Conv` layers named ``query``, ``key``,
+``value``. They do not go through K4: the JAX layers do not reach
+``_axis_attention`` either.
 """
 
 from __future__ import annotations
@@ -25,7 +33,8 @@ from torch import nn
 from torch.nn.modules.lazy import LazyModuleMixin
 from torch.nn.parameter import UninitializedParameter
 
-from satflow_tpu_torch.nn.misc import compute_dtype
+from satflow_tpu_torch.nn.conv import Conv
+from satflow_tpu_torch.nn.misc import DtypedModule, compute_dtype, max_pool
 from satflow_tpu_torch.nn.recurrent import lecun_normal_
 from satflow_tpu_torch.ops.axial_attention import axial_attention
 
@@ -148,3 +157,121 @@ def _lecun_dense_(layer: nn.Linear, generator: Optional[torch.Generator]) -> Non
     """flax's Dense init: lecun-normal kernel, zero bias."""
     lecun_normal_(layer.weight, layer.in_features, generator)
     nn.init.zeros_(layer.bias)
+
+
+def _softmax_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``softmax(q kᵀ) v`` over the last two axes, the softmax in f32 at
+    least."""
+    logits = torch.matmul(q, k.transpose(-1, -2))
+    weights = torch.softmax(logits.to(torch.promote_types(logits.dtype, torch.float32)), dim=-1)
+    return torch.matmul(weights.to(v.dtype), v)
+
+
+def _max_pool_axes(x: torch.Tensor, window: Sequence[int]) -> torch.Tensor:
+    """flax ``nn.max_pool`` (VALID, stride = window) over the spatial axes of
+    a channels-last tensor."""
+    pool = F.max_pool2d if len(window) == 2 else F.max_pool3d
+    return pool(x.movedim(-1, 1), tuple(window), tuple(window)).movedim(1, -1)
+
+
+class _GammaGated(DtypedModule):
+    """``query``, ``key`` and ``value`` 1x1 convs and the scalar ``gamma``
+    (0 at the start) of the SAGAN attentions."""
+
+    def __init__(self, features: int, qk_features: int, ndim: int,
+                 dtype: Optional[torch.dtype], generator: Optional[torch.Generator]):
+        super().__init__()
+        k = (1,) * ndim
+        self.query = Conv(features, qk_features, k, generator=generator)
+        self.key = Conv(features, qk_features, k, generator=generator)
+        self.value = Conv(features, features, k, generator=generator)
+        self.gamma = nn.Parameter(torch.zeros(()))
+        self.dtype = dtype
+
+    def qkv(self, x: torch.Tensor):
+        return self.query(x), self.key(x), self.value(x)
+
+
+class SAGANAttention2d(_GammaGated):
+    """SAGAN self-attention over an NHWC image: q and k to max(C // 8, 1)
+    channels, v to C, k and v 2x2 max-pooled (``pool_kv``, on even sizes),
+    softmax over the pooled positions, ``gamma * out + x``."""
+
+    def __init__(self, features: int, pool_kv: bool = True,
+                 dtype: Optional[torch.dtype] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(features, max(features // 8, 1), 2, dtype, generator)
+        self.pool_kv = pool_kv
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, h, w, c = x.shape
+        q, k, v = self.qkv(x)
+        if self.pool_kv and h % 2 == 0 and w % 2 == 0:
+            k, v = max_pool(k, 2, 2), max_pool(v, 2, 2)
+        out = _softmax_attention(q.reshape(b, h * w, -1), k.reshape(b, -1, k.shape[-1]),
+                                 v.reshape(b, -1, c))
+        return self.gamma * out.reshape(b, h, w, c) + x
+
+
+class SelfAttention3d(_GammaGated):
+    """Attention over the T·H·W tokens of an NTHWC video: q and k to C // 2
+    channels, v to C, k and v max-pooled along T by ``pooling_factor`` where
+    it divides T (T > 1), ``gamma * out + x``."""
+
+    def __init__(self, features: int, pooling_factor: int = 2,
+                 dtype: Optional[torch.dtype] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(features, features // 2, 3, dtype, generator)
+        self.pooling_factor = pooling_factor
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, t, h, w, c = x.shape
+        q, k, v = self.qkv(x)
+        if t % self.pooling_factor == 0 and t > 1:
+            window = (self.pooling_factor, 1, 1)
+            k, v = _max_pool_axes(k, window), _max_pool_axes(v, window)
+        out = _softmax_attention(q.reshape(b, t * h * w, -1), k.reshape(b, -1, k.shape[-1]),
+                                 v.reshape(b, -1, c))
+        return self.gamma * out.reshape(b, t, h, w, c) + x
+
+
+class _GatedAxialCell(_GammaGated):
+    """One axis of :class:`SeparableAttention`: the tokens are the positions
+    along ``axis`` (1, 2 or 3 of an NTHWC video), every other axis a batch
+    axis; k and v max-pooled along it where ``pooling_factor`` divides its
+    length (> 1)."""
+
+    def __init__(self, features: int, axis: int, pooling_factor: int = 2,
+                 dtype: Optional[torch.dtype] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(features, features // 2, 3, dtype, generator)
+        self.axis = axis
+        self.pooling_factor = pooling_factor
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        q, k, v = self.qkv(x)
+        length = x.shape[self.axis]
+        if length % self.pooling_factor == 0 and length > 1:
+            window = [1, 1, 1]
+            window[self.axis - 1] = self.pooling_factor
+            k, v = _max_pool_axes(k, window), _max_pool_axes(v, window)
+        out = _softmax_attention(*(torch.movedim(t, self.axis, -2) for t in (q, k, v)))
+        return self.gamma * torch.movedim(out, -2, self.axis) + x
+
+
+class SeparableAttention(nn.Module):
+    """Gated axial attention along T, then W, then H of an NTHWC video
+    (``cell_t``, ``cell_w``, ``cell_h``)."""
+
+    def __init__(self, features: int, pooling_factor: int = 2,
+                 dtype: Optional[torch.dtype] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        for name, axis in zip("twh", (1, 3, 2)):
+            self.add_module(f"cell_{name}", _GatedAxialCell(features, axis, pooling_factor,
+                                                            dtype, generator))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for name in "twh":
+            x = getattr(self, f"cell_{name}")(x)
+        return x

@@ -1,6 +1,6 @@
 """Convolution primitives, counterpart of ``satflow_tpu/nn/conv.py``: the conv
-factory with its four variants, CoordConv and BlurPool (antialiased
-downsampling).
+factory with its four variants, CoordConv, BlurPool (antialiased
+downsampling) and flax's ``ConvTranspose``.
 
 Tensors are NHWC in and out, like the port's other modules; the convs are
 library convs (the JAX ones are plain XLA). Parameters sit where the flax
@@ -161,6 +161,52 @@ class Conv(LazyWeight):
         conv = F.conv2d if len(self.kernel_size) == 2 else F.conv3d
         y = conv(x, weight.to(cdtype), bias, stride=self.strides, padding=padding,
                  dilation=self.dilation)
+        return y.movedim(1, -1)
+
+
+class ConvTranspose(DtypedModule):
+    """flax ``nn.ConvTranspose`` (2-D, padding ``SAME``, the kernel not
+    flipped): ``weight`` (O, I, kh, kw) for its (kh, kw, I, O) ``kernel``,
+    as a :class:`~satflow_tpu_torch.nn.conv.Conv` holds its own, and
+    ``bias``. ``F.conv_transpose2d`` correlates the stride-dilated input
+    with the flipped (I, O, kh, kw) weight, so the weight is flipped and its
+    two channel axes swapped here; the padding and output padding are
+    derived from ``lax.conv_transpose``'s ``SAME`` pads (an end pad short of
+    the start one crops the output's end)."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: Sequence[int],
+                 strides: Sequence[int], use_bias: bool = True,
+                 dtype: Optional[torch.dtype] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.kernel_size, self.strides = tuple(kernel_size), tuple(strides)
+        self.weight = nn.Parameter(torch.empty(features, in_features, *self.kernel_size))
+        lecun_normal_(self.weight, self.weight[0].numel(), generator)
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+        self.padding, self.output_padding = [], []
+        for k, s in zip(self.kernel_size, self.strides):
+            # lax.conv_transpose's SAME: (pad_a, pad_b) of the dilated input
+            pad_len = k + s - 2
+            pad_a = k - 1 if s > k - 1 else -(-pad_len // 2)
+            pad_b = pad_len - pad_a
+            p, op = k - 1 - pad_a, pad_b - pad_a
+            if p < 0 or op >= s:
+                raise ValueError(f"ConvTranspose kernel {k} stride {s}: SAME padding has "
+                                 f"no conv_transpose2d form")
+            self.padding.append(p)
+            self.output_padding.append(op)  # < 0: that many cropped at the end
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = compute_dtype(self.dtype, x)
+        w = self.weight.to(cd).transpose(0, 1).flip(2, 3)  # (I, O, kh, kw)
+        b = None if self.bias is None else self.bias.to(cd)
+        y = F.conv_transpose2d(x.to(cd).movedim(-1, 1), w, b, stride=self.strides,
+                               padding=self.padding,
+                               output_padding=[max(op, 0) for op in self.output_padding])
+        crop = [min(op, 0) for op in self.output_padding]
+        if any(crop):  # flax's end pad is short of the start one (k = 3, stride 2)
+            y = y[..., : y.shape[2] + crop[0], : y.shape[3] + crop[1]]
         return y.movedim(1, -1)
 
 

@@ -5,14 +5,18 @@ factory registered under ``name``, which takes the keywords it knows and
 ignores the rest (MetNet passes ``channel=``), as the JAX factories do:
 ``mse`` (alias ``l2``; both sides upcast to f32 before the mean), ``l1``
 (alias ``mae``), ``huber``, ``bce``, ``focal``, ``ssim``, ``ms_ssim`` (alias
-``msssim``) and ``nll``. The GAN objectives (``GANLoss``,
-``gradient_penalty``) are not ported yet: their names raise
-``NotImplementedError`` naming their ROADMAP item.
+``msssim``) and ``nll``; an unknown name is a ``KeyError``, as in the JAX
+registry (which holds no GAN objective either).
+
+The GAN objectives are :class:`GANLoss` (vanilla BCE-with-logits, lsgan MSE,
+wgangp mean score) and :func:`gradient_penalty` (WGAN-GP: the critic's
+input gradient by a double backward, ``torch.autograd.grad(...,
+create_graph=True)``, so that the penalty trains the critic).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -144,11 +148,6 @@ def make_nll(**_) -> LossFn:
     return nll
 
 
-# the JAX package's GAN objectives, by the ROADMAP item that ports them
-_UNPORTED = dict.fromkeys(("gan", "ganloss", "vanilla", "lsgan", "wgangp",
-                           "gradient_penalty"), "ROADMAP queue 1 item 11 (GAN losses)")
-
-
 def get_loss(loss="mse", **kwargs) -> LossFn:
     """Loss by name, built with ``kwargs``; a callable passes straight through."""
     if callable(loss):
@@ -156,6 +155,63 @@ def get_loss(loss="mse", **kwargs) -> LossFn:
     key = loss.lower()
     if key in LOSSES:
         return LOSSES[key](**kwargs)
-    if key in _UNPORTED:
-        raise NotImplementedError(f"loss {loss!r} is not ported yet: {_UNPORTED[key]}")
     raise KeyError(f"Unknown loss {loss!r}. Registered: {sorted(LOSSES)}")
+
+
+class GANLoss:
+    """Adversarial objective over discriminator outputs. ``gan_mode``:
+    ``"vanilla"`` (mean BCE-with-logits against the real / fake label),
+    ``"lsgan"`` (mean squared error to the label) or ``"wgangp"`` (the mean
+    score, negated for real). Computed in f32 at least."""
+
+    def __init__(self, gan_mode: str = "vanilla", target_real_label: float = 1.0,
+                 target_fake_label: float = 0.0):
+        if gan_mode not in ("vanilla", "lsgan", "wgangp"):
+            raise ValueError(f"gan mode {gan_mode!r} not implemented")
+        self.gan_mode = gan_mode
+        self.real_label = target_real_label
+        self.fake_label = target_fake_label
+
+    def __call__(self, prediction: torch.Tensor, target_is_real: bool) -> torch.Tensor:
+        prediction = prediction.to(torch.promote_types(prediction.dtype, torch.float32))
+        if self.gan_mode == "wgangp":
+            return -prediction.mean() if target_is_real else prediction.mean()
+        target = torch.full_like(prediction,
+                                 self.real_label if target_is_real else self.fake_label)
+        if self.gan_mode == "lsgan":
+            return torch.mean(torch.square(prediction - target))
+        return F.binary_cross_entropy_with_logits(prediction, target)
+
+
+def gradient_penalty(
+    disc_fn: Callable[[torch.Tensor], torch.Tensor],
+    real: torch.Tensor,
+    fake: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    mode: str = "mixed",
+    constant: float = 1.0,
+    lambda_gp: float = 10.0,
+    alpha: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """WGAN-GP: ``lambda_gp · mean((‖∇ₓ Σ disc_fn(x)‖ - constant)²)`` per
+    sample, at x = ``real``, ``fake`` or (``"mixed"``) ``alpha·real + (1 -
+    alpha)·fake`` with ``alpha`` (B, 1, ..., 1) uniform on [0, 1) from
+    ``generator``, or given. The input gradient keeps its graph, so the
+    penalty's own gradient reaches the critic's parameters."""
+    if lambda_gp <= 0:
+        return torch.zeros((), device=real.device)
+    if mode == "real":
+        x = real
+    elif mode == "fake":
+        x = fake
+    else:
+        if alpha is None:
+            alpha = torch.rand((real.shape[0],) + (1,) * (real.dim() - 1),
+                               generator=generator, device=real.device, dtype=real.dtype)
+        x = alpha * real + (1.0 - alpha) * fake
+    x = x.detach().requires_grad_(True)
+    with torch.enable_grad():
+        (grads,) = torch.autograd.grad(disc_fn(x).sum(), x, create_graph=True)
+    grads = grads.reshape(grads.shape[0], -1)
+    grad_norm = torch.sqrt(torch.sum(grads * grads, dim=1) + 1e-16)
+    return lambda_gp * torch.mean((grad_norm - constant) ** 2)

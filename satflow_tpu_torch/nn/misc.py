@@ -1,4 +1,5 @@
 """Tensor helpers, counterpart of ``satflow_tpu/nn/misc.py`` (NHWC / NTHWC):
+lead-time conditioning (:func:`condition_time`, :class:`ConditionTime`),
 space-to-depth and its inverse, center crop, the per-timestep wrappers
 ``time_distributed`` / :class:`TimeDistributed`, the dtype-following base
 :class:`DtypedModule`, and the flax layers the port's models share that
@@ -42,6 +43,26 @@ class DtypedModule(nn.Module):
         """Compute in ``dtype`` from now on (None: flax's promotion), the f32
         weights kept as they are."""
         self.dtype = dtype
+
+
+def condition_time(x: torch.Tensor, fstep: int, horizon: int) -> torch.Tensor:
+    """``x`` (B, [T,] H, W, C) with ``horizon`` one-hot channels appended that
+    mark lead time ``fstep``, in ``x``'s dtype."""
+    one_hot = torch.zeros(horizon, dtype=x.dtype, device=x.device)
+    if 0 <= fstep < horizon:  # jax.nn.one_hot of an index out of range is all zeros
+        one_hot[fstep] = 1
+    return torch.cat([x, one_hot.expand(*x.shape[:-1], horizon)], dim=-1)
+
+
+class ConditionTime(nn.Module):
+    """Module form of :func:`condition_time`."""
+
+    def __init__(self, horizon: int):
+        super().__init__()
+        self.horizon = horizon
+
+    def forward(self, x: torch.Tensor, fstep: int = 0) -> torch.Tensor:
+        return condition_time(x, fstep, self.horizon)
 
 
 def space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
@@ -120,16 +141,23 @@ class BatchNorm(nn.Module):
     loses most of its digits in f32 where a channel's mean is large against
     its spread. Eval: normalise with the running statistics. The
     normalisation is f32, rounded to ``dtype`` (the caller's compute dtype).
-    Parameters and buffers carry flax's names: ``scale``, ``bias`` and the
-    ``batch_stats`` ``mean``, ``var``.
+    Parameters and buffers carry flax's names: ``scale``, ``bias`` (absent
+    with ``use_scale`` / ``use_bias`` False, as in flax) and the
+    ``batch_stats`` ``mean``, ``var``. ``state_frozen`` (set by
+    :func:`~satflow_tpu_torch.nn.norm.frozen_state`) keeps the running
+    statistics where they are in training mode: flax's ``batch_stats``
+    applied without being mutable.
     """
 
-    def __init__(self, features: int, momentum: float = 0.99, eps: float = 1e-5):
+    state_frozen = False
+
+    def __init__(self, features: int, momentum: float = 0.99, eps: float = 1e-5,
+                 use_scale: bool = True, use_bias: bool = True):
         super().__init__()
         self.momentum = momentum
         self.eps = eps
-        self.scale = nn.Parameter(torch.ones(features))
-        self.bias = nn.Parameter(torch.zeros(features))
+        self.scale = nn.Parameter(torch.ones(features)) if use_scale else None
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
@@ -139,12 +167,17 @@ class BatchNorm(nn.Module):
             dims = tuple(range(x.dim() - 1))
             mean = xf.mean(dim=dims)
             var = torch.square(xf - mean).mean(dim=dims)
-            with torch.no_grad():
-                self.mean.mul_(self.momentum).add_((1.0 - self.momentum) * mean)
-                self.var.mul_(self.momentum).add_((1.0 - self.momentum) * var)
+            if not self.state_frozen:
+                with torch.no_grad():
+                    self.mean.mul_(self.momentum).add_((1.0 - self.momentum) * mean)
+                    self.var.mul_(self.momentum).add_((1.0 - self.momentum) * var)
         else:
             mean, var = self.mean, self.var
-        return ((xf - mean) * (torch.rsqrt(var + self.eps) * self.scale) + self.bias).to(dtype)
+        mul = torch.rsqrt(var + self.eps)
+        if self.scale is not None:
+            mul = mul * self.scale
+        y = (xf - mean) * mul
+        return (y if self.bias is None else y + self.bias).to(dtype)
 
 
 def same_padding(kernel: Sequence[int], strides: Sequence[int], sizes: Sequence[int],
@@ -163,7 +196,8 @@ def same_padding(kernel: Sequence[int], strides: Sequence[int], sizes: Sequence[
 
 class LayerNorm(DtypedModule):
     """flax ``nn.LayerNorm`` over the last axis: epsilon 1e-6 (torch's
-    default is 1e-5), f32 statistics and normalisation, ``scale`` and
+    default is 1e-5), f32 statistics and normalisation (float64 for a
+    float64 input), ``scale`` and
     ``bias`` under flax's names, the result in the compute dtype."""
 
     def __init__(self, features: int, eps: float = 1e-6, dtype: Optional[torch.dtype] = None):
@@ -174,8 +208,8 @@ class LayerNorm(DtypedModule):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.layer_norm(x.float(), (x.shape[-1],), self.scale.float(), self.bias.float(),
-                         self.eps)
+        f = torch.promote_types(x.dtype, torch.float32)
+        y = F.layer_norm(x.to(f), (x.shape[-1],), self.scale.to(f), self.bias.to(f), self.eps)
         return y.to(compute_dtype(self.dtype, x))
 
 

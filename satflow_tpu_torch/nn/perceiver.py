@@ -38,7 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from satflow_tpu_torch.nn.conv import Conv, LazyWeight, lecun_normal_
+from satflow_tpu_torch.nn.conv import Conv, ConvTranspose, LazyWeight, lecun_normal_  # noqa: F401
 from satflow_tpu_torch.nn.misc import (
     DtypedModule,
     LayerNorm,
@@ -162,47 +162,6 @@ class DenseGeneral(DtypedModule):
         else:
             y = torch.matmul(x.to(cd).flatten(-2), k.reshape(-1, k.shape[-1]))
         return y if self.bias is None else y + self.bias.to(cd)
-
-
-class ConvTranspose(DtypedModule):
-    """flax ``nn.ConvTranspose`` (2-D, padding ``SAME``, the kernel not
-    flipped): ``weight`` (O, I, kh, kw) for its (kh, kw, I, O) ``kernel``,
-    as a :class:`~satflow_tpu_torch.nn.conv.Conv` holds its own, and
-    ``bias``. ``F.conv_transpose2d`` correlates the stride-dilated input
-    with the flipped (I, O, kh, kw) weight, so the weight is flipped and its
-    two channel axes swapped here; the padding and output padding are
-    derived from ``lax.conv_transpose``'s ``SAME`` pads."""
-
-    def __init__(self, in_features: int, features: int, kernel_size: Sequence[int],
-                 strides: Sequence[int], use_bias: bool = True,
-                 dtype: Optional[torch.dtype] = None,
-                 generator: Optional[torch.Generator] = None):
-        super().__init__()
-        self.kernel_size, self.strides = tuple(kernel_size), tuple(strides)
-        self.weight = nn.Parameter(torch.empty(features, in_features, *self.kernel_size))
-        lecun_normal_(self.weight, self.weight[0].numel(), generator)
-        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
-        self.padding, self.output_padding = [], []
-        for k, s in zip(self.kernel_size, self.strides):
-            # lax.conv_transpose's SAME: (pad_a, pad_b) of the dilated input
-            pad_len = k + s - 2
-            pad_a = k - 1 if s > k - 1 else -(-pad_len // 2)
-            pad_b = pad_len - pad_a
-            p, op = k - 1 - pad_a, pad_b - pad_a
-            if p < 0 or not 0 <= op < s:
-                raise ValueError(f"ConvTranspose kernel {k} stride {s}: SAME padding has "
-                                 f"no conv_transpose2d form")
-            self.padding.append(p)
-            self.output_padding.append(op)
-        self.dtype = dtype
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        cd = compute_dtype(self.dtype, x)
-        w = self.weight.to(cd).transpose(0, 1).flip(2, 3)  # (I, O, kh, kw)
-        b = None if self.bias is None else self.bias.to(cd)
-        y = F.conv_transpose2d(x.to(cd).movedim(-1, 1), w, b, stride=self.strides,
-                               padding=self.padding, output_padding=self.output_padding)
-        return y.movedim(1, -1)
 
 
 def _normal(shape, generator: Optional[torch.Generator], std: float = 0.02) -> nn.Parameter:

@@ -8,7 +8,9 @@ card). MetNet's temporal encoder and the ``concat`` ConvLSTM run it.
 :class:`SplitConvLSTMCell` and :class:`InputGateConv` are the ``split``
 formulation: separate input and hidden gate convs, the input one hoisted over
 the whole sequence, and the same gate tail. :class:`SpatioTemporalLSTMCell`
-is the PredRNN-v2 cell (library convs, no kernel), and :func:`scan_cell`
+is the PredRNN-v2 cell (library convs, no kernel), :class:`ConvGRUCell` the
+DGMR sampler's GRU (library convs, optionally spectrally normalised, no
+kernel), and :func:`scan_cell`
 runs a cell over the time axis of a sequence with shared weights, as the
 JAX package's ``nn.scan`` wrapper does.
 
@@ -29,6 +31,7 @@ from torch import nn
 
 from satflow_tpu_torch.nn.conv import Conv, DtypedModule, get_conv_layer, lecun_normal_  # noqa: F401
 from satflow_tpu_torch.nn.misc import LayerNorm, compute_dtype
+from satflow_tpu_torch.nn.norm import SNConv
 from satflow_tpu_torch.ops.fused_convlstm_step import fused_convlstm_step
 from satflow_tpu_torch.ops.fused_lstm import fused_lstm_gates
 
@@ -219,6 +222,43 @@ class SpatioTemporalLSTMCell(DtypedModule):
     def init_carry(batch: int, h: int, w: int, features: int,
                    dtype=torch.float32, device=None):
         return zeros_carry(batch, h, w, features, 3, dtype, device)
+
+
+class ConvGRUCell(_ConvCell):
+    """Convolutional GRU cell (NHWC), the DGMR generator's recurrence: one
+    conv ``gates`` over ``[x | h]`` to the update and reset gates (z, r), a
+    conv ``candidate`` over ``[x | r·h]``, ``h' = (1 - z)·h + z·tanh(cand)``.
+    ``sn`` makes both convs :class:`~satflow_tpu_torch.nn.norm.SNConv`
+    (``sn_stateless`` their stateless form). ``((h,), x) -> ((h',), h')``."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: int = 3,
+                 sn: bool = False, sn_stateless: bool = False,
+                 dtype: Optional[torch.dtype] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+
+        def conv(cin, cout):
+            if sn:
+                return SNConv(cin, cout, kernel_size, stateless=sn_stateless,
+                              generator=generator)
+            return Conv(cin, cout, kernel_size, generator=generator)
+
+        self.features = features
+        self.gates = conv(in_features + features, 2 * features)
+        self.candidate = conv(in_features + features, features)
+        self.dtype = dtype
+
+    def forward(self, carry: Tuple[torch.Tensor], x: torch.Tensor):
+        (h,) = carry
+        z, r = torch.sigmoid(self.gates(torch.cat([x, h], dim=-1))).chunk(2, -1)
+        cand = self.candidate(torch.cat([x, r * h], dim=-1))
+        h_next = (1.0 - z) * h + z * torch.tanh(cand)
+        return (h_next,), h_next
+
+    @staticmethod
+    def init_carry(batch: int, h: int, w: int, features: int,
+                   dtype=torch.float32, device=None) -> Tuple[torch.Tensor]:
+        return zeros_carry(batch, h, w, features, 1, dtype, device)
 
 
 def _stack_outputs(ys: list) -> Any:

@@ -6,6 +6,13 @@ requests are zero-padded up to ``max_batch`` and larger ones are chunked, as
 in the JAX session (there the fixed shape avoids recompiles; here it keeps
 the kernels' launch geometry, and the device memory a forward needs, fixed).
 
+A GAN model (CloudGAN, NowcastingGAN, Pix2Pix) is served by sampling its
+generator (``model.sample``): each call draws from a ``torch.Generator``
+seeded by a per-call counter, so repeated requests get fresh samples and a
+session's n-th call is reproducible. Only the generator is loaded: a GAN
+checkpoint's flax variables ``{'params': {'generator', 'discriminator'},
+'g', 'd'}`` give their generator subtree.
+
 ``MicroBatcher`` is framework-free and is carried over as it is: it
 coalesces concurrent requests into one forward call.
 """
@@ -55,7 +62,8 @@ class InferenceSession:
         another (``device="cpu"``); without a card ``"cuda"`` raises.
     donate: accepted for the JAX session's signature and ignored: there it
         hands the padded input's buffer to XLA, which has no counterpart in
-        an eager forward. With ``quantize="int8"`` it raises, as there.
+        an eager forward. With ``quantize="int8"`` or a GAN model it raises,
+        as there.
     """
 
     def __init__(
@@ -89,10 +97,9 @@ class InferenceSession:
                 f"{'dtype' if dtype is not None else 'donate'} does not apply to "
                 "quantize='int8' (the rollout quantizes its own inputs)"
             )
-        if getattr(model, "is_gan", False):
-            raise NotImplementedError(
-                "GAN sampling is not ported yet (ROADMAP queue 1 item 11)"
-            )
+        self.is_gan = bool(getattr(model, "is_gan", False))
+        if self.is_gan and donate:
+            raise ValueError("donate is not supported on the GAN path")
         # MetNet has no cell_impl; a conv type other than "standard" runs the
         # concat cells whatever cell_impl says
         if quantize and (getattr(model, "cell_impl", None) != "fused"
@@ -126,6 +133,7 @@ class InferenceSession:
             from satflow_tpu_torch.ops.fused_convlstm_int8 import quantize_convlstm_params
 
             self.qparams = quantize_convlstm_params(model.module)
+        self._sample_counter = 0  # the GAN path's per-call noise seed
         self.max_batch = int(max_batch)
         self.dtype = dtype
         self.out_dtype = out_dtype
@@ -163,6 +171,10 @@ class InferenceSession:
                 from satflow_tpu_torch.ops.fused_convlstm_int8 import int8_rollout
 
                 y = int8_rollout(self.qparams, x.float(), int(self.model.forecast_steps))
+            elif self.is_gan:
+                noise = torch.Generator(device=self.device).manual_seed(self._sample_counter)
+                self._sample_counter += 1
+                y = self.model.sample(x.to(self.dtype or torch.float32), noise)
             else:
                 y = self.model(x.to(self.dtype or torch.float32))
             return y.to(self.out_dtype)

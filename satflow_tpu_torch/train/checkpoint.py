@@ -9,7 +9,9 @@ directory holding
 - ``state.pt``: :meth:`TrainState.state_dict <satflow_tpu_torch.train.state.TrainState.state_dict>`
   through ``torch.save``: the model's ``state_dict`` (BatchNorm buffers
   included), the optimizer's (Adam's moments, the schedule's count), ``step``
-  and the gradient accumulation's ``mini_step`` and running mean. It is read
+  and the gradient accumulation's ``mini_step`` and running mean; for a GAN
+  (:class:`~satflow_tpu_torch.train.state.GANTrainState`) both networks (the
+  spectral vectors too), both optimizers and the noise generator's state. It is read
   back with ``torch.load(weights_only=True)``: tensors and plain containers,
   nothing else is unpickled.
 
@@ -67,7 +69,8 @@ def restore_checkpoint(path: str, map_location: Any = "cpu") -> Dict[str, Any]:
 def resume_state(state, path: str):
     """Load a checkpoint into an already-built train state (the engine's
     ``resume_from_checkpoint``): weights, buffers, optimizer state,
-    accumulation and step. Returns ``(state, step)``.
+    accumulation and step (a GAN's: both networks and optimizers, and the
+noise generator). Returns ``(state, global step)``.
 
     Where the optimizer's structure differs from the saved one, only the
     weights, buffers and step are restored, with a warning, as the JAX
@@ -90,7 +93,9 @@ def resume_state(state, path: str):
         log.warning("resume: the optimizer state does not fit (%s); restoring the weights "
                     "and step only: optimizer moments and schedule position will RESET", reason)
         state.load_state_dict(payload, weights_only=True)
-    return state, state.step
+    # a GAN's global step is its rounds (the JAX engine takes its `step`, the
+    # discriminator updates, and so resumes a disc_steps=2 run too far on)
+    return state, getattr(state, "rounds", state.step)
 
 
 def load_model_from_checkpoint(path: str, map_location: Any = "cpu"):

@@ -19,6 +19,13 @@ The same knobs and loop as the JAX Trainer, on one device:
   ``Trainer.profile_path``.
 - SIGTERM (``handle_preemption``)  -> finish the step in flight, fire the
   callbacks' ``on_preemption`` (``ModelCheckpoint`` writes ``last``), stop.
+- a GAN model (``is_gan``)         -> the two-optimizer round
+  (train/steps.py ``make_gan_train_step``, ``gan_step_mode`` "fused" or
+  "split") on a :class:`GANTrainState`, its evaluation
+  (``make_gan_eval_step``) logged as ``val/d_*`` and ``val/g_*``, and a
+  model with ``scheduler="plateau"`` its rates scaled by a
+  :class:`PlateauScheduler` on ``val/g_loss``, each optimizer from its own
+  base rate.
 - :meth:`Trainer.scale_batch_size` and :meth:`Trainer.tune` -> the
   power-of-two batch probe and the LR range test. Unlike the JAX probe,
   which backs off on any exception, the batch probe backs off on
@@ -51,9 +58,18 @@ from satflow_tpu_torch.data.datamodule import to_device
 from satflow_tpu_torch.models.base import expand_frame_metrics
 from satflow_tpu_torch.train.loggers import HistoryLogger
 from satflow_tpu_torch.train.profiling import make_profiler, write_trace
-from satflow_tpu_torch.train.schedules import scheduled
-from satflow_tpu_torch.train.state import TrainState
-from satflow_tpu_torch.train.steps import make_eval_step, make_train_step
+from satflow_tpu_torch.train.schedules import (
+    PlateauScheduler,
+    rewrite_learning_rate,
+    scheduled,
+)
+from satflow_tpu_torch.train.state import GANTrainState, TrainState
+from satflow_tpu_torch.train.steps import (
+    make_eval_step,
+    make_gan_eval_step,
+    make_gan_train_step,
+    make_train_step,
+)
 
 log = logging.getLogger(__name__)
 
@@ -77,11 +93,11 @@ class Trainer:
         profile_dir: str = "logs/profile",
         zero_sharding: bool = False,
         spatial: Optional[str] = None,
-        gan_step_mode: str = "fused",  # read by GAN training, which raises
+        gan_step_mode: str = "fused",
         handle_preemption: bool = True,
         callbacks: Optional[List] = None,
         logger: Optional[List] = None,
-        seed: int = 0,  # the JAX init/step key; the ported models draw none
+        seed: int = 0,  # seeds the GAN steps' noise generator
         resume_from_checkpoint: Optional[str] = None,
         device: Any = None,
         # accepted-for-parity knobs (no-ops here, as in the JAX Trainer):
@@ -122,7 +138,9 @@ class Trainer:
         self.loggers: List = [self.history] + list(logger or [])
         self.seed = seed
         self.resume_from_checkpoint = resume_from_checkpoint
+        self.gan_step_mode = gan_step_mode
         self.device = None if device is None else resolve_device(device)
+        self._plateau = None
 
         self.state: Optional[TrainState] = None
         self.model = None
@@ -149,8 +167,6 @@ class Trainer:
         return None if schedule is None else float(schedule(self.global_step))
 
     def fit(self, model, datamodule) -> Dict[str, float]:
-        if getattr(model, "is_gan", False):
-            raise NotImplementedError("GAN training is not ported yet (ROADMAP queue 1 item 11)")
         self.should_stop = False
         self.preempted = False
         self.model = model
@@ -165,8 +181,9 @@ class Trainer:
                     break
             train_loader = cached
             datamodule = _OverfitDataModule(cached)
-        train_step = make_train_step(model)
-        eval_step = make_eval_step(model)
+        gan = getattr(model, "is_gan", False)
+        train_step = (make_gan_train_step(model, mode=self.gan_step_mode) if gan
+                      else make_train_step(model))
 
         for cb in self.callbacks:
             cb.on_train_start(self)
@@ -240,8 +257,10 @@ class Trainer:
                 log.info("epoch %d done in %.1fs (%d steps)", epoch,
                          time.time() - t_epoch, self.global_step)
                 if (epoch + 1) % self.check_val_every_n_epoch == 0 and not self.preempted:
-                    val_metrics = self._run_eval(eval_step, datamodule.val_dataloader(), "val")
+                    val_metrics = self._run_eval(self._eval_step(model),
+                                                 datamodule.val_dataloader(), "val")
                     self.log_metrics(val_metrics, self.global_step)
+                    self._plateau_step(val_metrics)
                     for cb in self.callbacks:
                         cb.on_validation_end(self, val_metrics, epoch)
         finally:
@@ -280,9 +299,41 @@ class Trainer:
         self._build_state(model, datamodule)
         self.model = model
         loader = datamodule.val_dataloader() if split == "val" else datamodule.test_dataloader()
-        metrics = self._run_eval(make_eval_step(model), loader, split)
+        metrics = self._run_eval(self._eval_step(model), loader, split)
         self.log_metrics(metrics, self.global_step)
         return metrics
+
+    def _eval_step(self, model):
+        """A fresh eval step: a GAN's draws the same noise in every
+        evaluation run (seeded by ``seed``)."""
+        if getattr(model, "is_gan", False):
+            return make_gan_eval_step(model, self.seed)
+        return make_eval_step(model)
+
+    def _plateau_step(self, val_metrics: Dict[str, float]) -> None:
+        """ReduceLROnPlateau of a GAN: scale both optimizers' rates, each from
+        its own base rate, when ``val/g_loss`` stalls."""
+        if self._plateau is None or self.state is None or "val/g_loss" not in val_metrics:
+            return
+        old_scale = self._plateau.scale
+        scale = self._plateau.update(float(val_metrics["val/g_loss"]))
+        if scale == old_scale:
+            return
+        g_lr, d_lr = self.model.gen_lr * scale, self.model.disc_lr * scale
+        log.info("plateau: reducing lrs to g=%.3e d=%.3e", g_lr, d_lr)
+        rewrite_learning_rate(self.state.g.optimizer, g_lr)
+        rewrite_learning_rate(self.state.d.optimizer, d_lr)
+
+    def _make_state(self, model, device: torch.device):
+        """The train state of ``model`` (built, on ``device``) with this
+        trainer's clipping and accumulation: two optimizers and the noise
+        generator (seeded ``seed + 1``) for a GAN."""
+        kw = dict(gradient_clip_val=self.gradient_clip_val,
+                  accumulate_grad_batches=self.accumulate_grad_batches)
+        if getattr(model, "is_gan", False):
+            noise = torch.Generator(device=device).manual_seed(self.seed + 1)
+            return GANTrainState.create(model, *model.make_optimizers(), noise, **kw)
+        return TrainState(model=model, optimizer=model.make_optimizer(), **kw)
 
     def _build_state(self, model, datamodule) -> None:
         if self.state is not None:
@@ -291,8 +342,8 @@ class Trainer:
             self.device = next(model.parameters()).device
         model.to(self.device)
         # precision 16/"bf16": bf16 compute, the f32 parameters stay as they
-        # are (the JAX Trainer rebuilds its module before initialising; here
-        # the weights may have been loaded already)
+        # are (the JAX Trainer rebuilds its module, a GAN's two, before
+        # initialising; here the weights may have been loaded already)
         if self._bf16 and getattr(model, "dtype", None) is None:
             model.set_compute_dtype(torch.bfloat16)
         if hasattr(datamodule, "device"):
@@ -301,12 +352,10 @@ class Trainer:
         # first batch, as the JAX Trainer initialises from it
         if any(is_lazy(p) for p in model.parameters()):
             model.materialize(to_device(next(iter(datamodule.train_dataloader())), self.device))
-        self.state = TrainState(
-            model=model,
-            optimizer=model.make_optimizer(),
-            gradient_clip_val=self.gradient_clip_val,
-            accumulate_grad_batches=self.accumulate_grad_batches,
-        )
+        self.state = self._make_state(model, self.device)
+        if getattr(model, "is_gan", False) and getattr(model, "scheduler", None) == "plateau":
+            self._plateau = PlateauScheduler(base_lr=model.gen_lr,
+                                             patience=model.lr_epochs // 2)
         if self.resume_from_checkpoint:
             from satflow_tpu_torch.train.checkpoint import resume_state
 
@@ -365,17 +414,20 @@ class Trainer:
         ``trainer.tune(auto_scale_batch_size="power")``, train.py:81-83):
         double the batch until the train step runs out of device memory, and
         keep the last size that ran. Each probe is the real train step with
-        the model's optimizer (Adam) on a copy of the model, so that its
-        moments count. Only ``torch.OutOfMemoryError`` backs off; any other
+        the model's optimizer (Adam; a GAN's round with both) on a copy of
+        the model, so that its moments count. Only ``torch.OutOfMemoryError`` backs off; any other
         error raises. Sets ``datamodule.batch_size`` where the attribute exists."""
         first = next(iter(datamodule.train_dataloader()))
 
         def probe(size: int) -> None:
             probe_model, batch = self._probe_model(model, _tile_batch(first, size))
-            state = TrainState(probe_model, probe_model.make_optimizer(),
-                               gradient_clip_val=self.gradient_clip_val)
-            metrics = make_train_step(probe_model)(state, batch)
-            float(metrics["loss"])  # waits for the device
+            state = self._make_state(probe_model, next(probe_model.parameters()).device)
+            if getattr(probe_model, "is_gan", False):  # a round: both optimizers count
+                metrics = make_gan_train_step(probe_model, self.gan_step_mode)(state, batch)
+                float(metrics["g_loss"])  # waits for the device
+            else:
+                metrics = make_train_step(probe_model)(state, batch)
+                float(metrics["loss"])
 
         good = 0
         size = max(1, init_val)

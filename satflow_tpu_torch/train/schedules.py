@@ -9,8 +9,11 @@ updates made so far, which is where ``optax.scale_by_schedule`` evaluates it
 resumed run goes on from where the schedule was, as the count inside the
 JAX ``opt_state`` does.
 
-``PlateauScheduler`` and ``rewrite_learning_rate`` are not here: their only
-users are the GAN models (ROADMAP queue 1 item 11).
+:class:`PlateauScheduler` is ReduceLROnPlateau on the engine side (it needs
+a validation metric, so it lives outside the optimizer, as in JAX), and
+:func:`rewrite_learning_rate` sets an optimizer's rate, which in JAX is the
+``inject_hyperparams`` learning rate inside the optax state; here it is each
+param group's ``"lr"``.
 """
 
 from __future__ import annotations
@@ -98,4 +101,49 @@ def scheduled(optimizer: torch.optim.Optimizer, schedule: Schedule) -> torch.opt
             group["schedule_count"] = count + 1
 
     optimizer.register_step_pre_hook(set_lr)
+    return optimizer
+
+
+class PlateauScheduler:
+    """ReduceLROnPlateau as a scale on a base rate: :meth:`update` takes the
+    monitored metric once per validation; after more than ``patience``
+    epochs without a new best it multiplies the scale by ``factor``, never
+    below ``min_lr / base_lr`` (the rate, not the scale, is clamped at
+    ``min_lr``) nor above 1. The engine then sets each optimizer's rate to
+    its own base rate times the scale (:func:`rewrite_learning_rate`)."""
+
+    def __init__(self, base_lr: float = 1.0, factor: float = 0.5,
+                 patience: int = 5, min_lr: float = 1e-7):
+        self.base_lr = base_lr
+        self.factor = factor
+        self.patience = patience
+        self.min_lr = min_lr
+        self.best = float("inf")
+        self.bad_epochs = 0
+        self.scale = 1.0
+
+    def update(self, metric: float) -> float:
+        """Feed the monitored metric; returns the current scale."""
+        if metric < self.best:
+            self.best = metric
+            self.bad_epochs = 0
+        else:
+            self.bad_epochs += 1
+            if self.bad_epochs > self.patience:
+                floor = self.min_lr / max(self.base_lr, 1e-30)
+                self.scale = max(self.scale * self.factor, min(floor, 1.0))
+                self.bad_epochs = 0
+        return self.scale
+
+    @property
+    def lr(self) -> float:
+        return self.base_lr * self.scale
+
+
+def rewrite_learning_rate(optimizer: torch.optim.Optimizer, new_lr: float) -> torch.optim.Optimizer:
+    """Set every param group's learning rate of ``optimizer`` to ``new_lr``
+    (a scheduled optimizer's schedule sets it again before its next step,
+    as an injected schedule does in JAX); returns the optimizer."""
+    for group in optimizer.param_groups:
+        group["lr"] = float(new_lr)
     return optimizer

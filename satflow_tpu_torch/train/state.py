@@ -13,6 +13,13 @@ optimizer's (Adam's moments and, for a scheduled optimizer, the schedule's
 count), ``step``, and the accumulation's ``mini_step`` and running mean
 (``MultiSteps``' ``mini_step`` and ``acc_grads``), so that a checkpoint taken
 between two updates resumes there.
+
+:class:`GANTrainState` is the two-optimizer state of the GAN models: a
+:class:`TrainState` for the generator and one for the discriminator, each
+with its own Adam (and clipping and accumulation, as the JAX engine wraps
+both optax transforms alike), and the ``torch.Generator`` the steps draw
+their noise from. Its ``step`` counts discriminator updates, as the JAX
+``GANTrainState.step`` does.
 """
 
 from __future__ import annotations
@@ -103,3 +110,88 @@ class TrainState:
                 p.grad.mul_(scale.to(p.grad.dtype))
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
+
+
+@dataclass
+class GANTrainState:
+    """Generator and discriminator train states over one GAN model
+    (``model.module``, ``model.disc_module``), and ``noise``, the generator
+    of the latent draws and the gradient penalty's interpolation weights.
+
+    :meth:`apply_d` consumes the discriminator's gradients and counts one
+    ``step``; :meth:`apply_g` the generator's. :meth:`state_dict` holds both
+    networks (the model's ``state_dict``: weights, BatchNorm statistics,
+    spectral-norm vectors), both optimizers, both accumulations, the step and
+    the noise generator's state, so that a resumed run draws the noise the
+    uninterrupted one would have."""
+
+    model: nn.Module
+    g: TrainState
+    d: TrainState
+    noise: torch.Generator
+
+    @classmethod
+    def create(cls, model: nn.Module, g_optimizer: torch.optim.Optimizer,
+               d_optimizer: torch.optim.Optimizer, noise: torch.Generator,
+               gradient_clip_val: float = 0.0,
+               accumulate_grad_batches: int = 1) -> "GANTrainState":
+        kw = dict(gradient_clip_val=gradient_clip_val,
+                  accumulate_grad_batches=accumulate_grad_batches)
+        return cls(model, TrainState(model.module, g_optimizer, **kw),
+                   TrainState(model.disc_module, d_optimizer, **kw), noise)
+
+    @property
+    def step(self) -> int:
+        return self.d.step
+
+    @property
+    def rounds(self) -> int:
+        """Rounds taken: the engine's global step (one generator update a
+        batch, where ``step`` counts ``disc_steps`` a round)."""
+        return self.g.step
+
+    @property
+    def accumulate_grad_batches(self) -> int:
+        return self.d.accumulate_grad_batches
+
+    def params(self) -> List[nn.Parameter]:
+        return self.g.params() + self.d.params()
+
+    def apply_g(self) -> None:
+        """Consume the generator's gradients."""
+        self.g.apply_gradients()
+
+    def apply_d(self) -> None:
+        self.d.apply_gradients()
+
+    @staticmethod
+    def _half(state: TrainState) -> Dict[str, Any]:
+        return {"optimizer": state.optimizer.state_dict(), "step": state.step,
+                "mini_step": state.mini_step, "acc": state._acc}
+
+    def state_dict(self) -> Dict[str, Any]:
+        """The state to save (tensors by reference, on their devices)."""
+        return {
+            "model": self.model.state_dict(),
+            "step": self.step,
+            "accumulate_grad_batches": self.accumulate_grad_batches,
+            "g": self._half(self.g),
+            "d": self._half(self.d),
+            "noise": self.noise.get_state(),
+        }
+
+    def load_state_dict(self, state: Dict[str, Any], weights_only: bool = False) -> None:
+        """Restore what :meth:`state_dict` gave; ``weights_only`` restores the
+        networks and the step and leaves the optimizers, the accumulations
+        and the noise as they are."""
+        self.model.load_state_dict(state["model"])
+        for half, saved in ((self.g, state["g"]), (self.d, state["d"])):
+            half.step = int(saved["step"])
+            if weights_only:
+                continue
+            half.optimizer.load_state_dict(saved["optimizer"])
+            half.mini_step = int(saved["mini_step"])
+            device = half.params()[0].device
+            half._acc = None if saved["acc"] is None else [a.to(device) for a in saved["acc"]]
+        if not weights_only:
+            self.noise.set_state(state["noise"].cpu())

@@ -153,8 +153,9 @@ def test_registries_are_separate(monkeypatch):
     import types
 
     assert registry.list_models() == [
-        "attentionrunet", "attentionunet", "deeplabv3", "encoderdecoderconvlstm", "fcn",
-        "huggingfaceperceiver", "litmetnet", "perceiver", "pixelcnn", "runet", "unet"]
+        "attentionrunet", "attentionunet", "cloudgan", "deeplabv3", "encoderdecoderconvlstm",
+        "fcn", "huggingfaceperceiver", "litmetnet", "nowcastinggan", "perceiver", "pix2pix",
+        "pixelcnn", "runet", "unet"]
     for name in registry.list_models():
         assert registry.get_model(name) is not jax_registry.get_model(name)
     hub = types.ModuleType("huggingface_hub")

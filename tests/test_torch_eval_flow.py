@@ -447,9 +447,8 @@ def test_port_trained_convlstm_beats_persistence_and_flow():
 # -- the package exports (F5) ------------------------------------------------------
 
 # names a JAX __init__ exports from a module the port has, whose definition
-# comes with a later ROADMAP queue 1 item (not stubbed before it)
-PENDING = {"GANLoss": 11, "gradient_penalty": 11, "condition_time": 11, "ConditionTime": 11,
-           "ConvGRUCell": 11}
+# comes with a later ROADMAP queue 1 item (not stubbed before it); none is left
+PENDING: dict = {}
 
 
 def _jax_exports():
@@ -491,13 +490,18 @@ def test_package_exports_match_the_jax_package():
                  "satflow_tpu_torch.experiments.train",
                  "satflow_tpu_torch.interop.load_torch_convlstm",
                  "satflow_tpu_torch.interop.load_torch_state_dict",
-                 "satflow_tpu_torch.train.Trainer"):
+                 "satflow_tpu_torch.train.Trainer",
+                 "satflow_tpu_torch.nn.GANLoss", "satflow_tpu_torch.nn.gradient_penalty",
+                 "satflow_tpu_torch.nn.ConvGRUCell", "satflow_tpu_torch.nn.SpectralNorm",
+                 "satflow_tpu_torch.models.NowcastingGAN", "satflow_tpu_torch.models.CloudGAN",
+                 "satflow_tpu_torch.models.Pix2Pix"):
         assert must in checked, must
     from satflow_tpu_torch.models import BaseModel, create_model, list_models  # noqa: F401
 
-    assert list_models() == ["attentionrunet", "attentionunet", "deeplabv3",
+    assert list_models() == ["attentionrunet", "attentionunet", "cloudgan", "deeplabv3",
                              "encoderdecoderconvlstm", "fcn", "huggingfaceperceiver",
-                             "litmetnet", "perceiver", "pixelcnn", "runet", "unet"]
+                             "litmetnet", "nowcastinggan", "perceiver", "pix2pix", "pixelcnn",
+                             "runet", "unet"]
 
 
 def test_count_parameters_matches_jax():

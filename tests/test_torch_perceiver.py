@@ -422,11 +422,11 @@ def test_prepare_batch_with_nwp_and_datetime_matches_jax():
 
 
 def test_hparams_and_registry_match_jax():
-    """The eleven registered names, and each Perceiver config's hparams equal
-    to the JAX model's (what ``hparams.json`` holds)."""
-    assert registry.list_models() == sorted(
-        n for n in jax_registry.list_models()
-        if n not in ("cloudgan", "nowcastinggan", "pix2pix"))
+    """The registered names, all fourteen of the JAX registry, and each
+    Perceiver config's hparams equal to the JAX model's (what
+    ``hparams.json`` holds)."""
+    assert registry.list_models() == sorted(jax_registry.list_models())
+    assert len(registry.list_models()) == 14
     assert {"perceiver", "huggingfaceperceiver"} <= set(registry.list_models())
     for key in CONFIGS:
         jmodel, model = _models(key)

@@ -228,9 +228,10 @@ def test_nll_takes_integer_targets():
 
 
 def test_get_loss_registry():
-    """The JAX registry's names (GAN objectives aside), keywords passed on,
-    unknown keywords swallowed, callables passed through, GAN names raising
-    with their ROADMAP item, unknown names a KeyError."""
+    """The JAX registry's names, keywords passed on, unknown keywords
+    swallowed, callables passed through; the GAN objectives' names are not
+    in either registry (``GANLoss`` and ``gradient_penalty`` are built
+    directly) and, as any unknown name, a KeyError."""
     want = set(jax_losses.LOSSES.names())
     assert set(losses.LOSSES) == want
     x, y = _t(np.full((1, 4), 3.0)), _t(np.zeros((1, 4)))
@@ -238,11 +239,12 @@ def test_get_loss_registry():
     assert losses.get_loss("huber")(x, y).item() == pytest.approx(2.5)
     fn = losses.get_loss("mse")
     assert losses.get_loss(fn) is fn
-    for name in ("lsgan", "vanilla", "wgangp", "gradient_penalty"):
-        with pytest.raises(NotImplementedError, match="item 11"):
+    for name in ("lsgan", "vanilla", "wgangp", "gradient_penalty", "no_such_loss"):
+        with pytest.raises(KeyError):
+            jax_losses.get_loss(name)
+        with pytest.raises(KeyError):
             losses.get_loss(name)
-    with pytest.raises(KeyError):
-        losses.get_loss("no_such_loss")
+    assert callable(losses.GANLoss("lsgan")) and callable(losses.gradient_penalty)
 
 
 # -- LitMetNet with the SSIM loss ---------------------------------------------

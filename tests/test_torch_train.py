@@ -327,32 +327,38 @@ def test_item6_trainer_knobs_work(tmp_path, knob):
 
 
 def test_unported_losses_and_gan_models_raise():
-    # ssim and ms_ssim are ported (item 7); the GAN objectives wait for item 11
+    """The losses by name (ssim and ms_ssim ported with item 7; the GAN
+    objectives are no registry names, in JAX either: a KeyError), and a GAN
+    model, ported with item 11, trained by the Trainer through its two
+    optimizers instead of raising."""
     for name in ("ssim", "ms_ssim"):
         assert callable(get_loss(name))
-    for name in ("lsgan", "wgangp", "gradient_penalty"):
-        with pytest.raises(NotImplementedError, match="item 11"):
+    for name in ("lsgan", "wgangp", "gradient_penalty", "no_such_loss"):
+        with pytest.raises(KeyError):
             get_loss(name)
-    with pytest.raises(KeyError):
-        get_loss("no_such_loss")
     x, y = torch.rand(2, 3, 4), torch.rand(2, 3, 4)
     torch.testing.assert_close(get_loss("l2")(x, y), torch.mean((x - y) ** 2))
     torch.testing.assert_close(get_loss("mae")(x, y), torch.mean((x - y).abs()))
-    gan = _port(_flax_params())
-    gan.is_gan = True
-    with pytest.raises(NotImplementedError, match="item 11"):
-        Trainer().fit(gan, SatFlowDataModule(**DM_KW))
+    gan = registry.create_model("cloudgan", forecast_steps=STEPS, input_channels=CIN,
+                                channels_per_timestep=CIN, num_filters=2,
+                                features_start=2, unet_depth=2)
+    trainer = Trainer(max_steps=1, device="cpu")
+    metrics = trainer.fit(gan, SatFlowDataModule(**DM_KW))
+    assert trainer.state.step == 1 and np.isfinite(metrics["val/g_loss"])
 
 
 def test_unported_config_targets_raise():
-    """A GAN model (item 11) raises; the checkpoint callbacks of the
-    default ``callbacks`` group (item 6) build the port's callbacks with the
-    config's arguments."""
+    """A GAN model's target (item 11) builds the port's model; the
+    checkpoint callbacks of the default ``callbacks`` group (item 6) build
+    the port's callbacks with the config's arguments."""
     from satflow_tpu_torch.experiments.train import instantiate
     from satflow_tpu_torch.train import callbacks
 
-    with pytest.raises(NotImplementedError, match="item 11"):
-        instantiate({"_target_": "satflow_tpu.models.dgmr.NowcastingGAN"})
+    from satflow_tpu_torch.models.dgmr import NowcastingGAN
+
+    gan = instantiate({"_target_": "satflow_tpu.models.dgmr.NowcastingGAN",
+                       "context_channels": 32, "latent_channels": 32})
+    assert type(gan) is NowcastingGAN and gan.is_gan
     cb = instantiate({"_target_": "satflow_tpu.train.callbacks.ModelCheckpoint",
                       "monitor": "val/loss", "dirpath": "ck/", "save_top_k": 1, "mode": "max"})
     assert type(cb) is callbacks.ModelCheckpoint and (cb.dirpath, cb.mode) == ("ck/", "max")

@@ -6,7 +6,7 @@ resize, flax's SAME pools), and the PredRNN-v2 cell under ``scan_cell`` and
 ``TimeDistributed``.
 
 Weights and inputs come from numpy seeds and go to both packages; flax
-variables reach the port through ``zoo_state_dict_from_flax`` (one tree
+variables reach the port through ``flax_tree_state_dict`` (one tree
 walk for every model). Nothing here has a kernel: both sides run library
 convs on the CPU.
 
@@ -47,7 +47,7 @@ from satflow_tpu.nn.resnet import ResNetBackbone as JaxResNetBackbone
 import satflow_tpu.models  # noqa: F401 - populate the JAX registry
 import satflow_tpu_torch.models  # noqa: F401 - populate the port's registry
 from satflow_tpu_torch.core import registry
-from satflow_tpu_torch.interop.jax_weights import zoo_state_dict_from_flax
+from satflow_tpu_torch.interop.jax_weights import flax_tree_state_dict
 from satflow_tpu_torch.models.pixel_cnn import PixelCNNCore
 from satflow_tpu_torch.models.segmentation import resize_bilinear
 from satflow_tpu_torch.nn import TimeDistributed, time_distributed
@@ -171,7 +171,7 @@ def test_zoo_forward_matches_jax(key, train):
         out, new_state = jax.jit(functools.partial(jmodel.module.apply, train=True,
                                                    mutable=mutable))(variables, xs)
         want = jmodel._unstack(out)
-        stats = zoo_state_dict_from_flax({"params": {}, **new_state})
+        stats = flax_tree_state_dict({"params": {}, **new_state})
         params = dict(model.module.named_parameters())
         buffers = {k: v for k, v in model.module.state_dict().items() if k not in params}
         assert set(stats) == set(buffers)
@@ -210,7 +210,7 @@ def test_zoo_train_step_grads_match_jax(key):
         grads = jax.tree_util.tree_map(np.asarray, jax.jit(jax.grad(loss_fn))(p64))
     model = model.double()
     torch.mean(torch.square(model(torch.from_numpy(xs)) - torch.from_numpy(ys))).backward()
-    want = zoo_state_dict_from_flax({"params": grads}, dtype=np.float64)
+    want = flax_tree_state_dict({"params": grads}, dtype=np.float64)
     got = dict(model.module.named_parameters())
     assert set(want) == set(got)
     for k, g in want.items():
@@ -226,11 +226,12 @@ def test_zoo_train_step_grads_match_jax(key):
 
 
 def test_zoo_hparams_and_registry_match_jax():
-    """The eleven registered names, and each zoo model's hparams equal to the
+    """The fourteen registered names, and each zoo model's hparams equal to the
     JAX model's (what ``hparams.json`` holds)."""
     assert registry.list_models() == [
-        "attentionrunet", "attentionunet", "deeplabv3", "encoderdecoderconvlstm", "fcn",
-        "huggingfaceperceiver", "litmetnet", "perceiver", "pixelcnn", "runet", "unet"]
+        "attentionrunet", "attentionunet", "cloudgan", "deeplabv3", "encoderdecoderconvlstm",
+        "fcn", "huggingfaceperceiver", "litmetnet", "nowcastinggan", "perceiver", "pix2pix",
+        "pixelcnn", "runet", "unet"]
     for key, (name, kw, _) in MODELS.items():
         want = jax_registry.create_model(name, input_channels=C, forecast_steps=F, **kw).hparams()
         assert registry.create_model(name, input_channels=C, forecast_steps=F,
@@ -287,7 +288,7 @@ def test_pixelcnn_causality():
     jcore = JaxPixelCNNCore(out_channels=1, hidden_channels=8, num_blocks=1)
     xn = np.random.default_rng(2).random((1, 8, 8, 1)).astype(np.float32)
     variables = _randomise(jax.eval_shape(jcore.init, jax.random.PRNGKey(0), xn), 4)
-    core.load_state_dict(zoo_state_dict_from_flax(variables))
+    core.load_state_dict(flax_tree_state_dict(variables))
     _close(core(_t(xn)), jcore.apply(variables, xn), 1e-5)
 
 
@@ -302,7 +303,7 @@ def test_resnet_backbone_matches_jax_at_every_output_stride(output_stride):
     x = np.random.default_rng(5).normal(size=(2, 34, 22, 3)).astype(np.float32)
     variables = _randomise(jax.eval_shape(jnet.init, jax.random.PRNGKey(0), x), 6)
     net = ResNetBackbone((1, 1, 1, 1), width=4, output_stride=output_stride)
-    net.load_state_dict(zoo_state_dict_from_flax(variables))
+    net.load_state_dict(flax_tree_state_dict(variables))
     for train in (False, True):
         net.train(train)
         out = jax.jit(functools.partial(jnet.apply, train=train,
@@ -359,7 +360,7 @@ def test_spatiotemporal_cell_under_scan_matches_jax(layer_norm):
     variables = _randomise(jax.eval_shape(jscan.init, jax.random.PRNGKey(0), carry, xs), 10)
     want_carry, want_ys = jscan.apply(variables, carry, xs)
     scan = scan_cell(SpatioTemporalLSTMCell, 3, feats, kernel_size=3, layer_norm=layer_norm)
-    scan.cell.load_state_dict(zoo_state_dict_from_flax(variables))
+    scan.cell.load_state_dict(flax_tree_state_dict(variables))
     got_carry, got_ys = scan(tuple(_t(c) for c in carry), _t(xs))
     assert len(got_ys) == 3 and got_ys[0].shape == (2, 4, 8, 8, feats)
     for got, want in zip(got_carry + got_ys, tuple(want_carry) + tuple(want_ys)):
@@ -379,7 +380,7 @@ def test_time_distributed_matches_jax():
     want = jtd.apply(variables, x)
     conv = Conv(4, 7, 3)
     td = TimeDistributed(conv)
-    td.load_state_dict(zoo_state_dict_from_flax(variables))
+    td.load_state_dict(flax_tree_state_dict(variables))
     _close(td(_t(x)), want, 1e-5)
     _close(time_distributed(conv, _t(x)), want, 1e-5)
 
