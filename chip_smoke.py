@@ -229,6 +229,19 @@ Phases, in order; any failure exits non-zero before the last line:
    package, and runs at 1), ``perceiver_metnet`` and ``perceiver_single``
    one forward each; ``experiment=perceiver_simple`` through the CLI; the
    repo's kernels launched 0 times over the phase (the path has none);
+28g. the parallel paths (``satflow_tpu_torch/parallel``): K1 and K2 on M = 2
+   and 4 halo-extended blocks of rows (``spatial._cell_step``, halos cut from
+   the whole tensors) stitched against the whole image's step at B=8, 256x256,
+   Cx 12 and 64, float32 and bfloat16, forward and one backward, M launches of
+   each; then, under a one-rank NCCL process group
+   (``maybe_initialize_distributed`` on a free local port, shut down at the
+   end), the full-width ConvLSTM trained 2 bf16 steps through ``Trainer.fit``
+   with the gradients' all-reduce, with ``zero_sharding=True``, under
+   ``ZeroRedundancyOptimizer`` itself and with ``spatial="1x1"`` (no remat:
+   62 K1 + 62 K2 a step), each run's losses held to a plain fit's from the
+   same weights, launches counted; one MetNet (metnet.yaml) step (7 K3 + 2 K4)
+   held to the same step without a group; ``InferenceSession(mesh=
+   ["cuda:0"])`` answering a b8 request equal to the session without a mesh;
 29. a JSON line of the kernels with each one's bound on this card, and last
    a JSON line ``{"ok": true, "device": {...}}``.
 
@@ -248,6 +261,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 
 import numpy as np
 
@@ -4676,6 +4690,316 @@ def gan_slice(torch, card):
     return rows, k1, k2
 
 
+# Phase 28g: the parallel paths (satflow_tpu_torch/parallel): K1 and K2 on
+# halo-extended blocks of rows against the whole image, then, under a
+# one-rank NCCL process group, data-parallel, ZeRO and spatial ("1x1") fits
+# of the full-width ConvLSTM, a MetNet data-parallel step and the mesh
+# session. NCCL refuses two ranks on one card, so multi-rank results are held
+# on the CPU (tests/test_torch_parallel.py, tests/test_torch_spatial.py).
+PAR_MS = (2, 4)  # blocks of rows, as an H-sharded rollout over M ranks cuts them
+PAR_STEPS = 2
+# Tolerances:
+# - K1 on each block's halo-extended rows against K1 on the whole image: the
+#   same kernel on the same windows (phase 3's tolerances); K2's block
+#   backward and the data gradients likewise (TOL_GRAD_F32 x max|grad|, phase
+#   5's). A weight gradient is a library weight-grad conv over B*H*W = 5e5
+#   products on each side, split into M partial convs on one: each side lies
+#   within phase 5's TOL_GRAD_F32 of the exact sum, so the two within twice
+#   it (float32; first read 1.02e-4 x max|grad| for dWh at M=2, Cx=64, NVIDIA
+#   H100 80GB HBM3, 700 W). In bfloat16 the M partial sums are each rounded
+#   to bf16 before they are added (TOL_TRAIN_GRAD x max|grad|).
+TOL_BLOCK_WGRAD_F32 = 2 * TOL_GRAD_F32
+# - each fit's losses against the plain fit's from the same weights and data:
+#   with one rank the all-reduces divide by one and ZeRO steps every
+#   parameter, so they agree to the bf16 rounding of the step (phase 8's
+#   gradient tolerance TOL_TRAIN_GRAD, relative); the spatial rollout runs K1
+#   on rows with zero halos and keeps no remat, the same operations.
+
+
+def check_halo_blocks(torch, card):
+    """Phase 28g (a): ``spatial._cell_step`` on each of M blocks of rows, its
+    halos cut from the whole tensors (``spatial.WholeHalos``), stitched,
+    against the whole image's step, forward (K1, M launches a cell step) and
+    one backward (K2, M launches); returns the largest |diff| of h'."""
+    from satflow_tpu_torch.ops.fused_convlstm_step import fused_convlstm_step, gate_bwd
+    from satflow_tpu_torch.parallel.spatial import WholeHalos, _cell_step
+
+    worst = 0.0
+    for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
+        for cx in (CIN, HIDDEN):
+            args = [a.requires_grad_() for a in step_inputs(torch, cx, dtype, seed=500 + cx)]
+            x, h, c, wx, wh, b = args
+            dh, dc = cotangents(torch, dtype, seed=600 + cx)
+            want = fused_convlstm_step(*args)
+            want_g = torch.autograd.grad(want, args, (dh, dc))
+            # the three parameters _cell_step reads from a fused cell
+            cell = types.SimpleNamespace(x_gates_kernel=wx, h_gates_kernel=wh, bias=b)
+            for m in PAR_MS:
+                hl = H // m
+                fused_convlstm_step.launches = gate_bwd.launches = 0
+                blocks = [_cell_step(x[:, i * hl:(i + 1) * hl], h[:, i * hl:(i + 1) * hl],
+                                     c[:, i * hl:(i + 1) * hl], cell,
+                                     WholeHalos([x, h], i, m), dtype) for i in range(m)]
+                got = [torch.cat([blk[k] for blk in blocks], dim=1) for k in (0, 1)]
+                k1 = fused_convlstm_step.launches
+                got_g = torch.autograd.grad(got, args, (dh, dc))
+                torch.cuda.synchronize()
+                k2 = gate_bwd.launches
+                if (k1, k2) != (m, m):
+                    fail(f"halo blocks M={m}: K1 {k1} and K2 {k2} launches, expected {m} each")
+                errs = {}
+                for name, g_, w_ in (("h", got[0], want[0]), ("c", got[1], want[1])):
+                    errs[name] = (g_.float() - w_.float()).abs().max().item()
+                    if not within(torch, g_, w_, tol):
+                        fail(f"halo blocks M={m} {dtype} Cx={cx}: {name}' vs the whole image "
+                             f"max|diff| {errs[name]:.3g} tol {tol}")
+                for name, g_, w_ in zip(("dx", "dh", "dc", "dWx", "dWh", "db"), got_g, want_g):
+                    gtol = (TOL_TRAIN_GRAD if dtype == torch.bfloat16 else
+                            TOL_BLOCK_WGRAD_F32 if name in ("dWx", "dWh", "db") else TOL_GRAD_F32)
+                    rel = (g_.float() - w_.float()).abs().max().item() / w_.float().abs().max().item()
+                    errs[name] = rel
+                    if not rel <= gtol:
+                        fail(f"halo blocks M={m} {dtype} Cx={cx}: {name} vs the whole image "
+                             f"max|diff| / max|grad| {rel:.3g} > {gtol}")
+                worst = max(worst, errs["h"])
+                print(f"K1 / K2 on {m} halo-extended blocks of {hl}+2 rows vs the whole image, "
+                      f"{str(dtype)[6:]} B={B} {H}x{W} Cx={cx} Ch={HIDDEN}: h' {errs['h']:.3g}, "
+                      f"c' {errs['c']:.3g} (tol {tol}); gradients max|diff| / max|grad| "
+                      + ", ".join(f"{k} {errs[k]:.2g}" for k in ("dx", "dh", "dc", "dWx", "dWh",
+                                                                  "db"))
+                      + f" (tol {TOL_GRAD_F32}, weights {TOL_BLOCK_WGRAD_F32} in float32; "
+                      f"{TOL_TRAIN_GRAD} in bfloat16); launches K1 {k1}, K2 {k2} [{card}]",
+                      flush=True)
+    return worst
+
+
+def _par_model(torch, **kw):
+    from satflow_tpu_torch.interop.jax_weights import params_from_flax
+    from satflow_tpu_torch.models.conv_lstm import EncoderDecoderConvLSTM
+
+    model = EncoderDecoderConvLSTM(hidden_dim=HIDDEN, input_channels=CIN, out_channels=COUT,
+                                   forecast_steps=STEPS, remat=True, remat_chunk=REMAT_CHUNK, **kw)
+    model.module.load_state_dict(params_from_flax(flax_params(0)))
+    return model
+
+
+def _par_dm():
+    from satflow_tpu_torch.data import SatFlowDataModule
+
+    return SatFlowDataModule(fake_data=True, num_workers=0, n_train_data=PAR_STEPS, n_val_data=1,
+                             history_minutes=5 * (T - 1), forecast_minutes=5 * STEPS,
+                             fake_kwargs=dict(batch_size=B, width=W, height=H))
+
+
+class _CachedData:
+    """A data module's batches made once (the fake data's b8 256² batches
+    take seconds each to generate) and served as lists: the Trainer puts
+    each on the card itself (``shard_batch`` under a process group)."""
+
+    def __init__(self, dm):
+        self.train, self.val = list(dm.train_dataloader()), list(dm.val_dataloader())
+
+    def train_dataloader(self):
+        return self.train
+
+    def val_dataloader(self):
+        return self.val
+
+
+def _par_fit(torch, model, dm, counters, what: str, card, **trainer_kw):
+    """``Trainer(precision="bf16").fit`` for PAR_STEPS steps, the counters
+    set to 0 just before and read just after; returns (losses, launches per
+    step, fit launches, trainer)."""
+    from satflow_tpu_torch.train import Trainer
+
+    counter = LaunchesPerStep(*counters)
+    trainer = Trainer(max_steps=PAR_STEPS, precision="bf16", log_every_n_steps=1, device=DEVICE,
+                      callbacks=[counter], **trainer_kw)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    trainer.fit(model, dm)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = tuple(c.launches for c in counters)
+    losses = [e["train/loss"] for e in trainer.history.history if "train/loss" in e]
+    if trainer.global_step != PAR_STEPS or len(losses) != PAR_STEPS or not all(
+            np.isfinite(losses)):
+        fail(f"{what}: fit took {trainer.global_step} steps; losses {losses}")
+    data = "on batches made beforehand" if isinstance(dm, _CachedData) else "with data generation"
+    print(f"{what}: {PAR_STEPS} bf16 steps through Trainer.fit (b{B} {H}x{W}, {T} in / "
+          f"{STEPS} out) in {wall:.2f} s wall {data}: losses "
+          + ", ".join(f"{v:.6f}" for v in losses) + f"; launches per step {counter.per_step}, "
+          f"fit total {launches} [{card}]", flush=True)
+    return losses, counter.per_step, launches, trainer
+
+
+def _hold_losses(losses, plain, what: str, card) -> None:
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain))
+    if not rel <= TOL_TRAIN_GRAD:
+        fail(f"{what}: losses {losses} vs the plain fit's {plain}: relative {rel:.3g} > "
+             f"{TOL_TRAIN_GRAD}")
+    print(f"{what}: losses vs the plain fit's from the same weights: max relative diff "
+          f"{rel:.3g} <= {TOL_TRAIN_GRAD} ok [{card}]", flush=True)
+
+
+def _metnet_dp_step(torch, counters, what: str, card):
+    """One bf16 MetNet (metnet.yaml) step through Trainer.fit on fake 23-channel
+    data; returns (loss, launches per step, fit launches)."""
+    from satflow_tpu_torch.data import SatFlowDataModule
+    from satflow_tpu_torch.train import Trainer
+
+    gen = torch.Generator()
+    model = _metnet(torch, generator=gen, warmup_steps=1000, total_steps=100_000)
+    model.module.load_state_dict(model.state_dict_from_flax(
+        metnet_flax_variables(4 * MN_TRAIN_CIN + MN_F, seed=1)))
+    dm = SatFlowDataModule(fake_data=True, num_workers=0, n_train_data=1, n_val_data=1,
+                           history_minutes=5 * (T - 1), forecast_minutes=5 * MN_F,
+                           fake_kwargs=dict(batch_size=B, width=W, height=H))
+    counter = LaunchesPerStep(*counters)
+    trainer = Trainer(max_steps=1, precision="bf16", log_every_n_steps=1, device=DEVICE,
+                      callbacks=[counter])
+    gen.manual_seed(0)
+    for c in counters:
+        c.launches = 0
+    trainer.fit(model, dm)
+    torch.cuda.synchronize()
+    launches = tuple(c.launches for c in counters)
+    losses = [e["train/loss"] for e in trainer.history.history if "train/loss" in e]
+    if len(losses) != 1 or not np.isfinite(losses[0]):
+        fail(f"{what}: losses {losses}")
+    if counter.per_step != [(MN_K3_PER_FORWARD, MN_K4_PER_FORWARD)]:
+        fail(f"{what}: (K3, K4) launches in the step {counter.per_step}")
+    print(f"{what}: one bf16 step (b{B} {H}x{W}x{MN_TRAIN_CIN}): loss {losses[0]:.6f}; (K3, K4) "
+          f"launches in the step {counter.per_step[0]}, fit total {launches} [{card}]", flush=True)
+    return losses[0], counter.per_step[0], launches
+
+
+def parallel_slice(torch, card):
+    """Phase 28g; returns the launches {"K1", "K2", "K3", "K4"} of its main
+    paths (the fits, the MetNet step, the mesh session)."""
+    import socket
+
+    from satflow_tpu_torch.ops.axial_attention import axial_attention
+    from satflow_tpu_torch.ops.fused_convlstm_step import fused_convlstm_step, gate_bwd
+    from satflow_tpu_torch.ops.fused_lstm import fused_lstm_gates
+    from satflow_tpu_torch.parallel.distributed import (
+        is_distributed,
+        maybe_initialize_distributed,
+        shutdown_distributed,
+    )
+    from satflow_tpu_torch.parallel.zero import apply_zero_sharding
+    from satflow_tpu_torch.serve import InferenceSession
+    from satflow_tpu_torch.train.state import TrainState
+    from satflow_tpu_torch.train.steps import make_train_step
+
+    launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    k12 = (fused_convlstm_step, gate_bwd)
+    remat_step = (K1_PER_TRAIN_STEP, K2_PER_TRAIN_STEP)
+
+    def count(fit_launches, names=("K1", "K2")):
+        for name, n in zip(names, fit_launches):
+            launches[name] += n
+
+    # the plain fits, without a process group
+    data = _CachedData(_par_dm())
+    plain, _, fit_l, _ = _par_fit(torch, _par_model(torch), data, k12,
+                                  "ConvLSTM, no process group", card)
+    count(fit_l)
+    mn_plain, _, mn_l = _metnet_dp_step(torch, (fused_lstm_gates, axial_attention),
+                                        "MetNet, no process group", card)
+    count(mn_l, ("K3", "K4"))
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    multi = maybe_initialize_distributed(f"127.0.0.1:{port}", 1, 0, backend="cuda")
+    if multi or not is_distributed() or torch.distributed.get_backend() != "nccl":
+        fail("phase 28g: no one-rank NCCL process group")
+    print(f"one-rank NCCL process group up in {time.perf_counter() - t0:.2f} s", flush=True)
+    try:
+        # data parallelism: the gradients' all-reduce, the broadcast from rank 0,
+        # the data module's loaders cutting this rank's block
+        losses, per_step, fit_l, _ = _par_fit(torch, _par_model(torch), _par_dm(), k12,
+                                              "ConvLSTM DP (NCCL, 1 rank)", card)
+        if per_step != [remat_step] * PAR_STEPS:
+            fail(f"DP fit: (K1, K2) launches per step {per_step}, expected {remat_step}")
+        _hold_losses(losses, plain, "ConvLSTM DP", card)
+        count(fit_l)
+        # ZeRO through the Trainer (a world of one keeps the state, as in JAX),
+        # then ZeroRedundancyOptimizer itself on the same steps
+        losses, per_step, fit_l, trainer = _par_fit(torch, _par_model(torch), data, k12,
+                                                    "ConvLSTM zero_sharding=True", card,
+                                                    zero_sharding=True)
+        _hold_losses(losses, plain, "ConvLSTM zero_sharding=True", card)
+        count(fit_l)
+        model = _par_model(torch).to(DEVICE)
+        model.set_compute_dtype(torch.bfloat16)
+        state = apply_zero_sharding(TrainState(model, model.make_optimizer()))
+        step = make_train_step(model)
+        fused_convlstm_step.launches = gate_bwd.launches = 0
+        from satflow_tpu_torch.data.datamodule import to_device
+
+        zl = [float(step(state, to_device(batch, torch.device(DEVICE)))["loss"])
+              for batch in data.train]
+        count((fused_convlstm_step.launches, gate_bwd.launches))
+        if (fused_convlstm_step.launches, gate_bwd.launches) != (PAR_STEPS * remat_step[0],
+                                                                PAR_STEPS * remat_step[1]):
+            fail(f"ZeRO steps launched K1 {fused_convlstm_step.launches}, K2 {gate_bwd.launches}")
+        print(f"ConvLSTM under {type(state.optimizer).__name__} ({type(state.optimizer.optim).__name__}"
+              f" inside): {PAR_STEPS} steps, losses " + ", ".join(f"{v:.6f}" for v in zl)
+              + f" [{card}]", flush=True)
+        _hold_losses(zl, plain, "ConvLSTM ZeroRedundancyOptimizer", card)
+        # the spatial rollout, one block: K1 on zero-haloed rows, no remat
+        model = _par_model(torch)
+        losses, per_step, fit_l, trainer = _par_fit(torch, model, data, k12,
+                                                    'ConvLSTM spatial="1x1"', card,
+                                                    spatial="1x1")
+        if model.spatial_mesh is None or per_step != [(LAUNCHES_PER_FORWARD,
+                                                       LAUNCHES_PER_FORWARD)] * PAR_STEPS:
+            fail(f"spatial fit: (K1, K2) launches per step {per_step}, expected "
+                 f"{(LAUNCHES_PER_FORWARD, LAUNCHES_PER_FORWARD)} (no remat)")
+        _hold_losses(losses, plain, 'ConvLSTM spatial="1x1"', card)
+        count(fit_l)
+        print(f'spatial="1x1" fit: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}'
+              f" GiB [{card}]", flush=True)
+        del trainer, model, state, data
+        # MetNet under data parallelism
+        mn_loss, _, mn_l = _metnet_dp_step(torch, (fused_lstm_gates, axial_attention),
+                                           "MetNet DP (NCCL, 1 rank)", card)
+        _hold_losses([mn_loss], [mn_plain], "MetNet DP", card)
+        count(mn_l, ("K3", "K4"))
+        # the mesh session: one replica a device of the mesh
+        from satflow_tpu_torch.interop.jax_weights import params_from_flax
+        from satflow_tpu_torch.models.conv_lstm import EncoderDecoderConvLSTM
+
+        def session(**kw):
+            model = EncoderDecoderConvLSTM(hidden_dim=HIDDEN, input_channels=CIN,
+                                           out_channels=COUT, forecast_steps=STEPS)
+            return InferenceSession(model, max_batch=B, dtype=torch.bfloat16,
+                                    state_dict=params_from_flax(flax_params(0)), **kw)
+
+        x = np.random.default_rng(9).random((B, T, H, W, CIN)).astype(np.float32)
+        meshed, single = session(mesh=[DEVICE + ":0"]), session(device=DEVICE)
+        fused_convlstm_step.launches = 0
+        got = meshed.predict(x)
+        k1 = fused_convlstm_step.launches
+        want = single.predict(x)
+        if k1 != LAUNCHES_PER_FORWARD or not np.array_equal(got, want):
+            fail(f"mesh session: {k1} K1 launches, reply vs the session without a mesh "
+                 f"max|diff| {float(np.abs(got - want).max()):.3g}")
+        launches["K1"] += k1
+        print(f'InferenceSession(mesh=["{DEVICE}:0"]): a b{B} request in one forward, '
+              f"{k1} K1 launches, the reply equal to the session without a mesh [{card}]",
+              flush=True)
+    finally:
+        shutdown_distributed()
+    if is_distributed():
+        fail("phase 28g: the process group outlived the phase")
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -4844,6 +5168,10 @@ def main() -> None:
     # phase 28f: the GAN family (counts set to 0 inside, just before each path)
     _, gan_k1, gan_k2 = gan_slice(torch, card)
     phase_done("phase 28f (the GAN family)")
+    # phase 28g: the parallel paths (counts set to 0 inside, just before each path)
+    check_halo_blocks(torch, card)
+    par = parallel_slice(torch, card)
+    phase_done("phase 28g (the parallel paths)")
     life_k1 += prof_k1 + pre_k1
     life_k2 += prof_k2 + pre_k2
 
@@ -4860,23 +5188,25 @@ def main() -> None:
         # the yardstick of the tap9 study tool + the hidden 16, 32, 24 and 12
         # models + eval + the accuracy gate's training and eval + the
         # lifecycle phases (train, resume, local: serving, eval, profile,
-        # preemption, probes) + CloudGAN's ConvLSTM generator (phase 28f)
+        # preemption, probes) + CloudGAN's ConvLSTM generator (phase 28f) + the
+        # parallel fits and the mesh session (phase 28g)
         kernel("fused_convlstm_step", "fused_convlstm_step.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_step.py:453",
                serve_k1 + train_k1 + cm_k1 + cm32_k1 + st_k1 + widths_k1 + padded_k1 + eval_k1
-               + gate_k1 + life_k1 + exp_k1 + gan_k1, k1_err, per_call[HIDDEN]),
+               + gate_k1 + life_k1 + exp_k1 + gan_k1 + par["K1"], k1_err, per_call[HIDDEN]),
         # the TPU's unpadded sibling of K1: the port's K1 is that kernel (its
         # tensors are unpadded NHWC), so this row repeats K1's numbers
         kernel("fused_convlstm_step (unpadded NHWC)", "fused_convlstm_step.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_step.py:380",
                serve_k1 + train_k1 + cm_k1 + cm32_k1 + st_k1 + widths_k1 + padded_k1 + eval_k1
-               + gate_k1 + life_k1 + exp_k1 + gan_k1, k1_err, per_call[HIDDEN]),
+               + gate_k1 + life_k1 + exp_k1 + gan_k1 + par["K1"], k1_err, per_call[HIDDEN]),
         kernel("fused_convlstm_step_halo", "fused_convlstm_step_halo.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_step.py:266",
                halo_serve + halo_train_k1h, k1h_err, study["K1h"]),
         kernel("gate_bwd", "fused_convlstm_step_bwd.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_step.py:833",
-               train_k2 + halo_train_k2 + widths_k2 + padded_k2 + gate_k2 + life_k2 + gan_k2,
+               train_k2 + halo_train_k2 + widths_k2 + padded_k2 + gate_k2 + life_k2 + gan_k2
+               + par["K2"],
                k2_err,
                per_call_bwd[HIDDEN]),
         kernel("fused_lstm_gates", "fused_lstm_gates.cu",
@@ -4884,10 +5214,10 @@ def main() -> None:
                # MetNet serving + training (mse and ssim) + its resume, the
                # concat/split/hybrid cells
                serve_k3 + train_k3 + ssim_k3 + life_k3 + sum(cells_k3.values())
-               + cells_train_k3 + exp_k3 + ex_k3, k3_err, k3_ms),
+               + cells_train_k3 + exp_k3 + ex_k3 + par["K3"], k3_err, k3_ms),
         kernel("axial_attention", "axial_attention.cu",
                "satflow_tpu/ops/pallas/axial_attention.py:60",
-               serve_k4 + train_k4 + ssim_k4 + life_k4 + exp_k4 + ex_k4, k4_err, k4_t,
+               serve_k4 + train_k4 + ssim_k4 + life_k4 + exp_k4 + ex_k4 + par["K4"], k4_err, k4_t,
                library=k4_t["library"]),
         kernel("fused_convlstm_step_int8", "fused_convlstm_int8.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_int8.py:172",

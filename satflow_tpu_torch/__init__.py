@@ -28,6 +28,9 @@ Subpackages
                    batch-size and LR probes).
 - ``experiments``: the experiment entry point behind ``python -m satflow_tpu_torch.run``
                    and the TPE hyperparameter sweep behind ``--multirun``.
+- ``parallel``:    process-group start-up (torchrun or the ``JAX_*`` triplet),
+                   the device mesh and batch placement, ZeRO / FSDP sharding
+                   and the H-sharded ConvLSTM rollout, on ``torch.distributed``.
 - ``serve``:       inference sessions, micro-batching and the HTTP server.
 - ``eval``:        per-lead-time MSE / SSIM / MS-SSIM curves and ensemble CRPS.
 - ``baseline``:    the optical-flow and persistence baselines.

@@ -1,4 +1,4 @@
-"""Core utilities of the port: config surgery, printing, logging, seeding.
+"""Core utilities of the port: config surgery, printing, rank-zero logging, seeding.
 
 Counterpart of ``satflow_tpu/core/utils.py``, whose module imports jax; the
 pure-python parts are ported here and the batch-schema constants come from
@@ -17,9 +17,31 @@ import torch
 from satflow_tpu_torch.data.consts import DATETIME_FEATURE_NAMES, MINUTES_PER_STEP
 
 
+# The rank of the rank-zero logging gate, set by
+# parallel.distributed.maybe_initialize_distributed once the process group is
+# up; before that every process passes. The gate reads it per record, never
+# at import: get_logger runs when modules are imported, before any group.
+_PROCESS_INDEX: int = 0
+
+
+class _RankZeroFilter(logging.Filter):
+    def filter(self, record: logging.LogRecord) -> bool:  # noqa: A003
+        return _PROCESS_INDEX == 0
+
+
+def set_logging_process_index(index: int) -> None:
+    """Record this process's rank for the rank-zero logging gate."""
+    global _PROCESS_INDEX
+    _PROCESS_INDEX = int(index)
+
+
 def get_logger(name: str = __name__, level: int = logging.INFO) -> logging.Logger:
+    """A logger that only rank 0 emits from, the rank read per record (see
+    :func:`set_logging_process_index`)."""
     logger = logging.getLogger(name)
     logger.setLevel(level)
+    if not any(isinstance(f, _RankZeroFilter) for f in logger.filters):
+        logger.addFilter(_RankZeroFilter())
     return logger
 
 

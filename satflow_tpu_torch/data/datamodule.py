@@ -229,9 +229,9 @@ class SatFlowDataModule:
     """Train/val/test loader factory (reference datamodules.py:29-154 surface).
 
     ``device`` is where the trainer runs (the :class:`~satflow_tpu_torch.train.Trainer`
-    sets it at ``fit``); None leaves batches as numpy. ``shard`` is accepted
-    for config parity: one device holds the whole batch, and a sequence of
-    devices (a mesh to shard the batch over) raises ``NotImplementedError``.
+    sets it at ``fit``); None leaves batches as numpy. Under a process group
+    the Trainer sets the mesh instead, and with ``shard`` (the default, as in
+    JAX) each rank's loaders yield its block of every batch.
     """
 
     def __init__(
@@ -303,11 +303,19 @@ class SatFlowDataModule:
 
     @device.setter
     def device(self, device: Optional[Any]) -> None:
-        if isinstance(device, (list, tuple)):
-            raise NotImplementedError(
-                "sharding batches over a mesh of devices is not ported yet "
-                "(ROADMAP queue 1 item 13)"
-            )
+        """A device, or a ``DeviceMesh`` (the Trainer's under a process
+        group): the loaders then yield this rank's block of each batch
+        (``parallel.mesh.shard_batch``, with ``shard``) on its device."""
+        from torch.distributed.device_mesh import DeviceMesh
+
+        self._mesh = None
+        if isinstance(device, DeviceMesh):
+            from satflow_tpu_torch.parallel.mesh import mesh_device
+
+            self._mesh, device = device, mesh_device(device)
+        elif isinstance(device, (list, tuple)):
+            raise TypeError("a data module shards its batches over a DeviceMesh "
+                            "(parallel.mesh.make_mesh), not a sequence of devices")
         self._device = None if device is None else torch.device(device)
 
     @property
@@ -331,6 +339,11 @@ class SatFlowDataModule:
     def _device_put(self):
         if self.device is None:
             return None
+        if self._mesh is not None and self.shard:
+            from satflow_tpu_torch.parallel.mesh import shard_batch
+
+            mesh = self._mesh
+            return lambda item: tuple(shard_batch(part, mesh) for part in item)
         device = self.device
         return lambda item: to_device(item, device)
 

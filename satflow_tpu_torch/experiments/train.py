@@ -82,6 +82,7 @@ def train(config: Dict[str, Any]) -> Optional[float]:
     """Seed, instantiate, fit, test (unless ``fast_dev_run``); returns the
     ``optimized_metric`` for sweeps. Trains on the card unless
     ``trainer.device`` names another device."""
+    from satflow_tpu_torch.parallel.distributed import is_rank_zero, maybe_initialize_distributed
     from satflow_tpu_torch.train.engine import Trainer
 
     trainer_conf = dict(config.get("trainer") or {})
@@ -89,6 +90,9 @@ def train(config: Dict[str, Any]) -> Optional[float]:
     # the card unless the config asks for another device (trainer.device=cpu);
     # without a card the Trainer raises
     trainer_conf.setdefault("device", "cuda")
+    # first, as in JAX: under torchrun or the JAX_* triplet, the process group
+    # (NCCL for the card, gloo for trainer.device=cpu)
+    maybe_initialize_distributed(backend=trainer_conf["device"])
     if config.get("debug") or trainer_conf.get("detect_anomaly"):
         torch.autograd.set_detect_anomaly(True)
 
@@ -104,8 +108,8 @@ def train(config: Dict[str, Any]) -> Optional[float]:
         if isinstance(cb_conf, dict) and "_target_" in cb_conf:
             log.info("Instantiating callback <%s>", cb_conf["_target_"])
             callbacks.append(instantiate(cb_conf))
-    loggers: List[Any] = []
-    for lg_conf in (config.get("logger") or {}).values():
+    loggers: List[Any] = []  # rank 0 writes the logs
+    for lg_conf in (config.get("logger") or {}).values() if is_rank_zero() else ():
         if isinstance(lg_conf, dict) and "_target_" in lg_conf:
             log.info("Instantiating logger <%s>", lg_conf["_target_"])
             loggers.append(instantiate(lg_conf))

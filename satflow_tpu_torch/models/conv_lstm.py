@@ -377,7 +377,35 @@ class EncoderDecoderConvLSTM(BaseModel):
             lr=config.get("lr", 1e-3),
         )
 
+    # -- spatial (H-axis) parallelism ---------------------------------------
+
+    spatial_mesh = None
+    spatial_axis = "model"
+
     def enable_spatial(self, mesh, axis: str = "model") -> None:
-        raise NotImplementedError(
-            "spatial (H-sharded) rollout is not ported yet (ROADMAP queue 1 item 13)"
-        )
+        """Train and infer with the rollout H-sharded over ``mesh[axis]``:
+        ``forward`` and ``loss`` then take this rank's block of the batch, as
+        :func:`~satflow_tpu_torch.parallel.mesh.shard_batch` cuts it inside a
+        spatial ``mesh_scope``, and run
+        :func:`~satflow_tpu_torch.parallel.spatial.spatial_rollout` on it (K1
+        on every block's halo-extended rows). Wired from
+        ``Trainer(spatial="DxM")``; ``spatial_mesh = None`` switches back."""
+        if self.cell_impl != "fused":
+            raise ValueError(
+                "spatial parallelism requires cell_impl='fused' "
+                f"(got {self.cell_impl!r})"
+            )
+        self.spatial_mesh = mesh
+        self.spatial_axis = axis
+
+    def forward(self, x: torch.Tensor, **kwargs) -> torch.Tensor:
+        """The core's rollout, or under :meth:`enable_spatial` the block's
+        (``forecast_steps`` and ``step`` are read there too)."""
+        if self.spatial_mesh is None:
+            return super().forward(x, **kwargs)
+        from satflow_tpu_torch.parallel.spatial import HaloExchange, spatial_rollout
+
+        exchange = HaloExchange(self.spatial_mesh.get_group(self.spatial_axis))
+        return spatial_rollout(self.module, x, kwargs.get("forecast_steps") or self.forecast_steps,
+                               exchange, dtype=self.dtype,
+                               step=kwargs.get("step", fused_convlstm_step))

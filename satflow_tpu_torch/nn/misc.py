@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import Callable, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -139,7 +140,9 @@ class BatchNorm(nn.Module):
     taken as E[(x - E[x])²]: flax's E[x²] - E[x]² is the same value up to f32
     rounding, but its gradient, the difference of two nearly equal terms,
     loses most of its digits in f32 where a channel's mean is large against
-    its spread. Eval: normalise with the running statistics. The
+    its spread. Under a process group whose ``data`` axis holds more than one
+    rank, the statistics are the global batch's, as GSPMD gives them in JAX
+    (:func:`_batch_moments`). Eval: normalise with the running statistics. The
     normalisation is f32, rounded to ``dtype`` (the caller's compute dtype).
     Parameters and buffers carry flax's names: ``scale``, ``bias`` (absent
     with ``use_scale`` / ``use_bias`` False, as in flax) and the
@@ -164,9 +167,7 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.training:
-            dims = tuple(range(x.dim() - 1))
-            mean = xf.mean(dim=dims)
-            var = torch.square(xf - mean).mean(dim=dims)
+            mean, var = _batch_moments(xf, tuple(range(x.dim() - 1)))
             if not self.state_frozen:
                 with torch.no_grad():
                     self.mean.mul_(self.momentum).add_((1.0 - self.momentum) * mean)
@@ -178,6 +179,26 @@ class BatchNorm(nn.Module):
             mul = mul * self.scale
         y = (xf - mean) * mul
         return (y if self.bias is None else y + self.bias).to(dtype)
+
+
+def _batch_moments(xf: torch.Tensor, dims: Tuple[int, ...]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean and biased variance over ``dims``: this process's batch, or
+    under a ``data`` group of more than one rank the global batch's, in two
+    differentiable all-reduces over the group (the sums with the count, then
+    the squared deviations from the global mean)."""
+    from satflow_tpu_torch.parallel.mesh import data_group
+
+    group = data_group()
+    if group is None:
+        mean = xf.mean(dim=dims)
+        return mean, torch.square(xf - mean).mean(dim=dims)
+    from satflow_tpu_torch.parallel.distributed import all_reduce_sum
+
+    count = xf.new_tensor([float(np.prod([xf.shape[d] for d in dims]))])
+    sums = all_reduce_sum(torch.cat([xf.sum(dim=dims), count]), group)
+    mean = sums[:-1] / sums[-1]
+    var = all_reduce_sum(torch.square(xf - mean).sum(dim=dims), group) / sums[-1]
+    return mean, var
 
 
 def same_padding(kernel: Sequence[int], strides: Sequence[int], sizes: Sequence[int],

@@ -1,7 +1,8 @@
 """Inference sessions and cross-request micro-batching.
 
 Counterpart of ``satflow_tpu/serve/session.py``. ``InferenceSession`` holds
-a model on one device and runs its forward at one fixed batch size:
+a model on one device (or one replica on each device of ``mesh=``, each
+taking its chunk of the batch) and runs its forward at one fixed batch size:
 requests are zero-padded up to ``max_batch`` and larger ones are chunked, as
 in the JAX session (there the fixed shape avoids recompiles; here it keeps
 the kernels' launch geometry, and the device memory a forward needs, fixed).
@@ -19,6 +20,7 @@ coalesces concurrent requests into one forward call.
 
 from __future__ import annotations
 
+import copy
 import queue
 import threading
 from typing import Any, List, Optional
@@ -60,6 +62,14 @@ class InferenceSession:
         ``dtype`` does not apply, since the rollout quantizes its own inputs.
     device: where the model runs, the card unless the caller asks for
         another (``device="cpu"``); without a card ``"cuda"`` raises.
+    mesh: a sequence of devices of this process (the devices of the JAX
+        session's single-process mesh): one replica of the model is built on
+        each, the padded batch is split on dim 0 into one chunk per device
+        (``max_batch`` must divide by their number), the chunks run in turn
+        (on cards, concurrently: each launch returns at once) and the
+        replies are joined in order. ``device`` then does not apply. Not
+        with ``quantize="int8"``, as in JAX; a GAN's chunk i of the n-th
+        call draws from a generator seeded ``n * len(mesh) + i``.
     donate: accepted for the JAX session's signature and ignored: there it
         hands the padded input's buffer to XLA, which has no counterpart in
         an eager forward. With ``quantize="int8"`` or a GAN model it raises,
@@ -82,9 +92,13 @@ class InferenceSession:
         if quantize not in (None, "int8"):
             raise ValueError(f"unknown quantize mode {quantize!r}")
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded serving is not ported yet (ROADMAP queue 1 item 13)"
-            )
+            if quantize is not None:
+                raise ValueError("mesh-sharded serving does not support quantize='int8'")
+            if isinstance(mesh, (str, torch.device)) or not len(mesh):
+                raise ValueError("mesh= is a non-empty sequence of devices")
+            if int(max_batch) % len(mesh):
+                raise ValueError(f"max_batch={max_batch} must divide by the data axis "
+                                 f"({len(mesh)}) for sharded serving")
         if isinstance(model, str):
             from satflow_tpu_torch.core.registry import create_model
             import satflow_tpu_torch.models  # noqa: F401 - populate the registry
@@ -121,12 +135,15 @@ class InferenceSession:
         out_dtype = out_dtype or torch.float32
         if out_dtype not in _OUT_DTYPES:
             raise ValueError(f"out_dtype must be one of {_OUT_DTYPES}, got {out_dtype}")
-        self.device = resolve_device(device)
+        devices = [resolve_device(d) for d in (mesh if mesh is not None else [device])]
+        self.device = devices[0]
         if state_dict is not None:
             model.module.load_state_dict(state_dict)
         if dtype is not None:
             model.set_compute_dtype(dtype)
         self.model = model.to(self.device).eval()
+        # one replica a device of the mesh, the first the model itself
+        self.replicas = [self.model] + [copy.deepcopy(self.model).to(d) for d in devices[1:]]
         self.quantize = quantize
         self.qparams = None
         if quantize == "int8":
@@ -165,18 +182,23 @@ class InferenceSession:
                     f"|x|max={amax:.3g} — normalize inputs or use the bf16 path"
                 )
 
-    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _forward(self, x: torch.Tensor, replica: int = 0) -> torch.Tensor:
+        """The padded batch (or a mesh's chunk of it) through one replica,
+        on its device."""
+        model = self.replicas[replica]
         with torch.inference_mode():
             if self.qparams is not None:
                 from satflow_tpu_torch.ops.fused_convlstm_int8 import int8_rollout
 
-                y = int8_rollout(self.qparams, x.float(), int(self.model.forecast_steps))
+                y = int8_rollout(self.qparams, x.float(), int(model.forecast_steps))
             elif self.is_gan:
-                noise = torch.Generator(device=self.device).manual_seed(self._sample_counter)
-                self._sample_counter += 1
-                y = self.model.sample(x.to(self.dtype or torch.float32), noise)
+                seed = self._sample_counter * len(self.replicas) + replica
+                if replica == len(self.replicas) - 1:  # the call's last chunk
+                    self._sample_counter += 1
+                noise = torch.Generator(device=x.device).manual_seed(seed)
+                y = model.sample(x.to(self.dtype or torch.float32), noise)
             else:
-                y = self.model(x.to(self.dtype or torch.float32))
+                y = model(x.to(self.dtype or torch.float32))
             return y.to(self.out_dtype)
 
     def predict(self, x: np.ndarray) -> np.ndarray:
@@ -202,10 +224,14 @@ class InferenceSession:
         if b < self.max_batch:
             pad = np.zeros((self.max_batch - b,) + x.shape[1:], x.dtype)
             x = np.concatenate([x, pad], axis=0)
-        xt = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+        chunks = np.split(x, len(self.replicas))
         with self._lock:
-            y = self._forward(xt)
-        return y[:b].cpu().numpy()
+            ys = [self._forward(torch.from_numpy(np.ascontiguousarray(chunk)).to(
+                      next(model.parameters()).device), i)
+                  for i, (model, chunk) in enumerate(zip(self.replicas, chunks))]
+        n = len(chunks[0])  # the pad rows stay on the device
+        return np.concatenate([y[:max(0, min(n, b - i * n))].cpu().numpy()
+                               for i, y in enumerate(ys)], axis=0)
 
 
 class _Pending:

@@ -47,12 +47,18 @@ def save_checkpoint(path: str, state, model, metrics: Optional[Dict[str, float]]
 
     The state file is written beside its final name and renamed over it, so
     that a run stopped mid-save (a second SIGTERM) leaves the previous
-    checkpoint whole.
+    checkpoint whole. Under a process group every rank calls it (a ZeRO
+    state gathers its moments to rank 0) and rank 0 writes.
     """
+    from satflow_tpu_torch.parallel.distributed import is_rank_zero
+
+    payload = state.state_dict()
+    if not is_rank_zero():
+        return
     path = os.path.abspath(path)
     os.makedirs(path, exist_ok=True)
     target = os.path.join(path, STATE_FILE)
-    torch.save(state.state_dict(), target + ".tmp")
+    torch.save(payload, target + ".tmp")
     os.replace(target + ".tmp", target)
     meta = {"hparams": model.hparams(), "metrics": metrics or {}}
     with open(os.path.join(path, HPARAMS_FILE), "w") as f:

@@ -26,6 +26,20 @@ The same knobs and loop as the JAX Trainer, on one device:
   model with ``scheduler="plateau"`` its rates scaled by a
   :class:`PlateauScheduler` on ``val/g_loss``, each optimizer from its own
   base rate.
+- a process group (``parallel.distributed.maybe_initialize_distributed``:
+  torchrun, or the ``JAX_*`` triplet) -> data parallelism over its ranks:
+  parameters and buffers broadcast from rank 0 when the state is built,
+  each rank's block of the batch (``parallel.mesh.shard_batch``, which the
+  data module applies, else the Trainer), gradients averaged over the ranks
+  before the clip and the accumulation, BatchNorm statistics and every
+  step's metrics global; checkpoints and loggers written by rank 0. The
+  device is this rank's card (``cuda:{LOCAL_RANK}``).
+- ``zero_sharding``                -> ``parallel.zero.apply_zero_sharding``
+  (``ZeroRedundancyOptimizer``) when the group has more than one rank; with
+  one the state stays as it is, as in JAX.
+- ``spatial: "DxM"``               -> a D x M mesh over the world, bound for the
+  duration of ``fit`` / ``validate`` / ``test`` only, and the model's
+  rollout H-sharded over ``model`` (``enable_spatial``, the fused ConvLSTM).
 - :meth:`Trainer.scale_batch_size` and :meth:`Trainer.tune` -> the
   power-of-two batch probe and the LR range test. Unlike the JAX probe,
   which backs off on any exception, the batch probe backs off on
@@ -34,28 +48,32 @@ The same knobs and loop as the JAX Trainer, on one device:
 
 Metrics are logged under the JAX keys (``train/loss``,
 ``train/frame_{f}_loss``, ``train/grad_norm``, ``train/steps_per_sec``,
-``val/...``). Knobs whose work is not ported raise ``NotImplementedError``
-naming their ROADMAP item; the knobs the JAX Trainer accepts as no-ops stay
-no-ops.
+``val/...``). The knobs the JAX Trainer accepts as no-ops stay no-ops.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import logging
 import math
 import signal
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch.nn.parameter import is_lazy
 
-from satflow_tpu_torch import resolve_device
 from satflow_tpu_torch.data.datamodule import to_device
 from satflow_tpu_torch.models.base import expand_frame_metrics
+from satflow_tpu_torch.parallel.distributed import (
+    is_distributed,
+    is_rank_zero,
+    local_device,
+    world_size,
+)
 from satflow_tpu_torch.train.loggers import HistoryLogger
 from satflow_tpu_torch.train.profiling import make_profiler, write_trace
 from satflow_tpu_torch.train.schedules import (
@@ -108,13 +126,6 @@ class Trainer:
         sync_batchnorm: bool = False,
         **_: Any,
     ):
-        unported = {
-            "zero_sharding": (zero_sharding, "ROADMAP queue 1 item 13 (FSDP)"),
-            "spatial": (spatial, "ROADMAP queue 1 item 13 (spatial sharding)"),
-        }
-        for knob, (value, item) in unported.items():
-            if value:
-                raise NotImplementedError(f"trainer {knob}={value!r} is not ported yet: {item}")
         if str(precision) not in ("32", "16", "bf16", "bfloat16"):
             raise ValueError(f"precision must be 32, 16 or 'bf16', got {precision!r}")
         self.max_epochs = max_epochs
@@ -139,8 +150,11 @@ class Trainer:
         self.seed = seed
         self.resume_from_checkpoint = resume_from_checkpoint
         self.gan_step_mode = gan_step_mode
-        self.device = None if device is None else resolve_device(device)
+        self.zero_sharding = zero_sharding
+        self.spatial = spatial
+        self.device = None if device is None else local_device(device)
         self._plateau = None
+        self._spatial_mesh = None
 
         self.state: Optional[TrainState] = None
         self.model = None
@@ -156,8 +170,15 @@ class Trainer:
         return self.history.latest
 
     def log_metrics(self, metrics: Dict[str, float], step: int) -> None:
-        for lg in self.loggers:
+        """To the in-memory history on every rank, to the other loggers on
+        rank 0 only."""
+        for lg in self.writers():
             lg.log_metrics(metrics, step)
+
+    def writers(self) -> List:
+        """The loggers this process writes to: every one on rank 0 (or
+        without a process group), the in-memory history on the others."""
+        return self.loggers if is_rank_zero() else [self.history]
 
     def current_lr(self) -> Optional[float]:
         """The model's learning-rate schedule (``lr_schedule``, which its
@@ -166,11 +187,50 @@ class Trainer:
         schedule = getattr(self.model, "lr_schedule", None)
         return None if schedule is None else float(schedule(self.global_step))
 
+    def _parse_spatial(self) -> Tuple[int, int]:
+        try:
+            d_size, m_size = (int(p) for p in str(self.spatial).lower().split("x"))
+        except ValueError as e:
+            raise ValueError(
+                f"trainer.spatial={self.spatial!r}: expected 'DxM' "
+                "(data x model axis sizes, e.g. '2x4')"
+            ) from e
+        return d_size, m_size
+
+    def _bind_spatial_mesh(self):
+        """Context binding this trainer's DxM mesh as the global mesh, for
+        one entry point only, so that later non-spatial work in the process
+        keeps every rank on ``data`` (see ``parallel.mesh.mesh_scope``);
+        inside it, loaders cut H over ``model``."""
+        if not self.spatial:
+            return contextlib.nullcontext()
+        from satflow_tpu_torch.parallel.mesh import make_mesh, mesh_scope
+
+        if self._spatial_mesh is None:
+            self._spatial_mesh = make_mesh(list(self._parse_spatial()))
+        return mesh_scope(self._spatial_mesh, spatial_axis="model")
+
+    def _batch_put(self, datamodule) -> Callable:
+        """What each batch of ``datamodule``'s loaders goes through: to the
+        device, and under a process group this rank's block of it
+        (``shard_batch``), unless the data module cuts it itself (one with a
+        ``device``, which ``_build_state`` set to the mesh)."""
+        if is_distributed() and not hasattr(datamodule, "device"):
+            from satflow_tpu_torch.parallel.mesh import shard_batch
+
+            return shard_batch
+        return lambda batch: to_device(batch, self.device)
+
     def fit(self, model, datamodule) -> Dict[str, float]:
+        with self._bind_spatial_mesh():
+            return self._fit(model, datamodule)
+
+    def _fit(self, model, datamodule) -> Dict[str, float]:
         self.should_stop = False
         self.preempted = False
         self.model = model
         self._build_state(model, datamodule)
+        put = self._batch_put(datamodule)
         train_loader = datamodule.train_dataloader()
         if self.overfit_batches:
             # debug harness: reuse the same first-N batches for train AND val
@@ -179,8 +239,9 @@ class Trainer:
                 cached.append(b)
                 if i + 1 >= self.overfit_batches:
                     break
-            train_loader = cached
-            datamodule = _OverfitDataModule(cached)
+            datamodule = _OverfitDataModule([put(b) for b in cached])
+            train_loader = datamodule.train_dataloader()
+            put = _as_is
         gan = getattr(model, "is_gan", False)
         train_step = (make_gan_train_step(model, mode=self.gan_step_mode) if gan
                       else make_train_step(model))
@@ -219,7 +280,7 @@ class Trainer:
                 for i, batch in enumerate(train_loader):
                     if i >= n_train or self.should_stop:
                         break
-                    batch = to_device(batch, self.device)
+                    batch = put(batch)
                     self.last_batch = batch
                     metrics = train_step(self.state, batch)
                     self.global_step += 1
@@ -258,7 +319,7 @@ class Trainer:
                          time.time() - t_epoch, self.global_step)
                 if (epoch + 1) % self.check_val_every_n_epoch == 0 and not self.preempted:
                     val_metrics = self._run_eval(self._eval_step(model),
-                                                 datamodule.val_dataloader(), "val")
+                                                 datamodule.val_dataloader(), "val", put)
                     self.log_metrics(val_metrics, self.global_step)
                     self._plateau_step(val_metrics)
                     for cb in self.callbacks:
@@ -268,8 +329,9 @@ class Trainer:
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
                 profile.__exit__(None, None, None)
-                self.profile_path = write_trace(profile, self.profile_dir)
-                log.info("profile: %s", self.profile_path)
+                if is_rank_zero():
+                    self.profile_path = write_trace(profile, self.profile_dir)
+                    log.info("profile: %s", self.profile_path)
             # our handler stays installed through the emergency checkpoint: a
             # repeated SIGTERM must not kill the process mid-save
             try:
@@ -282,15 +344,17 @@ class Trainer:
 
         for cb in self.callbacks:
             cb.on_train_end(self)
-        for lg in self.loggers:
+        for lg in self.writers():
             lg.finalize()
         return self.callback_metrics
 
     def validate(self, model=None, datamodule=None) -> Dict[str, float]:
-        return self._evaluate(model, datamodule, "val")
+        with self._bind_spatial_mesh():
+            return self._evaluate(model, datamodule, "val")
 
     def test(self, model=None, datamodule=None) -> Dict[str, float]:
-        return self._evaluate(model, datamodule, "test")
+        with self._bind_spatial_mesh():
+            return self._evaluate(model, datamodule, "test")
 
     # -- internals -----------------------------------------------------------
 
@@ -299,7 +363,8 @@ class Trainer:
         self._build_state(model, datamodule)
         self.model = model
         loader = datamodule.val_dataloader() if split == "val" else datamodule.test_dataloader()
-        metrics = self._run_eval(self._eval_step(model), loader, split)
+        metrics = self._run_eval(self._eval_step(model), loader, split,
+                                 self._batch_put(datamodule))
         self.log_metrics(metrics, self.global_step)
         return metrics
 
@@ -338,6 +403,15 @@ class Trainer:
     def _build_state(self, model, datamodule) -> None:
         if self.state is not None:
             return
+        if self.spatial:
+            # "DxM": D-way data parallelism x M-way H-sharding of the rollout;
+            # the mesh is bound as the global one around each entry point only
+            if not hasattr(model, "enable_spatial"):
+                raise ValueError(f"{type(model).__name__} does not support spatial "
+                                 "parallelism (no enable_spatial)")
+            from satflow_tpu_torch.parallel.mesh import get_mesh
+
+            model.enable_spatial(get_mesh(), axis="model")
         if self.device is None:
             self.device = next(model.parameters()).device
         model.to(self.device)
@@ -347,12 +421,26 @@ class Trainer:
         if self._bf16 and getattr(model, "dtype", None) is None:
             model.set_compute_dtype(torch.bfloat16)
         if hasattr(datamodule, "device"):
-            datamodule.device = self.device
+            if is_distributed():
+                from satflow_tpu_torch.parallel.mesh import get_mesh
+
+                datamodule.device = get_mesh()  # the loaders cut this rank's block
+            else:
+                datamodule.device = self.device
         # parameters whose shapes come from the data are created from the
         # first batch, as the JAX Trainer initialises from it
         if any(is_lazy(p) for p in model.parameters()):
-            model.materialize(to_device(next(iter(datamodule.train_dataloader())), self.device))
+            model.materialize(self._batch_put(datamodule)(
+                next(iter(datamodule.train_dataloader()))))
+        if is_distributed():
+            from satflow_tpu_torch.parallel.mesh import put_replicated
+
+            put_replicated(model)  # every rank starts from rank 0's weights
         self.state = self._make_state(model, self.device)
+        if self.zero_sharding and world_size() > 1:
+            from satflow_tpu_torch.parallel.zero import apply_zero_sharding
+
+            apply_zero_sharding(self.state)
         if getattr(model, "is_gan", False) and getattr(model, "scheduler", None) == "plateau":
             self._plateau = PlateauScheduler(base_lr=model.gen_lr,
                                              patience=model.lr_epochs // 2)
@@ -366,7 +454,7 @@ class Trainer:
     def _bf16(self) -> bool:
         return str(self.precision) in ("16", "bf16", "bfloat16")
 
-    def _run_eval(self, eval_step, loader, split: str) -> Dict[str, float]:
+    def _run_eval(self, eval_step, loader, split: str, put: Callable) -> Dict[str, float]:
         n = self._limit(len(loader), self.limit_val_batches)
         if self.fast_dev_run:
             n = 1
@@ -375,7 +463,7 @@ class Trainer:
         for i, batch in enumerate(loader):
             if i >= n:
                 break
-            metrics = eval_step(self.state, to_device(batch, self.device))
+            metrics = eval_step(self.state, put(batch))
             for k, v in expand_frame_metrics(metrics, split).items():
                 sums[k] = sums.get(k, 0.0) + v
             count += 1
@@ -501,6 +589,10 @@ class Trainer:
         log.info("tune: suggested lr %.2e", suggestion)
         model.lr = suggestion
         return suggestion
+
+
+def _as_is(batch: Any) -> Any:
+    return batch
 
 
 def _tile_batch(batch: Any, n: int) -> Any:

@@ -30,6 +30,14 @@ from typing import Any, Dict, List, Optional
 import torch
 from torch import nn
 
+from satflow_tpu_torch.parallel.distributed import all_reduce_mean_
+from satflow_tpu_torch.parallel.zero import (
+    gathered,
+    load_model_state,
+    load_optimizer_state,
+    optimizer_state_dict,
+)
+
 
 def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in f32 (``optax_global_norm``)."""
@@ -47,6 +55,11 @@ class TrainState:
     ``torch.nn.utils.clip_grad_norm_`` would add 1e-6 to the norm). With k > 1
     the gradients are averaged over the k mini-steps (``optax.MultiSteps``,
     the same running mean) and the clip and the optimizer see the average.
+
+    Under a process group the gradients are first averaged over the ranks
+    (:meth:`reduce_gradients`, one flat all-reduce), so that every rank
+    applies the global batch's gradient, as JAX's ``psum`` gives it; with
+    ``all_reduce`` False (FSDP, which reduces its own) they are not.
     """
 
     model: nn.Module
@@ -55,13 +68,18 @@ class TrainState:
     accumulate_grad_batches: int = 1
     step: int = 0
     mini_step: int = 0
+    all_reduce: bool = True
     _acc: Optional[List[torch.Tensor]] = field(default=None, repr=False)
+    _reduced: bool = field(default=False, repr=False)
 
     def state_dict(self) -> Dict[str, Any]:
-        """The state to save (tensors by reference, on their devices)."""
+        """The state to save (tensors by reference, on their devices), in
+        the unsharded layout: under ZeRO a collective that gathers the
+        moments to rank 0 (the other ranks' ``optimizer`` entry is None),
+        under FSDP one that gathers every shard."""
         return {
-            "model": self.model.state_dict(),
-            "optimizer": self.optimizer.state_dict(),
+            "model": gathered(self.model.state_dict()),
+            "optimizer": optimizer_state_dict(self.optimizer),
             "step": self.step,
             "mini_step": self.mini_step,
             "accumulate_grad_batches": self.accumulate_grad_batches,
@@ -72,11 +90,11 @@ class TrainState:
         """Restore what :meth:`state_dict` gave, onto this state's devices;
         ``weights_only`` restores the model's ``state_dict`` and ``step`` and
         leaves the optimizer and the accumulation as they are."""
-        self.model.load_state_dict(state["model"])
+        load_model_state(self.model, state["model"])
         self.step = int(state["step"])
         if weights_only:
             return
-        self.optimizer.load_state_dict(state["optimizer"])
+        load_optimizer_state(self.optimizer, state["optimizer"])
         self.mini_step = int(state["mini_step"])
         device = self.params()[0].device
         self._acc = None if state["acc"] is None else [a.to(device) for a in state["acc"]]
@@ -84,8 +102,18 @@ class TrainState:
     def params(self) -> List[nn.Parameter]:
         return [p for group in self.optimizer.param_groups for p in group["params"]]
 
+    def reduce_gradients(self) -> None:
+        """Average the gradients in ``.grad`` over the process group, once
+        per backward (a no-op without a group, or once done)."""
+        if self._reduced or not self.all_reduce:
+            return
+        self._reduced = True
+        all_reduce_mean_([p.grad for p in self.params() if p.grad is not None])
+
     def apply_gradients(self) -> None:
         """Consume the gradients in ``.grad`` (and clear them)."""
+        self.reduce_gradients()
+        self._reduced = False
         params = [p for p in self.params() if p.grad is not None]
         k = self.accumulate_grad_batches
         self.step += 1
@@ -166,13 +194,13 @@ class GANTrainState:
 
     @staticmethod
     def _half(state: TrainState) -> Dict[str, Any]:
-        return {"optimizer": state.optimizer.state_dict(), "step": state.step,
+        return {"optimizer": optimizer_state_dict(state.optimizer), "step": state.step,
                 "mini_step": state.mini_step, "acc": state._acc}
 
     def state_dict(self) -> Dict[str, Any]:
         """The state to save (tensors by reference, on their devices)."""
         return {
-            "model": self.model.state_dict(),
+            "model": gathered(self.model.state_dict()),
             "step": self.step,
             "accumulate_grad_batches": self.accumulate_grad_batches,
             "g": self._half(self.g),
@@ -184,12 +212,12 @@ class GANTrainState:
         """Restore what :meth:`state_dict` gave; ``weights_only`` restores the
         networks and the step and leaves the optimizers, the accumulations
         and the noise as they are."""
-        self.model.load_state_dict(state["model"])
+        load_model_state(self.model, state["model"])
         for half, saved in ((self.g, state["g"]), (self.d, state["d"])):
             half.step = int(saved["step"])
             if weights_only:
                 continue
-            half.optimizer.load_state_dict(saved["optimizer"])
+            load_optimizer_state(half.optimizer, saved["optimizer"])
             half.mini_step = int(saved["mini_step"])
             device = half.params()[0].device
             half._acc = None if saved["acc"] is None else [a.to(device) for a in saved["acc"]]

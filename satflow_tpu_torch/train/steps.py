@@ -16,6 +16,11 @@ eagerly, the two modes execute the same operations in the same order and
 draw the same noise, so they give the same state; both names are kept for the
 JAX ``gan_step_mode`` knob. Metrics carry the JAX keys: ``d_*`` and ``g_*``
 and ``finite``.
+
+Under a process group every step's metrics are averaged over the ranks
+(``parallel.distributed.mean_metrics``), so each rank reports the global
+batch's, as the JAX steps do on a sharded batch, and ``grad_norm`` is the
+norm of the averaged gradient.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from typing import Callable, Dict, Iterator, Optional
 
 import torch
 
+from satflow_tpu_torch.parallel.distributed import mean_metrics
 from satflow_tpu_torch.train.state import GANTrainState, TrainState, global_norm
 
 
@@ -37,6 +43,8 @@ def make_train_step(model, **forward_kwargs) -> Callable:
         model.train()
         loss, metrics = model.loss(batch, **forward_kwargs)
         loss.backward()
+        state.reduce_gradients()
+        metrics = mean_metrics(metrics)
         metrics["grad_norm"] = global_norm(
             p.grad for p in state.params() if p.grad is not None)
         state.apply_gradients()
@@ -53,7 +61,7 @@ def make_eval_step(model) -> Callable:
         model.eval()
         with torch.inference_mode():
             _, metrics = model.loss(batch)
-        return metrics
+        return mean_metrics(metrics)
 
     return eval_step
 
@@ -111,7 +119,7 @@ def make_gan_train_step(model, mode: str = "fused") -> Callable:
         return metrics
 
     def train_step(state: GANTrainState, batch) -> Dict[str, torch.Tensor]:
-        return _round_metrics(d_step(state, batch), g_step(state, batch))
+        return mean_metrics(_round_metrics(d_step(state, batch), g_step(state, batch)))
 
     if mode == "split":
         train_step.d_jit = d_step
@@ -138,7 +146,7 @@ def make_gan_eval_step(model, seed: int = 0) -> Callable:
         with frozen_state(model), torch.no_grad():
             _, g_metrics = model.generator_loss(batch, generator=noise["g"])
             _, d_metrics = model.discriminator_loss(batch, generator=noise["g"])
-        return {**{f"d_{k}": v for k, v in d_metrics.items()},
-                **{f"g_{k}": v for k, v in g_metrics.items()}}
+        return mean_metrics({**{f"d_{k}": v for k, v in d_metrics.items()},
+                             **{f"g_{k}": v for k, v in g_metrics.items()}})
 
     return eval_step

@@ -77,7 +77,7 @@ class VisualizationCallback(Callback):
             if frames is None:
                 continue
             grid = make_image_grid(frames)
-            for lg in engine.loggers:
+            for lg in engine.writers():
                 lg.log_image(f"train/{name}_stack", grid, step)
 
 

@@ -198,5 +198,12 @@ def test_init_from_an_explicit_generator():
 
 
 def test_spatial_sharding_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        registry.create_model("encoderdecoderconvlstm", **KW).enable_spatial(mesh=None)
+    """Ported since: ``enable_spatial`` routes the fused model's forward
+    through the H-sharded rollout (held in tests/test_torch_spatial.py) and
+    refuses the other cell formulations, as in JAX."""
+    model = registry.create_model("encoderdecoderconvlstm", **KW)
+    model.enable_spatial(mesh="mesh", axis="model")
+    assert model.spatial_mesh == "mesh" and model.spatial_axis == "model"
+    with pytest.raises(ValueError, match="cell_impl='fused'"):
+        registry.create_model("encoderdecoderconvlstm", cell_impl="split",
+                              **KW).enable_spatial(mesh=None)

@@ -113,7 +113,9 @@ def test_prefetcher_keeps_order_and_delivers_errors(num_workers):
 
 
 def test_datamodule_refuses_a_mesh_of_devices():
-    with pytest.raises(NotImplementedError, match="item 13"):
+    """A sequence of devices is refused: the data module shards over a
+    ``DeviceMesh`` (tests/test_torch_parallel.py)."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         SatFlowDataModule(**DM_KW, device=["cuda:0", "cuda:1"])
     dm = SatFlowDataModule(**DM_KW, device="cpu")
     x, _ = next(iter(dm.train_dataloader()))

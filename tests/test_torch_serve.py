@@ -67,8 +67,8 @@ def test_session_options(variables):
         InferenceSession(model)
     with pytest.raises(ValueError, match="at most one"):
         InferenceSession(model, variables=variables, state_dict={})
-    with pytest.raises(NotImplementedError, match="item 13"):
-        InferenceSession(model, variables=variables, mesh=object())
+    with pytest.raises(ValueError, match="data axis"):  # 8 does not divide by 3
+        InferenceSession(model, variables=variables, mesh=["cpu"] * 3)
     with pytest.raises(ValueError, match="unknown quantize mode"):
         InferenceSession(model, variables=variables, quantize="int4")
 
@@ -154,6 +154,7 @@ def test_port_imports_no_jax():
         "import satflow_tpu_torch.models.pixel_cnn, satflow_tpu_torch.serve.export\n"
         "import satflow_tpu_torch.data.convert, satflow_tpu_torch.data.transforms\n"
         "import satflow_tpu_torch.data.geo, satflow_tpu_torch.examples.metnet_example\n"
+        "import satflow_tpu_torch.parallel.spatial, satflow_tpu_torch.parallel.zero\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "assert not any(m.startswith('satflow_tpu.') or m == 'satflow_tpu' for m in sys.modules)\n"
         "assert not {'flax', 'optax'} & set(sys.modules)\n"

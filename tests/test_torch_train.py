@@ -300,8 +300,18 @@ def test_terminate_on_nan_stops_one_step_late(tmp_path):
     (dict(spatial="2x4"), "item 13"),
 ])
 def test_unported_trainer_knobs_raise(knob, item):
-    with pytest.raises(NotImplementedError, match=item):
-        Trainer(**knob)
+    """Both knobs are ported (``item`` names the ROADMAP item that did it):
+    the Trainer takes them; outside a process group ``zero_sharding`` leaves
+    the state as it is (a world of one, as in JAX) and ``spatial`` raises
+    naming the group it needs."""
+    trainer = Trainer(**knob, max_steps=1, device="cpu")
+    dm = SatFlowDataModule(**DM_KW)
+    if "spatial" in knob:
+        with pytest.raises(RuntimeError, match="process group"):
+            trainer.fit(_port(_flax_params()), dm)
+        return
+    trainer.fit(_port(_flax_params()), dm)
+    assert type(trainer.state.optimizer) is torch.optim.Adam and trainer.global_step == 1
 
 
 @pytest.mark.parametrize("knob", ["profiler", "resume_from_checkpoint"])
