@@ -242,6 +242,18 @@ Phases, in order; any failure exits non-zero before the last line:
    same weights, launches counted; one MetNet (metnet.yaml) step (7 K3 + 2 K4)
    held to the same step without a group; ``InferenceSession(mesh=
    ["cuda:0"])`` answering a b8 request equal to the session without a mesh;
+28h. the quality studies' tools (``satflow_tpu_torch/tools``), each ``main``
+   at a small budget with its JSON written under a temporary ``--out``:
+   ``accuracy_256`` 1 epoch at full width (256x256, b8, hidden 64, 24 leads,
+   bf16, ``remat_chunk=6``, its 4 history frames: 112 K1 + 56 K2 every
+   step), the accuracy gate's
+   ``metnet`` and ``metnet_stoch`` arms (4 K3 + 2 K4 a step), ``gan_gate``'s
+   three arms (CloudGAN's ConvLSTM generator 64 K1 + 32 K2 a round; DGMR
+   with a 2-step fine-tune), ``gan_128`` at ``nowcasting_gan.yaml``'s widths,
+   and every ``horizon_gate`` arm (the 48-step ConvLSTM 208 K1 + 104 K2, MetNet
+   4 K3 + 2 K4 a step); every step's launches held, every number finite, the
+   rows and their keys those of the JAX study's ``docs/*.json``, each file
+   naming the card;
 29. a JSON line of the kernels with each one's bound on this card, and last
    a JSON line ``{"ok": true, "device": {...}}``.
 
@@ -5000,6 +5012,206 @@ def parallel_slice(torch, card):
     return launches
 
 
+# Phase 28h: the quality studies' tools (satflow_tpu_torch/tools, the port's
+# copies of the JAX package's tools/accuracy_gate.py, accuracy_256.py,
+# gan_gate.py, gan_128.py and horizon_gate.py), each tool's main at a small
+# budget through its entry point. Every train step's launches are counted
+# (a LaunchesPerStep on every Trainer the tools build) and held to the
+# rollout's cell steps; the results' row names and keys to the JAX study's
+# artifact (docs/*.json) for the arms run; every number finite.
+QT_BATCHES = {"accuracy_256": 12, "accuracy_gate": 12, "gan_gate": 12, "gan_128": 4,
+              "horizon_gate": 2}  # batches (rounds) of the one epoch of each tool
+
+
+def _finite_tree(tree, where: str) -> None:
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _finite_tree(v, f"{where}.{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            _finite_tree(v, f"{where}[{i}]")
+    elif isinstance(tree, float) and not np.isfinite(tree):
+        fail(f"phase 28h: {where} = {tree}")
+
+
+def _same_rows(res: dict, artifact: str, rows=None) -> None:
+    """``res`` has the JAX artifact's rows of the arms run (``rows``; all of
+    them by default), each with at least the JAX row's keys (the port adds
+    its training seconds)."""
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "docs", artifact)) as f:
+        jax_rows = json.load(f)
+    rows = list(jax_rows) if rows is None else rows
+    missing = [r for r in rows if r not in jax_rows]
+    if missing:
+        fail(f"phase 28h: {missing} are not rows of docs/{artifact}")
+    if set(res) != set(rows):
+        fail(f"phase 28h: {artifact} rows {sorted(res)}, expected {sorted(rows)}")
+    for r in rows:
+        if isinstance(jax_rows[r], dict) and not set(jax_rows[r]) <= set(res[r]):
+            fail(f"phase 28h: {artifact} {r} lacks {set(jax_rows[r]) - set(res[r])}")
+
+
+@contextlib.contextmanager
+def _counted_trainers(torch, counters):
+    """Every Trainer the tools build inside gets a LaunchesPerStep of
+    ``counters``, and every train step it makes is timed (synchronised,
+    host clock; the batch's generation on the host left out); yields the
+    lists of both, one entry a fit."""
+    import satflow_tpu_torch.train as train_pkg
+    from satflow_tpu_torch.train import engine
+
+    base, fits, step_ms = train_pkg.Trainer, [], []
+    makers = {name: getattr(engine, name) for name in ("make_train_step", "make_gan_train_step")}
+
+    class Counted(base):
+        def __init__(self, *args, callbacks=None, **kwargs):
+            fits.append(LaunchesPerStep(*counters))
+            super().__init__(*args, callbacks=list(callbacks or []) + [fits[-1]], **kwargs)
+
+    def timed(make):
+        def make_timed(*args, **kwargs):
+            step, times = make(*args, **kwargs), []
+            step_ms.append(times)
+
+            def run(state, batch):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(state, batch)
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+                return out
+            return run
+        return make_timed
+
+    train_pkg.Trainer = Counted
+    for name, make in makers.items():
+        setattr(engine, name, timed(make))
+    try:
+        yield fits, step_ms
+    finally:
+        train_pkg.Trainer = base
+        for name, make in makers.items():
+            setattr(engine, name, make)
+
+
+def quality_tools_slice(torch, card):
+    """Phase 28h; returns the phase's (K1, K2, K3, K4) launches."""
+    import tempfile
+
+    from satflow_tpu_torch.ops.axial_attention import axial_attention
+    from satflow_tpu_torch.ops.fused_convlstm_step import fused_convlstm_step, gate_bwd
+    from satflow_tpu_torch.ops.fused_lstm import fused_lstm_gates
+    from satflow_tpu_torch.tools import accuracy_256, accuracy_gate, gan_128, gan_gate, horizon_gate
+
+    counters = (fused_convlstm_step, gate_bwd, fused_lstm_gates, axial_attention)
+    totals = [0, 0, 0, 0]
+    t_phase = time.perf_counter()
+    frames = 4  # every study's 15 history minutes
+    metnet_step = (0, 0, frames, MN_K4_PER_FORWARD)  # a K3 a history frame; plain backward
+
+    def run(what, want_steps, fn, *args, **kwargs):
+        """``fn`` with its stdout kept (each tool prints its results), each
+        fit's steps held to ``want_steps`` (one (K1, K2, K3, K4) a fit)."""
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        with _counted_trainers(torch, counters) as (fits, step_ms), \
+                contextlib.redirect_stdout(io.StringIO()):
+            res = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = [c.launches for c in counters]
+        for i, n in enumerate(got):
+            totals[i] += n
+        if len(fits) != len(want_steps):
+            fail(f"phase 28h {what}: {len(fits)} fits, expected {len(want_steps)}")
+        for fit, want in zip(fits, want_steps):
+            if not fit.per_step or any(s != tuple(want) for s in fit.per_step):
+                fail(f"phase 28h {what}: (K1, K2, K3, K4) launches per step {fit.per_step}, "
+                     f"expected {tuple(want)} each")
+        _finite_tree(res, what)
+        print(f"{what}: {wall:.1f} s wall; " + "; ".join(
+            f"{len(f.per_step)} steps of {f.per_step[0]} (median {np.median(ms):.1f} ms, "
+            f"first {ms[0]:.1f})" for f, ms in zip(fits, step_ms))
+              + f" (K1, K2, K3, K4); launches K1 {got[0]}, K2 {got[1]}, K3 {got[2]}, "
+              f"K4 {got[3]} [{card}]", flush=True)
+        return res, step_ms
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_quality_") as root:
+        # accuracy_256 at full width: 256², b8, hidden 64, 24 leads, bf16,
+        # remat chunk 6: the main path's train step on the study's 4 history
+        # frames of 1 channel, 112 K1 + 56 K2 (124 + 62 with phase 8's 7)
+        n = QT_BATCHES["accuracy_256"]
+        per_forward = 2 * frames + 2 * accuracy_256.STEPS
+        res, step_ms = run("accuracy_256 (1 epoch)", [(2 * per_forward, per_forward, 0, 0)],
+                  accuracy_256.main, 1, out=root, device=DEVICE, length=n)
+        _same_rows(res, "accuracy_256.json", ("persistence@256px", "optical_flow@256px",
+                                              "convlstm@256px"))
+        row = res["convlstm@256px"]
+        print(f"  convlstm@256px after {row['optimizer_steps']} steps: MSE {row['mse']:.5f}, "
+              f"MS-SSIM {row['ms_ssim']:.4f}; train step median {np.median(step_ms[0][1:]):.1f} "
+              f"ms after the first (phase 8's full-width step: 12 input channels), "
+              f"{1e3 * row['train_seconds'] / n:.1f} ms a step with its data and validation "
+              f"(persistence {res['persistence@256px']['mse']:.5f}, flow "
+              f"{res['optical_flow@256px']['mse']:.5f})", flush=True)
+
+        # the accuracy gate's MetNet arms: K3 / K4 on 64 px, float32
+        res, _ = run("accuracy_gate metnet, metnet_stoch (1 epoch each)", [metnet_step] * 2,
+                  accuracy_gate.main, ["metnet", "metnet_stoch"], out=root, device=DEVICE,
+                  epochs={"metnet": 1, "metnet_stoch": 1}, length=QT_BATCHES["accuracy_gate"])
+        _same_rows(res, "accuracy_results.json", (
+            "persistence@metnet_grid", "optical_flow@metnet_grid", "metnet",
+            "persistence@metnet_grid_stoch", "optical_flow@metnet_grid_stoch", "metnet@stoch"))
+
+        # gan_gate: CloudGAN's ConvLSTM generator (a round: the D step's
+        # sample and the G step's forward through K1, its backward through K2)
+        per_forward = 2 * frames + 2 * gan_gate.STEPS
+        res, _ = run("gan_gate cloudgan, pix2pix, dgmr (1 epoch each, a 2-step fine-tune)",
+                  [(2 * per_forward, per_forward, 0, 0), (0, 0, 0, 0), (0, 0, 0, 0)],
+                  gan_gate.main, None, out=root, device=DEVICE,
+                  epochs={"cloudgan": 1, "pix2pix": 1, "dgmr": 1}, finetune_steps=2,
+                  length=QT_BATCHES["gan_gate"])
+        _same_rows(res, "gan_results.json")
+        print("  " + ", ".join(f"{k} MSE {res[k]['mse']:.5f}" for k in (
+            "persistence", "optical_flow", "cloudgan", "pix2pix", "dgmr")), flush=True)
+
+        # gan_128: DGMR at nowcasting_gan.yaml's widths, 128², b4, split steps
+        res, _ = run("gan_128 (1 epoch, a 2-step fine-tune)", [(0, 0, 0, 0)], gan_128.main,
+                  1, finetune_steps=2, finetune_every=2, out=root, device=DEVICE,
+                  length=QT_BATCHES["gan_128"])
+        _same_rows(res, "gan_128.json")
+        if not os.path.exists(os.path.join(root, "gan128_state.pt")):
+            fail("phase 28h: gan_128 wrote no state file")
+
+        # horizon_gate, every arm: the 48-step ConvLSTM (K1 / K2, float32) and
+        # MetNet (K3 / K4) among them
+        per_forward = 2 * frames + 2 * horizon_gate.STEPS
+        conv = (2 * per_forward, per_forward, 0, 0)
+        none = (0, 0, 0, 0)
+        res, _ = run("horizon_gate, every arm (1 epoch each)",
+                  [conv, conv, none, none, metnet_step, metnet_step, none, none, none],
+                  horizon_gate.main, None, out=root, device=DEVICE, epochs=1,
+                  length=QT_BATCHES["horizon_gate"])
+        _same_rows(res, "horizon_results.json")
+        written = sorted(os.listdir(root))
+        want = sorted(["accuracy_256.json", "accuracy_256.md", "accuracy_results.json",
+                       "accuracy_results.md", "gan_results.json", "gan_results.md",
+                       "gan_128.json", "gan_128.md", "gan128_state.pt",
+                       "horizon_results.json", "horizon_results.md"])
+        if written != want:
+            fail(f"phase 28h: the tools wrote {written} under --out, expected {want}")
+        for name in written:
+            if name.endswith(".json"):
+                with open(os.path.join(root, name)) as f:
+                    if json.load(f).get("card") != card:
+                        fail(f"phase 28h: {name} does not name the card {card!r}")
+
+    print(f"quality tools phase: {time.perf_counter() - t_phase:.1f} s; launches K1 {totals[0]}, "
+          f"K2 {totals[1]}, K3 {totals[2]}, K4 {totals[3]} [{card}]", flush=True)
+    return tuple(totals)
+
+
+
 def main() -> None:
     try:
         import torch
@@ -5172,6 +5384,9 @@ def main() -> None:
     check_halo_blocks(torch, card)
     par = parallel_slice(torch, card)
     phase_done("phase 28g (the parallel paths)")
+    # phase 28h: the quality studies' tools (counts set to 0 inside, just before each tool)
+    qt_k1, qt_k2, qt_k3, qt_k4 = quality_tools_slice(torch, card)
+    phase_done("phase 28h (the quality studies' tools)")
     life_k1 += prof_k1 + pre_k1
     life_k2 += prof_k2 + pre_k2
 
@@ -5189,24 +5404,24 @@ def main() -> None:
         # models + eval + the accuracy gate's training and eval + the
         # lifecycle phases (train, resume, local: serving, eval, profile,
         # preemption, probes) + CloudGAN's ConvLSTM generator (phase 28f) + the
-        # parallel fits and the mesh session (phase 28g)
+        # parallel fits and the mesh session (phase 28g) + the study tools (28h)
         kernel("fused_convlstm_step", "fused_convlstm_step.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_step.py:453",
                serve_k1 + train_k1 + cm_k1 + cm32_k1 + st_k1 + widths_k1 + padded_k1 + eval_k1
-               + gate_k1 + life_k1 + exp_k1 + gan_k1 + par["K1"], k1_err, per_call[HIDDEN]),
+               + gate_k1 + life_k1 + exp_k1 + gan_k1 + par["K1"] + qt_k1, k1_err, per_call[HIDDEN]),
         # the TPU's unpadded sibling of K1: the port's K1 is that kernel (its
         # tensors are unpadded NHWC), so this row repeats K1's numbers
         kernel("fused_convlstm_step (unpadded NHWC)", "fused_convlstm_step.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_step.py:380",
                serve_k1 + train_k1 + cm_k1 + cm32_k1 + st_k1 + widths_k1 + padded_k1 + eval_k1
-               + gate_k1 + life_k1 + exp_k1 + gan_k1 + par["K1"], k1_err, per_call[HIDDEN]),
+               + gate_k1 + life_k1 + exp_k1 + gan_k1 + par["K1"] + qt_k1, k1_err, per_call[HIDDEN]),
         kernel("fused_convlstm_step_halo", "fused_convlstm_step_halo.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_step.py:266",
                halo_serve + halo_train_k1h, k1h_err, study["K1h"]),
         kernel("gate_bwd", "fused_convlstm_step_bwd.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_step.py:833",
                train_k2 + halo_train_k2 + widths_k2 + padded_k2 + gate_k2 + life_k2 + gan_k2
-               + par["K2"],
+               + par["K2"] + qt_k2,
                k2_err,
                per_call_bwd[HIDDEN]),
         kernel("fused_lstm_gates", "fused_lstm_gates.cu",
@@ -5214,10 +5429,11 @@ def main() -> None:
                # MetNet serving + training (mse and ssim) + its resume, the
                # concat/split/hybrid cells
                serve_k3 + train_k3 + ssim_k3 + life_k3 + sum(cells_k3.values())
-               + cells_train_k3 + exp_k3 + ex_k3 + par["K3"], k3_err, k3_ms),
+               + cells_train_k3 + exp_k3 + ex_k3 + par["K3"] + qt_k3, k3_err, k3_ms),
         kernel("axial_attention", "axial_attention.cu",
                "satflow_tpu/ops/pallas/axial_attention.py:60",
-               serve_k4 + train_k4 + ssim_k4 + life_k4 + exp_k4 + ex_k4 + par["K4"], k4_err, k4_t,
+               serve_k4 + train_k4 + ssim_k4 + life_k4 + exp_k4 + ex_k4 + par["K4"] + qt_k4, k4_err,
+               k4_t,
                library=k4_t["library"]),
         kernel("fused_convlstm_step_int8", "fused_convlstm_int8.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_int8.py:172",

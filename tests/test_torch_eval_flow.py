@@ -354,8 +354,7 @@ def test_accuracy_gate_keeps_the_jax_study():
     assert accuracy_gate.DS_KW == jax_gate.DS_KW and accuracy_gate.STEPS == jax_gate.STEPS
     assert accuracy_gate.ALL_ARMS == jax_gate.ALL_ARMS
     assert accuracy_gate.EXTRA_ARMS == jax_gate.EXTRA_ARMS
-    assert set(accuracy_gate.PORTED_ARMS) | set(accuracy_gate.UNPORTED_ARMS) == (
-        set(jax_gate.ALL_ARMS) | set(jax_gate.EXTRA_ARMS))
+    assert accuracy_gate.PORTED_ARMS == jax_gate.ALL_ARMS + jax_gate.EXTRA_ARMS
 
 
 def _load_jax_gate():
@@ -369,10 +368,14 @@ def _load_jax_gate():
 @pytest.mark.parametrize("arm, item", [("metnet_stoch", 7), ("metnet", 7),
                                        ("metnet_baselines", 7)])
 def test_accuracy_gate_unported_arms_raise(arm, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        accuracy_gate.main([arm, "baselines"], device="cpu")
+    """The arms that raised naming ROADMAP item ``item`` until it was done are
+    ported: listed, no refusal naming the item left in the tool; an unknown
+    arm still stops the run before any work."""
+    assert arm in accuracy_gate.PORTED_ARMS
+    source = Path(accuracy_gate.__file__).read_text()
+    assert "NotImplementedError" not in source and f"item {item}" not in source
     with pytest.raises(SystemExit):
-        accuracy_gate.main(["no_such_arm"], device="cpu")
+        accuracy_gate.main(["no_such_arm", arm], device="cpu")
 
 
 def test_accuracy_gate_runs_and_writes_only_under_out(tmp_path, monkeypatch, capsys):
@@ -393,7 +396,7 @@ def test_accuracy_gate_runs_and_writes_only_under_out(tmp_path, monkeypatch, cap
     assert res["optical_flow"]["solve"] == flow.farneback_backend()
     assert len(res["convlstm"]["ms_ssim_t"]) == accuracy_gate.STEPS
     assert res["convlstm"]["epochs"] == 1
-    assert json.loads((out / "accuracy_results.json").read_text()) == res
+    assert json.loads((out / "accuracy_results.json").read_text()) == {**res, "card": "cpu"}
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == res
     assert sorted(p.name for p in tmp_path.iterdir()) == ["gate"]
     assert docs == {p: p.stat().st_mtime_ns for p in (REPO / "docs").glob("accuracy*")}

@@ -455,7 +455,6 @@ def test_accuracy_gate_perceiver_arm_runs(monkeypatch, tmp_path):
     from satflow_tpu_torch.tools import accuracy_gate
 
     assert "perceiver" in accuracy_gate.PORTED_ARMS
-    assert "perceiver" not in accuracy_gate.UNPORTED_ARMS
     monkeypatch.setattr(accuracy_gate, "PERCEIVER_EPOCHS", 1)
     monkeypatch.setattr(accuracy_gate, "PERCEIVER", {**accuracy_gate.PERCEIVER, "input_size": 16,
                                                      "depth": 1, "warmup_steps": 2})

@@ -155,6 +155,8 @@ def test_port_imports_no_jax():
         "import satflow_tpu_torch.data.convert, satflow_tpu_torch.data.transforms\n"
         "import satflow_tpu_torch.data.geo, satflow_tpu_torch.examples.metnet_example\n"
         "import satflow_tpu_torch.parallel.spatial, satflow_tpu_torch.parallel.zero\n"
+        "import satflow_tpu_torch.tools.accuracy_256, satflow_tpu_torch.tools.gan_gate\n"
+        "import satflow_tpu_torch.tools.gan_128, satflow_tpu_torch.tools.horizon_gate\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "assert not any(m.startswith('satflow_tpu.') or m == 'satflow_tpu' for m in sys.modules)\n"
         "assert not {'flax', 'optax'} & set(sys.modules)\n"
