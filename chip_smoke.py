@@ -61,8 +61,11 @@ Phases, in order; any failure exits non-zero before the last line:
    concurrent requests of 7 x 256x256x12; 7 K3 and 2 K4 launches per
    forward, and one reply held against the same forward through the plain
    versions;
-11. MetNet timings: K3 and K4 per call against their plain versions, the b8
-   forward both ways, and one forward profiled;
+11. MetNet timings: K3 and K4 per call against their plain versions and
+   the one library call that computes the same function (K3: ATen's
+   ``_thnn_fused_lstm_cell`` on the gates permuted once to its i, f, g, o
+   order, held to K3's plain version first; K4: SDPA), the b8 forward both
+   ways, and one forward profiled;
 12. MetNet training: 3 bf16 Adam steps under ``warmup_cosine`` through
    ``Trainer.fit`` on fake b8 256x256 data (23 input channels); losses
    finite, launches counted, every parameter's gradient nonzero and held
@@ -247,7 +250,9 @@ Phases, in order; any failure exits non-zero before the last line:
    ``accuracy_256`` 1 epoch at full width (256x256, b8, hidden 64, 24 leads,
    bf16, ``remat_chunk=6``, its 4 history frames: 112 K1 + 56 K2 every
    step), the accuracy gate's
-   ``metnet`` and ``metnet_stoch`` arms (4 K3 + 2 K4 a step), ``gan_gate``'s
+   ``metnet`` and ``metnet_stoch`` arms (4 K3 + 2 K4 a step), its
+   ``perceiver`` and stacked arms (U-Net family, FCN, DeepLabV3, PixelCNN;
+   no launch of K1-K4, as in the JAX package), ``gan_gate``'s
    three arms (CloudGAN's ConvLSTM generator 64 K1 + 32 K2 a round; DGMR
    with a 2-step fine-tune), ``gan_128`` at ``nowcasting_gan.yaml``'s widths,
    and every ``horizon_gate`` arm (the 48-step ConvLSTM 208 K1 + 104 K2, MetNet
@@ -1266,12 +1271,23 @@ def metnet_timings(torch, model, card):
     path's shapes, the b8 forward both ways, one forward profiled. Returns
     (K3 ms {"kernel", "plain"}, {K4 shape: ms})."""
     from satflow_tpu_torch.ops.axial_attention import attention_kernel, axial_attention_ref
-    from satflow_tpu_torch.ops.fused_lstm import _gates, _launch, fused_lstm_gates_ref
+    from satflow_tpu_torch.ops.fused_lstm import (_gates, _launch, fused_lstm_gates_ref,
+                                                  to_aten_order)
 
     gates = _randn(torch, MN_ROWS, 4 * MN_HIDDEN, seed=50, scale=2.0).to(torch.bfloat16)
     c = _randn(torch, MN_ROWS, MN_HIDDEN, seed=51).to(torch.bfloat16)
+    # the library call: ATen's fused LSTM cell, its gate columns permuted once
+    # outside the timing, its second gate input zero (it also writes a (N, 4C)
+    # workspace)
+    aten_gates, zeros = to_aten_order(gates), torch.zeros_like(gates)
+
+    def aten_cell(_, c):
+        return torch.ops.aten._thnn_fused_lstm_cell(aten_gates, zeros, c)[:2]
+
+    err = max(_max_err(torch, a, b, TOL_K34_BF16, "aten._thnn_fused_lstm_cell")
+              for a, b in zip(aten_cell(gates, c), fused_lstm_gates_ref(gates, c)))
     # the launch itself, and through the dispatcher op that the path calls
-    k3 = per_call_ms(torch, _launch, fused_lstm_gates_ref, (gates, c))
+    k3 = per_call_ms(torch, _launch, fused_lstm_gates_ref, (gates, c), library=aten_cell)
     with torch.no_grad():
         k3_op = sum(cuda_ms(torch, lambda: _gates(gates, c), 20) for _ in range(2)) / 2
     k3_bytes = gates.numel() * 2 + c.numel() * 2 * 3
@@ -1284,7 +1300,9 @@ def metnet_timings(torch, model, card):
 
     print(f"time per K3 call, bf16 ({MN_ROWS}, {4 * MN_HIDDEN}): kernel {k3['kernel'] * 1e3:.2f} us "
           f"({k3_bytes / k3['kernel'] / 1e6:.0f} GB/s; {k3_op * 1e3:.2f} us through the op "
-          f"satflow::fused_lstm_gates), plain {k3['plain'] * 1e3:.2f} us; bound "
+          f"satflow::fused_lstm_gates), plain {k3['plain'] * 1e3:.2f} us, library "
+          f"(aten._thnn_fused_lstm_cell, max|diff| vs plain {err:.3g}) "
+          f"{k3['library'] * 1e3:.2f} us; bound "
           f"{k3['bound'][0] * 1e3:.2f} us by {k3['bound'][1]} [{card}]", flush=True)
     k4 = {}
     for shape in K4_SHAPES:
@@ -5159,9 +5177,21 @@ def quality_tools_slice(torch, card):
         res, _ = run("accuracy_gate metnet, metnet_stoch (1 epoch each)", [metnet_step] * 2,
                   accuracy_gate.main, ["metnet", "metnet_stoch"], out=root, device=DEVICE,
                   epochs={"metnet": 1, "metnet_stoch": 1}, length=QT_BATCHES["accuracy_gate"])
-        _same_rows(res, "accuracy_results.json", (
-            "persistence@metnet_grid", "optical_flow@metnet_grid", "metnet",
-            "persistence@metnet_grid_stoch", "optical_flow@metnet_grid_stoch", "metnet@stoch"))
+        metnet_rows = ("persistence@metnet_grid", "optical_flow@metnet_grid", "metnet",
+                       "persistence@metnet_grid_stoch", "optical_flow@metnet_grid_stoch",
+                       "metnet@stoch")
+        _same_rows(res, "accuracy_results.json", metnet_rows)
+
+        # the accuracy gate's Perceiver and stacked arms at full resolution:
+        # no kernel of the repo, as in the JAX package (0 K1-K4 a step)
+        new_arms = ("perceiver",) + tuple(accuracy_gate.STACKED_ARMS)
+        res, _ = run(f"accuracy_gate {', '.join(new_arms)} (1 epoch each)",
+                  [(0, 0, 0, 0)] * len(new_arms), accuracy_gate.main, list(new_arms), out=root,
+                  device=DEVICE, epochs=dict.fromkeys(new_arms, 1),
+                  length=QT_BATCHES["accuracy_gate"])
+        _same_rows(res, "accuracy_results.json", metnet_rows + new_arms)
+        print("  " + ", ".join(f"{a} {res[a]['train_seconds']:.1f} s (MSE {res[a]['mse']:.5f})"
+                               for a in new_arms), flush=True)
 
         # gan_gate: CloudGAN's ConvLSTM generator (a round: the D step's
         # sample and the G step's forward through K1, its backward through K2)
@@ -5429,7 +5459,8 @@ def main() -> None:
                # MetNet serving + training (mse and ssim) + its resume, the
                # concat/split/hybrid cells
                serve_k3 + train_k3 + ssim_k3 + life_k3 + sum(cells_k3.values())
-               + cells_train_k3 + exp_k3 + ex_k3 + par["K3"] + qt_k3, k3_err, k3_ms),
+               + cells_train_k3 + exp_k3 + ex_k3 + par["K3"] + qt_k3, k3_err, k3_ms,
+               library=k3_ms["library"]),
         kernel("axial_attention", "axial_attention.cu",
                "satflow_tpu/ops/pallas/axial_attention.py:60",
                serve_k4 + train_k4 + ssim_k4 + life_k4 + exp_k4 + ex_k4 + par["K4"] + qt_k4, k4_err,

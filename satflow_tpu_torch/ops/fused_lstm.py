@@ -39,6 +39,14 @@ def fused_lstm_gates_ref(gates: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Te
     return h_next.to(c.dtype), c_next.to(c.dtype)
 
 
+def to_aten_order(gates: torch.Tensor) -> torch.Tensor:
+    """(..., 4C) gate columns i, f, o, g -> i, f, g, o, the order of ATen's
+    fused LSTM cell (``torch.ops.aten._thnn_fused_lstm_cell``), the library
+    call that computes the same tail."""
+    i, f, o, g = gates.chunk(4, dim=-1)
+    return torch.cat((i, f, g, o), dim=-1)
+
+
 def _check(gates: torch.Tensor, c: torch.Tensor) -> None:
     """Raise on anything the kernel does not take (the device type last, so
     that the shape checks can be exercised without a card)."""

@@ -36,6 +36,7 @@ import torch
 from satflow_tpu_torch.tools.studies import (
     baseline_rows,
     card_name,
+    full_f32,
     load_results,
     model_row,
     save_results,
@@ -74,6 +75,7 @@ def main(epochs: Optional[int] = None, stochastic: bool = False, out: Optional[s
 
     epochs = EPOCHS[stochastic] if epochs is None else epochs
     device = resolve_device(device)
+    full_f32(device)
     card = card_name(device)
     ds_cls = StochasticAdvectionDataset if stochastic else DecayingAdvectionDataset
     sfx = "@256px_stoch" if stochastic else "@256px"

@@ -39,6 +39,7 @@ from satflow_tpu_torch.tools.studies import (  # SPLIT_SEEDS: the split seeds, r
     baseline_rows,
     card_name,
     curve,
+    full_f32,
     load_results,
     model_row,
     per_lead_table,
@@ -115,6 +116,7 @@ def main(arms: Optional[Iterable[str]] = None, out: Optional[str] = None,
     if unknown:
         raise SystemExit(f"unknown --arms {sorted(unknown)}; valid: {list(ALL_ARMS)}")
     device = resolve_device(device)
+    full_f32(device)
     card = card_name(device)
     budget = {"convlstm": CONVLSTM_EPOCHS, "perceiver": PERCEIVER_EPOCHS,
               "metnet": METNET_EPOCHS, "metnet_stoch": METNET_EPOCHS,

@@ -38,6 +38,7 @@ from satflow_tpu_torch.tools import gan_gate
 from satflow_tpu_torch.tools.studies import (
     card_name,
     ensemble_row,
+    full_f32,
     load_results,
     save_results,
     study_dm,
@@ -93,6 +94,7 @@ def main(epochs: int = 60, batch: int = 4, context_channels: int = 384,
     if (skip_train or from_finetuned) and not out:
         raise ValueError("--skip-train and --from-finetuned read the state file under --out")
     device = resolve_device(device)
+    full_f32(device)
     card = card_name(device)
     state_path = os.path.join(out, state) if out else None
     eval_ds = StochasticAdvectionDataset(length=EVAL_BATCHES, seed=300, **DS128)

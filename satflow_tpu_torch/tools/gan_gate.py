@@ -43,6 +43,7 @@ from satflow_tpu_torch.tools.studies import (
     card_name,
     curve,
     ensemble_row,
+    full_f32,
     load_results,
     save_results,
     study_dm,
@@ -203,6 +204,7 @@ def main(arms: Optional[Iterable[str]] = None, out: Optional[str] = None, device
     if finetune_samples is None:
         finetune_samples = int(os.environ.get("SATFLOW_DGMR_FT_SAMPLES", "8"))
     device = resolve_device(device)
+    full_f32(device)
     card = card_name(device)
     eval_ds = DecayingAdvectionDataset(length=EVAL_BATCHES, seed=300, **DS_KW)
     results = load_results(out, RESULTS, card)

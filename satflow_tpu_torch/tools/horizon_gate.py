@@ -34,6 +34,7 @@ from satflow_tpu_torch.tools.accuracy_gate import _to_metnet_grid
 from satflow_tpu_torch.tools.studies import (
     baseline_rows,
     card_name,
+    full_f32,
     load_results,
     model_row,
     per_lead_table,
@@ -103,6 +104,7 @@ def main(arms: Optional[Iterable[str]] = None, out: Optional[str] = None, device
     if unknown:
         raise SystemExit(f"unknown --arms {sorted(unknown)}; valid: {list(ALL_ARMS)}")
     device = resolve_device(device)
+    full_f32(device)
     card = card_name(device)
     eval_ds = DecayingAdvectionDataset(length=EVAL_BATCHES, seed=300, **DS48)
     eval_sto = StochasticAdvectionDataset(length=EVAL_BATCHES, seed=300, **DS48)

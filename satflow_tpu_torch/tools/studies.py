@@ -6,7 +6,8 @@ The study tools (``accuracy_gate``, ``accuracy_256``, ``gan_gate``,
 ``tools/*.py`` studies. Each trains on synthetic advection at its JAX
 recipe, scores against persistence and optical flow, writes its results
 file (and a markdown section beside it) under ``--out`` only, and merges a
-rerun into the file it finds there.
+rerun into the file it finds there. On a card each runs its convolutions
+in full float32 (:func:`full_f32`).
 """
 
 from __future__ import annotations
@@ -87,6 +88,17 @@ def card_name(device: torch.device) -> str:
     out = subprocess.run(["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip()
+
+
+def full_f32(device: torch.device) -> None:
+    """On a card, run cuDNN's convolutions and cuBLAS's matmuls in full
+    float32 for the rest of the process. By default cuDNN rounds a
+    convolution's inputs to TF32, and the accuracy gate's attentionrunet and
+    fcn arms ended above flow with that rounding and below it without, as the
+    CPU path does that the tests hold to the JAX package (ROADMAP §3)."""
+    if device.type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def load_results(out: Optional[str], filename: str, card: str) -> Dict:

@@ -1,12 +1,16 @@
-"""Check and time the axial attention (K4), the channel-major 3x3 head (K6b)
-and the zero-padded hidden widths of the fused step (K1, K2) on the card.
+"""Check and time the axial attention (K4), the channel-major 3x3 head (K6b),
+the LSTM gate tail (K3) and the zero-padded hidden widths of the fused step
+(K1, K2) on the card.
 
 It builds the sources, prints ptxas' registers and spills and the HMMA / LDSM
 counts in the SASS of K4's and K6b's kernels, holds each kernel against its
 plain version at the listed shapes and at the edges of every regime, and then
 (unless ``--check-only``) prints the mean milliseconds per call over
 back-to-back launches (CUDA events) beside the plain version, the one library
-call that computes the same function, and the bound. ``--root`` times another
+call that computes the same function, and the bound. K3's library call is
+ATen's fused LSTM cell on the gates permuted once to its column order, with a
+zero second gate input; it is held against K3's plain version as K3 is, and
+its bytes add that input and the (N, 4C) workspace it writes. ``--root`` times another
 checkout of the package, so that two commits can be read on one card one after
 the other; run it by path::
 
@@ -37,6 +41,8 @@ K4_EDGES = ((1, 1, 1), (7, 17, 8), (33, 17, 24), (5, 32, 32), (3, 33, 32), (3, 3
 #: (B, H, W, Cin, Cout): the head's shape, then the edges
 K6B_SHAPES = ((8, 256, 256, 64, 12), (2, 10, 18, 1, 1), (2, 10, 18, 12, 16), (1, 50, 72, 12, 1),
               (2, 33, 40, 128, 16), (1, 7, 5, 64, 12), (3, 16, 64, 20, 5))
+#: (N, C): K3's rows on MetNet's path, and on the concat forward's
+K3_SHAPES = ((49152, 64), (524288, 64))
 TOL = {"float32": dict(atol=1e-5, rtol=1e-5), "bfloat16": dict(atol=1e-2, rtol=2 ** -7)}
 TOL_HEAD = {"float32": dict(atol=1e-4, rtol=1e-5), "bfloat16": dict(atol=2e-2, rtol=2e-2)}
 HBM_BYTES_PER_S = 3.35e12
@@ -94,6 +100,13 @@ def sass_counts(nvcc: str, library: str, fragment: str) -> Dict[str, Dict[str, i
     return out
 
 
+def lstm_tail_bytes(rows: int, channels: int, itemsize: int, aten: bool = False) -> int:
+    """Bytes the gate tail moves, each tensor once: the 4C gates and c in, h'
+    and c' out; ATen's cell also reads its zero second gate input and writes
+    its (N, 4C) workspace."""
+    return rows * channels * (7 + (8 if aten else 0)) * itemsize
+
+
 def max_err(torch, got, want, tol, what: str) -> float:
     diff = (got.float() - want.float()).abs()
     err = diff.max().item()
@@ -113,13 +126,14 @@ def main(root: Optional[str] = None, check_only: bool = False, calls: int = 20,
     from satflow_tpu_torch.ops import axial_attention as A
     from satflow_tpu_torch.ops import cmajor_convlstm as CM
     from satflow_tpu_torch.ops import fused_convlstm_step as P
+    from satflow_tpu_torch.ops import fused_lstm as K3
 
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(f"package: {A.__file__}; card: {card}", flush=True)
     libs = _build.load_all(["axial_attention", "cmajor_convlstm", "fused_convlstm_step",
-                            "fused_convlstm_step_bwd"])
+                            "fused_convlstm_step_bwd", "fused_lstm_gates"])
     for source, fragment in (("axial_attention", "axial_attention"),
                              ("cmajor_convlstm", "cmajor_conv")):
         for name, regs, spilled in ptxas_report(_build.build_logs.get(source, "")):
@@ -137,6 +151,8 @@ def main(root: Optional[str] = None, check_only: bool = False, calls: int = 20,
 
     out: Dict[str, float] = {}
     regime = getattr(A, "regime", lambda *a: "one kernel")
+    aten_cell = torch.ops.aten._thnn_fused_lstm_cell
+    k3_inputs = {}
     for name in ("float32", "bfloat16"):
         dtype = getattr(torch, name)
         for shape in K4_SHAPES + K4_EDGES:
@@ -161,6 +177,18 @@ def main(root: Optional[str] = None, check_only: bool = False, calls: int = 20,
                           f"K6b {name} B={b} {h}x{w} {cin}->{cout}")
             print(f"K6b vs plain: {name} B={b} {h}x{w} {cin} -> {cout}: max|diff| {err:.3g} ok",
                   flush=True)
+        for n, ch in K3_SHAPES:
+            gates, c = rand(n, 4 * ch, scale=2.0, dtype=dtype), rand(n, ch, dtype=dtype)
+            aten_gates = K3.to_aten_order(gates)
+            zeros = torch.zeros_like(gates)
+            want = K3.fused_lstm_gates_ref(gates, c)
+            for what, got in (("K3", K3._launch(gates, c)),
+                              ("aten._thnn_fused_lstm_cell", aten_cell(aten_gates, zeros, c)[:2])):
+                err = max(max_err(torch, a, b, TOL[name], f"{what} {name} ({n}, {4 * ch})")
+                          for a, b in zip(got, want))
+                print(f"{what} vs K3's plain version: {name} ({n}, {4 * ch}): max|diff| "
+                      f"{err:.3g} ok", flush=True)
+            k3_inputs[name, n] = gates, c, aten_gates, zeros
     if check_only:
         return out
 
@@ -185,6 +213,21 @@ def main(root: Optional[str] = None, check_only: bool = False, calls: int = 20,
                       f"{t['plain'] * 1e3:.1f} us, scaled_dot_product_attention "
                       f"{t['library'] * 1e3:.1f} us, bound {bound * 1e6:.1f} us [{card}]",
                       flush=True)
+            for n, ch in K3_SHAPES:
+                gates, c, aten_gates, zeros = k3_inputs[name, n]
+                t = {what: mean_ms(torch, fn, calls, repeats) for what, fn in (
+                    ("kernel", lambda: K3._launch(gates, c)),
+                    ("plain", lambda: K3.fused_lstm_gates_ref(gates, c)),
+                    ("library", lambda: aten_cell(aten_gates, zeros, c)))}
+                moved, aten_moved = (lstm_tail_bytes(n, ch, c.element_size(), aten)
+                                     for aten in (False, True))
+                # ~30 f32 operations per state element: three sigmoids, two tanh, the sums
+                bound = max(moved / HBM_BYTES_PER_S, 30 * n * ch / PEAK["float32"])
+                out[f"k3.{name}.{n}"] = t["kernel"]
+                print(f"K3 {name} ({n}, {4 * ch}): kernel {t['kernel'] * 1e3:.2f} us, plain "
+                      f"{t['plain'] * 1e3:.2f} us, aten._thnn_fused_lstm_cell "
+                      f"{t['library'] * 1e3:.2f} us ({aten_moved - moved} bytes more than K3's "
+                      f"{moved}), bound {bound * 1e6:.2f} us [{card}]", flush=True)
             b, h, w, cin, cout = K6B_SHAPES[0]
             x = rand(b, cin, h * w, dtype=dtype)
             wt = rand(3, 3, cin, cout, scale=(9 * cin) ** -0.5, dtype=dtype)

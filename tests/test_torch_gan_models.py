@@ -293,6 +293,73 @@ def test_dgmr_generator_float32_on_intercepted_noise(dgmr):
                                atol=1e-5 * np.abs(np.asarray(want)).max())
 
 
+@pytest.mark.slow
+def test_dgmr_crps_finetune_steps_match_jax(dgmr):
+    """The fair-CRPS fine-tune (``crps_finetune``: M=3 eval-mode samples a
+    step, generator-only Adam under the cosine schedule, spectral vectors
+    frozen) from the same weights and noise, in float64, against the JAX
+    ``crps_finetune``: the first step's loss and every generator gradient
+    (at GRAD_ATOL x max|grad|), then three steps' loss history (rtol 1e-7)
+    and each parameter's move (its norm within 1e-6 of JAX's; single
+    elements stray further, since Adam divides each gradient element by its
+    own running scale and a near-zero one carries both packages' rounding
+    at full size). The noise of step i is the draw JAX's latent stack makes
+    from the step's key; the generator's buffers do not move. ~40 s, most of
+    it XLA compiling the JAX side: ``slow``."""
+    import copy
+
+    from satflow_tpu.eval.probabilistic import crps_ensemble as jax_crps_ensemble
+    from satflow_tpu.train.probabilistic import crps_finetune as jax_crps_finetune
+    from satflow_tpu_torch.train.probabilistic import crps_finetune, fair_crps_loss
+
+    jmodel, (g, _), model, batch = dgmr
+    steps, m, lr = 3, 3, 1e-3
+    x, y = batch
+    frozen = {k: v for k, v in g.items() if k != "params"}
+    with jax.enable_x64(True):
+        draw = jax.jit(_intercepting(lambda v, key: (0.0, jmodel._sample(v, x, key, False, m))))
+        rng, keys, zs = jax.random.PRNGKey(0), [], []
+        for _ in range(steps):  # the fine-tune's keys, split as it splits them
+            rng, sub = jax.random.split(rng)
+            keys.append(sub)
+            zs.append(np.asarray(draw(g, sub)[1][1]["z"]))
+        want_loss, want_grads = jax.jit(jax.value_and_grad(lambda p: jnp.mean(jax_crps_ensemble(
+            jmodel._sample({"params": p, **frozen}, x, keys[0], False, m)[0], y,
+            fair=True))))(g["params"])
+        want_g, want_hist = jax_crps_finetune(jmodel, g, [batch], steps=steps, num_samples=m,
+                                              lr=lr, lr_schedule="cosine", log_every=1)
+        want_grads, want_g = jax.tree_util.tree_map(np.asarray, (want_grads, want_g))
+
+    port = copy.deepcopy(model)
+    port.zero_grad(set_to_none=True)
+    samples, _ = port._sample(_t(x), None, False, m, z=_t(zs[0]))
+    loss = fair_crps_loss(samples, _t(y))
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=1e-7)
+    _close_tree({k: p.grad for k, p in port.module.named_parameters()},
+                flax_tree_state_dict({"params": want_grads}, np.float64), GRAD_ATOL,
+                "fine-tune grads")
+    port.zero_grad(set_to_none=True)
+
+    start = {k: v.detach().clone() for k, v in port.module.named_parameters()}
+    buffers = _buffers(port.module)
+    noise = iter(zs)
+    sample = port._sample
+    port._sample = lambda x, generator, train, n: sample(x, generator, train, n,
+                                                         z=_t(next(noise)))
+    port, hist = crps_finetune(port, [(_t(x), _t(y))], steps=steps, num_samples=m, lr=lr,
+                               lr_schedule="cosine", log_every=1)
+    np.testing.assert_allclose(hist, want_hist, rtol=1e-7)
+    want = flax_tree_state_dict({"params": want_g["params"]}, np.float64)
+    got = dict(port.module.named_parameters())
+    assert set(got) == set(want)
+    for k, w in want.items():
+        moved = w - start[k]
+        err = torch.linalg.vector_norm(got[k].detach() - w).item()
+        assert err <= 1e-6 * max(torch.linalg.vector_norm(moved).item(), 1e-30), (k, err)
+    _close_tree(_buffers(port.module), buffers, None, "G state after the fine-tune")
+
+
 @pytest.mark.parametrize("key", list(CASES))
 def test_gan_halves_match_jax(key):
     """CloudGAN (R2U-Net generator and all-timestep discriminator; the

@@ -264,6 +264,23 @@ def test_crps_select_probe_scores_the_current_weights_without_moving_them():
     model.module.train(True)
 
 
+def test_study_tools_run_convolutions_in_full_f32_on_a_card(monkeypatch):
+    """cuDNN's default TF32 moved the accuracy gate's attentionrunet and fcn
+    arms above flow on the card; every study tool pins full float32 right
+    after resolving its device, on a card only."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    studies.full_f32(torch.device("cpu"))
+    assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+    studies.full_f32(torch.device("cuda"))
+    assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
+    for name, tool in PORT.items():
+        src = ast.get_source_segment(open(tool.__file__).read(), next(
+            n for n in ast.parse(open(tool.__file__).read()).body
+            if isinstance(n, ast.FunctionDef) and n.name == "main"))
+        assert "device = resolve_device(device)\n    full_f32(device)\n" in src, name
+
+
 # -- each tool's main on the CPU, small -----------------------------------------------------
 
 
@@ -407,3 +424,24 @@ def test_horizon_gate_runs_every_arm(tmp_path, monkeypatch):
         if "epochs" in row:
             assert res[name]["epochs"] == 1
     assert _written(tmp_path) == ["hz/horizon_results.json", "hz/horizon_results.md"]
+
+
+@pytest.mark.parametrize("arm", ("perceiver",) + tuple(accuracy_gate.STACKED_ARMS))
+@pytest.mark.slow
+def test_accuracy_gate_full_resolution_arm_runs(arm, tmp_path, monkeypatch):
+    """The Perceiver and each stacked arm at 1 epoch of 1 batch, 16 px, b2:
+    the JAX study's row with its keys (and the training seconds), a finite
+    curve of 12 lead times, the epochs recorded, written only under --out
+    (0.1-4 s an arm: ``slow``, which keeps tier-1's new tests under a
+    second)."""
+    monkeypatch.setattr(accuracy_gate, "DS_KW", {**accuracy_gate.DS_KW, "batch_size": 2,
+                                                  "width": 16, "height": 16})
+    monkeypatch.setattr(accuracy_gate, "PERCEIVER", {**accuracy_gate.PERCEIVER, "input_size": 16})
+    res = accuracy_gate.main([arm], out=str(tmp_path), device="cpu", epochs={arm: 1}, length=1)
+    with open(os.path.join(REPO, "docs", "accuracy_results.json")) as f:
+        jax_row = json.load(f)[arm]
+    assert set(res) == {arm}
+    assert set(res[arm]) == set(jax_row) | {"train_seconds"}
+    assert len(res[arm]["mse_t"]) == accuracy_gate.STEPS and np.isfinite(res[arm]["mse_t"]).all()
+    assert res[arm]["epochs"] == 1
+    assert _written(tmp_path) == ["accuracy_results.json", "accuracy_results.md"]

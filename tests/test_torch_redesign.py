@@ -266,3 +266,31 @@ def test_time_redesign_needs_a_card():
 
     with pytest.raises(SystemExit, match="needs a CUDA card"):
         time_redesign.main()
+
+
+
+def test_aten_lstm_cell_order_gives_k3s_tail():
+    """K3's library yardstick: the gates permuted to ATen's i, f, g, o order
+    and put through ATen's fused-cell formula (``c' = σ(f)·c + σ(i)·tanh(g)``,
+    ``h' = σ(o)·tanh(c')`` on its column order) give K3's plain version bit for
+    bit."""
+    from satflow_tpu_torch.ops.fused_lstm import fused_lstm_gates_ref, to_aten_order
+
+    gates, c = 2 * torch.randn(37, 4 * 24), torch.randn(37, 24)
+    i, f, g, o = to_aten_order(gates).chunk(4, dim=-1)
+    c_next = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    h_next = torch.sigmoid(o) * torch.tanh(c_next)
+    want_h, want_c = fused_lstm_gates_ref(gates, c)
+    assert torch.equal(h_next, want_h) and torch.equal(c_next, want_c)
+
+
+def test_time_redesign_counts_the_lstm_tails_bytes():
+    """The bytes counted for K3 are its seven C-wide tensors; ATen's cell adds
+    its zero second gate input and its (N, 4C) workspace; both shapes timed
+    are K3's."""
+    from satflow_tpu_torch.tools import time_redesign
+
+    assert time_redesign.K3_SHAPES == ((49152, 64), (524288, 64))
+    assert time_redesign.lstm_tail_bytes(49152, 64, 2) == 49152 * 64 * 7 * 2 == 44040192
+    assert (time_redesign.lstm_tail_bytes(49152, 64, 2, aten=True)
+            - time_redesign.lstm_tail_bytes(49152, 64, 2) == 2 * 49152 * 256 * 2)
