@@ -45,9 +45,13 @@ Phases, in order; any failure exits non-zero before the last line:
    gradient held nonzero and against the same step through the plain
    versions, the train step timed through the kernels and through the plain
    step, and one step profiled;
-9. K3 against its plain version at MetNet's shape (49 152 rows x C=64) and
-   at an odd one, float32 and bfloat16, and ``FusedLSTMGates``' two
-   gradients against autograd of the plain version; K4 against its plain
+9. K3 against its plain version, float32 and bfloat16, each call counted on
+   the kernel ``vector_path`` names: the vector kernel at MetNet's shape
+   (49 152 rows x C=64) and the concat forward's (524 288 x 64), the
+   per-element kernel at
+   C = 1, 3, 65 (and 12 in bf16) and on a view one element into its storage;
+   ``FusedLSTMGates``' two gradients against autograd of the plain version;
+   K4 against its plain
    version at (24 576, 16, 8), (16 384, 64, 32), (4096, 64, 64), (2048, 128,
    64), (2048, 256, 64) and (256, 512, 256) and at the edges of each of its
    three kernels' regimes (L = 1, 17, 32, 33, 100, 512; D = 1, 8, 24, 32, 33,
@@ -59,13 +63,18 @@ Phases, in order; any failure exits non-zero before the last line:
    bf16 compute on f32 weights; weights from numpy seed 0 in the flax
    layout, converted by the bridge) behind ``NowcastServer`` answers 5
    concurrent requests of 7 x 256x256x12; 7 K3 and 2 K4 launches per
-   forward, and one reply held against the same forward through the plain
-   versions;
-11. MetNet timings: K3 and K4 per call against their plain versions and
-   the one library call that computes the same function (K3: ATen's
-   ``_thnn_fused_lstm_cell`` on the gates permuted once to its i, f, g, o
-   order, held to K3's plain version first; K4: SDPA), the b8 forward both
-   ways, and one forward profiled;
+   forward, every K3 launch on its vector kernel, and one reply held against
+   the same forward through the plain versions;
+11. MetNet timings: K3 in bfloat16 and float32 at MetNet's and the concat
+   forward's shapes: its device time (torch.profiler) and, in ten windows of
+   200 calls back to back in turns, a bare launch, a launch through the op
+   ``satflow::fused_lstm_gates``, the plain version and the one library
+   call that computes the same function, ATen's ``_thnn_fused_lstm_cell`` on
+   the gates permuted once to its i, f, g, o order (held to K3's plain
+   version first): the windows' median and least, and the host's time for
+   its loop; K3 at MetNet's bf16 shape per call as every kernel is timed
+   (the kernels line); K4 per call against its plain version and SDPA; the
+   b8 forward both ways, and one forward profiled;
 12. MetNet training: 3 bf16 Adam steps under ``warmup_cosine`` through
    ``Trainer.fit`` on fake b8 256x256 data (23 input channels); losses
    finite, launches counted, every parameter's gradient nonzero and held
@@ -128,8 +137,8 @@ Phases, in order; any failure exits non-zero before the last line:
    tensor cores K1p - T2 is the exact epilogue, K1p - T1 the order of the
    walk, K1p / K1 the W-padded I/O and the order together;
 20. the remaining cell formulations: ``cell_impl`` ``concat``, ``split`` and
-   ``hybrid`` each answer 5 concurrent requests (62 K3 launches per forward;
-   reply held against the same forward through K3's plain version), and
+   ``hybrid`` each answer 5 concurrent requests (62 K3 launches per forward,
+   all on its vector kernel; reply held against the same forward through K3's plain version), and
    ``split`` takes one Adam step with ``remat_chunk=6`` (124 K3 launches;
    gradients held against the plain version's);
 21. timings: K1h, K1p, T1, T2 and T3 per call against their plain versions, with
@@ -211,11 +220,14 @@ Phases, in order; any failure exits non-zero before the last line:
    256x256 data: losses finite, every BatchNorm statistic moved, every
    parameter's gradient finite and nonzero, the train step timed; then
    ``python -m satflow_tpu_torch.run experiment=unet_simple`` through the CLI;
-28c. the full-width fused ConvLSTM, MetNet and UNet exported at b8
-   (``serve/export.py``), each loaded in a fresh process that imports torch
-   and ``satflow_tpu_torch.ops`` only: the reply held against the
-   ``InferenceSession`` reply, K1's 62 launches a call (K3 7, K4 2 for
-   MetNet), the artifact's bytes and its load time printed;
+28c. the full-width fused ConvLSTM, the same model under
+   ``SATFLOW_STEP_VARIANT=halo``, the channel-major (``cell_impl="cmajor"``)
+   ConvLSTM, MetNet and UNet exported at b8 (``serve/export.py``), each
+   loaded in a fresh process that imports torch and ``satflow_tpu_torch.ops``
+   only, with no step variant set: the reply held against the
+   ``InferenceSession`` reply, the launches of a call (K1 62; K1h 62; K1 14,
+   K6a 48 and K6b 24; K3 7 and K4 2 for MetNet), the artifact's bytes, its
+   export and load times printed;
 28d. ``examples/metnet_example.py`` on the card (7 K3 and 2 K4 launches a
    forward: the one that makes the lazy input width, and the example's);
 28e. the Perceiver family at its shipped configs' widths, random
@@ -333,6 +345,15 @@ MN_TRAIN_CIN = 23  # the fake datamodule: 12 satellite + 1 topography + 10 NWP
 MN_EH = H // 16  # 16: the temporal encoder's and the attention's grid
 MN_ROWS = MN_F * B * MN_EH * MN_EH  # K3's rows per call: 49 152
 MN_K3_PER_FORWARD = T  # one gate tail per history frame
+# K3's checks (rows, C, layout): MetNet's and the concat forward's shapes (the
+# vector kernel), odd widths on both sides of its rule (C % 8 in bf16, C % 4 in
+# f32), a view one element into its storage (the per-element kernel), and
+# gates that are a column slice of a wider tensor (not contiguous: the launch
+# copies them, and its rule reads the aligned copy)
+K3_CHECKS = ((MN_ROWS, MN_HIDDEN, ""), (B * H * W, HIDDEN, ""), (1001, 1, ""), (1001, 3, ""),
+             (777, 12, ""), (513, 65, ""), (300, 256, ""), (4096, MN_HIDDEN, "offset"),
+             (4096, MN_HIDDEN, "columns"))
+K3_LAYOUTS = {"": "", "offset": " offset by one element", "columns": " gates a column slice"}
 MN_K4_PER_FORWARD = 2  # one attention along H, one along W
 K4_SHAPES = ((MN_F * B * MN_EH * MN_HEADS, MN_EH, MN_HIDDEN // MN_HEADS),  # MetNet's
              (16384, 64, 32), (4096, 64, 64),  # between the short-axis and the long-axis regime
@@ -1030,22 +1051,42 @@ def _max_err(torch, got, want, tol, what: str) -> float:
 
 
 def check_gate_tail(torch, card) -> float:
-    """Phase 9a: K3 vs its plain version and FusedLSTMGates' gradients;
-    returns the largest bf16 |K3 - plain| at MetNet's shape."""
-    from satflow_tpu_torch.ops.fused_lstm import fused_lstm_gates, fused_lstm_gates_ref
+    """Phase 9a: both of K3's kernels vs the plain version, each call counted
+    on the path ``vector_path`` names (the vector kernel at MetNet's and the
+    concat forward's shapes and on gates that are not contiguous; the
+    per-element one at odd widths and on views one element into their
+    storage), and FusedLSTMGates' gradients; returns the largest bf16 |K3 - plain| at
+    MetNet's shape."""
+    from satflow_tpu_torch.ops import fused_lstm as G
 
+    fn = G.fused_lstm_gates
+    counts = lambda: (fn.launches, fn.vector_launches, fn.element_launches)  # noqa: E731
     worst = 0.0
-    for rows, ch in ((MN_ROWS, MN_HIDDEN), (1001, 3)):
+    for rows, ch, layout in K3_CHECKS:
         for dtype, tol in ((torch.float32, TOL_K34_F32), (torch.bfloat16, TOL_K34_BF16)):
-            gates = _randn(torch, rows, 4 * ch, seed=rows, scale=2.0).to(dtype)
-            c = _randn(torch, rows, ch, seed=rows + 1).to(dtype)
-            got, want = fused_lstm_gates(gates, c), fused_lstm_gates_ref(gates, c)
+            offset = int(layout == "offset")
+            flat_g = _randn(torch, rows * 4 * ch + 1, seed=rows, scale=2.0).to(dtype)
+            flat_c = _randn(torch, rows * ch + 1, seed=rows + 1).to(dtype)
+            gates = flat_g[offset:offset + rows * 4 * ch].view(rows, 4 * ch)
+            c = flat_c[offset:offset + rows * ch].view(rows, ch)
+            if layout == "columns":
+                gates = torch.cat([gates, gates[:, :8]], dim=1)[:, :4 * ch]
+            vector = offset == 0 and ch % G.VECTOR_WIDTH[dtype] == 0
+            if G.vector_path(gates.contiguous(), c) != vector:
+                fail(f"K3's rule at ({rows}, {4 * ch}) {dtype}, {layout or 'aligned'}: "
+                     f"vector_path {not vector}, expected {vector}")
+            before = counts()
+            got, want = fn(gates, c), G.fused_lstm_gates_ref(gates, c)
             torch.cuda.synchronize()
-            err = max(_max_err(torch, g_, w_, tol, f"K3 {name} {str(dtype)[6:]} ({rows}, {4 * ch})")
+            if counts() != (before[0] + 1, before[1] + vector, before[2] + (not vector)):
+                fail(f"K3 ({rows}, {4 * ch}) {dtype}: counts {before} -> {counts()}")
+            what = f"({rows}, {4 * ch}){K3_LAYOUTS[layout]}"
+            err = max(_max_err(torch, g_, w_, tol, f"K3 {name} {str(dtype)[6:]} {what}")
                       for name, g_, w_ in zip(("h", "c"), got, want))
             if dtype == torch.bfloat16 and rows == MN_ROWS:
                 worst = err
-            print(f"K3 vs plain: {str(dtype)[6:]} gates ({rows}, {4 * ch}): max|diff| {err:.3g} "
+            print(f"K3 vs plain: {str(dtype)[6:]} gates {what}, the "
+                  f"{'vector' if vector else 'per-element'} kernel: max|diff| {err:.3g} "
                   f"tol {tol} ok [{card}]", flush=True)
     gates, c = _randn(torch, 4096, 4 * MN_HIDDEN, seed=5, scale=2.0), _randn(torch, 4096, MN_HIDDEN, seed=6)
     dh, dc = _randn(torch, 4096, MN_HIDDEN, seed=7), _randn(torch, 4096, MN_HIDDEN, seed=8)
@@ -1056,10 +1097,10 @@ def check_gate_tail(torch, card) -> float:
         ((h * dh).sum() + (c_next * dc).sum()).backward()
         return [t.grad for t in ts], h
 
-    (got, h) = grads(fused_lstm_gates)
+    (got, h) = grads(G.fused_lstm_gates)
     if type(h.grad_fn).__name__ != "FusedLSTMGatesBackward":
         fail(f"the gate tail under autograd is {h.grad_fn}, not FusedLSTMGates")
-    want, _ = grads(fused_lstm_gates_ref)
+    want, _ = grads(G.fused_lstm_gates_ref)
     errs = [_max_err(torch, g_, w_, TOL_K34_F32, f"FusedLSTMGates {n}")
             for n, g_, w_ in zip(("dgates", "dc"), got, want)]
     print(f"FusedLSTMGates gradients (K3 forward) vs plain autograd, float32 (4096, 256): "
@@ -1168,6 +1209,20 @@ def _metnet(torch, loss: str = "mse", **kw):
                         forecast_steps=MN_F, temporal_dropout=0.2, lr=1e-3, loss=loss, **kw)
 
 
+def reset_k3_paths(fn) -> None:
+    """Set the counts of K3's two kernels to 0, just before a path runs."""
+    fn.vector_launches = fn.element_launches = 0
+
+
+def check_k3_paths(fn, launches: int, what: str) -> None:
+    """Every one of a path's ``launches`` K3 launches, counted since
+    :func:`reset_k3_paths`, ran the vector kernel: the path's tensors are
+    aligned and C = 64, so ``vector_path`` names it."""
+    if (fn.vector_launches, fn.element_launches) != (launches, 0):
+        fail(f"{what}: K3 launched its vector kernel {fn.vector_launches} and its per-element "
+             f"kernel {fn.element_launches} times, expected {launches} and 0")
+
+
 def metnet_serve_slice(torch, card):
     """Phase 10; returns (K3 launches, K4 launches, model)."""
     from satflow_tpu_torch.ops.axial_attention import axial_attention, axial_attention_ref
@@ -1180,8 +1235,10 @@ def metnet_serve_slice(torch, card):
     rng = np.random.default_rng(3)
     requests = [rng.random((T, H, W, MN_CIN), dtype=np.float32) for _ in range(4)]
     requests.append(rng.random((2, T, H, W, MN_CIN), dtype=np.float32))
+    reset_k3_paths(fused_lstm_gates)
     replies, wall, forwards, (k3, k4) = drive_server(session, requests,
                                                      [fused_lstm_gates, axial_attention])
+    check_k3_paths(fused_lstm_gates, k3, "MetNet serving")
     for x, (status, y) in zip(requests, replies):
         if status != 200:
             fail(f"MetNet request of shape {x.shape} answered {status}: {y!r}"[:500])
@@ -1195,7 +1252,8 @@ def metnet_serve_slice(torch, card):
         fail(f"MetNet launches K3 {k3}, K4 {k4} != ({MN_K3_PER_FORWARD}, {MN_K4_PER_FORWARD}) "
              f"x {forwards} forwards")
     print(f"MetNet served {len(requests)} requests (6 samples) in {forwards} forward(s) of b{B}, "
-          f"{wall:.3f} s wall; launches K3 {k3} = {MN_K3_PER_FORWARD} x {forwards}, K4 {k4} = "
+          f"{wall:.3f} s wall; launches K3 {k3} = {MN_K3_PER_FORWARD} x {forwards} (all on its "
+          f"vector kernel), K4 {k4} = "
           f"{MN_K4_PER_FORWARD} x {forwards} [{card}]", flush=True)
 
     with torch.inference_mode():
@@ -1249,7 +1307,8 @@ CONVLSTM_CLASSES = {"K1": ("fused_convlstm_step_kernel",), "K2": ("gate_bwd_kern
                     "library convs": LIBRARY_CONVS, "optimizer": OPTIMIZER}
 K4_KERNELS = ("axial_attention_rows_kernel", "axial_attention_mma_kernel",
               "axial_attention_tile_kernel")
-MN_CLASSES = {"K3": ("fused_lstm_gates_kernel",), "K4": K4_KERNELS,
+K3_KERNELS = ("fused_lstm_gates_kernel", "fused_lstm_gates_vec_kernel")
+MN_CLASSES = {"K3": K3_KERNELS, "K4": K4_KERNELS,
               "library convs": LIBRARY_CONVS, "optimizer": OPTIMIZER}
 
 
@@ -1267,43 +1326,63 @@ def print_profile(what, result, card, extra: str = "") -> None:
 
 
 def metnet_timings(torch, model, card):
-    """Phase 11: K3 and K4 per call against their plain versions at the
-    path's shapes, the b8 forward both ways, one forward profiled. Returns
-    (K3 ms {"kernel", "plain"}, {K4 shape: ms})."""
+    """Phase 11: K3 (both dtypes, MetNet's and the concat forward's shapes) and
+    K4 per call against their plain versions at the path's shapes, the b8
+    forward both ways, one forward profiled. Returns (K3 ms {"kernel",
+    "plain", "library", "bound"} at MetNet's bf16 shape, {K4 shape: ms})."""
+    from satflow_tpu_torch.ops import fused_lstm as G
     from satflow_tpu_torch.ops.axial_attention import attention_kernel, axial_attention_ref
-    from satflow_tpu_torch.ops.fused_lstm import (_gates, _launch, fused_lstm_gates_ref,
-                                                  to_aten_order)
+    from satflow_tpu_torch.tools.time_redesign import K3_CALLS, k3_times
 
-    gates = _randn(torch, MN_ROWS, 4 * MN_HIDDEN, seed=50, scale=2.0).to(torch.bfloat16)
-    c = _randn(torch, MN_ROWS, MN_HIDDEN, seed=51).to(torch.bfloat16)
-    # the library call: ATen's fused LSTM cell, its gate columns permuted once
-    # outside the timing, its second gate input zero (it also writes a (N, 4C)
-    # workspace)
-    aten_gates, zeros = to_aten_order(gates), torch.zeros_like(gates)
-
-    def aten_cell(_, c):
-        return torch.ops.aten._thnn_fused_lstm_cell(aten_gates, zeros, c)[:2]
-
-    err = max(_max_err(torch, a, b, TOL_K34_BF16, "aten._thnn_fused_lstm_cell")
-              for a, b in zip(aten_cell(gates, c), fused_lstm_gates_ref(gates, c)))
-    # the launch itself, and through the dispatcher op that the path calls
-    k3 = per_call_ms(torch, _launch, fused_lstm_gates_ref, (gates, c), library=aten_cell)
-    with torch.no_grad():
-        k3_op = sum(cuda_ms(torch, lambda: _gates(gates, c), 20) for _ in range(2)) / 2
-    k3_bytes = gates.numel() * 2 + c.numel() * 2 * 3
-    # ~30 f32 operations per state element: three sigmoids, two tanh, the sums
-    k3["bound"] = bound_ms((gates, c, c, c), 30 * c.numel(), "f32")
+    for dtype in (torch.bfloat16, torch.float32):
+        for rows in (MN_ROWS, B * H * W):
+            gates = _randn(torch, rows, 4 * MN_HIDDEN, seed=50, scale=2.0).to(dtype)
+            c = _randn(torch, rows, MN_HIDDEN, seed=51).to(dtype)
+            # the library call: ATen's fused LSTM cell, its gate columns permuted
+            # once outside the timing, its second gate input zero (it also
+            # writes a (N, 4C) workspace), held to K3's plain version first
+            aten = torch.ops.aten._thnn_fused_lstm_cell(
+                G.to_aten_order(gates), torch.zeros_like(gates), c)[:2]
+            tol = TOL_K34_BF16 if dtype == torch.bfloat16 else TOL_K34_F32
+            err = max(_max_err(torch, a, b, tol, "aten._thnn_fused_lstm_cell")
+                      for a, b in zip(aten, G.fused_lstm_gates_ref(gates, c)))
+            # device time (profiler); back to back: the bare launch, the launch
+            # through the op satflow::fused_lstm_gates that the path calls, ATen's
+            # cell and the plain version, in turns (microseconds)
+            t = k3_times(torch, G, gates, c, K3_CALLS, 5)
+            # ~30 f32 operations per state element: three sigmoids, two tanh, the sums
+            bound = bound_ms((gates, c, c, c), 30 * c.numel(), "f32")
+            print(f"time per K3 call, {str(dtype)[6:]} ({rows}, {4 * MN_HIDDEN}): device "
+                  f"{t['device']:.2f} us (profiler; {100 * bound[0] * 1e3 / t['device']:.1f} % of "
+                  f"the {bound[0] * 1e3:.2f} us bound by {bound[1]}); {K3_CALLS} calls back to "
+                  f"back, the median of 10 windows (the least, and the host's loop's median, in "
+                  f"brackets): bare launch {t['kernel']:.2f} us ({t['kernel_min']:.2f}; "
+                  f"{t['kernel_host']:.2f}), through the op {t['op']:.2f} us ({t['op_min']:.2f}; "
+                  f"{t['op_host']:.2f}), aten._thnn_fused_lstm_cell {t['library']:.2f} us "
+                  f"({t['library_min']:.2f}; {t['library_host']:.2f}; device "
+                  f"{t['library_device']:.2f}; max|diff| vs plain {err:.3g}), plain "
+                  f"{t['plain']:.2f} us; by the medians K3 through the op "
+                  f"{'is no slower than' if t['op'] <= t['library'] else 'is SLOWER than'} "
+                  f"ATen's cell [{card}]", flush=True)
+            if dtype == torch.bfloat16 and rows == MN_ROWS:
+                # the kernels line: per call as every kernel is timed, ATen's
+                # cell on gates permuted once outside the timing
+                aten_gates, zeros = G.to_aten_order(gates), torch.zeros_like(gates)
+                k3 = per_call_ms(torch, G._launch, G.fused_lstm_gates_ref, (gates, c),
+                                 library=lambda _, c_: torch.ops.aten._thnn_fused_lstm_cell(
+                                     aten_gates, zeros, c_)[:2])
+                k3["bound"] = bound
+                print(f"time per K3 call, bf16 ({rows}, {4 * MN_HIDDEN}), the mean of four "
+                      f"20-call windows: kernel {k3['kernel'] * 1e3:.2f} us, plain "
+                      f"{k3['plain'] * 1e3:.2f} us, aten._thnn_fused_lstm_cell "
+                      f"{k3['library'] * 1e3:.2f} us [{card}]", flush=True)
+                del aten_gates, zeros
+            del gates, c, aten
 
     def sdpa(q, k, v):
         return torch.nn.functional.scaled_dot_product_attention(q[:, None], k[:, None],
                                                                 v[:, None])[:, 0]
 
-    print(f"time per K3 call, bf16 ({MN_ROWS}, {4 * MN_HIDDEN}): kernel {k3['kernel'] * 1e3:.2f} us "
-          f"({k3_bytes / k3['kernel'] / 1e6:.0f} GB/s; {k3_op * 1e3:.2f} us through the op "
-          f"satflow::fused_lstm_gates), plain {k3['plain'] * 1e3:.2f} us, library "
-          f"(aten._thnn_fused_lstm_cell, max|diff| vs plain {err:.3g}) "
-          f"{k3['library'] * 1e3:.2f} us; bound "
-          f"{k3['bound'][0] * 1e3:.2f} us by {k3['bound'][1]} [{card}]", flush=True)
     k4 = {}
     for shape in K4_SHAPES:
         q, k, v = (_randn(torch, *shape, seed=60 + i).to(torch.bfloat16) for i in range(3))
@@ -1321,7 +1400,7 @@ def metnet_timings(torch, model, card):
 
     x = torch.from_numpy(np.random.default_rng(4).random((B, T, H, W, MN_CIN), dtype=np.float32))
     x = x.to(DEVICE, torch.bfloat16)
-    plain = dict(gate_tail=fused_lstm_gates_ref, attention=axial_attention_ref)
+    plain = dict(gate_tail=G.fused_lstm_gates_ref, attention=axial_attention_ref)
     runs = {"plain": [], "kernel": []}
     with torch.inference_mode():
         for kw in ({}, plain):
@@ -2643,8 +2722,10 @@ def cells_path(torch, card):
                                        forecast_steps=STEPS, cell_impl=impl)
         session = InferenceSession(model, max_batch=B, variables=cell_flax_params(impl),
                                    dtype=torch.bfloat16, device=DEVICE)
+        reset_k3_paths(fused_lstm_gates)
         replies, wall, forwards, (k3, k1) = drive_server(session, requests,
                                                          [fused_lstm_gates, fused_convlstm_step])
+        check_k3_paths(fused_lstm_gates, k3, f"{impl} serving")
         check_frames(requests, replies, f"{impl} serving")
         if forwards < 1 or (k3, k1) != (K3_PER_FORWARD * forwards, 0):
             fail(f"{impl} serving launched K3 {k3} and K1 {k1} times in {forwards} forwards, "
@@ -2658,7 +2739,7 @@ def cells_path(torch, card):
                  f"> {TOL_ROLLOUT}")
         print(f"cell_impl={impl} served {len(requests)} requests (6 samples) in {forwards} "
               f"forward(s) of b{B}, {wall:.3f} s wall; launches K3 {k3} = {K3_PER_FORWARD} x "
-              f"{forwards}, K1 {k1}; reply vs the same forward through K3's plain version "
+              f"{forwards} (all on its vector kernel), K1 {k1}; reply vs the same forward through K3's plain version "
               f"max|diff| {diff:.3g} <= {TOL_ROLLOUT} ok [{card}]", flush=True)
         served[impl], models[impl] = k3, model
         del session
@@ -2677,7 +2758,7 @@ def cells_path(torch, card):
     return served, t_k3, models, train_model, trainer, batch
 
 
-CELL_CLASSES = {"K3": ("fused_lstm_gates_kernel",), "library convs": LIBRARY_CONVS,
+CELL_CLASSES = {"K3": K3_KERNELS, "library convs": LIBRARY_CONVS,
                 "optimizer": OPTIMIZER}
 HALO_CLASSES = {"K1h": ("fused_convlstm_step_halo_kernel",),
                 "halo gathers (cat / stack copies)": ("catarray",),
@@ -3898,7 +3979,8 @@ import numpy as np
 import torch
 import satflow_tpu_torch.ops
 from satflow_tpu_torch.ops.axial_attention import axial_attention
-from satflow_tpu_torch.ops.fused_convlstm_step import fused_convlstm_step
+from satflow_tpu_torch.ops.cmajor_convlstm import cmajor_conv3x3, cmajor_convlstm_step
+from satflow_tpu_torch.ops.fused_convlstm_step import fused_convlstm_step, fused_convlstm_step_halo
 from satflow_tpu_torch.ops.fused_lstm import fused_lstm_gates
 path, x_path, y_path = sys.argv[1:4]
 t0 = time.perf_counter()
@@ -3910,7 +3992,8 @@ with open(path, "rb") as f:
 load_s = time.perf_counter() - t0
 x = torch.from_numpy(np.load(x_path)).to(meta["platforms"][0])
 with torch.no_grad():
-    counters = (fused_convlstm_step, fused_lstm_gates, axial_attention)
+    counters = (fused_convlstm_step, fused_convlstm_step_halo, fused_lstm_gates, axial_attention,
+                cmajor_convlstm_step, cmajor_conv3x3)
     for c in counters:
         c.launches = 0
     y = fn(x)
@@ -3924,57 +4007,76 @@ print(json.dumps({"load_s": load_s, "launches": launches, "bad": bad}))
 
 
 def export_slice(torch, card):
-    """Phase 28c; returns the (K1, K3, K4) launches of the phase (the
-    sessions' forwards here and the exported programs' calls there)."""
+    """Phase 28c; returns the (K1, K1h, K3, K4, K6a, K6b) launches of the
+    phase (the sessions' forwards here and the exported programs' calls
+    there). The halo model is served and exported under
+    ``SATFLOW_STEP_VARIANT=halo`` and its program loaded without it."""
     import tempfile
 
     from satflow_tpu_torch.interop.jax_weights import params_from_flax
     from satflow_tpu_torch.models.conv_lstm import EncoderDecoderConvLSTM
     from satflow_tpu_torch.ops.axial_attention import axial_attention
-    from satflow_tpu_torch.ops.fused_convlstm_step import fused_convlstm_step
+    from satflow_tpu_torch.ops.cmajor_convlstm import cmajor_conv3x3, cmajor_convlstm_step
+    from satflow_tpu_torch.ops.fused_convlstm_step import (
+        fused_convlstm_step,
+        fused_convlstm_step_halo,
+    )
     from satflow_tpu_torch.ops.fused_lstm import fused_lstm_gates
     from satflow_tpu_torch.serve import InferenceSession
     from satflow_tpu_torch.serve.export import export_model
 
-    counters = (fused_convlstm_step, fused_lstm_gates, axial_attention)
+    counters = (fused_convlstm_step, fused_convlstm_step_halo, fused_lstm_gates, axial_attention,
+                cmajor_convlstm_step, cmajor_conv3x3)
+
+    def convlstm(**kw):
+        return lambda: (EncoderDecoderConvLSTM(hidden_dim=HIDDEN, input_channels=CIN,
+                                               out_channels=COUT, forecast_steps=STEPS, **kw),
+                        dict(state_dict=params_from_flax(flax_params(0))))
+
+    k1h_k6 = CMAJOR_LAUNCHES_PER_FORWARD
+    # (name, model and weights, input channels, the launches of a call, the step variant)
     cases = (
-        ("convlstm", lambda: (EncoderDecoderConvLSTM(hidden_dim=HIDDEN, input_channels=CIN,
-                                                     out_channels=COUT, forecast_steps=STEPS),
-                              dict(state_dict=params_from_flax(flax_params(0)))),
-         CIN, (LAUNCHES_PER_FORWARD, 0, 0)),
+        ("convlstm", convlstm(), CIN, (LAUNCHES_PER_FORWARD, 0, 0, 0, 0, 0), "3pass"),
+        ("convlstm_halo", convlstm(), CIN, (0, LAUNCHES_PER_FORWARD, 0, 0, 0, 0), "halo"),
+        ("convlstm_cmajor", convlstm(cell_impl="cmajor"), CIN,
+         (k1h_k6[0], 0, 0, 0, k1h_k6[1], k1h_k6[2]), "3pass"),
         ("metnet", lambda: (_metnet(torch),
                             dict(variables=metnet_flax_variables(4 * MN_CIN + MN_F))),
-         MN_CIN, (0, MN_K3_PER_FORWARD, MN_K4_PER_FORWARD)),
+         MN_CIN, (0, 0, MN_K3_PER_FORWARD, MN_K4_PER_FORWARD, 0, 0), "3pass"),
         ("unet", lambda: (lambda m: (m, dict(variables=zoo_flax_variables(m, 0))))(
-            zoo_model(torch, "unet", "unet")), CIN, (0, 0, 0)),
+            zoo_model(torch, "unet", "unet")), CIN, (0, 0, 0, 0, 0, 0), "3pass"),
     )
     repo = os.path.dirname(os.path.abspath(__file__))
-    totals = [0, 0, 0]
+    totals = [0] * len(counters)
     with tempfile.TemporaryDirectory() as tmp:
         exported = []
-        for name, build, cin, want_launches in cases:
+        for name, build, cin, want_launches, variant in cases:
             model, weights = build()
             session = InferenceSession(model, max_batch=B, dtype=torch.bfloat16, device=DEVICE,
                                        **weights)
             x = np.random.default_rng(13).random((B, T, H, W, cin), dtype=np.float32)
             for c in counters:
                 c.launches = 0
-            want = session.predict(x)
-            totals = [a + c.launches for a, c in zip(totals, counters)]
-            path, x_path = os.path.join(tmp, f"{name}.pt2"), os.path.join(tmp, f"{name}_x.npy")
-            t0 = time.perf_counter()
-            meta = export_model(session, None, path, batch=B, history=T, size=H,
-                                channels=cin)  # in the session's bf16
-            export_s = time.perf_counter() - t0
+            with step_variant(variant):
+                want = session.predict(x)
+                totals = [a + c.launches for a, c in zip(totals, counters)]
+                path = os.path.join(tmp, f"{name}.pt2")
+                x_path = os.path.join(tmp, f"{name}_x.npy")
+                t0 = time.perf_counter()
+                meta = export_model(session, None, path, batch=B, history=T, size=H,
+                                    channels=cin)  # in the session's bf16
+                export_s = time.perf_counter() - t0
             np.save(x_path, x)
             exported.append((name, path, x_path, want, meta, export_s, want_launches))
             del session, model
             torch.cuda.empty_cache()
-        # each artifact loaded in a fresh process of its own, the three at once
+        # each artifact loaded in a fresh process of its own, all at once, with
+        # no step variant set
+        env = {k: v for k, v in os.environ.items() if k != "SATFLOW_STEP_VARIANT"}
         procs = [subprocess.Popen([sys.executable, "-c", EXPORT_LOADER, path, x_path,
                                    os.path.join(tmp, f"{name}_y.npy")],
                                   stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                                  env={**os.environ, "PYTHONPATH": repo})
+                                  env={**env, "PYTHONPATH": repo})
                  for name, path, x_path, *_ in exported]
         outs = [proc.communicate(timeout=600) + (proc.returncode,) for proc in procs]
         for (name, path, _, want, meta, export_s, want_launches), (stdout, stderr, rc) in zip(
@@ -3987,8 +4089,8 @@ def export_slice(torch, card):
             if res["bad"]:
                 fail(f"loading the exported {name} imported {res['bad'][:8]}")
             if tuple(res["launches"]) != want_launches:
-                fail(f"exported {name}: (K1, K3, K4) launches a call {res['launches']}, "
-                     f"expected {want_launches}")
+                fail(f"exported {name}: (K1, K1h, K3, K4, K6a, K6b) launches a call "
+                     f"{res['launches']}, expected {want_launches}")
             if got.shape != want.shape or list(got.shape) != meta["out_shape"]:
                 fail(f"exported {name}: reply {got.shape}, session {want.shape}, "
                      f"meta {meta['out_shape']}")
@@ -3998,9 +4100,10 @@ def export_slice(torch, card):
                      f"{scale:.3g}")
             print(f"exported {name} (b{B}, bf16 on f32 weights): {os.path.getsize(path)} bytes, "
                   f"export {export_s:.2f} s; a fresh process importing torch and "
-                  f"satflow_tpu_torch.ops only (three at once) loads it in {res['load_s']:.3f} s "
-                  f"(torch.export's own imports included), and its call launches (K1, K3, K4) "
-                  f"{tuple(res['launches'])}; reply vs the session: max|diff| {err:.3g} "
+                  f"satflow_tpu_torch.ops only ({len(exported)} at once) loads it in "
+                  f"{res['load_s']:.3f} s (torch.export's own imports included), and its call "
+                  f"launches (K1, K1h, K3, K4, K6a, K6b) {tuple(res['launches'])}; reply vs the "
+                  f"session: max|diff| {err:.3g} "
                   f"({'bit-equal' if err == 0 else f'<= {TOL_EXPORT} x {scale:.3g}'}) [{card}]",
                   flush=True)
     return tuple(totals)
@@ -5400,8 +5503,8 @@ def main() -> None:
     phase_done("phase 28a (the zoo served)")
     zoo_train_slice(torch, card)
     phase_done("phase 28b (the zoo trained, experiment=unet_simple)")
-    exp_k1, exp_k3, exp_k4 = export_slice(torch, card)
-    phase_done("phase 28c (export of the ConvLSTM, MetNet, UNet)")
+    exp_k1, exp_k1h, exp_k3, exp_k4, exp_k6a, exp_k6b = export_slice(torch, card)
+    phase_done("phase 28c (export of the fused, halo and cmajor ConvLSTM, MetNet, UNet)")
     ex_k3, ex_k4 = example_slice(torch, card)
     phase_done("phase 28d (examples/metnet_example.py)")
     # phase 28e: the Perceiver family (counts set to 0 inside; it launches none)
@@ -5447,7 +5550,7 @@ def main() -> None:
                + gate_k1 + life_k1 + exp_k1 + gan_k1 + par["K1"] + qt_k1, k1_err, per_call[HIDDEN]),
         kernel("fused_convlstm_step_halo", "fused_convlstm_step_halo.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_step.py:266",
-               halo_serve + halo_train_k1h, k1h_err, study["K1h"]),
+               halo_serve + halo_train_k1h + exp_k1h, k1h_err, study["K1h"]),
         kernel("gate_bwd", "fused_convlstm_step_bwd.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_step.py:833",
                train_k2 + halo_train_k2 + widths_k2 + padded_k2 + gate_k2 + life_k2 + gan_k2
@@ -5472,10 +5575,11 @@ def main() -> None:
         kernel("cmajor_convlstm_step", "cmajor_convlstm.cu",
                "satflow_tpu/ops/pallas/cmajor_convlstm.py:232",
                # + the hidden-32 path and the cmajor study's yardstick
-               serve_k6a + cm32_k6a + st_k6a, k6a_err, serving["K6a"]),
+               serve_k6a + cm32_k6a + st_k6a + exp_k6a, k6a_err, serving["K6a"]),
         kernel("cmajor_conv3x3", "cmajor_convlstm.cu",
                "satflow_tpu/ops/pallas/cmajor_convlstm.py:257",
-               serve_k6b + cm32_k6b, k6b_err, serving["K6b"], library=serving["K6b"]["library"]),
+               serve_k6b + cm32_k6b + exp_k6b, k6b_err, serving["K6b"],
+               library=serving["K6b"]["library"]),
         # K1 once more, in the W-padded layout of the TPU kernel it replaces: the
         # tap9 study tool's yardstick
         kernel("step_padded", "exp_tap9.cu",

@@ -30,6 +30,10 @@ a configuration runs. K6a is built for the hidden widths
 next one that is, exactly as the NHWC step pads it, and the outputs sliced
 back; K6b takes Cin <= 128 and Cout <= 16. A CUDA tensor outside that is
 refused.
+
+K6a and K6b are the dispatcher ops ``satflow::cmajor_convlstm_step`` and
+``satflow::cmajor_conv3x3``, so that ``torch.export`` records a
+channel-major decoder and an exported program runs the two kernels.
 """
 
 from __future__ import annotations
@@ -202,10 +206,10 @@ def build() -> None:
     _build.load(_SOURCE)
 
 
-def _step(x, h, c, wx, wh, b, height, width) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K6a without autograd: the plain version for CPU tensors, else the kernel."""
-    if all(t.device.type == "cpu" for t in (x, h, c, wx, wh, b)):
-        return cmajor_convlstm_step_ref(x, h, c, wx, wh, b, height, width)
+def _launch_cell(x, h, c, wx, wh, b, height, width) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6a on CUDA tensors: the checks, then the launch (a hidden width it is
+    not built for zero-padded, the outputs sliced back), counted in
+    ``cmajor_convlstm_step.launches``."""
     _check_cell(x, h, c, wx, wh, b, height, width)
     ch = h.shape[1]
     if ch not in CELL_HIDDEN_WIDTHS:  # the NHWC step's padding, on the channel axis
@@ -228,10 +232,9 @@ def _step(x, h, c, wx, wh, b, height, width) -> Tuple[torch.Tensor, torch.Tensor
     return h_out, c_out
 
 
-def _conv(x, w, b, height, width) -> torch.Tensor:
-    """K6b without autograd: the plain version for CPU tensors, else the kernel."""
-    if all(t.device.type == "cpu" for t in (x, w, b)):
-        return cmajor_conv3x3_ref(x, w, b, height, width)
+def _launch_conv(x, w, b, height, width) -> torch.Tensor:
+    """K6b on CUDA tensors: the checks, then the launch, counted in
+    ``cmajor_conv3x3.launches``."""
     _check_conv(x, w, b, height, width)
     lib = _library()
     out = torch.empty(x.shape[0], w.shape[3], x.shape[2], dtype=x.dtype, device=x.device)
@@ -243,6 +246,52 @@ def _conv(x, w, b, height, width) -> torch.Tensor:
     _build.raise_on(err, lib, "cmajor_conv3x3")
     cmajor_conv3x3.launches += 1
     return out
+
+
+# K6a and K6b as the dispatcher ops ``satflow::cmajor_convlstm_step`` and
+# ``satflow::cmajor_conv3x3``, so that torch.export records them and an
+# exported program runs them (with satflow_tpu_torch.ops imported): the
+# launch for CUDA tensors, the plain version for CPU ones, no autograd of
+# their own (CMajorConvLSTMStep and CMajorConv3x3 wrap them).
+_LIB = torch.library.Library("satflow", "FRAGMENT")
+_LIB.define("cmajor_convlstm_step(Tensor x, Tensor h, Tensor c, Tensor wx, Tensor wh, "
+            "Tensor b, int height, int width) -> (Tensor, Tensor)")
+_LIB.define("cmajor_conv3x3(Tensor x, Tensor w, Tensor b, int height, int width) -> Tensor")
+# (each looked up when called, so that the module's names can be patched)
+_LIB.impl("cmajor_convlstm_step", lambda *a: _launch_cell(*a), "CUDA")
+_LIB.impl("cmajor_convlstm_step", lambda *a: cmajor_convlstm_step_ref(*a), "CPU")
+_LIB.impl("cmajor_conv3x3", lambda *a: _launch_conv(*a), "CUDA")
+_LIB.impl("cmajor_conv3x3", lambda *a: cmajor_conv3x3_ref(*a), "CPU")
+
+
+@torch.library.register_fake("satflow::cmajor_convlstm_step", lib=_LIB)
+def _cell_fake(x, h, c, wx, wh, b, height, width):
+    """h' and c' of the unpadded hidden width, channel-major, in x's dtype."""
+    return x.new_empty(h.shape), x.new_empty(c.shape)
+
+
+@torch.library.register_fake("satflow::cmajor_conv3x3", lib=_LIB)
+def _conv_fake(x, w, b, height, width):
+    """(B, Cout, H·W) in x's dtype."""
+    return x.new_empty(x.shape[0], w.shape[3], x.shape[2])
+
+
+def _step(x, h, c, wx, wh, b, height, width) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6a's op without autograd: the plain version for CPU tensors, else the
+    kernel. Tensors on another device take the kernel's checks here, which
+    refuse them."""
+    args = (x, h, c, wx, wh, b)
+    if any(t.device.type not in ("cpu", "cuda") for t in args):
+        _check_cell(*args, height, width)
+    return torch.ops.satflow.cmajor_convlstm_step.default(*args, height, width)
+
+
+def _conv(x, w, b, height, width) -> torch.Tensor:
+    """K6b's op without autograd: the plain version for CPU tensors, else the
+    kernel. Tensors on another device take the kernel's checks here."""
+    if any(t.device.type not in ("cpu", "cuda") for t in (x, w, b)):
+        _check_conv(x, w, b, height, width)
+    return torch.ops.satflow.cmajor_conv3x3.default(x, w, b, height, width)
 
 
 class CMajorConvLSTMStep(torch.autograd.Function):

@@ -51,6 +51,11 @@ in bfloat16) and K1's width rule and padding. As in the JAX dispatcher the envir
 variable ``SATFLOW_STEP_VARIANT``, read at call time, chooses the forward of
 :func:`fused_convlstm_step`: unset or ``3pass`` is K1, ``halo`` is K1h, any
 other value raises. The backward is K2 whatever the variant.
+
+K1 and K1h are the dispatcher ops ``satflow::fused_convlstm_step`` and
+``satflow::fused_convlstm_step_halo`` (K1h's with its two gathers inside),
+so that ``torch.export`` records whichever the variable chose when the
+program was traced, and the program runs that kernel when it is loaded.
 """
 
 from __future__ import annotations
@@ -349,7 +354,8 @@ def _launch_step(counter, x, h, c, wx, wh, b, halo: bool) -> Tuple[torch.Tensor,
 
 def fused_convlstm_step_halo(x, h, c, wx, wh, b, block_h: int = HALO_BLOCK_H
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1h: one ConvLSTM step through the halo-tensor variant, without autograd.
+    """K1h: one ConvLSTM step through the halo-tensor variant, without autograd,
+    as the dispatcher op ``satflow::fused_convlstm_step_halo``.
 
     CPU tensors take :func:`fused_convlstm_step_halo_ref`; CUDA tensors of the
     widths in :func:`kernel_takes` gather the two side tensors with
@@ -357,9 +363,23 @@ def fused_convlstm_step_halo(x, h, c, wx, wh, b, block_h: int = HALO_BLOCK_H
     width it is not built for zero-padded to the next one that is, as K1),
     counted in ``fused_convlstm_step_halo.launches``. A geometry the kernel
     does not take (H % block_h != 0, block_h != 8) or any other width raises.
+    Tensors on another device (meta ones stand in for a card in the tests)
+    take the kernel's checks here, which refuse them.
     """
-    if all(t.device.type == "cpu" for t in (x, h, c, wx, wh, b)):
-        return fused_convlstm_step_halo_ref(x, h, c, wx, wh, b, block_h)
+    args = (x, h, c, wx, wh, b)
+    if any(t.device.type not in ("cpu", "cuda") for t in args):
+        _launch_halo(*args, block_h)
+    return torch.ops.satflow.fused_convlstm_step_halo.default(*args, block_h)
+
+
+fused_convlstm_step_halo.launches = 0
+
+
+def _launch_halo(x, h, c, wx, wh, b, block_h: int = HALO_BLOCK_H
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1h on CUDA tensors: the kernel's geometry and the checks, then the
+    launch with its two :func:`build_halo` gathers, counted in
+    ``fused_convlstm_step_halo.launches``."""
     # the kernel's own geometry first: _check ends with the device type
     if x.dim() == 4 and (block_h != HALO_BLOCK_H or x.shape[1] % block_h):
         raise ValueError(
@@ -367,9 +387,6 @@ def fused_convlstm_step_halo(x, h, c, wx, wh, b, block_h: int = HALO_BLOCK_H
             f"H % block_h == 0, got block_h={block_h}, H={x.shape[1]}")
     _check(x, h, c, wx, wh, b)
     return _launch_step(fused_convlstm_step_halo, x, h, c, wx, wh, b, halo=True)
-
-
-fused_convlstm_step_halo.launches = 0
 
 
 def _launch(x, h, c, wx, wh, b) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -380,22 +397,33 @@ def _launch(x, h, c, wx, wh, b) -> Tuple[torch.Tensor, torch.Tensor]:
     return _launch_step(fused_convlstm_step, x, h, c, wx, wh, b, halo=False)
 
 
-# K1 as the dispatcher op ``satflow::fused_convlstm_step``, so that
-# torch.export records it and an exported program runs it (with
-# satflow_tpu_torch.ops imported): the launch for CUDA tensors, the plain
-# version for CPU ones, no autograd of its own (FusedConvLSTMStep wraps it).
+# K1 and K1h as the dispatcher ops ``satflow::fused_convlstm_step`` and
+# ``satflow::fused_convlstm_step_halo``, so that torch.export records them and
+# an exported program runs them (with satflow_tpu_torch.ops imported): the
+# launch for CUDA tensors (K1h's with its two gathers), the plain version for
+# CPU ones, no autograd of their own (FusedConvLSTMStep wraps them).
 _LIB = torch.library.Library("satflow", "FRAGMENT")
 _LIB.define("fused_convlstm_step(Tensor x, Tensor h, Tensor c, Tensor wx, Tensor wh, "
             "Tensor b) -> (Tensor, Tensor)")
 # (each looked up when called, so that the module's names can be patched)
 _LIB.impl("fused_convlstm_step", lambda *a: _launch(*a), "CUDA")
 _LIB.impl("fused_convlstm_step", lambda *a: fused_convlstm_step_ref(*a), "CPU")
+_LIB.define("fused_convlstm_step_halo(Tensor x, Tensor h, Tensor c, Tensor wx, Tensor wh, "
+            "Tensor b, int block_h=8) -> (Tensor, Tensor)")
+_LIB.impl("fused_convlstm_step_halo", lambda *a: _launch_halo(*a), "CUDA")
+_LIB.impl("fused_convlstm_step_halo", lambda *a: fused_convlstm_step_halo_ref(*a), "CPU")
 
 
 @torch.library.register_fake("satflow::fused_convlstm_step", lib=_LIB)
 def _step_fake(x, h, c, wx, wh, b):
     """The shapes the launch returns: h' and c' of the unpadded hidden width,
     in x's dtype."""
+    return x.new_empty(h.shape), x.new_empty(c.shape)
+
+
+@torch.library.register_fake("satflow::fused_convlstm_step_halo", lib=_LIB)
+def _step_halo_fake(x, h, c, wx, wh, b, block_h=HALO_BLOCK_H):
+    """As K1's: h' and c' of the unpadded hidden width, in x's dtype."""
     return x.new_empty(h.shape), x.new_empty(c.shape)
 
 

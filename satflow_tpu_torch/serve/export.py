@@ -9,17 +9,22 @@ here the device type the program was recorded on — and ``forecast_steps``),
 then the ``torch.export.save`` bytes. :func:`load_exported` needs no model
 class, registry or config: the program holds the port's kernels as the
 dispatcher ops ``satflow::fused_convlstm_step`` (K1),
-``satflow::fused_lstm_gates`` (K3) and ``satflow::axial_attention`` (K4),
-which importing :mod:`satflow_tpu_torch.ops` registers (the counterpart of
-the JAX artifact's Mosaic custom calls). The zoo's convs, pools and resizes
-are aten ops.
+``satflow::fused_convlstm_step_halo`` (K1h), ``satflow::fused_lstm_gates``
+(K3), ``satflow::axial_attention`` (K4), ``satflow::cmajor_convlstm_step``
+(K6a) and ``satflow::cmajor_conv3x3`` (K6b), which importing
+:mod:`satflow_tpu_torch.ops` registers (the counterpart of the JAX artifact's
+Mosaic custom calls). The zoo's convs, pools and resizes are aten ops.
+
+The step variant is fixed at export time too: a fused ConvLSTM traced under
+``SATFLOW_STEP_VARIANT=halo`` records the halo op, and its program runs K1h
+(with its two gathers) whatever the variable says when it is loaded; traced
+without it, the program runs K1. A ``cell_impl="cmajor"`` model records its
+channel-major decoder (K6a, K6b) where its geometry takes that decoder.
 
 Like ``InferenceSession``, the batch dimension is FIXED at export time: pad
-requests to ``batch``. A model whose forward runs a kernel that has no
-dispatcher op yet raises ``NotImplementedError`` (ROADMAP queue 1 item 8):
-the halo step K1h (``SATFLOW_STEP_VARIANT=halo``), the channel-major decoder
-K6a / K6b (``cell_impl="cmajor"``) and the int8 step K5 (``quantize="int8"``
-sessions).
+requests to ``batch``. An int8 session (``quantize="int8"``) is refused, as
+the JAX ``export_model`` has no int8 export: such a session serves its int8
+rollout, not its model's forward.
 
 CLI:
     python -m satflow_tpu_torch.serve.export local:<ckpt_dir> model.pt2 \\
@@ -52,20 +57,12 @@ class _Forward(torch.nn.Module):
         return self.model(x.to(self.dtype or torch.float32)).to(self.out_dtype)
 
 
-def _refuse_unexportable(model, size: int, quantize: Optional[str]) -> None:
-    from satflow_tpu_torch.ops.fused_convlstm_step import step_variant
-
-    why = None
+def _refuse_unexportable(quantize: Optional[str]) -> None:
     if quantize:
-        why = "the int8 step (K5)"
-    elif step_variant() == "halo" and getattr(getattr(model, "module", None), "is_fused", False):
-        why = "the halo step (K1h, SATFLOW_STEP_VARIANT=halo)"
-    elif getattr(getattr(model, "module", None), "runs_cmajor", lambda h, w: False)(size, size):
-        why = "the channel-major decoder (K6a, K6b, cell_impl='cmajor')"
-    if why:
         raise NotImplementedError(
-            f"export of a model that runs {why} is not ported yet: its kernels have no "
-            "dispatcher op (ROADMAP queue 1 item 8)")
+            f"export of a quantize={quantize!r} session is not supported: the JAX "
+            "export_model has no int8 export (the session serves its int8 rollout, not "
+            "its model's forward)")
 
 
 def export_model(
@@ -87,7 +84,8 @@ def export_model(
     ``model`` is a task model or an ``InferenceSession``. A session's model is
     recorded, in the session's ``dtype`` and ``out_dtype`` where those
     arguments are None; a ``quantize="int8"`` session raises (its rollout,
-    not its model's forward, is what it serves).
+    not its model's forward, is what it serves; the JAX ``export_model`` has
+    no int8 export either).
     ``state_dict`` (the core's, as the model's flax converter returns it) is
     loaded first; None keeps the weights the model holds. The input geometry
     defaults come from the model (``history_steps`` / ``input_channels``),
@@ -111,7 +109,7 @@ def export_model(
     history = history or int(getattr(model, "history_steps", 0)) or 7
     channels = channels or int(getattr(model, "input_channels", 12))
     size = size or 256
-    _refuse_unexportable(model, size, quantize)
+    _refuse_unexportable(quantize)
     if state_dict is not None:
         model.module.load_state_dict(state_dict)
     if device is not None:

@@ -3,9 +3,12 @@ then a ``torch.export`` program) from the ConvLSTM, MetNet and the zoo,
 loaded without any model module, against the ``InferenceSession`` reply on
 the same input (the same ops on the same weights: bit-equal on the CPU);
 the CLI from a ``local:`` checkpoint, mirroring ``tests/test_serve.py``'s
-StableHLO tests; the refusals; and the kernels' dispatcher ops (K1, K3, K4)
-checked by ``torch.library.opcheck``: their fake implementations against
-the real outputs, on the CPU, where the op runs the plain version."""
+StableHLO tests; the refusals; and the kernels' dispatcher ops (K1, K1h, K3,
+K4, K6a, K6b) checked by ``torch.library.opcheck``: their fake
+implementations against the real outputs, on the CPU, where the op runs the
+plain version. The halo step is exported under ``SATFLOW_STEP_VARIANT=halo``
+and its program called without it (it runs the recorded op); the
+channel-major decoder at W = 128, the least width it runs at."""
 
 import os
 import subprocess
@@ -26,6 +29,12 @@ B, T, H, W, C, STEPS = 2, 3, 16, 16, 2, 3
 MODELS = {
     "convlstm": ("encoderdecoderconvlstm", dict(hidden_dim=8, out_channels=C), 16,
                  {"satflow.fused_convlstm_step.default"}),
+    "convlstm_halo": ("encoderdecoderconvlstm", dict(hidden_dim=8, out_channels=C), 16,
+                      {"satflow.fused_convlstm_step_halo.default"}),
+    "convlstm_cmajor": ("encoderdecoderconvlstm",
+                        dict(hidden_dim=8, out_channels=C, cell_impl="cmajor"), 128,
+                        {"satflow.fused_convlstm_step.default",
+                         "satflow.cmajor_convlstm_step.default", "satflow.cmajor_conv3x3.default"}),
     "convlstm_concat": ("encoderdecoderconvlstm",
                         dict(hidden_dim=8, out_channels=C, cell_impl="concat"), 16,
                         {"satflow.fused_lstm_gates.default"}),
@@ -64,16 +73,20 @@ def _small_backbone(monkeypatch):
 
 
 @pytest.mark.parametrize("key", list(MODELS))
-def test_export_roundtrip_matches_the_session(tmp_path, key):
+def test_export_roundtrip_matches_the_session(tmp_path, monkeypatch, key):
     """The artifact's reply equals the session's on the same weights and
     input, bit for bit; the metadata holds the JAX keys; the program holds
     the kernels' ops (none for the zoo); a wrong shape and a bad magic raise
-    the JAX package's errors."""
+    the JAX package's errors. The halo model is served and exported under
+    ``SATFLOW_STEP_VARIANT=halo`` and its program called without it."""
+    if key == "convlstm_halo":
+        monkeypatch.setenv("SATFLOW_STEP_VARIANT", "halo")
     model, x = _model(key)
     want = InferenceSession(model, max_batch=B, state_dict=model.module.state_dict(),
                             device="cpu").predict(x)
     path = str(tmp_path / "model.pt2")
     meta = export_model(model, None, path, batch=B, history=T, size=x.shape[2], channels=C)
+    monkeypatch.delenv("SATFLOW_STEP_VARIANT", raising=False)
     assert set(meta) == {"model", "in_shape", "out_shape", "platforms", "forecast_steps"}
     assert meta["in_shape"] == list(x.shape) and meta["out_shape"] == list(want.shape)
     assert meta["platforms"] == ["cpu"] and meta["forecast_steps"] == STEPS
@@ -140,9 +153,9 @@ def test_export_cli_from_checkpoint(tmp_path):
 
 def test_export_cli_refusals(tmp_path, monkeypatch):
     """The CLI refuses a GAN model (as the JAX one) and a model without
-    restored weights; ``export_model`` refuses the paths whose kernels have no
-    dispatcher op yet (the halo step, the channel-major decoder, int8),
-    naming ROADMAP item 8."""
+    restored weights; ``export_model`` refuses an int8 session only (the JAX
+    ``export_model`` has no int8 export), and exports the halo step and the
+    channel-major decoder, which it refused before they had dispatcher ops."""
     import satflow_tpu_torch.core.registry as reg
 
     class Gan:
@@ -158,38 +171,46 @@ def test_export_cli_refusals(tmp_path, monkeypatch):
     monkeypatch.undo()
 
     model, x = _model("convlstm")
-    kw = dict(batch=B, history=T, size=H, channels=C)
+    kw = dict(batch=1, history=1, channels=C)
     monkeypatch.setenv("SATFLOW_STEP_VARIANT", "halo")
-    with pytest.raises(NotImplementedError, match="halo step .* item 8"):
-        export_model(model, None, str(tmp_path / "h.pt2"), **kw)
+    meta = export_model(model, None, str(tmp_path / "h.pt2"), size=8, **kw)  # H % 8 == 0
     monkeypatch.delenv("SATFLOW_STEP_VARIANT")
+    assert meta["in_shape"] == [1, 1, 8, 8, C]
+    assert _ops(load_exported(str(tmp_path / "h.pt2")).program) == {
+        "satflow.fused_convlstm_step_halo.default"}
     cm = registry.create_model("encoderdecoderconvlstm", input_channels=C, out_channels=C,
-                               forecast_steps=STEPS, hidden_dim=8, cell_impl="cmajor")
-    with pytest.raises(NotImplementedError, match="channel-major decoder .* item 8"):
-        export_model(cm, None, str(tmp_path / "c.pt2"), **dict(kw, size=128))  # W % 128 == 0
+                               forecast_steps=1, hidden_dim=8, cell_impl="cmajor")
+    meta = export_model(cm, None, str(tmp_path / "c.pt2"), size=128, **kw)  # W % 128 == 0
+    assert meta["out_shape"] == [1, 1, 128, 128, C]
+    assert {"satflow.cmajor_convlstm_step.default", "satflow.cmajor_conv3x3.default"} <= _ops(
+        load_exported(str(tmp_path / "c.pt2")).program)
     # an int8 session serves its rollout, not its model's forward: passed
     # itself, it is refused (its model alone is the float32 model it was built from)
     session = InferenceSession(model, max_batch=B, state_dict=model.module.state_dict(),
                                quantize="int8", device="cpu")
-    with pytest.raises(NotImplementedError, match="int8 step .* item 8"):
-        export_model(session, None, str(tmp_path / "q.pt2"), **kw)
+    with pytest.raises(NotImplementedError, match="JAX export_model has no int8 export"):
+        export_model(session, None, str(tmp_path / "q.pt2"), batch=B, history=T, size=H,
+                     channels=C)
 
 
 def test_loading_an_artifact_imports_no_model_module_and_no_jax(tmp_path):
-    """A fresh process that imports ``torch`` and loads the artifact (which
-    imports ``satflow_tpu_torch.ops`` for the kernels' ops) gives the same
-    reply and imports no model, registry or config module, and no jax."""
-    model, x = _model("metnet")
-    path = str(tmp_path / "m.pt2")
-    export_model(model, None, path, batch=B, history=T, size=x.shape[2], channels=C)
-    np.save(tmp_path / "x.npy", x)
-    np.save(tmp_path / "y.npy", load_exported(path)(x))
+    """A fresh process that imports ``torch`` and loads the artifacts of
+    MetNet and of the channel-major ConvLSTM (which import
+    ``satflow_tpu_torch.ops`` for the kernels' ops) gives the same replies and
+    imports no model, registry or config module, and no jax."""
+    paths = []
+    for key in ("metnet", "convlstm_cmajor"):
+        model, x = _model(key)
+        path = str(tmp_path / f"{key}.pt2")
+        export_model(model, None, path, batch=B, history=T, size=x.shape[2], channels=C)
+        np.save(tmp_path / f"{key}_x.npy", x)
+        np.save(tmp_path / f"{key}_y.npy", load_exported(path)(x))
+        paths.append((path, str(tmp_path / f"{key}_x.npy"), str(tmp_path / f"{key}_y.npy")))
     code = (
         "import sys, numpy as np, torch\n"
         "from satflow_tpu_torch.serve.export import load_exported\n"
-        f"art = load_exported({path!r})\n"
-        f"y = art(np.load({str(tmp_path / 'x.npy')!r}))\n"
-        f"assert np.array_equal(y, np.load({str(tmp_path / 'y.npy')!r}))\n"
+        f"for path, x, y in {paths!r}:\n"
+        "    assert np.array_equal(load_exported(path)(np.load(x)), np.load(y)), path\n"
         "mods = sorted(m for m in sys.modules if m.startswith('satflow_tpu_torch.'))\n"
         "bad = [m for m in mods if m.split('.')[1] in ('models', 'core', 'nn', 'train',\n"
         "                                               'experiments', 'interop', 'data')]\n"
@@ -202,6 +223,7 @@ def test_loading_an_artifact_imports_no_model_module_and_no_jax(tmp_path):
                          text=True, env={**os.environ, "PYTHONPATH": REPO}, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "satflow_tpu_torch.ops.fused_lstm" in out.stdout
+    assert "satflow_tpu_torch.ops.cmajor_convlstm" in out.stdout
 
 
 def _ops_args():
@@ -215,12 +237,24 @@ def _ops_args():
         "fused_convlstm_step": [(t(2, 5, 6, 3), t(2, 5, 6, ch), t(2, 5, 6, ch),
                                  t(3, 3, 3, 4 * ch), t(3, 3, ch, 4 * ch), t(4 * ch))
                                 for ch in (8, 12)],
+        # K1h: H a multiple of its 8-row blocks, at a built width and a padded one
+        "fused_convlstm_step_halo": [(t(2, 16, 6, 3), t(2, 16, 6, ch), t(2, 16, 6, ch),
+                                      t(3, 3, 3, 4 * ch), t(3, 3, ch, 4 * ch), t(4 * ch))
+                                     for ch in (8, 12)],
         "fused_lstm_gates": [(t(7, 5, 32), t(7, 5, 8)), (t(3, 16), t(3, 4))],
         "axial_attention": [(t(6, 16, 8), t(6, 16, 8), t(6, 16, 8))],
+        # K6a and K6b on (B, C, H*W) carries of a 5 x 6 image
+        "cmajor_convlstm_step": [(t(2, 3, 30), t(2, ch, 30), t(2, ch, 30), t(3, 3, 3, 4 * ch),
+                                  t(3, 3, ch, 4 * ch), t(4 * ch), 5, 6) for ch in (8, 12)],
+        "cmajor_conv3x3": [(t(2, 8, 30), t(3, 3, 8, 4), t(4), 5, 6)],
     }
 
 
-@pytest.mark.parametrize("op", ["fused_convlstm_step", "fused_lstm_gates", "axial_attention"])
+OPS = ["fused_convlstm_step", "fused_convlstm_step_halo", "fused_lstm_gates", "axial_attention",
+       "cmajor_convlstm_step", "cmajor_conv3x3"]
+
+
+@pytest.mark.parametrize("op", OPS)
 def test_kernel_ops_pass_opcheck(op):
     """``torch.library.opcheck``: the schema, the fake implementation's
     shapes, strides and dtypes against the real (CPU: plain) outputs, and
@@ -228,5 +262,6 @@ def test_kernel_ops_pass_opcheck(op):
     for args in _ops_args()[op]:
         for dtype in (torch.float32, torch.bfloat16):
             torch.library.opcheck(getattr(torch.ops.satflow, op).default,
-                                  tuple(a.to(dtype) for a in args),
+                                  tuple(a.to(dtype) if isinstance(a, torch.Tensor) else a
+                                        for a in args),
                                   test_utils=("test_schema", "test_faketensor"))

@@ -314,6 +314,34 @@ def test_gate_tail_kernel_matches_plain_on_card(dtype, atol, rows, ch):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype, atol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("rows, ch, offset", [(4096, 64, 0), (1001, 12, 0), (513, 65, 0),
+                                              (300, 256, 0), (1001, 3, 0), (4096, 64, 1)])
+def test_gate_tail_takes_the_kernel_its_rule_names_on_card(dtype, atol, rows, ch, offset):
+    """Each of K3's two kernels where ``vector_path`` sends a call (the vector
+    one for C % 8 == 0 in bf16 and C % 4 == 0 in f32 on aligned tensors; the
+    per-element one for other widths and a view one element into its
+    storage), counted on its own path, against the plain version."""
+    _card()
+    flat_g = _randn(rows * 4 * ch + 1, seed=rows, scale=2.0).to(dtype)
+    flat_c = _randn(rows * ch + 1, seed=rows + 1).to(dtype)
+    gates = flat_g[offset:offset + rows * 4 * ch].view(rows, 4 * ch)
+    c = flat_c[offset:offset + rows * ch].view(rows, ch)
+    vector = offset == 0 and ch % G.VECTOR_WIDTH[dtype] == 0
+    assert G.vector_path(gates, c) == vector
+    counts = lambda: (G.fused_lstm_gates.launches, G.fused_lstm_gates.vector_launches,  # noqa: E731
+                      G.fused_lstm_gates.element_launches)
+    before = counts()
+    h_k, c_k = G.fused_lstm_gates(gates, c)
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1] + vector, before[2] + (not vector))
+    h_p, c_p = G.fused_lstm_gates_ref(gates, c)
+    rtol = 0 if dtype == torch.float32 else 2 ** -8
+    torch.testing.assert_close(h_k.float(), h_p.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(c_k.float(), c_p.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.gpu
 def test_gate_tail_function_grads_on_card():
     """FusedLSTMGates (K3 forward, the f32 chain backward) against torch
     autograd of the plain version, float32: atol 1e-5."""
@@ -1349,13 +1377,60 @@ def test_export_fused_convlstm_roundtrip_on_card(tmp_path):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("op", ["fused_convlstm_step", "fused_lstm_gates", "axial_attention"])
+@pytest.mark.parametrize("variant, ops, k1h, k6", [
+    ("halo", {"satflow.fused_convlstm_step_halo.default"}, 2 * 3 + 2 * 4, (0, 0)),
+    ("cmajor", {"satflow.fused_convlstm_step.default", "satflow.cmajor_convlstm_step.default",
+                "satflow.cmajor_conv3x3.default"}, 0, (2 * 4, 4))])
+def test_export_halo_and_cmajor_roundtrip_on_card(tmp_path, monkeypatch, variant, ops, k1h, k6):
+    """The halo step (exported under ``SATFLOW_STEP_VARIANT=halo``, called
+    without it) and the channel-major decoder (at W = 128) exported on the
+    card: the program holds their ops, launches K1h once a cell step or K6a
+    once a decoder step and K6b once a lead time, and replies as the session
+    does, bit for bit."""
+    import numpy as np
+
+    import satflow_tpu_torch.models  # noqa: F401 - populate the registry
+    from satflow_tpu_torch.core.registry import create_model
+    from satflow_tpu_torch.serve.export import export_model, load_exported
+    from satflow_tpu_torch.serve.session import InferenceSession
+
+    _card()
+    size = 128 if variant == "cmajor" else 24
+    if variant == "halo":
+        monkeypatch.setenv("SATFLOW_STEP_VARIANT", "halo")
+    model = create_model("encoderdecoderconvlstm", input_channels=2, out_channels=2,
+                         forecast_steps=4, hidden_dim=16,
+                         generator=torch.Generator().manual_seed(0),
+                         **({"cell_impl": "cmajor"} if variant == "cmajor" else {}))
+    session = InferenceSession(model, max_batch=2, state_dict=model.module.state_dict(),
+                               dtype=torch.bfloat16, device="cuda")
+    x = np.random.default_rng(2).random((2, 3, size, size, 2), dtype=np.float32)
+    want = session.predict(x)
+    path = str(tmp_path / "m.pt2")
+    export_model(session.model, None, path, batch=2, history=3, size=size, channels=2,
+                 dtype=torch.bfloat16)
+    monkeypatch.delenv("SATFLOW_STEP_VARIANT", raising=False)
+    art = load_exported(path)
+    assert {str(n.target) for n in art.program.graph.nodes if n.op == "call_function"
+            and str(n.target).startswith("satflow.")} == ops
+    before = (P.fused_convlstm_step_halo.launches, CM.cmajor_convlstm_step.launches,
+              CM.cmajor_conv3x3.launches)
+    got = art(x)
+    assert (P.fused_convlstm_step_halo.launches - before[0], CM.cmajor_convlstm_step.launches
+            - before[1], CM.cmajor_conv3x3.launches - before[2]) == (k1h, *k6)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["fused_convlstm_step", "fused_convlstm_step_halo",
+                                "fused_lstm_gates", "axial_attention", "cmajor_convlstm_step",
+                                "cmajor_conv3x3"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_kernel_ops_fake_match_real_on_card(op, dtype):
     """``torch.library.opcheck`` on CUDA tensors: the fake implementation's
-    shapes, strides and dtypes against what the kernel returns (K1 also at a
-    hidden width it zero-pads inside the launch, 12, whose fake returns the
-    unpadded shapes)."""
+    shapes, strides and dtypes against what the kernel returns (K1, K1h and
+    K6a also at a hidden width they zero-pad inside the launch, 12, whose
+    fake returns the unpadded shapes)."""
     _card()
     g = torch.Generator(device="cuda").manual_seed(3)
 
@@ -1366,9 +1441,16 @@ def test_kernel_ops_fake_match_real_on_card(op, dtype):
         "fused_convlstm_step": [(t(2, 5, 6, 3), t(2, 5, 6, ch), t(2, 5, 6, ch),
                                  t(3, 3, 3, 4 * ch) * 0.1, t(3, 3, ch, 4 * ch) * 0.1,
                                  t(4 * ch)) for ch in (8, 12)],
+        "fused_convlstm_step_halo": [(t(2, 16, 6, 3), t(2, 16, 6, ch), t(2, 16, 6, ch),
+                                      t(3, 3, 3, 4 * ch) * 0.1, t(3, 3, ch, 4 * ch) * 0.1,
+                                      t(4 * ch)) for ch in (8, 12)],
         "fused_lstm_gates": [(t(7, 5, 32), t(7, 5, 8))],
         "axial_attention": [(t(6, 16, 8), t(6, 16, 8), t(6, 16, 8)),
                             (t(2, 64, 32), t(2, 64, 32), t(2, 64, 32))],
+        "cmajor_convlstm_step": [(t(2, 3, 30), t(2, ch, 30), t(2, ch, 30),
+                                  t(3, 3, 3, 4 * ch) * 0.1, t(3, 3, ch, 4 * ch) * 0.1,
+                                  t(4 * ch), 5, 6) for ch in (8, 12)],
+        "cmajor_conv3x3": [(t(2, 8, 30), t(3, 3, 8, 4) * 0.1, t(4), 5, 6)],
     }[op]
     for args in cases:
         torch.library.opcheck(getattr(torch.ops.satflow, op).default, args,
