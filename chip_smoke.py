@@ -268,7 +268,9 @@ Phases, in order; any failure exits non-zero before the last line:
    three arms (CloudGAN's ConvLSTM generator 64 K1 + 32 K2 a round; DGMR
    with a 2-step fine-tune), ``gan_128`` at ``nowcasting_gan.yaml``'s widths,
    and every ``horizon_gate`` arm (the 48-step ConvLSTM 208 K1 + 104 K2, MetNet
-   4 K3 + 2 K4 a step); every step's launches held, every number finite, the
+   4 K3 + 2 K4 a step); every step's launches held, each trained row's
+   ``kernel_launches`` equal to the K1-K4 launches of its fit (``gan_128``'s
+   fine-tuned row: of the rest of the run), every number finite, the
    rows and their keys those of the JAX study's ``docs/*.json``, each file
    naming the card;
 29. a JSON line of the kernels with each one's bound on this card, and last
@@ -5140,6 +5142,7 @@ def parallel_slice(torch, card):
 # (a LaunchesPerStep on every Trainer the tools build) and held to the
 # rollout's cell steps; the results' row names and keys to the JAX study's
 # artifact (docs/*.json) for the arms run; every number finite.
+KERNEL_IDS = ("K1", "K2", "K3", "K4")  # the keys of a study row's kernel_launches
 QT_BATCHES = {"accuracy_256": 12, "accuracy_gate": 12, "gan_gate": 12, "gan_128": 4,
               "horizon_gate": 2}  # batches (rounds) of the one epoch of each tool
 
@@ -5177,17 +5180,25 @@ def _counted_trainers(torch, counters):
     """Every Trainer the tools build inside gets a LaunchesPerStep of
     ``counters``, and every train step it makes is timed (synchronised,
     host clock; the batch's generation on the host left out); yields the
-    lists of both, one entry a fit."""
+    lists of both and of each fit's launches (validation included), one
+    entry a fit."""
     import satflow_tpu_torch.train as train_pkg
     from satflow_tpu_torch.train import engine
 
-    base, fits, step_ms = train_pkg.Trainer, [], []
+    base, fits, step_ms, fit_launches = train_pkg.Trainer, [], [], []
     makers = {name: getattr(engine, name) for name in ("make_train_step", "make_gan_train_step")}
 
     class Counted(base):
         def __init__(self, *args, callbacks=None, **kwargs):
             fits.append(LaunchesPerStep(*counters))
             super().__init__(*args, callbacks=list(callbacks or []) + [fits[-1]], **kwargs)
+
+        def fit(self, *args, **kwargs):
+            before = [c.launches for c in counters]
+            try:
+                return super().fit(*args, **kwargs)
+            finally:
+                fit_launches.append(tuple(c.launches - b for c, b in zip(counters, before)))
 
     def timed(make):
         def make_timed(*args, **kwargs):
@@ -5208,7 +5219,7 @@ def _counted_trainers(torch, counters):
     for name, make in makers.items():
         setattr(engine, name, timed(make))
     try:
-        yield fits, step_ms
+        yield fits, step_ms, fit_launches
     finally:
         train_pkg.Trainer = base
         for name, make in makers.items():
@@ -5230,13 +5241,16 @@ def quality_tools_slice(torch, card):
     frames = 4  # every study's 15 history minutes
     metnet_step = (0, 0, frames, MN_K4_PER_FORWARD)  # a K3 a history frame; plain backward
 
-    def run(what, want_steps, fn, *args, **kwargs):
+    def run(what, want_steps, fn, *args, trained_rows=(), rest_row=None, **kwargs):
         """``fn`` with its stdout kept (each tool prints its results), each
-        fit's steps held to ``want_steps`` (one (K1, K2, K3, K4) a fit)."""
+        fit's steps held to ``want_steps`` (one (K1, K2, K3, K4) a fit), the
+        ``kernel_launches`` of ``trained_rows`` (one a fit, in order) to the
+        launches the counters saw over that fit, and those of ``rest_row``
+        to the tool's launches outside its fits."""
         for c in counters:
             c.launches = 0
         t0 = time.perf_counter()
-        with _counted_trainers(torch, counters) as (fits, step_ms), \
+        with _counted_trainers(torch, counters) as (fits, step_ms, fit_launches), \
                 contextlib.redirect_stdout(io.StringIO()):
             res = fn(*args, **kwargs)
         torch.cuda.synchronize()
@@ -5250,6 +5264,14 @@ def quality_tools_slice(torch, card):
             if not fit.per_step or any(s != tuple(want) for s in fit.per_step):
                 fail(f"phase 28h {what}: (K1, K2, K3, K4) launches per step {fit.per_step}, "
                      f"expected {tuple(want)} each")
+        checks = list(zip(trained_rows, fit_launches))
+        if rest_row:
+            checks.append((rest_row, tuple(n - sum(f[i] for f in fit_launches)
+                                           for i, n in enumerate(got))))
+        for row, seen in checks:
+            if res[row].get("kernel_launches") != dict(zip(KERNEL_IDS, seen)):
+                fail(f"phase 28h {what}: {row} records kernel_launches "
+                     f"{res[row].get('kernel_launches')}, the counters saw {seen} (K1-K4)")
         _finite_tree(res, what)
         print(f"{what}: {wall:.1f} s wall; " + "; ".join(
             f"{len(f.per_step)} steps of {f.per_step[0]} (median {np.median(ms):.1f} ms, "
@@ -5308,23 +5330,27 @@ def quality_tools_slice(torch, card):
         print("  " + ", ".join(f"{k} MSE {res[k]['mse']:.5f}" for k in (
             "persistence", "optical_flow", "cloudgan", "pix2pix", "dgmr")), flush=True)
 
-        # gan_128: DGMR at nowcasting_gan.yaml's widths, 128², b4, split steps
+        # gan_128: DGMR at nowcasting_gan.yaml's widths, 128², b4, split steps;
+        # the trained row records its fit's launches, the fine-tuned row the rest
         res, _ = run("gan_128 (1 epoch, a 2-step fine-tune)", [(0, 0, 0, 0)], gan_128.main,
                   1, finetune_steps=2, finetune_every=2, out=root, device=DEVICE,
-                  length=QT_BATCHES["gan_128"])
+                  length=QT_BATCHES["gan_128"], trained_rows=["dgmr@128px"],
+                  rest_row="dgmr_crps_finetuned@128px")
         _same_rows(res, "gan_128.json")
         if not os.path.exists(os.path.join(root, "gan128_state.pt")):
             fail("phase 28h: gan_128 wrote no state file")
 
         # horizon_gate, every arm: the 48-step ConvLSTM (K1 / K2, float32) and
-        # MetNet (K3 / K4) among them
+        # MetNet (K3 / K4) among them; each trained row records its fit's launches
         per_forward = 2 * frames + 2 * horizon_gate.STEPS
         conv = (2 * per_forward, per_forward, 0, 0)
         none = (0, 0, 0, 0)
         res, _ = run("horizon_gate, every arm (1 epoch each)",
                   [conv, conv, none, none, metnet_step, metnet_step, none, none, none],
                   horizon_gate.main, None, out=root, device=DEVICE, epochs=1,
-                  length=QT_BATCHES["horizon_gate"])
+                  length=QT_BATCHES["horizon_gate"], trained_rows=[
+                      "convlstm", "convlstm@stoch", "unet", "unet@stoch", "metnet",
+                      "metnet@stoch", "perceiver", "perceiver@stoch", "dgmr_mean@stoch"])
         _same_rows(res, "horizon_results.json")
         written = sorted(os.listdir(root))
         want = sorted(["accuracy_256.json", "accuracy_256.md", "accuracy_results.json",

@@ -5,7 +5,9 @@ satflow/data/datamodules.py:29-154): a thread-pool prefetcher overlaps
 batch-file reads/decodes with device compute, and each batch is put on the
 trainer's device one batch ahead of the consumer: numpy leaves go to
 ``device`` as tensors, from pinned host memory with ``non_blocking=True`` on
-a CUDA device. Sharding a batch over a mesh of devices is not ported.
+a CUDA device. Given a ``DeviceMesh`` as its device (the Trainer's under a
+process group), the loaders yield this rank's block of each batch
+(``parallel.mesh.shard_batch``).
 """
 
 from __future__ import annotations

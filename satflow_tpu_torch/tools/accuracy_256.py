@@ -80,7 +80,8 @@ def main(epochs: Optional[int] = None, stochastic: bool = False, out: Optional[s
     ds_cls = StochasticAdvectionDataset if stochastic else DecayingAdvectionDataset
     sfx = "@256px_stoch" if stochastic else "@256px"
     eval_ds = ds_cls(length=EVAL_BATCHES, seed=300, **DS256)
-    results = load_results(out, RESULTS, card)
+    load_results(out, RESULTS, card)  # a file of another card raises before any training
+    results = {}
 
     base = run_baseline(eval_ds, forecast_steps=STEPS, flow_method="farneback",
                         max_batches=EVAL_BATCHES, device=device)
@@ -104,7 +105,7 @@ def main(epochs: Optional[int] = None, stochastic: bool = False, out: Optional[s
     row = results["convlstm" + sfx]
     print("convlstm" + sfx, "mse", row["mse"], "ms_ssim", row["ms_ssim"], flush=True)
 
-    save_results(out, RESULTS, results, card, _section(results))
+    results = save_results(out, RESULTS, results, card, _section)
     print(json.dumps(results), flush=True)
     return results
 

@@ -122,7 +122,8 @@ def main(arms: Optional[Iterable[str]] = None, out: Optional[str] = None,
               "metnet": METNET_EPOCHS, "metnet_stoch": METNET_EPOCHS,
               **{name: v[0] for name, v in STACKED_ARMS.items()}, **(epochs or {})}
     eval_ds = DecayingAdvectionDataset(length=3, seed=300, **DS_KW)
-    results = load_results(out, RESULTS, card)
+    load_results(out, RESULTS, card)  # a file of another card raises before any training
+    results = {}
 
     def seeded():
         return torch.Generator().manual_seed(0)
@@ -190,7 +191,7 @@ def main(arms: Optional[Iterable[str]] = None, out: Optional[str] = None,
             "litmetnet", generator=seeded(), **scheduled(METNET, arm)), 500,
             dataset_cls, DS64, eval64, row)
 
-    save_results(out, RESULTS, results, card, _section(results))
+    results = save_results(out, RESULTS, results, card, _section)
     print(json.dumps(results), flush=True)
     return results
 

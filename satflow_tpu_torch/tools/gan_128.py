@@ -21,8 +21,12 @@ resume from them.
         [--finetune-steps 800] [--finetune-m 6] [--skip-train]
         [--from-finetuned] [--out DIR] [--device cuda]
 
-Writes ``gan_128.json`` (a rerun merges into it), ``gan_128.md`` and the
-state file under ``--out`` only, and prints the results.
+Writes ``gan_128.json`` (its rows merged into the file as it stands when
+the run ends, so a rerun or other runs into the same ``--out`` keep theirs),
+``gan_128.md`` and the state file under ``--out`` only, and prints the
+results. The trained row and the fine-tuned one record their seconds and
+``kernel_launches``, the K1-K4 launches of the fit and of the fine-tune (none:
+DGMR runs no kernel of the repo, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -39,6 +43,8 @@ from satflow_tpu_torch.tools.studies import (
     card_name,
     ensemble_row,
     full_f32,
+    kernel_launches,
+    launches_since,
     load_results,
     save_results,
     study_dm,
@@ -98,7 +104,9 @@ def main(epochs: int = 60, batch: int = 4, context_channels: int = 384,
     card = card_name(device)
     state_path = os.path.join(out, state) if out else None
     eval_ds = StochasticAdvectionDataset(length=EVAL_BATCHES, seed=300, **DS128)
-    results = load_results(out, RESULTS, card)
+    # the rows found (a file of another card raises before any training)
+    found = load_results(out, RESULTS, card)
+    results = {}
 
     mse_t, p_crps = _persistence_rows(eval_ds)
     results["persistence@128px"] = {"mse_t": mse_t.tolist(), "mse": float(mse_t.mean()),
@@ -133,12 +141,13 @@ def main(epochs: int = 60, batch: int = 4, context_channels: int = 384,
             length=1, seed=400, **{**DS128, "batch_size": 2}))
         trainer = Trainer(max_epochs=epochs, log_every_n_steps=1000, limit_val_batches=1,
                           callbacks=[selector], gan_step_mode="split", device=device)
-        t0 = time.perf_counter()
+        before, t0 = kernel_launches(), time.perf_counter()
         trainer.fit(dgmr, study_dm(StochasticAdvectionDataset, ds_kw, length))
         train_s = time.perf_counter() - t0
         results["dgmr@128px"] = {**row(dgmr),
                                  "d_loss": float(trainer.callback_metrics["train/d_loss"]),
-                                 "train_seconds": train_s, **common}
+                                 "train_seconds": train_s,
+                                 "kernel_launches": launches_since(before), **common}
         final = {k: v.detach().clone() for k, v in dgmr.module.state_dict().items()}
         sel = selector.best
         sel_epoch = sel["epoch"]
@@ -163,12 +172,15 @@ def main(epochs: int = 60, batch: int = 4, context_channels: int = 384,
         if from_finetuned:
             dgmr.module.load_state_dict(saved["finetuned"])
             prev_steps = int(saved.get("finetuned_steps", 0))
-            prev_frontier = list(results.get("dgmr_crps_finetuned@128px", {})
+            prev_frontier = list(found.get("dgmr_crps_finetuned@128px", {})
                                  .get("frontier", []))
         train_sto = StochasticAdvectionDataset(length=length, seed=0, **ds_kw)
+        before, t0 = kernel_launches(), time.perf_counter()
         _, hist = crps_finetune(dgmr, list(train_sto), steps=finetune_steps,
                                 num_samples=finetune_m, lr=finetune_lr, lr_schedule="cosine",
                                 eval_every=finetune_every, eval_fn=row, seed=prev_steps)
+        finetune = {"finetune_seconds": time.perf_counter() - t0,
+                    "kernel_launches": launches_since(before)}
         results["dgmr_crps_finetuned@128px"] = {
             **row(dgmr), "from_epoch": sel_epoch, "finetune_steps": prev_steps + finetune_steps,
             "finetune_num_samples": finetune_m, "finetune_lr": finetune_lr,
@@ -176,7 +188,7 @@ def main(epochs: int = 60, batch: int = 4, context_channels: int = 384,
             "frontier": prev_frontier + [
                 {"step": prev_steps + s, "crps": e["crps"], "sample_std": e["sample_std"],
                  "mse": e["mse"], "crps_fair_m8": e["crps_fair_m8"]} for s, e in hist.frontier],
-            **common}
+            **finetune, **common}
         saved["finetuned"] = {k: v.detach().clone() for k, v in dgmr.module.state_dict().items()}
         saved["finetuned_steps"] = prev_steps + finetune_steps
         if state_path:
@@ -185,7 +197,7 @@ def main(epochs: int = 60, batch: int = 4, context_channels: int = 384,
         print("dgmr@128px fine-tuned", {k: m[k] for k in ("mse", "crps", "crps_fair_m8",
                                                           "sample_std")}, flush=True)
 
-    save_results(out, RESULTS, results, card, _section(results))
+    results = save_results(out, RESULTS, results, card, _section)
     print(json.dumps(results), flush=True)
     return results
 
@@ -228,7 +240,8 @@ def _section(r) -> str:
         o_std = r["oracle_sample_std@128px"]
         lines += ["", f"Fair-CRPS fine-tune ({ft['finetune_steps']} generator-only Adam steps, "
                       f"M={ft['finetune_num_samples']}, warmup-cosine lr {ft['finetune_lr']:g}, "
-                      f"from the epoch-{ft['from_epoch']} checkpoint):", "",
+                      f"from the epoch-{ft['from_epoch']} checkpoint; "
+                      f"{ft.get('finetune_seconds', float('nan')):.1f} s):", "",
                   "| step | fair CRPS (M=8) | sample std | % of oracle std | mean MSE |",
                   "|---|---|---|---|---|"]
         lines += [f"| {q['step']} | {q['crps_fair_m8']:.4f} | {q['sample_std']:.1e} | "

@@ -207,7 +207,8 @@ def main(arms: Optional[Iterable[str]] = None, out: Optional[str] = None, device
     full_f32(device)
     card = card_name(device)
     eval_ds = DecayingAdvectionDataset(length=EVAL_BATCHES, seed=300, **DS_KW)
-    results = load_results(out, RESULTS, card)
+    load_results(out, RESULTS, card)  # a file of another card raises before any training
+    results = {}
 
     results.update(baseline_rows(run_baseline(
         eval_ds, forecast_steps=STEPS, flow_method="farneback", max_batches=EVAL_BATCHES,
@@ -284,7 +285,7 @@ def main(arms: Optional[Iterable[str]] = None, out: Optional[str] = None, device
                                   for k in ("mse", "crps", "crps_fair_m8", "sample_std")},
               flush=True)
 
-    save_results(out, RESULTS, results, card, _section(results))
+    results = save_results(out, RESULTS, results, card, _section)
     print(json.dumps(results), flush=True)
     return results
 

@@ -17,8 +17,11 @@ as in the JAX tool.
     python -m satflow_tpu_torch.tools.horizon_gate [--arms baselines,convlstm]
         [--out DIR] [--device cuda]
 
-Writes ``horizon_results.json`` (a rerun merges into it) and
-``horizon_results.md`` under ``--out`` only, and prints the results.
+Writes ``horizon_results.json`` and ``horizon_results.md`` under ``--out``
+only, and prints the results. Its rows are merged into the file as it
+stands when the run ends, so a rerun, or runs of other arms side by side
+into the same ``--out``, keep every row. Each trained row records its
+training seconds and ``kernel_launches``, the K1-K4 launches of its fit.
 """
 
 from __future__ import annotations
@@ -35,6 +38,8 @@ from satflow_tpu_torch.tools.studies import (
     baseline_rows,
     card_name,
     full_f32,
+    kernel_launches,
+    launches_since,
     load_results,
     model_row,
     per_lead_table,
@@ -108,7 +113,8 @@ def main(arms: Optional[Iterable[str]] = None, out: Optional[str] = None, device
     card = card_name(device)
     eval_ds = DecayingAdvectionDataset(length=EVAL_BATCHES, seed=300, **DS48)
     eval_sto = StochasticAdvectionDataset(length=EVAL_BATCHES, seed=300, **DS48)
-    results = load_results(out, RESULTS, card)
+    load_results(out, RESULTS, card)  # a file of another card raises before any training
+    results = {}
 
     def baselines(eval_set, full_suffix, grid_suffix):
         kw = dict(forecast_steps=STEPS, flow_method="farneback", max_batches=EVAL_BATCHES,
@@ -126,11 +132,14 @@ def main(arms: Optional[Iterable[str]] = None, out: Optional[str] = None, device
         return create_model(name, generator=torch.Generator().manual_seed(0), **kw), n
 
     def fit(model, n, stochastic, **trainer_kw):
+        """The trainer and the trained row's training seconds and K1-K4
+        launches."""
         trainer = Trainer(max_epochs=n, log_every_n_steps=500, device=device, **trainer_kw)
-        t0 = time.perf_counter()
+        before, t0 = kernel_launches(), time.perf_counter()
         trainer.fit(model, study_dm(StochasticAdvectionDataset if stochastic
                                     else DecayingAdvectionDataset, DS48, length))
-        return trainer, time.perf_counter() - t0
+        return trainer, {"train_seconds": time.perf_counter() - t0,
+                         "kernel_launches": launches_since(before)}
 
     if "baselines" in arms:
         baselines(eval_ds, "", "@metnet_grid")
@@ -142,27 +151,25 @@ def main(arms: Optional[Iterable[str]] = None, out: Optional[str] = None, device
             if (arm + "_stoch" if stochastic else arm) not in arms:
                 continue
             model, n = build(arm)
-            _, train_s = fit(model, n, stochastic)
+            _, trained = fit(model, n, stochastic)
             row = arm + "@stoch" if stochastic else arm
             curves = evaluate_model(model, eval_sto if stochastic else eval_ds,
                                     max_batches=EVAL_BATCHES, compute_ms_ssim=True)
-            results[row] = {**model_row(curves, n, per_lead_ms_ssim=False),
-                            "train_seconds": train_s}
+            results[row] = {**model_row(curves, n, per_lead_ms_ssim=False), **trained}
             print(row, "mse", results[row]["mse"], "final", results[row]["mse_t"][-1], flush=True)
 
     # DGMR's 3-sample ensemble mean (the reference config's num_samples),
     # with its CRPS and spread beside it
     if "dgmr_stoch" in arms:
         dgmr, n = build("dgmr")
-        trainer, train_s = fit(dgmr, n, True, gan_step_mode="split")
+        trainer, trained = fit(dgmr, n, True, gan_step_mode="split")
         row = ensemble_row(dgmr, eval_sto, EVAL_BATCHES)
         results["dgmr_mean@stoch"] = {
             **{k: row[k] for k in ("mse_t", "mse", "crps", "sample_std")},
-            "d_loss": float(trainer.callback_metrics["train/d_loss"]), "epochs": n,
-            "train_seconds": train_s}
+            "d_loss": float(trainer.callback_metrics["train/d_loss"]), "epochs": n, **trained}
         print("dgmr_mean@stoch", {k: row[k] for k in ("mse", "crps", "sample_std")}, flush=True)
 
-    save_results(out, RESULTS, results, card, _section(results))
+    results = save_results(out, RESULTS, results, card, _section)
     print(json.dumps(results), flush=True)
     return results
 

@@ -5,17 +5,21 @@ The study tools (``accuracy_gate``, ``accuracy_256``, ``gan_gate``,
 ``gan_128``, ``horizon_gate``) are the port's copies of the JAX package's
 ``tools/*.py`` studies. Each trains on synthetic advection at its JAX
 recipe, scores against persistence and optical flow, writes its results
-file (and a markdown section beside it) under ``--out`` only, and merges a
-rerun into the file it finds there. On a card each runs its convolutions
-in full float32 (:func:`full_f32`).
+file (and a markdown section beside it) under ``--out`` only, and merges
+its rows into the file it finds there when it saves, so that a rerun, or
+runs side by side into one ``--out``, keep every row (:func:`save_results`).
+On a card each runs its convolutions in full float32 (:func:`full_f32`).
 """
 
 from __future__ import annotations
 
+import contextlib
+import fcntl
 import json
 import os
 import subprocess
-from typing import Dict, Optional
+import tempfile
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -102,9 +106,10 @@ def full_f32(device: torch.device) -> None:
 
 
 def load_results(out: Optional[str], filename: str, card: str) -> Dict:
-    """The results file under ``out`` that a rerun merges into (empty when
-    there is none). A file whose rows were computed on another device
-    raises: its rows and this run's could not be compared."""
+    """The rows of the results file under ``out`` (empty when there is
+    none). A file whose rows were computed on another device raises: its
+    rows and this run's could not be compared. A tool reads it when it
+    starts, so that such a file stops the run before its training."""
     path = os.path.join(out, filename) if out else None
     if not path or not os.path.exists(path):
         return {}
@@ -117,19 +122,73 @@ def load_results(out: Optional[str], filename: str, card: str) -> Dict:
     return results
 
 
-def save_results(out: Optional[str], filename: str, results: Dict, card: str,
-                 markdown: Optional[str] = None) -> None:
-    """Write ``results``, stamped with the card under ``CARD_KEY``, as
-    ``out/filename`` and, with ``markdown``, the study's section beside it
-    (``.md``); nothing without ``out``."""
+@contextlib.contextmanager
+def _locked(directory: str):
+    """An exclusive ``flock`` on ``directory`` itself (no lock file is left
+    behind), held until the block ends."""
+    fd = os.open(directory, os.O_RDONLY)
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        yield
+    finally:
+        os.close(fd)
+
+
+def _write_atomic(path: str, text: str) -> None:
+    """``text`` as ``path``, through a temporary file beside it and
+    ``os.replace``: a reader sees the old file or the new one, never part."""
+    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path),
+                               prefix="." + os.path.basename(path) + ".")
+    try:
+        with os.fdopen(fd, "w") as f:
+            f.write(text)
+        os.chmod(tmp, 0o644)
+        os.replace(tmp, path)
+    except BaseException:
+        os.unlink(tmp)
+        raise
+
+
+def save_results(out: Optional[str], filename: str, rows: Dict, card: str,
+                 section: Optional[Callable[[Dict], str]] = None) -> Dict:
+    """Merge ``rows``, the rows this run computed, into ``out/filename``
+    (stamped with the card under ``CARD_KEY``) and, with ``section``, write
+    ``section(merged rows)`` beside it (``.md``); returns the merged rows.
+    Without ``out`` nothing is written and ``rows`` come back.
+
+    The file is read as it stands at save time and both files are replaced
+    atomically, under an exclusive lock on ``out`` held across the read and
+    the writes: runs that share one ``--out`` side by side keep every row of
+    each other's, and a file of another card raises here too."""
     if not out:
-        return
+        return dict(rows)
     os.makedirs(out, exist_ok=True)
-    with open(os.path.join(out, filename), "w") as f:
-        json.dump({**results, CARD_KEY: card}, f, indent=2)
-    if markdown is not None:
-        with open(os.path.join(out, os.path.splitext(filename)[0] + ".md"), "w") as f:
-            f.write(markdown)
+    path = os.path.join(out, filename)
+    with _locked(out):
+        merged = {**load_results(out, filename, card), **rows}
+        _write_atomic(path, json.dumps({**merged, CARD_KEY: card}, indent=2))
+        if section is not None:
+            _write_atomic(os.path.splitext(path)[0] + ".md", section(merged))
+    return merged
+
+
+def kernel_launches() -> Dict[str, int]:
+    """The launch counters of the repo's kernels on the studies' paths: K1
+    (``fused_convlstm_step``), K2 (``gate_bwd``), K3 (``fused_lstm_gates``)
+    and K4 (``axial_attention``). A wrapper counts only where it launches its
+    kernel on a card: on the CPU they stay as they are."""
+    from satflow_tpu_torch.ops.axial_attention import axial_attention
+    from satflow_tpu_torch.ops.fused_convlstm_step import fused_convlstm_step, gate_bwd
+    from satflow_tpu_torch.ops.fused_lstm import fused_lstm_gates
+
+    return {"K1": fused_convlstm_step.launches, "K2": gate_bwd.launches,
+            "K3": fused_lstm_gates.launches, "K4": axial_attention.launches}
+
+
+def launches_since(before: Dict[str, int]) -> Dict[str, int]:
+    """Each of :func:`kernel_launches` since ``before`` (an earlier reading):
+    a trained row's ``kernel_launches``."""
+    return {k: n - before[k] for k, n in kernel_launches().items()}
 
 
 def per_lead_table(r: Dict, names, steps: int):

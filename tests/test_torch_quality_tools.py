@@ -9,8 +9,13 @@ persistence's rows within 1e-6 of the JAX functions on the same 16 px eval
 set; ``CRPSSelect`` picking the lowest CRPS and keeping that epoch's
 weights bit for bit through later optimizer steps; each tool's ``main`` at 1
 epoch of 1 batch on a 16 px geometry (32 px where DGMR needs it), narrowed,
-writing only under ``--out``, reruns merging. The studies' results at their
-budgets are held by ``tests/test_torch_study_artifacts.py``.
+writing only under ``--out``, reruns merging, each trained row's
+``kernel_launches`` zero (no kernel launches on the CPU); the results file
+under ``--out`` kept whole by runs side by side (each save overlays its own
+rows on the file as it stands, under a lock on the directory), refused when
+stamped with another card; ``tools/side_by_side.py``'s process specs. The
+studies' results at their budgets are held by
+``tests/test_torch_study_artifacts.py``.
 """
 
 import ast
@@ -281,6 +286,106 @@ def test_study_tools_run_convolutions_in_full_f32_on_a_card(monkeypatch):
         assert "device = resolve_device(device)\n    full_f32(device)\n" in src, name
 
 
+# -- the results file under --out: runs side by side, the card, the launches ---------------
+
+
+def _horizon_rows(names, mse, **extra):
+    """Rows of ``horizon_gate``'s shape (48 lead times) at one MSE."""
+    return {n: {"mse_t": [mse] * horizon_gate.STEPS, "mse": mse, **extra} for n in names}
+
+
+def test_runs_side_by_side_into_one_out_keep_both_sets_of_rows(tmp_path):
+    """Two ``horizon_gate`` runs into one ``--out``: both read the file
+    before either saves (load, load, save, save), and the second save keeps
+    the first's rows: each run overlays only the rows it computed on the file
+    as it stands at save time. The ``.md`` is rendered from the merged rows,
+    and nothing but the two files is left (the lock is on the directory)."""
+    out, name = str(tmp_path / "hz"), horizon_gate.RESULTS
+    first = _horizon_rows(["persistence", "optical_flow"], 0.002)
+    second = _horizon_rows(["convlstm"], 0.001, epochs=300, train_seconds=1.0,
+                           kernel_launches={"K1": 0, "K2": 0, "K3": 0, "K4": 0})
+    assert studies.load_results(out, name, "cpu") == studies.load_results(out, name, "cpu") == {}
+    assert studies.save_results(out, name, first, "cpu", horizon_gate._section) == first
+    merged = studies.save_results(out, name, second, "cpu", horizon_gate._section)
+    assert merged == {**first, **second}
+    assert json.loads((tmp_path / "hz" / name).read_text()) == {**first, **second, "card": "cpu"}
+    md = (tmp_path / "hz" / "horizon_results.md").read_text()
+    assert all(f"| {row} | " in md for row in ("persistence", "optical_flow", "convlstm"))
+    assert _written(tmp_path) == ["hz/horizon_results.json", "hz/horizon_results.md"]
+    # a rerun of an arm replaces its row and keeps the others
+    rerun = _horizon_rows(["convlstm"], 0.0009, epochs=300)
+    assert studies.save_results(out, name, rerun, "cpu") == {**first, **rerun}
+
+
+def test_saves_from_many_threads_at_once_keep_every_row(tmp_path):
+    """Eight writers saving at once, each its own rows five times: the
+    exclusive lock held across the read and the write loses none."""
+    import threading
+
+    out, name = str(tmp_path), horizon_gate.RESULTS
+
+    def writer(i):
+        for k in range(5):
+            studies.save_results(out, name, _horizon_rows([f"arm{i}_{k}"], 0.001 * i), "cpu")
+
+    threads = [threading.Thread(target=writer, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    rows = studies.load_results(out, name, "cpu")
+    assert sorted(rows) == sorted(f"arm{i}_{k}" for i in range(8) for k in range(5))
+    assert _written(tmp_path) == [name]
+
+
+def test_a_file_stamped_with_another_card_still_raises(tmp_path):
+    """At the run's start (``load_results``) and at its save, which leaves
+    the other card's file as it was."""
+    path = tmp_path / horizon_gate.RESULTS
+    other = {**_horizon_rows(["persistence"], 0.002), "card": "NVIDIA H100 80GB HBM3, 700.00 W"}
+    path.write_text(json.dumps(other))
+    with pytest.raises(ValueError, match="another --out"):
+        studies.load_results(str(tmp_path), horizon_gate.RESULTS, "cpu")
+    with pytest.raises(ValueError, match="another --out"):
+        studies.save_results(str(tmp_path), horizon_gate.RESULTS,
+                             _horizon_rows(["convlstm"], 0.001), "cpu", horizon_gate._section)
+    assert json.loads(path.read_text()) == other
+    assert _written(tmp_path) == [horizon_gate.RESULTS]
+
+
+def test_kernel_launches_read_the_k1_to_k4_counters_and_stay_at_zero_on_the_cpu():
+    """A trained row's ``kernel_launches``: the deltas of the counters that
+    ``chip_smoke.py`` phase 28h reads; a CPU run launches no kernel."""
+    from satflow_tpu_torch.ops.axial_attention import axial_attention
+    from satflow_tpu_torch.ops.fused_convlstm_step import fused_convlstm_step, gate_bwd
+    from satflow_tpu_torch.ops.fused_lstm import fused_lstm_gates
+
+    before = studies.kernel_launches()
+    assert before == {"K1": fused_convlstm_step.launches, "K2": gate_bwd.launches,
+                      "K3": fused_lstm_gates.launches, "K4": axial_attention.launches}
+    x = torch.zeros(1, 4, 4, 3)
+    h = c = torch.zeros(1, 4, 4, 8)
+    fused_convlstm_step(x, h, c, torch.zeros(3, 3, 3, 32), torch.zeros(3, 3, 8, 32),
+                        torch.zeros(32))
+    assert studies.launches_since(before) == {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+
+
+def test_side_by_side_specs_give_each_process_its_threads_and_variables():
+    """``tools/side_by_side.py``: a SPEC is the process's name, its thread
+    share, variables and the tool with its arguments; ``--out`` is appended."""
+    from satflow_tpu_torch.tools import side_by_side
+
+    run = side_by_side.parse_spec(
+        "D:2:SATFLOW_HORIZON_EPOCHS=300 horizon_gate --arms convlstm,unet", "R")
+    assert run["name"] == "D"
+    assert run["env"] == {"OMP_NUM_THREADS": "2", "MKL_NUM_THREADS": "2",
+                          "PYTHONUNBUFFERED": "1", "SATFLOW_HORIZON_EPOCHS": "300"}
+    assert run["cmd"][1:] == ["-m", "satflow_tpu_torch.tools.side_by_side", "--child", "2",
+                              "horizon_gate", "--arms", "convlstm,unet", "--out", "R"]
+    with pytest.raises(ValueError, match="names no tool"):
+        side_by_side.parse_spec("E:1:SATFLOW_HORIZON_EPOCHS=1", "R")
+
+
 # -- each tool's main on the CPU, small -----------------------------------------------------
 
 
@@ -386,6 +491,9 @@ def test_gan_128_trains_then_finetunes_from_its_state_file(tmp_path, monkeypatch
             assert set(row) <= set(res[name]), name
     ft = res["dgmr_crps_finetuned@128px"]
     assert ft["finetune_steps"] == 4 and [p["step"] for p in ft["frontier"]] == [2, 4]
+    zeros = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    assert res["dgmr@128px"]["kernel_launches"] == ft["kernel_launches"] == zeros
+    assert ft["finetune_seconds"] > 0
     state = torch.load(os.path.join(out, "gan128_state.pt"), weights_only=True)
     assert state["finetuned_steps"] == 4 and set(state) == {"selected", "selected_epoch",
                                                             "final", "finetuned",
@@ -423,6 +531,10 @@ def test_horizon_gate_runs_every_arm(tmp_path, monkeypatch):
         assert len(res[name]["mse_t"]) == horizon_gate.STEPS
         if "epochs" in row:
             assert res[name]["epochs"] == 1
+    zeros = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    for name in ("convlstm", "unet", "metnet", "perceiver", "convlstm@stoch", "unet@stoch",
+                 "metnet@stoch", "perceiver@stoch", "dgmr_mean@stoch"):
+        assert res[name]["kernel_launches"] == zeros, name  # no kernel launches on the CPU
     assert _written(tmp_path) == ["hz/horizon_results.json", "hz/horizon_results.md"]
 
 
