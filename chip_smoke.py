@@ -267,8 +267,13 @@ Phases, in order; any failure exits non-zero before the last line:
    no launch of K1-K4, as in the JAX package), ``gan_gate``'s
    three arms (CloudGAN's ConvLSTM generator 64 K1 + 32 K2 a round; DGMR
    with a 2-step fine-tune), ``gan_128`` at ``nowcasting_gan.yaml``'s widths,
-   and every ``horizon_gate`` arm (the 48-step ConvLSTM 208 K1 + 104 K2, MetNet
-   4 K3 + 2 K4 a step); every step's launches held, each trained row's
+   every ``horizon_gate`` arm (the 48-step ConvLSTM 208 K1 + 104 K2, MetNet
+   4 K3 + 2 K4 a step; ``dgmr_stoch`` in a run of its own, as its card run
+   goes, its fit validating no epoch), and ``gan_gate --arms dgmr --init``
+   from the committed JAX initial variables (``dgmr_jax_init.npz``: every
+   parameter and buffer held to the converter's output of the file
+   (``gan_state_dict_from_flax``) as the fit starts, the
+   ``@jax_init`` rows with its sha256); every step's launches held, each trained row's
    ``kernel_launches`` equal to the K1-K4 launches of its fit (``gan_128``'s
    fine-tuned row: of the rest of the run), every number finite, the
    rows and their keys those of the JAX study's ``docs/*.json``, each file
@@ -282,6 +287,7 @@ It imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import http.client
 import io
 import json
@@ -5176,24 +5182,28 @@ def _same_rows(res: dict, artifact: str, rows=None) -> None:
 
 
 @contextlib.contextmanager
-def _counted_trainers(torch, counters):
+def _counted_trainers(torch, counters, before_fit=None):
     """Every Trainer the tools build inside gets a LaunchesPerStep of
     ``counters``, and every train step it makes is timed (synchronised,
     host clock; the batch's generation on the host left out); yields the
     lists of both and of each fit's launches (validation included), one
-    entry a fit."""
+    entry a fit, and the trainers. ``before_fit(model)`` is called as each
+    fit starts."""
     import satflow_tpu_torch.train as train_pkg
     from satflow_tpu_torch.train import engine
 
-    base, fits, step_ms, fit_launches = train_pkg.Trainer, [], [], []
+    base, fits, step_ms, fit_launches, trainers = train_pkg.Trainer, [], [], [], []
     makers = {name: getattr(engine, name) for name in ("make_train_step", "make_gan_train_step")}
 
     class Counted(base):
         def __init__(self, *args, callbacks=None, **kwargs):
             fits.append(LaunchesPerStep(*counters))
+            trainers.append(self)
             super().__init__(*args, callbacks=list(callbacks or []) + [fits[-1]], **kwargs)
 
         def fit(self, *args, **kwargs):
+            if before_fit is not None:
+                before_fit(args[0])
             before = [c.launches for c in counters]
             try:
                 return super().fit(*args, **kwargs)
@@ -5219,7 +5229,7 @@ def _counted_trainers(torch, counters):
     for name, make in makers.items():
         setattr(engine, name, timed(make))
     try:
-        yield fits, step_ms, fit_launches
+        yield fits, step_ms, fit_launches, trainers
     finally:
         train_pkg.Trainer = base
         for name, make in makers.items():
@@ -5241,17 +5251,20 @@ def quality_tools_slice(torch, card):
     frames = 4  # every study's 15 history minutes
     metnet_step = (0, 0, frames, MN_K4_PER_FORWARD)  # a K3 a history frame; plain backward
 
-    def run(what, want_steps, fn, *args, trained_rows=(), rest_row=None, **kwargs):
+    def run(what, want_steps, fn, *args, trained_rows=(), rest_row=None, before_fit=None,
+            **kwargs):
         """``fn`` with its stdout kept (each tool prints its results), each
         fit's steps held to ``want_steps`` (one (K1, K2, K3, K4) a fit), the
         ``kernel_launches`` of ``trained_rows`` (one a fit, in order) to the
         launches the counters saw over that fit, and those of ``rest_row``
-        to the tool's launches outside its fits."""
+        to the tool's launches outside its fits; ``before_fit(model)`` as
+        each fit starts. Returns the results, the step times and the
+        trainers."""
         for c in counters:
             c.launches = 0
         t0 = time.perf_counter()
-        with _counted_trainers(torch, counters) as (fits, step_ms, fit_launches), \
-                contextlib.redirect_stdout(io.StringIO()):
+        with _counted_trainers(torch, counters, before_fit) as (
+                fits, step_ms, fit_launches, trainers), contextlib.redirect_stdout(io.StringIO()):
             res = fn(*args, **kwargs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -5278,7 +5291,7 @@ def quality_tools_slice(torch, card):
             f"first {ms[0]:.1f})" for f, ms in zip(fits, step_ms))
               + f" (K1, K2, K3, K4); launches K1 {got[0]}, K2 {got[1]}, K3 {got[2]}, "
               f"K4 {got[3]} [{card}]", flush=True)
-        return res, step_ms
+        return res, step_ms, trainers
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_quality_") as root:
         # accuracy_256 at full width: 256², b8, hidden 64, 24 leads, bf16,
@@ -5286,7 +5299,7 @@ def quality_tools_slice(torch, card):
         # frames of 1 channel, 112 K1 + 56 K2 (124 + 62 with phase 8's 7)
         n = QT_BATCHES["accuracy_256"]
         per_forward = 2 * frames + 2 * accuracy_256.STEPS
-        res, step_ms = run("accuracy_256 (1 epoch)", [(2 * per_forward, per_forward, 0, 0)],
+        res, step_ms, _ = run("accuracy_256 (1 epoch)", [(2 * per_forward, per_forward, 0, 0)],
                   accuracy_256.main, 1, out=root, device=DEVICE, length=n)
         _same_rows(res, "accuracy_256.json", ("persistence@256px", "optical_flow@256px",
                                               "convlstm@256px"))
@@ -5299,7 +5312,7 @@ def quality_tools_slice(torch, card):
               f"{res['optical_flow@256px']['mse']:.5f})", flush=True)
 
         # the accuracy gate's MetNet arms: K3 / K4 on 64 px, float32
-        res, _ = run("accuracy_gate metnet, metnet_stoch (1 epoch each)", [metnet_step] * 2,
+        res, _, _ = run("accuracy_gate metnet, metnet_stoch (1 epoch each)", [metnet_step] * 2,
                   accuracy_gate.main, ["metnet", "metnet_stoch"], out=root, device=DEVICE,
                   epochs={"metnet": 1, "metnet_stoch": 1}, length=QT_BATCHES["accuracy_gate"])
         metnet_rows = ("persistence@metnet_grid", "optical_flow@metnet_grid", "metnet",
@@ -5310,7 +5323,7 @@ def quality_tools_slice(torch, card):
         # the accuracy gate's Perceiver and stacked arms at full resolution:
         # no kernel of the repo, as in the JAX package (0 K1-K4 a step)
         new_arms = ("perceiver",) + tuple(accuracy_gate.STACKED_ARMS)
-        res, _ = run(f"accuracy_gate {', '.join(new_arms)} (1 epoch each)",
+        res, _, _ = run(f"accuracy_gate {', '.join(new_arms)} (1 epoch each)",
                   [(0, 0, 0, 0)] * len(new_arms), accuracy_gate.main, list(new_arms), out=root,
                   device=DEVICE, epochs=dict.fromkeys(new_arms, 1),
                   length=QT_BATCHES["accuracy_gate"])
@@ -5321,7 +5334,7 @@ def quality_tools_slice(torch, card):
         # gan_gate: CloudGAN's ConvLSTM generator (a round: the D step's
         # sample and the G step's forward through K1, its backward through K2)
         per_forward = 2 * frames + 2 * gan_gate.STEPS
-        res, _ = run("gan_gate cloudgan, pix2pix, dgmr (1 epoch each, a 2-step fine-tune)",
+        res, _, _ = run("gan_gate cloudgan, pix2pix, dgmr (1 epoch each, a 2-step fine-tune)",
                   [(2 * per_forward, per_forward, 0, 0), (0, 0, 0, 0), (0, 0, 0, 0)],
                   gan_gate.main, None, out=root, device=DEVICE,
                   epochs={"cloudgan": 1, "pix2pix": 1, "dgmr": 1}, finetune_steps=2,
@@ -5332,7 +5345,7 @@ def quality_tools_slice(torch, card):
 
         # gan_128: DGMR at nowcasting_gan.yaml's widths, 128², b4, split steps;
         # the trained row records its fit's launches, the fine-tuned row the rest
-        res, _ = run("gan_128 (1 epoch, a 2-step fine-tune)", [(0, 0, 0, 0)], gan_128.main,
+        res, _, _ = run("gan_128 (1 epoch, a 2-step fine-tune)", [(0, 0, 0, 0)], gan_128.main,
                   1, finetune_steps=2, finetune_every=2, out=root, device=DEVICE,
                   length=QT_BATCHES["gan_128"], trained_rows=["dgmr@128px"],
                   rest_row="dgmr_crps_finetuned@128px")
@@ -5345,13 +5358,28 @@ def quality_tools_slice(torch, card):
         per_forward = 2 * frames + 2 * horizon_gate.STEPS
         conv = (2 * per_forward, per_forward, 0, 0)
         none = (0, 0, 0, 0)
-        res, _ = run("horizon_gate, every arm (1 epoch each)",
-                  [conv, conv, none, none, metnet_step, metnet_step, none, none, none],
-                  horizon_gate.main, None, out=root, device=DEVICE, epochs=1,
+        arms = [a for a in horizon_gate.ALL_ARMS if a != "dgmr_stoch"]
+        res, _, _ = run("horizon_gate, every arm but dgmr_stoch (1 epoch each)",
+                  [conv, conv, none, none, metnet_step, metnet_step, none, none],
+                  horizon_gate.main, arms, out=root, device=DEVICE, epochs=1,
                   length=QT_BATCHES["horizon_gate"], trained_rows=[
                       "convlstm", "convlstm@stoch", "unet", "unet@stoch", "metnet",
-                      "metnet@stoch", "perceiver", "perceiver@stoch", "dgmr_mean@stoch"])
+                      "metnet@stoch", "perceiver", "perceiver@stoch"])
+        with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "docs",
+                               "horizon_results.json")) as f:
+            _same_rows(res, "horizon_results.json", [r for r in json.load(f)
+                                                     if r != "dgmr_mean@stoch"])
+        # horizon_gate --arms dgmr_stoch, the arm alone as its card run goes: the
+        # fit validates no epoch (no val/ metric logged), the row says so
+        res, _, trainers = run("horizon_gate dgmr_stoch (1 epoch, no validation)", [none],
+                               horizon_gate.main, ["dgmr_stoch"], out=root, device=DEVICE,
+                               epochs=1, length=QT_BATCHES["horizon_gate"],
+                               trained_rows=["dgmr_mean@stoch"])
         _same_rows(res, "horizon_results.json")
+        logged = sorted(k for k in trainers[0].callback_metrics if k.startswith("val/"))
+        if res["dgmr_mean@stoch"].get("validation") != "none" or logged:
+            fail(f"phase 28h: dgmr_stoch validated ({logged}; the row says "
+                 f"{res['dgmr_mean@stoch'].get('validation')!r})")
         written = sorted(os.listdir(root))
         want = sorted(["accuracy_256.json", "accuracy_256.md", "accuracy_results.json",
                        "accuracy_results.md", "gan_results.json", "gan_results.md",
@@ -5364,6 +5392,48 @@ def quality_tools_slice(torch, card):
                 with open(os.path.join(root, name)) as f:
                     if json.load(f).get("card") != card:
                         fail(f"phase 28h: {name} does not name the card {card!r}")
+
+    # gan_gate --arms dgmr --init: DGMR from the JAX Trainer's initial
+    # variables (the committed .npz), every parameter and buffer held to the
+    # converter's output of the file as the fit starts (the converter itself is
+    # held to JAX by the CPU tests); the rows under @jax_init with its sha256
+    from satflow_tpu_torch.interop.jax_weights import gan_state_dict_from_flax, read_gan_npz
+
+    init = os.path.join(os.path.dirname(os.path.abspath(__file__)), "satflow_tpu_torch",
+                        "tools", "results", "dgmr_jax_init.npz")
+    want_sd = gan_state_dict_from_flax(*read_gan_npz(init))
+    held = []
+
+    def hold_init(model):
+        got = model.state_dict()
+        if set(got) != set(want_sd):
+            fail(f"phase 28h: --init left {sorted(set(want_sd) ^ set(got))[:5]} unmatched")
+        off = [k for k, v in got.items() if not torch.equal(v.detach().cpu(), want_sd[k])]
+        if off:
+            fail(f"phase 28h: --init: {len(off)} tensors differ from the converted file, {off[:5]}")
+        held.append(len(got))
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_init_") as root:
+        res, _, _ = run("gan_gate dgmr --init (1 epoch, a 2-step fine-tune)", [(0, 0, 0, 0)],
+                        gan_gate.main, ["dgmr"], out=root, device=DEVICE, epochs={"dgmr": 1},
+                        finetune_steps=2, length=2, init=init, before_fit=hold_init)
+    with open(init, "rb") as f:
+        sha = hashlib.sha256(f.read()).hexdigest()
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "docs",
+                           "gan_results.json")) as f:
+        jax_rows = json.load(f)
+    for row in ("dgmr", "dgmr_crps_selected", "dgmr_crps_finetuned"):
+        got = res.get(row + "@jax_init")
+        if got is None or got.get("init_sha256") != sha or not set(jax_rows[row]) <= set(got):
+            fail(f"phase 28h: --init's {row}@jax_init row is {sorted(got or {})}")
+        if row in res:
+            fail(f"phase 28h: --init wrote the port-draw row {row}")
+    if len(held) != 1:
+        fail(f"phase 28h: --init's run made {len(held)} fits, expected 1")
+    print(f"  --init: {held[0]} tensors equal to the converted file's as the fit started; rows "
+          f"dgmr@jax_init MSE {res['dgmr@jax_init']['mse']:.5f}, fine-tuned fair CRPS "
+          f"{res['dgmr_crps_finetuned@jax_init']['crps_fair_m8']:.5f} (sha256 {sha[:12]})",
+          flush=True)
 
     print(f"quality tools phase: {time.perf_counter() - t_phase:.1f} s; launches K1 {totals[0]}, "
           f"K2 {totals[1]}, K3 {totals[2]}, K4 {totals[3]} [{card}]", flush=True)

@@ -1,4 +1,6 @@
-"""Model registry: ``register_model`` / ``create_model`` / ``get_model`` / ``list_models``.
+"""Model registry: ``register_model`` / ``create_model`` / ``get_model`` /
+``list_models`` / ``is_model``, and :class:`Registry`, the named registry of
+factories that the losses use.
 
 Same API as ``satflow_tpu/core/registry.py``, with a registry dict of its own:
 the JAX registry is process-wide and keyed by lowercase class name, so a
@@ -17,7 +19,7 @@ from __future__ import annotations
 import fnmatch
 import glob
 import os
-from typing import Dict, List, Optional, Type
+from typing import Any, Callable, Dict, List, Optional, Type
 
 _MODEL_REGISTRY: Dict[str, Type] = {}
 
@@ -44,6 +46,11 @@ def register_model(cls: Optional[Type] = None, *, name: Optional[str] = None):
     if cls is None:
         return _register
     return _register(cls)
+
+
+def is_model(name: str) -> bool:
+    """Whether ``name`` is a registered model name."""
+    return name.lower() in _MODEL_REGISTRY
 
 
 def list_models(filter: str = "") -> List[str]:
@@ -110,3 +117,37 @@ def create_model(name: str, pretrained: bool = False, checkpoint_path: str = "",
 
         restore_params_into(model, checkpoint_path)
     return model
+
+
+class Registry:
+    """A named registry of factory functions (the losses' :data:`LOSSES`):
+    ``register(name)`` decorates a factory (names are lowercased; a name
+    registered twice raises ``ValueError``), ``get`` returns it (an unknown
+    name raises ``KeyError`` listing the registered ones), ``create`` calls
+    it with keywords, ``names`` lists them sorted."""
+
+    def __init__(self, kind: str):
+        self.kind = kind
+        self._entries: Dict[str, Callable[..., Any]] = {}
+
+    def register(self, name: str):
+        def _register(fn: Callable[..., Any]):
+            key = name.lower()
+            if key in self._entries:
+                raise ValueError(f"{self.kind} {key!r} already registered")
+            self._entries[key] = fn
+            return fn
+
+        return _register
+
+    def get(self, name: str) -> Callable[..., Any]:
+        key = name.lower()
+        if key not in self._entries:
+            raise KeyError(f"Unknown {self.kind} {name!r}. Registered: {sorted(self._entries)}")
+        return self._entries[key]
+
+    def create(self, name: str, **kwargs) -> Any:
+        return self.get(name)(**kwargs)
+
+    def names(self) -> List[str]:
+        return sorted(self._entries)

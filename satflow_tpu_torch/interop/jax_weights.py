@@ -291,6 +291,25 @@ def read_npz(path) -> Dict[str, Any]:
     return variables
 
 
+def save_gan_npz(path, g_vars: Mapping[str, Any], d_vars: Mapping[str, Any]) -> None:
+    """Write a GAN's flax variables (numpy leaves), every collection of the
+    generator's and the discriminator's (``params``, ``spectral``, ...), as
+    one flat ``.npz``: ``"generator/<collection>/<path>"`` and
+    ``"discriminator/<collection>/<path>"`` (:func:`flatten_tree`)."""
+    np.savez(path, **flatten_tree({"generator": g_vars, "discriminator": d_vars}))
+
+
+def read_gan_npz(path):
+    """The (generator, discriminator) flax variables of a
+    :func:`save_gan_npz` file, for :func:`gan_state_dict_from_flax`."""
+    with np.load(path, allow_pickle=False) as data:
+        tree = unflatten_tree({k: data[k] for k in data.files})
+    if set(tree) != {"generator", "discriminator"}:
+        raise KeyError(f"{path}: top-level keys {sorted(tree)}, expected "
+                       "['discriminator', 'generator']")
+    return tree["generator"], tree["discriminator"]
+
+
 def load_npz(path) -> "OrderedDict[str, torch.Tensor]":
     """Read a flat ``.npz`` of ``EncoderDecoderConvLSTM``'s flax params and
     convert it with :func:`params_from_flax`."""

@@ -5,8 +5,10 @@ factory registered under ``name``, which takes the keywords it knows and
 ignores the rest (MetNet passes ``channel=``), as the JAX factories do:
 ``mse`` (alias ``l2``; both sides upcast to f32 before the mean), ``l1``
 (alias ``mae``), ``huber``, ``bce``, ``focal``, ``ssim``, ``ms_ssim`` (alias
-``msssim``) and ``nll``; an unknown name is a ``KeyError``, as in the JAX
-registry (which holds no GAN objective either).
+``msssim``) and ``nll``, in :data:`LOSSES`, a
+:class:`~satflow_tpu_torch.core.registry.Registry` as in the JAX package; an
+unknown name is a ``KeyError`` (the registry holds no GAN objective, as the
+JAX one does not).
 
 The GAN objectives are :class:`GANLoss` (vanilla BCE-with-logits, lsgan MSE,
 wgangp mean score) and :func:`gradient_penalty` (WGAN-GP: the critic's
@@ -16,22 +18,24 @@ create_graph=True)``, so that the penalty trains the critic).
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 
+from satflow_tpu_torch.core.registry import Registry
 from satflow_tpu_torch.ops.ssim import convert_range, ms_ssim, ms_ssim_frames, ssim, ssim_frames
 
 LossFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
-LOSSES: Dict[str, Callable[..., LossFn]] = {}
+LOSSES = Registry("loss")
 
 
 def _register(*names: str):
+    """Register a factory under each of ``names`` (a name and its aliases)."""
     def _add(factory):
         for name in names:
-            LOSSES[name] = factory
+            LOSSES.register(name)(factory)
         return factory
 
     return _add
@@ -152,10 +156,7 @@ def get_loss(loss="mse", **kwargs) -> LossFn:
     """Loss by name, built with ``kwargs``; a callable passes straight through."""
     if callable(loss):
         return loss
-    key = loss.lower()
-    if key in LOSSES:
-        return LOSSES[key](**kwargs)
-    raise KeyError(f"Unknown loss {loss!r}. Registered: {sorted(LOSSES)}")
+    return LOSSES.create(loss, **kwargs)
 
 
 class GANLoss:

@@ -18,10 +18,14 @@ The port's copy of the JAX package's ``tools/gan_gate.py``, with its data
   batch is kept (:class:`CRPSSelect`) and fine-tuned on the fair CRPS
   (``crps_finetune``, 1600 steps at M=8, warmup-cosine). The JAX knobs
   ``SATFLOW_DGMR_EPOCHS``, ``SATFLOW_DGMR_FT_STEPS`` and
-  ``SATFLOW_DGMR_FT_SAMPLES`` set those three budgets.
+  ``SATFLOW_DGMR_FT_SAMPLES`` set those three budgets. With ``--init FILE``
+  (``--arms dgmr`` only) DGMR starts from the variables in FILE instead of
+  the port's own draw (:func:`load_init`; the JAX Trainer's initial ones are
+  committed as ``results/dgmr_jax_init.npz``), and its three rows go under
+  the suffix ``@jax_init``, each with the file's sha256.
 
     python -m satflow_tpu_torch.tools.gan_gate [--arms cloudgan,pix2pix]
-        [--out DIR] [--device cuda]
+        [--out DIR] [--device cuda] [--init FILE]
 
 Writes ``gan_results.json`` (a rerun merges into it) and ``gan_results.md``
 under ``--out`` only, and prints the results.
@@ -29,6 +33,7 @@ under ``--out`` only, and prints the results.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import time
@@ -72,6 +77,24 @@ DGMR = dict(forecast_steps=STEPS, input_channels=1, output_shape=DS_KW["width"],
 EPOCHS = {"cloudgan": 20, "pix2pix": 20}
 FINETUNE_LR = 2e-4
 FINETUNE_EVERY = 400
+
+
+def load_init(model, path: str) -> str:
+    """Fill every parameter and buffer of the GAN ``model`` from ``path``, a
+    flat ``.npz`` of its generator's and discriminator's flax variables
+    (:func:`~satflow_tpu_torch.interop.jax_weights.save_gan_npz`: every
+    collection, the spectral-norm ``u`` included); returns the file's
+    sha256. Raises unless every array of the file lands on one of them and
+    every one of them is filled, each at its shape."""
+    from satflow_tpu_torch.interop.jax_weights import gan_state_dict_from_flax, read_gan_npz
+
+    sd = gan_state_dict_from_flax(*read_gan_npz(path))
+    with np.load(path) as data:
+        if len(data.files) != len(sd):
+            raise KeyError(f"{path}: {len(data.files)} arrays map to {len(sd)} keys")
+    model.load_state_dict(sd)  # strict: a missing or unexpected key raises
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
 
 
 class CRPSSelect(Callback):
@@ -178,12 +201,15 @@ def _persistence_crps(eval_ds):
 
 def main(arms: Optional[Iterable[str]] = None, out: Optional[str] = None, device="cuda",
          epochs: Optional[Dict[str, int]] = None, finetune_steps: Optional[int] = None,
-         finetune_samples: Optional[int] = None, length: int = 12) -> Dict:
+         finetune_samples: Optional[int] = None, length: int = 12,
+         init: Optional[str] = None) -> Dict:
     """Run ``arms`` (default all) on ``device``; returns the results (merged
     into ``out``'s file if given). ``epochs`` overrides an arm's budget,
     ``finetune_steps`` / ``finetune_samples`` DGMR's fine-tune (defaults: the
     JAX knobs' environment variables, else 150 epochs, 1600 steps, M=8),
-    ``length`` the batches of an epoch (the JAX tool's 12)."""
+    ``length`` the batches of an epoch (the JAX tool's 12). ``init``, a file
+    of DGMR's initial variables (:func:`load_init`), starts the ``dgmr`` arm
+    from it; its rows take the suffix ``@jax_init``."""
     from satflow_tpu_torch import resolve_device
     from satflow_tpu_torch.baseline.optical_flow import run_baseline
     from satflow_tpu_torch.core.registry import create_model
@@ -197,6 +223,8 @@ def main(arms: Optional[Iterable[str]] = None, out: Optional[str] = None, device
     unknown = arms - set(ALL_ARMS)
     if unknown:
         raise SystemExit(f"unknown --arms {sorted(unknown)}; valid: {list(ALL_ARMS)}")
+    if init and arms != {"dgmr"}:
+        raise SystemExit("--init holds DGMR's initial variables: run it with --arms dgmr")
     budget = {**EPOCHS, "dgmr": int(os.environ.get("SATFLOW_DGMR_EPOCHS", "150")),
               **(epochs or {})}
     if finetune_steps is None:
@@ -245,6 +273,8 @@ def main(arms: Optional[Iterable[str]] = None, out: Optional[str] = None, device
         results["oracle_sample_std"], results["oracle_crps"] = _oracle_std_and_crps(eval_sto)
 
         dgmr = create_model("nowcastinggan", generator=torch.Generator().manual_seed(0), **DGMR)
+        # the rows of a run from a file of initial variables, and the file
+        suffix, origin = ("@jax_init", {"init_sha256": load_init(dgmr, init)}) if init else ("", {})
         selector = CRPSSelect(dgmr, StochasticAdvectionDataset(length=1, seed=400, **DS_KW))
         trainer, train_s = fit(dgmr, study_dm(StochasticAdvectionDataset, DS_KW, length),
                                limit_val_batches=1, callbacks=[selector])
@@ -252,19 +282,19 @@ def main(arms: Optional[Iterable[str]] = None, out: Optional[str] = None, device
         def row(model):
             return ensemble_row(model, eval_sto, EVAL_BATCHES)
 
-        results["dgmr"] = {**row(dgmr), "d_loss": float(trainer.callback_metrics["train/d_loss"]),
-                           "epochs": budget[name], "num_samples": dgmr.num_samples,
-                           "train_seconds": train_s}
+        final = results["dgmr" + suffix] = {
+            **row(dgmr), "d_loss": float(trainer.callback_metrics["train/d_loss"]),
+            "epochs": budget[name], "num_samples": dgmr.num_samples, "train_seconds": train_s,
+            **origin}
         sel = selector.best
         dgmr.module.load_state_dict(sel["state"])
-        results["dgmr_crps_selected"] = {
+        selected = results["dgmr_crps_selected" + suffix] = {
             **row(dgmr), "selected_epoch": sel["epoch"], "num_samples": dgmr.num_samples,
             # the selection curve, every 10th epoch
-            "trajectory": selector.trajectory[::10]}
-        print("dgmr final", {k: results["dgmr"][k] for k in ("mse", "crps", "sample_std")},
+            "trajectory": selector.trajectory[::10], **origin}
+        print("dgmr" + suffix, "final", {k: final[k] for k in ("mse", "crps", "sample_std")},
               "selected (epoch", sel["epoch"], ")",
-              {k: results["dgmr_crps_selected"][k] for k in ("mse", "crps", "sample_std")},
-              flush=True)
+              {k: selected[k] for k in ("mse", "crps", "sample_std")}, flush=True)
 
         # the selected checkpoint is accurate but collapsed: a generator-only
         # fine-tune on the fair CRPS (a proper score) restores calibrated spread
@@ -273,32 +303,34 @@ def main(arms: Optional[Iterable[str]] = None, out: Optional[str] = None, device
         _, hist = crps_finetune(dgmr, list(train_sto), steps=finetune_steps,
                                 num_samples=finetune_samples, lr=FINETUNE_LR,
                                 lr_schedule="cosine", eval_every=FINETUNE_EVERY, eval_fn=row)
-        results["dgmr_crps_finetuned"] = {
+        tuned = results["dgmr_crps_finetuned" + suffix] = {
             **row(dgmr), "finetune_steps": finetune_steps,
             "finetune_num_samples": finetune_samples, "from_epoch": sel["epoch"],
             "fair_crps_history": list(hist),
             "frontier": [{"step": s, "crps": e["crps"], "sample_std": e["sample_std"],
                           "mse": e["mse"], "crps_fair_m8": e["crps_fair_m8"]}
                          for s, e in hist.frontier],
-            "num_samples": dgmr.num_samples, "finetune_seconds": time.perf_counter() - t0}
-        print("dgmr fine-tuned", {k: results["dgmr_crps_finetuned"][k]
-                                  for k in ("mse", "crps", "crps_fair_m8", "sample_std")},
-              flush=True)
+            "num_samples": dgmr.num_samples, "finetune_seconds": time.perf_counter() - t0,
+            **origin}
+        print("dgmr" + suffix, "fine-tuned",
+              {k: tuned[k] for k in ("mse", "crps", "crps_fair_m8", "sample_std")}, flush=True)
 
     results = save_results(out, RESULTS, results, card, _section)
     print(json.dumps(results), flush=True)
     return results
 
 
-def _frontier_lines(r):
-    """The fine-tune's CRPS / spread / MSE frontier, the selected checkpoint
-    as step 0 and the oracle as the target row."""
-    fr = r.get("dgmr_crps_finetuned", {}).get("frontier")
-    if not fr or "dgmr_crps_selected" not in r:
+def _frontier_lines(r, suffix: str = ""):
+    """The fine-tune's CRPS / spread / MSE frontier (of the rows under
+    ``suffix``), the selected checkpoint as step 0 and the oracle as the
+    target row."""
+    fr = r.get("dgmr_crps_finetuned" + suffix, {}).get("frontier")
+    if not fr or "dgmr_crps_selected" + suffix not in r:
         return []
-    sel = r["dgmr_crps_selected"]
+    sel = r["dgmr_crps_selected" + suffix]
     lines = [
-        "Fine-tune frontier (held-out stochastic set; CRPS at M=3 is the reference",
+        f"Fine-tune frontier{' from the JAX initial weights' if suffix else ''} (held-out "
+        "stochastic set; CRPS at M=3 is the reference",
         "protocol's classic estimator, fair CRPS at M=8 the unbiased one, comparable to the",
         "oracle's):",
         "",
@@ -325,6 +357,7 @@ def _section(r) -> str:
             ("persistence@stochastic", "persistence@stochastic"),
             ("dgmr final (@stochastic)", "dgmr"), ("dgmr CRPS-selected", "dgmr_crps_selected"),
             ("dgmr + fair-CRPS fine-tune", "dgmr_crps_finetuned")]
+    rows += [(f"{label}, JAX init", key + "@jax_init") for label, key in rows[-3:]]
     lines = [
         "## GAN family — CloudGAN, Pix2Pix & DGMR",
         "",
@@ -332,7 +365,8 @@ def _section(r) -> str:
         "(`tools/gan_gate.py`) on the port. CloudGAN and Pix2Pix run on the 32 px study",
         "geometry and must beat both baselines; DGMR runs on stochastic futures, where the",
         "samples' spread is a collapse probe, with CRPS checkpoint selection and the fair-CRPS",
-        "fine-tune.",
+        "fine-tune; the `@jax_init` rows start DGMR from the JAX Trainer's initial variables",
+        "(`--init`).",
         "",
         "| Method | Mean MSE | CRPS | fair CRPS (M=8) | D loss (final) | sample std | Training s |",
         "|---|---|---|---|---|---|---|",
@@ -346,7 +380,7 @@ def _section(r) -> str:
     if "oracle_crps" in r:
         lines.append(f"| oracle 3-mode sampler | - | {r['oracle_crps']:.5f} | "
                      f"{r['oracle_crps']:.5f} | - | {r['oracle_sample_std']:.5f} | - |")
-    return "\n".join(lines + [""] + _frontier_lines(r))
+    return "\n".join(lines + [""] + _frontier_lines(r) + _frontier_lines(r, "@jax_init"))
 
 
 if __name__ == "__main__":
@@ -358,5 +392,8 @@ if __name__ == "__main__":
     p.add_argument("--out", default=None,
                    help="directory for gan_results.json (merged into) and its .md")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--init", default=None,
+                   help="a .npz of DGMR's initial variables (with --arms dgmr): its rows "
+                        "go under @jax_init")
     a = p.parse_args()
-    main(a.arms.split(",") if a.arms else None, out=a.out, device=a.device)
+    main(a.arms.split(",") if a.arms else None, out=a.out, device=a.device, init=a.init)

@@ -11,8 +11,8 @@ output channels, MetNet at its grid (K3 / K4 on a card), the Perceiver's
 per-lead decode; their ``_stoch`` forms and ``stoch_baselines`` on
 ``StochasticAdvectionDataset`` (the future velocity redrawn at the
 boundary); and ``dgmr_stoch``, DGMR's 3-sample ensemble mean trained with
-the split D / G step. ``SATFLOW_HORIZON_EPOCHS`` sets every arm's budget,
-as in the JAX tool.
+the split D / G step and no per-epoch validation (:func:`dgmr_stoch`).
+``SATFLOW_HORIZON_EPOCHS`` sets every arm's budget, as in the JAX tool.
 
     python -m satflow_tpu_torch.tools.horizon_gate [--arms baselines,convlstm]
         [--out DIR] [--device cuda]
@@ -89,6 +89,65 @@ def _epochs(default: int) -> int:
     return int(os.environ.get("SATFLOW_HORIZON_EPOCHS", default))
 
 
+def build(arm: str, epochs: Optional[int] = None, length: int = 12):
+    """``arm``'s model at its recipe, drawn from a generator seeded 0, and
+    its epochs (``epochs``, else ``SATFLOW_HORIZON_EPOCHS``, else the
+    recipe's); a scheduled arm warms up over min(100, half the steps) of the
+    ``epochs`` x ``length`` steps."""
+    from satflow_tpu_torch.core.registry import create_model
+    import satflow_tpu_torch.models  # noqa: F401 - populate the registry
+
+    name, default, kw = RECIPES[arm]
+    n = _epochs(default) if epochs is None else epochs
+    if arm in SCHEDULED:
+        total = n * length
+        kw = {**kw, "warmup_steps": min(100, total // 2), "total_steps": total}
+    return create_model(name, generator=torch.Generator().manual_seed(0), **kw), n
+
+
+def fit(model, n: int, stochastic: bool, device, length: int = 12, **trainer_kw):
+    """``model`` trained ``n`` epochs of ``length`` batches of ``DS48``
+    (stochastic futures if ``stochastic``): the trainer, and the trained
+    row's training seconds and K1-K4 launches."""
+    from satflow_tpu_torch.data.fake import DecayingAdvectionDataset, StochasticAdvectionDataset
+    from satflow_tpu_torch.train import Trainer
+
+    trainer = Trainer(max_epochs=n, log_every_n_steps=500, device=device, **trainer_kw)
+    before, t0 = kernel_launches(), time.perf_counter()
+    trainer.fit(model, study_dm(StochasticAdvectionDataset if stochastic
+                                else DecayingAdvectionDataset, DS48, length))
+    return trainer, {"train_seconds": time.perf_counter() - t0,
+                     "kernel_launches": launches_since(before)}
+
+
+def dgmr_stoch(device, eval_set, epochs: Optional[int] = None, length: int = 12,
+               validate: bool = False):
+    """The ``dgmr_stoch`` arm: DGMR trained with the split D / G step on
+    stochastic futures, then its row on ``eval_set`` (the 3-sample ensemble
+    mean's MSE curve, its CRPS and spread, the final ``train/d_loss``).
+    Returns (model, trainer, row).
+
+    The fit runs no per-epoch validation unless ``validate``: nothing reads
+    it. DGMR sets no ``scheduler`` (no plateau reads ``val/g_loss``), no
+    callback is passed, the eval step draws its own noise from the trainer's
+    seed, where the training noise lives in the train state, and the row
+    keeps only the training's ``d_loss``. So the trained weights, buffers,
+    optimizer and noise states and the row are those of a validated fit,
+    bit for bit (``tests/test_torch_dgmr_studies.py``), and the epochs cost
+    their training only."""
+    from satflow_tpu_torch.tools.studies import ensemble_row
+
+    model, n = build("dgmr", epochs, length)
+    # a validation every n + 1 epochs: never, in an n-epoch fit
+    trainer, trained = fit(model, n, True, device, length, gan_step_mode="split",
+                           **({} if validate else {"check_val_every_n_epoch": n + 1}))
+    ens = ensemble_row(model, eval_set, EVAL_BATCHES)
+    row = {**{k: ens[k] for k in ("mse_t", "mse", "crps", "sample_std")},
+           "d_loss": float(trainer.callback_metrics["train/d_loss"]), "epochs": n,
+           "validation": "every epoch" if validate else "none", **trained}
+    return model, trainer, row
+
+
 def main(arms: Optional[Iterable[str]] = None, out: Optional[str] = None, device="cuda",
          epochs: Optional[int] = None, length: int = 12) -> Dict:
     """Run ``arms`` (default all) on ``device``; returns the results (merged
@@ -97,12 +156,8 @@ def main(arms: Optional[Iterable[str]] = None, out: Optional[str] = None, device
     (the JAX tool's 12)."""
     from satflow_tpu_torch import resolve_device
     from satflow_tpu_torch.baseline.optical_flow import run_baseline
-    from satflow_tpu_torch.core.registry import create_model
     from satflow_tpu_torch.data.fake import DecayingAdvectionDataset, StochasticAdvectionDataset
     from satflow_tpu_torch.eval.evaluate import evaluate_model
-    from satflow_tpu_torch.tools.studies import ensemble_row
-    from satflow_tpu_torch.train import Trainer
-    import satflow_tpu_torch.models  # noqa: F401 - populate the registry
 
     arms = set(arms or ALL_ARMS)
     unknown = arms - set(ALL_ARMS)
@@ -123,24 +178,6 @@ def main(arms: Optional[Iterable[str]] = None, out: Optional[str] = None, device
         results.update(baseline_rows(run_baseline(eval_set, target_view=_to_metnet_grid, **kw),
                                      grid_suffix))
 
-    def build(arm):
-        name, default, kw = RECIPES[arm]
-        n = _epochs(default) if epochs is None else epochs
-        if arm in SCHEDULED:
-            total = n * length
-            kw = {**kw, "warmup_steps": min(100, total // 2), "total_steps": total}
-        return create_model(name, generator=torch.Generator().manual_seed(0), **kw), n
-
-    def fit(model, n, stochastic, **trainer_kw):
-        """The trainer and the trained row's training seconds and K1-K4
-        launches."""
-        trainer = Trainer(max_epochs=n, log_every_n_steps=500, device=device, **trainer_kw)
-        before, t0 = kernel_launches(), time.perf_counter()
-        trainer.fit(model, study_dm(StochasticAdvectionDataset if stochastic
-                                    else DecayingAdvectionDataset, DS48, length))
-        return trainer, {"train_seconds": time.perf_counter() - t0,
-                         "kernel_launches": launches_since(before)}
-
     if "baselines" in arms:
         baselines(eval_ds, "", "@metnet_grid")
     if "stoch_baselines" in arms:
@@ -150,8 +187,8 @@ def main(arms: Optional[Iterable[str]] = None, out: Optional[str] = None, device
         for stochastic in (False, True):
             if (arm + "_stoch" if stochastic else arm) not in arms:
                 continue
-            model, n = build(arm)
-            _, trained = fit(model, n, stochastic)
+            model, n = build(arm, epochs, length)
+            _, trained = fit(model, n, stochastic, device, length)
             row = arm + "@stoch" if stochastic else arm
             curves = evaluate_model(model, eval_sto if stochastic else eval_ds,
                                     max_batches=EVAL_BATCHES, compute_ms_ssim=True)
@@ -161,12 +198,7 @@ def main(arms: Optional[Iterable[str]] = None, out: Optional[str] = None, device
     # DGMR's 3-sample ensemble mean (the reference config's num_samples),
     # with its CRPS and spread beside it
     if "dgmr_stoch" in arms:
-        dgmr, n = build("dgmr")
-        trainer, trained = fit(dgmr, n, True, gan_step_mode="split")
-        row = ensemble_row(dgmr, eval_sto, EVAL_BATCHES)
-        results["dgmr_mean@stoch"] = {
-            **{k: row[k] for k in ("mse_t", "mse", "crps", "sample_std")},
-            "d_loss": float(trainer.callback_metrics["train/d_loss"]), "epochs": n, **trained}
+        row = results["dgmr_mean@stoch"] = dgmr_stoch(device, eval_sto, epochs, length)[2]
         print("dgmr_mean@stoch", {k: row[k] for k in ("mse", "crps", "sample_std")}, flush=True)
 
     results = save_results(out, RESULTS, results, card, _section)
@@ -199,6 +231,10 @@ def _section(r) -> str:
             lines.append(f"| {name} | {r[name]['mse']:.5f} | {r[name]['mse_t'][-1]:.5f} | "
                          f"{'-' if sec is None else f'{sec:.1f}'} |")
     lines.append("")
+    if r.get("dgmr_mean@stoch", {}).get("validation") == "none":
+        lines += ["`dgmr_mean@stoch` trained with no per-epoch validation: nothing reads it",
+                  "(DGMR has no plateau schedule, the row keeps the training's `d_loss`), and",
+                  "the trained state and the row equal a validated fit's bit for bit.", ""]
     for title, names in (("Deterministic", _FULL_RES + _GRID), ("Stochastic-future", _STOCH)):
         present = [n for n in names if n in r]
         if present:

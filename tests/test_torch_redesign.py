@@ -268,6 +268,74 @@ def test_time_redesign_needs_a_card():
         time_redesign.main()
 
 
+@pytest.mark.skipif(torch.cuda.is_available(), reason="refuses only without a card")
+def test_profiler_drops_needs_a_card():
+    from satflow_tpu_torch.tools import profiler_drops
+
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        profiler_drops.main(0.0)
+
+
+def _stub_profiler(monkeypatch, windows):
+    """``torch.profiler.profile`` replaced by one that reports, window after
+    window, the (count, microseconds) of ``windows`` as its device events;
+    returns the list of windows opened."""
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    opened = []
+
+    class Profile:
+        def __init__(self, activities):
+            self.window = windows[len(opened)]
+            opened.append(activities)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            count, us = self.window
+            return [SimpleNamespace(device_type=DeviceType.CPU, count=7, self_device_time_total=0.0),
+                    SimpleNamespace(device_type=DeviceType.CUDA, count=count,
+                                    self_device_time_total=us)]
+
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    return opened
+
+
+def test_device_us_measures_a_window_the_profiler_dropped_again(monkeypatch):
+    """A window in which the profiler saw none of the launches is measured
+    again after a 1-s pause; the mean is the full window's."""
+    from types import SimpleNamespace
+
+    from satflow_tpu_torch.tools import time_redesign
+
+    opened = _stub_profiler(monkeypatch, [(0, 0.0), (50, 600.0)])
+    pauses, calls = [], []
+    monkeypatch.setattr(time_redesign.time, "sleep", pauses.append)
+    card = SimpleNamespace(cuda=SimpleNamespace(synchronize=lambda: None))
+    assert time_redesign.device_us(card, lambda: calls.append(1)) == 12.0
+    assert len(opened) == 2 and len(calls) == 1 + 2 * 50 and pauses == [1.0]
+
+
+def test_device_us_raises_after_three_dropped_windows(monkeypatch):
+    from types import SimpleNamespace
+
+    from satflow_tpu_torch.tools import time_redesign
+
+    opened = _stub_profiler(monkeypatch, [(0, 0.0), (44, 528.0), (0, 0.0), (50, 600.0)])
+    pauses = []
+    monkeypatch.setattr(time_redesign.time, "sleep", pauses.append)
+    card = SimpleNamespace(cuda=SimpleNamespace(synchronize=lambda: None))
+    with pytest.raises(SystemExit, match="fewer than 90 % of the 50 launches in each of 3"):
+        time_redesign.device_us(card, lambda: None)
+    assert len(opened) == 3 and pauses == [1.0, 1.0]
+
+
 
 def test_aten_lstm_cell_order_gives_k3s_tail():
     """K3's library yardstick: the gates permuted to ATen's i, f, g, o order

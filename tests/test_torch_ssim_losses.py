@@ -233,7 +233,7 @@ def test_get_loss_registry():
     in either registry (``GANLoss`` and ``gradient_penalty`` are built
     directly) and, as any unknown name, a KeyError."""
     want = set(jax_losses.LOSSES.names())
-    assert set(losses.LOSSES) == want
+    assert set(losses.LOSSES.names()) == want
     x, y = _t(np.full((1, 4), 3.0)), _t(np.zeros((1, 4)))
     assert losses.get_loss("huber", delta=0.5, unused=1)(x, y).item() == pytest.approx(1.375)
     assert losses.get_loss("huber")(x, y).item() == pytest.approx(2.5)

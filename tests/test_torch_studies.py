@@ -437,6 +437,9 @@ def test_study_tools_need_a_card_by_default(tool, monkeypatch):
 
 
 def test_study_tools_import_no_jax():
+    """The study kernels' tools, a split-cell model, and ``gan_gate --init``
+    loading the committed JAX initial variables into the 32-px DGMR, in a
+    process that imports no JAX."""
     import subprocess
 
     code = (
@@ -444,10 +447,13 @@ def test_study_tools_import_no_jax():
         "import satflow_tpu_torch.tools.exp_tap9, satflow_tpu_torch.tools.exp_cmajor\n"
         "import satflow_tpu_torch.models  # noqa: F401\n"
         "from satflow_tpu_torch.core.registry import create_model\n"
+        "from satflow_tpu_torch.tools import gan_gate\n"
         "import torch\n"
         "m = create_model('encoderdecoderconvlstm', hidden_dim=8, input_channels=4,\n"
         "                 out_channels=2, forecast_steps=2, cell_impl='split')\n"
         "assert m(torch.zeros(1, 2, 8, 8, 4)).shape == (1, 2, 8, 8, 2)\n"
+        "gan_gate.load_init(create_model('nowcastinggan', **gan_gate.DGMR),\n"
+        "                   'satflow_tpu_torch/tools/results/dgmr_jax_init.npz')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'satflow_tpu'))\n"
         "assert not bad, bad\n"

@@ -15,7 +15,9 @@ gates' bars (``tests/test_accuracy.py``):
   the flow below half of persistence and MetNet below persistence; on the
   stochastic grid metnet < flow < persistence;
 - ``gan_results.json`` (``...gan_gate --arms cloudgan,pix2pix``, then
-  ``--arms dgmr`` into the same file): each generator < flow < persistence,
+  ``--arms dgmr`` into the same file, then ``--arms dgmr --init
+  dgmr_jax_init.npz``, whose ``@jax_init`` rows are held to the same DGMR
+  bars): each generator < flow < persistence,
   Pix2Pix's ``0.02 < d_loss < 2``, CloudGAN's finite; DGMR (the DGMR half of
   ``tests/test_accuracy.py:274-337``, 150 epochs, 3 samples) below
   persistence on stochastic futures with ``0.02 < d_loss < 4``, its spread
@@ -43,8 +45,9 @@ gates' bars (``tests/test_accuracy.py``):
   half of persistence), also at t=47; every ``@stoch`` arm below flow below
   persistence, also at t=47; metnet@stoch below pooled flow below pooled
   persistence, at t=47 below pooled persistence; DGMR's ensemble mean below
-  flow with ``0.02 < d_loss < 4``, its CRPS and spread recorded. The arms not
-  run yet (``NOT_RUN``) keep their tests as strict xfails on the absent row.
+  flow with ``0.02 < d_loss < 4``, its CRPS and spread recorded (its 60
+  epochs trained alone with no per-epoch validation, bit-equal to a
+  validated fit: ``tests/test_torch_dgmr_studies.py``).
 
 Every file holds every row of the JAX study's ``docs/*.json`` with its keys,
 and the tools ran cuDNN's convolutions in full float32; each trained row of
@@ -162,12 +165,9 @@ MISSES_FLOW = {
 @pytest.mark.parametrize("name", ["accuracy_results.json", "gan_results.json", "gan_128.json",
                                   "horizon_results.json"])
 def test_artifact_holds_every_row_of_the_jax_study(name):
-    """Every row of the JAX study's file with its keys, but the horizon arms
-    not run yet (``NOT_RUN``, whose own tests below are strict xfails)."""
+    """Every row of the JAX study's file with its keys."""
     with open(os.path.join(REPO, "docs", name)) as f:
         jax_rows = json.load(f)
-    if name == "horizon_results.json":
-        jax_rows = {k: v for k, v in jax_rows.items() if k not in NOT_RUN}
     r = _load(name)
     assert set(jax_rows) <= set(r), sorted(set(jax_rows) - set(r))
     for row, want in jax_rows.items():
@@ -190,12 +190,21 @@ def test_accuracy_gate_full_resolution_arm_beats_flow_and_persistence(arm, epoch
         f"{arm}: {r[arm]['mse']:.5f} must beat flow {flow:.5f} and persistence {persist:.5f}")
 
 
-# DGMR, the DGMR half of tests/test_accuracy.py:274-337, one bar a test
+# DGMR, the DGMR half of tests/test_accuracy.py:274-337, one bar a test. Each
+# bar is a function of the rows and their suffix: "" for the port's own
+# initial draw, "@jax_init" for the same arm from the JAX Trainer's initial
+# variables (gan_gate --init, the committed dgmr_jax_init.npz)
 
 
-def test_dgmr_beats_persistence_with_a_live_discriminator():
+def _dgmr_rows(suffix):
+    """The results and the final, selected and fine-tuned rows under ``suffix``."""
     r = _load("gan_results.json")
-    d = r["dgmr"]
+    return (r, r["dgmr" + suffix], r["dgmr_crps_selected" + suffix],
+            r["dgmr_crps_finetuned" + suffix])
+
+
+def _bar_live_discriminator(suffix):
+    r, d, _, _ = _dgmr_rows(suffix)
     assert (d["epochs"], d["num_samples"]) == (150, 3)
     assert d["mse"] < r["persistence@stochastic"]["mse"]
     assert 0.02 < d["d_loss"] < 4.0
@@ -203,27 +212,70 @@ def test_dgmr_beats_persistence_with_a_live_discriminator():
     assert "sample_std" in d and "oracle_sample_std" in r
 
 
-def test_dgmr_crps_selected_checkpoint_beats_persistence_and_the_final_one():
-    r = _load("gan_results.json")
-    s, p = r["dgmr_crps_selected"], r["persistence@stochastic"]
+def _bar_selection(suffix):
+    r, d, s, _ = _dgmr_rows(suffix)
+    p = r["persistence@stochastic"]
     assert s["crps"] < p["crps"]
-    assert s["crps"] <= r["dgmr"]["crps"]
+    assert s["crps"] <= d["crps"]
     assert s["mse"] < p["mse"]
     assert len(s["trajectory"]) >= 10  # the selection curve, every 10th epoch
 
 
-def test_dgmr_oracle_sampler_beats_the_selected_checkpoint():
-    r = _load("gan_results.json")
-    assert r["oracle_crps"] < r["dgmr_crps_selected"]["crps"]
+def _bar_oracle(suffix):
+    r, _, s, _ = _dgmr_rows(suffix)
+    assert r["oracle_crps"] < s["crps"]
 
 
-def test_dgmr_fair_crps_finetune_improves_the_fair_crps_and_keeps_the_mse():
-    r = _load("gan_results.json")
-    ft, s = r["dgmr_crps_finetuned"], r["dgmr_crps_selected"]
+def _bar_finetune(suffix):
+    r, _, s, ft = _dgmr_rows(suffix)
     assert (ft["finetune_steps"], ft["finetune_num_samples"]) == (1600, 8)
     assert ft["from_epoch"] == s["selected_epoch"]
     assert ft["crps_fair_m8"] < s["crps_fair_m8"]
     assert ft["mse"] < r["persistence@stochastic"]["mse"]
+
+
+def _bar_spread_50x(suffix):
+    _, _, s, ft = _dgmr_rows(suffix)
+    assert ft["sample_std"] > 50 * s["sample_std"], (ft["sample_std"], s["sample_std"])
+
+
+def _bar_spread_half_oracle(suffix):
+    r, _, _, ft = _dgmr_rows(suffix)
+    assert ft["sample_std"] > 0.5 * r["oracle_sample_std"], (
+        ft["sample_std"], r["oracle_sample_std"])
+
+
+def _bar_history(suffix):
+    hist = _dgmr_rows(suffix)[3]["fair_crps_history"]
+    assert len(hist) >= 3
+    assert hist[-1] < hist[0]
+
+
+def _bar_frontier_below(suffix):
+    _, _, s, ft = _dgmr_rows(suffix)
+    assert len(ft["frontier"]) >= 4
+    assert all(p["crps_fair_m8"] < s["crps_fair_m8"] for p in ft["frontier"])
+
+
+def _bar_frontier_monotone(suffix):
+    stds = [p["sample_std"] for p in _dgmr_rows(suffix)[3]["frontier"]]
+    assert all(b >= a for a, b in zip(stds, stds[1:])), stds
+
+
+def test_dgmr_beats_persistence_with_a_live_discriminator():
+    _bar_live_discriminator("")
+
+
+def test_dgmr_crps_selected_checkpoint_beats_persistence_and_the_final_one():
+    _bar_selection("")
+
+
+def test_dgmr_oracle_sampler_beats_the_selected_checkpoint():
+    _bar_oracle("")
+
+
+def test_dgmr_fair_crps_finetune_improves_the_fair_crps_and_keeps_the_mse():
+    _bar_finetune("")
 
 
 # Measured on the card (gan_results.json): the fine-tune's spread 0.003824,
@@ -236,44 +288,75 @@ def test_dgmr_fair_crps_finetune_improves_the_fair_crps_and_keeps_the_mse():
 # (port), fair CRPS 0.0237 and 0.0235
 # (test_torch_accuracy_gates.py::test_port_dgmr_arm_from_the_jax_init_lands_beside_jax);
 # with cuDNN's TF32 the card's run restored 0.002644, so the precision does not
-# explain the gap to JAX's 0.0278.
+# explain the gap to JAX's 0.0278. From the JAX Trainer's initial weights at the
+# full budget on the card (the @jax_init rows) the port restores 0.022574, above
+# both bars (50 x 1.68e-4 = 0.008413 and 0.013431), beside JAX's 0.027826: the
+# miss is the port's initial draw's.
 SPREAD_MISS = ("the port's card run restores less spread than JAX's from its own selected "
                "checkpoint (epoch 129, std 3.88e-4; JAX's: epoch 119, 8.7e-5): fine-tuned std "
                "0.003824 < 50 x 3.88e-4 = 0.019390 and < 0.5 x oracle 0.026862 = 0.013431; "
-               "no port fault found (ROADMAP §3)")
+               "from the JAX initial weights the card run restores 0.022574 (selected epoch "
+               "96, std 1.68e-4) and holds both bars: the draw's miss, no port fault "
+               "(ROADMAP §3)")
 
 
 @pytest.mark.xfail(strict=True, reason=SPREAD_MISS)
 def test_dgmr_fair_crps_finetune_spreads_50_times_the_selected_checkpoint():
-    r = _load("gan_results.json")
-    assert r["dgmr_crps_finetuned"]["sample_std"] > 50 * r["dgmr_crps_selected"]["sample_std"]
+    _bar_spread_50x("")
 
 
 @pytest.mark.xfail(strict=True, reason=SPREAD_MISS)
 def test_dgmr_fair_crps_finetune_spreads_half_the_oracle():
-    r = _load("gan_results.json")
-    assert r["dgmr_crps_finetuned"]["sample_std"] > 0.5 * r["oracle_sample_std"]
+    _bar_spread_half_oracle("")
 
 
 def test_dgmr_fair_crps_history_falls():
-    hist = _load("gan_results.json")["dgmr_crps_finetuned"]["fair_crps_history"]
-    assert len(hist) >= 3
-    assert hist[-1] < hist[0]
+    _bar_history("")
 
 
 def test_dgmr_fair_crps_frontier_lies_below_the_selected_crps():
-    r = _load("gan_results.json")
-    frontier = r["dgmr_crps_finetuned"]["frontier"]
-    assert len(frontier) >= 4
-    assert all(p["crps_fair_m8"] < r["dgmr_crps_selected"]["crps_fair_m8"] for p in frontier)
+    _bar_frontier_below("")
 
 
 @pytest.mark.xfail(strict=True, reason="the frontier's spread 0.005311, 0.003559, 0.003728, "
-                   "0.003824 falls after its first point (step 800); no port fault found "
-                   "(ROADMAP §3)")
+                   "0.003824 falls after its first point (step 800); from the JAX initial "
+                   "weights it dips after step 800 too (0.024283 -> 0.021932); no port fault "
+                   "found (ROADMAP §3)")
 def test_dgmr_fair_crps_frontier_spread_is_monotone():
-    stds = [p["sample_std"] for p in _load("gan_results.json")["dgmr_crps_finetuned"]["frontier"]]
-    assert all(b >= a for a, b in zip(stds, stds[1:])), stds
+    _bar_frontier_monotone("")
+
+
+# The same arm from the JAX Trainer's initial variables (gan_gate --init), held
+# to every bar above. The bars its card run misses, with the numbers (ROADMAP §3):
+JAX_INIT_MISSES = {
+    "frontier_monotone": "the frontier's spread 0.009832, 0.024283, 0.021932, 0.022574 dips "
+                         "after step 800 (JAX's study run, from the same seed: 0.007046, "
+                         "0.024144, 0.025060, 0.027826), every point above both spread bars; "
+                         "one card run: an open port fault (ROADMAP §3), though the fine-tune's "
+                         "steps equal JAX's on the same weights and noise in float64",
+}
+DGMR_BARS = {"live_discriminator": _bar_live_discriminator, "selection": _bar_selection,
+             "oracle": _bar_oracle, "finetune": _bar_finetune, "spread_50x": _bar_spread_50x,
+             "spread_half_oracle": _bar_spread_half_oracle, "history": _bar_history,
+             "frontier_below": _bar_frontier_below, "frontier_monotone": _bar_frontier_monotone}
+
+
+@pytest.mark.parametrize("bar", [
+    pytest.param(b, marks=pytest.mark.xfail(strict=True, reason=JAX_INIT_MISSES[b]))
+    if b in JAX_INIT_MISSES else b for b in DGMR_BARS])
+def test_dgmr_from_the_jax_init_holds_the_dgmr_bar(bar):
+    DGMR_BARS[bar]("@jax_init")
+
+
+def test_dgmr_jax_init_rows_come_from_the_committed_file():
+    """Each ``@jax_init`` row carries the sha256 of the committed
+    ``dgmr_jax_init.npz`` (``gan_gate --init``), the JAX budgets beside it."""
+    import hashlib
+
+    with open(os.path.join(RESULTS, "dgmr_jax_init.npz"), "rb") as f:
+        sha = hashlib.sha256(f.read()).hexdigest()
+    for row in _dgmr_rows("@jax_init")[1:]:
+        assert row["init_sha256"] == sha
 
 
 # DGMR at the reference geometry, tests/test_accuracy.py:466-505, one bar a test
@@ -324,24 +407,6 @@ def test_gan_128_finetune_provenance_is_the_jax_run():
     assert [p["step"] for p in ft["frontier"]] == [200, 400, 600, 800]
 
 
-# The horizon arm not run yet (ROADMAP item 14 (d)). Its row's tests are strict
-# xfails on the KeyError of the absent row: when a run adds the row, each test
-# turns into the bar it holds.
-NOT_RUN = {
-    "dgmr_mean@stoch": "not run yet: its one run on the H100 was stopped at epoch 55 of "
-                       "60 by a 3600 s limit on the run (~63 s an epoch beside gan_128 and "
-                       "the Perceivers, ~55 s alone, validation included); a run alone "
-                       "takes ~56 card-minutes (ROADMAP item 14 (d))",
-}
-
-
-def _rows(rows):
-    """``rows`` as parameters, a row of ``NOT_RUN`` a strict xfail on its KeyError."""
-    return [pytest.param(*r, marks=[pytest.mark.xfail(strict=True, raises=KeyError,
-                                                      reason=NOT_RUN[r[0]])]
-                         if r[0] in NOT_RUN else ()) for r in rows]
-
-
 # The 48-step horizon study, tests/test_accuracy.py:340-423, one bar a test. Each
 # arm's epochs are the JAX artifact's (docs/horizon_results.json): the
 # deterministic ConvLSTM and U-Net at 300 (twice the tool's 150, through
@@ -352,7 +417,7 @@ HORIZON_EPOCHS = {"convlstm": 300, "unet": 300, "metnet": 100, "metnet@stoch": 1
                   "perceiver@stoch": 60, "dgmr_mean@stoch": 60}
 
 
-@pytest.mark.parametrize("row,epochs", _rows(HORIZON_EPOCHS.items()))
+@pytest.mark.parametrize("row,epochs", HORIZON_EPOCHS.items())
 def test_horizon_arm_trained_at_the_jax_artifacts_epochs(row, epochs):
     with open(os.path.join(REPO, "docs", "horizon_results.json")) as f:
         assert json.load(f)[row]["epochs"] == epochs
@@ -385,8 +450,7 @@ def test_horizon_metnet_beats_persistence_at_its_grid_where_flow_is_live():
     assert r["metnet"]["mse_t"][-1] < p_g["mse_t"][-1]
 
 
-@pytest.mark.parametrize("arm", _rows([("convlstm@stoch",), ("unet@stoch",),
-                                       ("perceiver@stoch",)]))
+@pytest.mark.parametrize("arm", ["convlstm@stoch", "unet@stoch", "perceiver@stoch"])
 def test_horizon_stochastic_arm_beats_flow_and_persistence_also_at_t47(arm):
     r = _load("horizon_results.json")
     f_s, p_s = r["optical_flow@stoch"], r["persistence@stoch"]
@@ -406,7 +470,6 @@ def test_horizon_metnet_beats_pooled_flow_and_persistence_on_stochastic_futures(
     assert m["mse_t"][-1] < p_gs["mse_t"][-1]
 
 
-@pytest.mark.xfail(strict=True, raises=KeyError, reason=NOT_RUN["dgmr_mean@stoch"])
 def test_horizon_dgmr_ensemble_mean_beats_flow_with_a_live_discriminator():
     r = _load("horizon_results.json")
     m = r["dgmr_mean@stoch"]
@@ -420,7 +483,7 @@ def test_horizon_dgmr_ensemble_mean_beats_flow_with_a_live_discriminator():
 # The kernels that carried each long training: the K1-K4 launches of its fit
 
 
-@pytest.mark.parametrize("row,name", _rows([(r, "horizon_results.json") for r in HORIZON_EPOCHS])
+@pytest.mark.parametrize("row,name", [(r, "horizon_results.json") for r in HORIZON_EPOCHS]
                          + [("dgmr@128px", "gan_128.json"),
                             ("dgmr_crps_finetuned@128px", "gan_128.json")])
 def test_trained_row_records_its_kernel_launches(row, name):
