@@ -216,7 +216,7 @@ Phases, in order; any failure exits non-zero before the last line:
    against the same forward on the CPU; ``unet`` behind ``NowcastServer``
    answers 5 concurrent requests;
 28b. ``unet``, ``attention_runet``, ``deeplabv3_r101`` and ``pixelcnn``
-   train 3 Adam steps through ``Trainer(precision="bf16").fit`` on fake b8
+   train 2 Adam steps through ``Trainer(precision="bf16").fit`` on fake b8
    256x256 data: losses finite, every BatchNorm statistic moved, every
    parameter's gradient finite and nonzero, the train step timed; then
    ``python -m satflow_tpu_torch.run experiment=unet_simple`` through the CLI;
@@ -235,7 +235,7 @@ Phases, in order; any failure exits non-zero before the last line:
    (7 history frames, 24 lead times): ``perceiver.yaml`` (64², depth 6, 256
    x 512 latents, 24 per-lead decodes under remat) forward timed with its
    peak memory and one sample's float32 reply held against the CPU's, then
-   4 LAMB steps under ``warmup_cosine`` (``warmup_steps=0``) through
+   2 LAMB steps under ``warmup_cosine`` (``warmup_steps=0``) through
    ``Trainer.fit`` on one advection batch (losses finite, the last below
    the first),
    every gradient finite and nonzero, the train step timed; ``hf_perceiver.yaml``
@@ -278,6 +278,22 @@ Phases, in order; any failure exits non-zero before the last line:
    fine-tuned row: of the rest of the run), every number finite, the
    rows and their keys those of the JAX study's ``docs/*.json``, each file
    naming the card;
+28i. the bench tools (``satflow_tpu_torch/tools``), each ``main`` once at
+   full width with 1-5 chained iterations: ``bench`` (b8, ``fused`` and
+   ``cmajor``), ``bench_int8`` (b8, both arms), ``bench_axial`` (its six
+   shapes), ``bench_zoo`` (its four models), ``bench_serve`` (16 clients x 2
+   requests through the ``MicroBatcher``; every reply held against the
+   session's single-request reply), ``bench_train`` (64 px b32; 256 px b8
+   with ``remat_chunk=6``; ``--model metnet``, ``perceiver``, ``dgmr`` in
+   both ``--gan-step`` modes; ``--from-store`` on a fake store read through
+   the native ingest library, counted batch by batch, and
+   ``--pipeline-only``) and ``exp_train_ceiling`` (its four rungs): every
+   JSON line finite and naming the card, each line's ``kernel_launches`` an
+   iteration equal to its path's (62 K1 a ConvLSTM forward, 124 K1 + 62 K2
+   a remat train step, 62 + 62 without remat, 62 K5 an int8 rollout, 14 K1
+   + 48 K6a + 24 K6b a ``cmajor`` forward, 7 K3 + 2 K4 a MetNet forward or
+   step, one K4 an attention call, none for the Perceiver, DGMR, the U-Net
+   and the pipeline);
 29. a JSON line of the kernels with each one's bound on this card, and last
    a JSON line ``{"ok": true, "device": {...}}``.
 
@@ -3761,7 +3777,7 @@ ZOO_SERVE = (("unet", "unet"), ("runet", "runet"), ("attentionunet", "attention_
              ("deeplabv3", "deeplabv3_r101"), ("pixelcnn", None))
 ZOO_TRAIN = (("unet", "unet"), ("attentionrunet", "attention_runet"),
              ("deeplabv3", "deeplabv3_r101"), ("pixelcnn", None))
-ZOO_TRAIN_STEPS = 3
+ZOO_TRAIN_STEPS = 2
 # Tolerances:
 # - one sample's float32 reply on the card (cuDNN, TF32 off) against the same
 #   forward on the host's CPU: the same f32 convs summed in another order by
@@ -3936,7 +3952,7 @@ def zoo_train_slice(torch, card):
             t.numel() * t.element_size() for t in (*model.parameters(), *model.buffers()))
         base -= sum(t.numel() * t.element_size() for s in trainer.state.optimizer.state.values()
                     for t in s.values() if torch.is_tensor(t))
-        for _ in range(3):
+        for _ in range(2):
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             step(trainer.state, batch)
@@ -4147,7 +4163,7 @@ def example_slice(torch, card):
 # history frames). Its attention is matmul and softmax, as in the JAX
 # package: none of the repo's kernels is on this path, and the phase holds
 # every kernel's launch count at 0 over it.
-PC_TRAIN_STEPS = 4
+PC_TRAIN_STEPS = 2
 PC_CONFIGS = ("perceiver_encoder", "perceiver_metnet", "perceiver_single")
 # Tolerances:
 # - one sample's float32 reply on the card (cuBLAS, TF32 off) against the
@@ -4244,7 +4260,7 @@ def pc_forward(torch, model, batch, what: str, card, cpu_check: bool = False):
     return ms, peak
 
 
-def pc_train_step(torch, model, batch, what: str, card, n: int = 3):
+def pc_train_step(torch, model, batch, what: str, card, n: int = 2):
     """Every parameter's gradient of one loss finite and nonzero, then the
     LAMB train step timed (host clock, synchronised) over ``n`` after a
     warm-up, with its peak memory above the weights and LAMB's moments.
@@ -4400,7 +4416,7 @@ def perceiver_slice(torch, card):
         t0 = time.perf_counter()
         out = subprocess.run(
             [sys.executable, "-m", "satflow_tpu_torch.run", "experiment=perceiver_simple",
-             "trainer.max_steps=3", "trainer.log_every_n_steps=1", f"work_dir={work}/runs",
+             "trainer.max_steps=2", "trainer.log_every_n_steps=1", f"work_dir={work}/runs",
              "print_config=false"],
             capture_output=True, text=True, cwd=work, timeout=600,
             env={**os.environ, "PYTHONPATH": repo})
@@ -4431,7 +4447,7 @@ def perceiver_slice(torch, card):
 GAN_B = 4
 DGMR_T = 4  # DGMR's context: 4 frames (15 minutes), as in Ravuri et al.
 DGMR_HW = 128  # nowcasting_gan.yaml's output_shape
-DGMR_ROUNDS = 2
+DGMR_ROUNDS = 1
 PIX2PIX_HW = 128  # unet_128 takes 128² inputs
 # Tolerances:
 # - DGMR's float32 sample on the card (cuDNN, TF32 off) against the same
@@ -4774,7 +4790,7 @@ def gan_slice(torch, card):
         t0 = time.perf_counter()
         out = subprocess.run(
             [sys.executable, "-m", "satflow_tpu_torch.run", "experiment=nowcasting_gan_simple",
-             "datamodule.forecast_minutes=30", "trainer.max_steps=3",
+             "datamodule.forecast_minutes=30", "trainer.max_steps=2",
              "trainer.log_every_n_steps=1", f"work_dir={work}/runs", "print_config=false"],
             capture_output=True, text=True, cwd=work, timeout=600, env=env)
         wall = time.perf_counter() - t0
@@ -5149,7 +5165,7 @@ def parallel_slice(torch, card):
 # rollout's cell steps; the results' row names and keys to the JAX study's
 # artifact (docs/*.json) for the arms run; every number finite.
 KERNEL_IDS = ("K1", "K2", "K3", "K4")  # the keys of a study row's kernel_launches
-QT_BATCHES = {"accuracy_256": 12, "accuracy_gate": 12, "gan_gate": 12, "gan_128": 4,
+QT_BATCHES = {"accuracy_256": 4, "accuracy_gate": 4, "gan_gate": 4, "gan_128": 2,
               "horizon_gate": 2}  # batches (rounds) of the one epoch of each tool
 
 
@@ -5441,6 +5457,177 @@ def quality_tools_slice(torch, card):
 
 
 
+# Phase 28i: the bench tools (satflow_tpu_torch/tools/{bench,bench_int8,
+# bench_axial,bench_zoo,bench_serve,bench_train,exp_train_ceiling}.py), each
+# main once at full width with few iterations. Each expected line: the
+# kernels that must launch and how often an iteration (every other id 0).
+BT_FORWARD = {"K1": LAUNCHES_PER_FORWARD}
+BT_TRAIN = {"K1": LAUNCHES_PER_FORWARD, "K2": LAUNCHES_PER_FORWARD}  # no remat
+BT_REMAT = {"K1": K1_PER_TRAIN_STEP, "K2": K2_PER_TRAIN_STEP}  # remat per step or by chunk
+BT_METNET = {"K3": 7, "K4": MN_K4_PER_FORWARD}
+BT_STORE_BATCHES = 3
+
+
+def bench_tools_slice(torch, card):
+    """Phase 28i; returns the phase's launches by kernel id (K1-K6b)."""
+    import tempfile
+
+    from satflow_tpu_torch.data import native_ingest
+    from satflow_tpu_torch.serve import InferenceSession, MicroBatcher
+    from satflow_tpu_torch.tools import (
+        bench,
+        bench_axial,
+        bench_int8,
+        bench_serve,
+        bench_train,
+        bench_zoo,
+        benchkit,
+        exp_train_ceiling,
+    )
+
+    counters = benchkit.counters()
+    totals = dict.fromkeys(counters, 0)
+    t_phase = time.perf_counter()
+
+    def finite(v) -> bool:
+        if isinstance(v, dict):
+            return all(finite(u) for u in v.values())
+        return not isinstance(v, float) or bool(np.isfinite(v))
+
+    def run(what, tool, argv, want, env=None):
+        """``tool.main(argv)`` under ``env``, its stdout kept; every JSON line
+        finite and naming the card, its kernel_launches those of ``want`` (one
+        dict a line; the ceiling's one per rung), every other kernel 0."""
+        for c in counters.values():
+            c.launches = 0
+        old = {k: os.environ.get(k) for k in (env or {})}
+        os.environ.update(env or {})
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                tool.main(argv)
+        finally:
+            for k, v in old.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        wall = time.perf_counter() - t0
+        for k, c in counters.items():
+            totals[k] += c.launches
+        lines = [json.loads(line) for line in out.getvalue().splitlines() if line.startswith("{")]
+        if len(lines) != len(want):
+            fail(f"phase 28i {what}: {len(lines)} JSON lines, expected {len(want)}")
+        for rec, w in zip(lines, want):
+            if rec.get("card") != card or not finite(rec):
+                fail(f"phase 28i {what}: card {rec.get('card')!r} or a value not finite: {rec}")
+            got = rec["kernel_launches"]
+            # the ceiling's line has one count a rung
+            per_rung = all(isinstance(v, dict) for v in got.values())
+            for g, ww in ([(got[k], w[k]) for k in w] if per_rung else [(got, w)]):
+                if g != {**dict.fromkeys(counters, 0), **ww}:
+                    fail(f"phase 28i {what}: kernel_launches {g}, expected {ww} an iteration")
+        shown = [{k: v for k, v in r.items() if k not in ("card", "kernel_launches")}
+                 for r in lines]
+        print(f"{what}: {wall:.1f} s wall; " + "; ".join(json.dumps(r) for r in shown)
+              + f"; launches an iteration as expected [{card}]", flush=True)
+        return lines
+
+    run("bench (fused, b8, 2 chained rollouts)", bench, ["--iters", "2"], [BT_FORWARD],
+        {"BENCH_BATCH": str(B)})
+    run("bench (cmajor, b8, 2 chained rollouts)", bench, ["--iters", "2"],
+        [{"K1": 2 * T, "K6a": 2 * STEPS, "K6b": STEPS}],
+        {"BENCH_BATCH": str(B), "BENCH_CELL_IMPL": "cmajor"})
+    run("bench_int8 (b8, 2 chained rollouts an arm)", bench_int8,
+        ["--batch", str(B), "--iters", "2"], [BT_FORWARD, {"K5": LAUNCHES_PER_FORWARD}])
+    run("bench_axial (the six shapes, 5 chained calls)", bench_axial, ["--iters", "5"],
+        [{"K4": 1}] * len(bench_axial.SHAPES))
+    run("bench_zoo (1 iteration a model)", bench_zoo, ["--iters", "1"], [BT_METNET, {}, {}, {}])
+
+    # the batcher under 16 clients: one reply held against the session's
+    # single-request reply of the same sample (the same padded b8 forward)
+    replies = {"batcher": [], "session": []}
+    submit, predict = MicroBatcher.submit, InferenceSession.predict
+
+    def kept_submit(self, x, timeout=None):
+        y = submit(self, x, timeout)
+        replies["batcher"].append(y)
+        return y
+
+    def kept_predict(self, x):
+        y = predict(self, x)
+        if np.asarray(x).ndim == 4:
+            replies["session"].append(y)
+        return y
+
+    MicroBatcher.submit, InferenceSession.predict = kept_submit, kept_predict
+    try:
+        run("bench_serve (16 clients x 2 requests)", bench_serve,
+            ["--clients", "16", "--requests", "32"], [BT_FORWARD])
+    finally:
+        MicroBatcher.submit, InferenceSession.predict = submit, predict
+    if len(replies["batcher"]) != 32 or not replies["session"]:
+        fail(f"phase 28i bench_serve: {len(replies['batcher'])} batcher replies, "
+             f"{len(replies['session'])} session replies")
+    err = max(float(np.abs(r - replies["session"][0]).max()) for r in replies["batcher"])
+    if not err <= TOL_ROLLOUT:
+        fail(f"phase 28i bench_serve: a batcher reply vs the session's: max|diff| {err:.3g} > "
+             f"{TOL_ROLLOUT}")
+    print(f"  the 32 batcher replies vs the session's single-request reply: max|diff| "
+          f"{err:.3g} <= {TOL_ROLLOUT} ok", flush=True)
+
+    run("bench_train (64 px b32, 2 chained steps)", bench_train, ["--iters", "2"], [BT_TRAIN])
+    run("bench_train (256 px b8, remat chunk 6, 1 chained step)", bench_train,
+        ["--size", "256", "--batch", "8", "--remat", "--remat-chunk", "6", "--iters", "1"],
+        [BT_REMAT])
+    run("bench_train --model metnet (1 chained step)", bench_train,
+        ["--model", "metnet", "--iters", "1"], [BT_METNET])
+    run("bench_train --model perceiver (1 chained step)", bench_train,
+        ["--model", "perceiver", "--iters", "1"], [{}])
+    for mode in ("fused", "split"):
+        run(f"bench_train --model dgmr --gan-step {mode} (1 chained round)", bench_train,
+            ["--model", "dgmr", "--gan-step", mode, "--iters", "1"], [{}])
+
+    # the store-fed step reads the store through the native ingest library
+    # (built here with make -C native), counted batch by batch
+    native = {"batches": 0}
+    loader_iter = native_ingest.NativeSfbLoader.__iter__
+
+    def counted_iter(self):
+        for batch in loader_iter(self):
+            native["batches"] += 1
+            yield batch
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_store_") as store:
+        store_args = ["--from-store", store, "--batch", str(B), "--store-batches",
+                      str(BT_STORE_BATCHES), "--workers", "2"]
+        native_ingest.NativeSfbLoader.__iter__ = counted_iter
+        try:
+            run("bench_train --from-store (64 px b8, 3 epochs)", bench_train, store_args,
+                [BT_TRAIN])
+            fed = native["batches"]
+            run("bench_train --from-store --pipeline-only (3 passes)", bench_train,
+                store_args + ["--pipeline-only"], [{}])
+        finally:
+            native_ingest.NativeSfbLoader.__iter__ = loader_iter
+    # at least: the store-fed run's warm batch and 3 epochs; the pipeline-only
+    # run's warm pass and 3 more (a loader left after one batch reads ahead)
+    n = BT_STORE_BATCHES
+    if fed < 3 * n + 1 or native["batches"] - fed < 4 * n:
+        fail(f"phase 28i: the native loader delivered {fed} and {native['batches'] - fed} "
+             f"batches, expected at least {3 * n + 1} and {4 * n}")
+    print(f"  the store-fed step read its {fed} batches through the native ingest library "
+          f"(and the pipeline-only run its {native['batches'] - fed})", flush=True)
+
+    run("exp_train_ceiling (64 px b32, 2 chained iterations a rung)", exp_train_ceiling,
+        ["--iters", "2"], [{"fwd": BT_FORWARD, "fwd+bwd": BT_REMAT, "step": BT_REMAT,
+                            "opt": {}}])
+    print(f"bench tools phase: {time.perf_counter() - t_phase:.1f} s; launches "
+          + ", ".join(f"{k} {v}" for k, v in totals.items()) + f" [{card}]", flush=True)
+    return totals
+
+
 def main() -> None:
     try:
         import torch
@@ -5616,6 +5803,9 @@ def main() -> None:
     # phase 28h: the quality studies' tools (counts set to 0 inside, just before each tool)
     qt_k1, qt_k2, qt_k3, qt_k4 = quality_tools_slice(torch, card)
     phase_done("phase 28h (the quality studies' tools)")
+    # phase 28i: the bench tools (counts set to 0 inside, just before each tool)
+    bt = bench_tools_slice(torch, card)
+    phase_done("phase 28i (the bench tools)")
     life_k1 += prof_k1 + pre_k1
     life_k2 += prof_k2 + pre_k2
 
@@ -5637,20 +5827,22 @@ def main() -> None:
         kernel("fused_convlstm_step", "fused_convlstm_step.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_step.py:453",
                serve_k1 + train_k1 + cm_k1 + cm32_k1 + st_k1 + widths_k1 + padded_k1 + eval_k1
-               + gate_k1 + life_k1 + exp_k1 + gan_k1 + par["K1"] + qt_k1, k1_err, per_call[HIDDEN]),
+               + gate_k1 + life_k1 + exp_k1 + gan_k1 + par["K1"] + qt_k1 + bt["K1"], k1_err,
+               per_call[HIDDEN]),
         # the TPU's unpadded sibling of K1: the port's K1 is that kernel (its
         # tensors are unpadded NHWC), so this row repeats K1's numbers
         kernel("fused_convlstm_step (unpadded NHWC)", "fused_convlstm_step.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_step.py:380",
                serve_k1 + train_k1 + cm_k1 + cm32_k1 + st_k1 + widths_k1 + padded_k1 + eval_k1
-               + gate_k1 + life_k1 + exp_k1 + gan_k1 + par["K1"] + qt_k1, k1_err, per_call[HIDDEN]),
+               + gate_k1 + life_k1 + exp_k1 + gan_k1 + par["K1"] + qt_k1 + bt["K1"], k1_err,
+               per_call[HIDDEN]),
         kernel("fused_convlstm_step_halo", "fused_convlstm_step_halo.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_step.py:266",
-               halo_serve + halo_train_k1h + exp_k1h, k1h_err, study["K1h"]),
+               halo_serve + halo_train_k1h + exp_k1h + bt["K1h"], k1h_err, study["K1h"]),
         kernel("gate_bwd", "fused_convlstm_step_bwd.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_step.py:833",
                train_k2 + halo_train_k2 + widths_k2 + padded_k2 + gate_k2 + life_k2 + gan_k2
-               + par["K2"] + qt_k2,
+               + par["K2"] + qt_k2 + bt["K2"],
                k2_err,
                per_call_bwd[HIDDEN]),
         kernel("fused_lstm_gates", "fused_lstm_gates.cu",
@@ -5658,23 +5850,24 @@ def main() -> None:
                # MetNet serving + training (mse and ssim) + its resume, the
                # concat/split/hybrid cells
                serve_k3 + train_k3 + ssim_k3 + life_k3 + sum(cells_k3.values())
-               + cells_train_k3 + exp_k3 + ex_k3 + par["K3"] + qt_k3, k3_err, k3_ms,
+               + cells_train_k3 + exp_k3 + ex_k3 + par["K3"] + qt_k3 + bt["K3"], k3_err, k3_ms,
                library=k3_ms["library"]),
         kernel("axial_attention", "axial_attention.cu",
                "satflow_tpu/ops/pallas/axial_attention.py:60",
-               serve_k4 + train_k4 + ssim_k4 + life_k4 + exp_k4 + ex_k4 + par["K4"] + qt_k4, k4_err,
+               serve_k4 + train_k4 + ssim_k4 + life_k4 + exp_k4 + ex_k4 + par["K4"] + qt_k4
+               + bt["K4"], k4_err,
                k4_t,
                library=k4_t["library"]),
         kernel("fused_convlstm_step_int8", "fused_convlstm_int8.cu",
                "satflow_tpu/ops/pallas/fused_convlstm_int8.py:172",
-               serve_k5 + int8_32_k5, k5_err, serving[f"K5.{HIDDEN}"]),
+               serve_k5 + int8_32_k5 + bt["K5"], k5_err, serving[f"K5.{HIDDEN}"]),
         kernel("cmajor_convlstm_step", "cmajor_convlstm.cu",
                "satflow_tpu/ops/pallas/cmajor_convlstm.py:232",
                # + the hidden-32 path and the cmajor study's yardstick
-               serve_k6a + cm32_k6a + st_k6a + exp_k6a, k6a_err, serving["K6a"]),
+               serve_k6a + cm32_k6a + st_k6a + exp_k6a + bt["K6a"], k6a_err, serving["K6a"]),
         kernel("cmajor_conv3x3", "cmajor_convlstm.cu",
                "satflow_tpu/ops/pallas/cmajor_convlstm.py:257",
-               serve_k6b + cm32_k6b + exp_k6b, k6b_err, serving["K6b"],
+               serve_k6b + cm32_k6b + exp_k6b + bt["K6b"], k6b_err, serving["K6b"],
                library=serving["K6b"]["library"]),
         # K1 once more, in the W-padded layout of the TPU kernel it replaces: the
         # tap9 study tool's yardstick

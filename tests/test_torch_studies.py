@@ -437,14 +437,16 @@ def test_study_tools_need_a_card_by_default(tool, monkeypatch):
 
 
 def test_study_tools_import_no_jax():
-    """The study kernels' tools, a split-cell model, and ``gan_gate --init``
-    loading the committed JAX initial variables into the 32-px DGMR, in a
-    process that imports no JAX."""
+    """The study kernels' tools, the bench tools, a split-cell model, and
+    ``gan_gate --init`` loading the committed JAX initial variables into the
+    32-px DGMR, in a process that imports no JAX."""
     import subprocess
 
     code = (
         "import sys\n"
         "import satflow_tpu_torch.tools.exp_tap9, satflow_tpu_torch.tools.exp_cmajor\n"
+        "from satflow_tpu_torch.tools import bench, bench_int8, bench_axial, bench_zoo\n"
+        "from satflow_tpu_torch.tools import bench_serve, bench_train, exp_train_ceiling\n"
         "import satflow_tpu_torch.models  # noqa: F401\n"
         "from satflow_tpu_torch.core.registry import create_model\n"
         "from satflow_tpu_torch.tools import gan_gate\n"

@@ -28,6 +28,9 @@ gates' bars (``tests/test_accuracy.py``):
   its MSE below persistence's, its spread above 50 x the selected one's and
   above half the oracle's, a falling history of >= 3 entries and a frontier
   of >= 4 points with monotone spread, each below the selected fair CRPS;
+  ``witness_jax_init/gan_results.json`` (a second ``--arms dgmr --init``
+  card run into a ``--out`` of its own) holds its ``@jax_init`` rows to the
+  same bars;
 - ``gan_128.json`` (``...gan_128 --finetune-steps 800 --finetune-m 4``; 60
   epochs of 12 rounds, b4 128², M=3, context 384 / latent 768,
   ``tests/test_accuracy.py:466-505``): the CRPS-selected checkpoint below
@@ -69,6 +72,8 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RESULTS = os.path.join(REPO, "satflow_tpu_torch", "tools", "results")
+# the second card run of gan_gate --arms dgmr --init, into a --out of its own
+WITNESS = os.path.join("witness_jax_init", "gan_results.json")
 
 
 def _load(name):
@@ -77,7 +82,8 @@ def _load(name):
 
 
 @pytest.mark.parametrize("name", ["accuracy_256.json", "accuracy_results.json",
-                                  "gan_results.json", "gan_128.json", "horizon_results.json"])
+                                  "gan_results.json", "gan_128.json", "horizon_results.json",
+                                  WITNESS])
 def test_artifact_names_an_nvidia_card_and_its_power_limit(name):
     card = _load(name)["card"]
     assert re.fullmatch(r"NVIDIA [^,]+, \d+(\.\d+)? W", card), card
@@ -196,15 +202,16 @@ def test_accuracy_gate_full_resolution_arm_beats_flow_and_persistence(arm, epoch
 # variables (gan_gate --init, the committed dgmr_jax_init.npz)
 
 
-def _dgmr_rows(suffix):
-    """The results and the final, selected and fine-tuned rows under ``suffix``."""
-    r = _load("gan_results.json")
+def _dgmr_rows(suffix, name="gan_results.json"):
+    """The results of ``name`` and its final, selected and fine-tuned rows
+    under ``suffix``."""
+    r = _load(name)
     return (r, r["dgmr" + suffix], r["dgmr_crps_selected" + suffix],
             r["dgmr_crps_finetuned" + suffix])
 
 
-def _bar_live_discriminator(suffix):
-    r, d, _, _ = _dgmr_rows(suffix)
+def _bar_live_discriminator(suffix, name="gan_results.json"):
+    r, d, _, _ = _dgmr_rows(suffix, name)
     assert (d["epochs"], d["num_samples"]) == (150, 3)
     assert d["mse"] < r["persistence@stochastic"]["mse"]
     assert 0.02 < d["d_loss"] < 4.0
@@ -212,8 +219,8 @@ def _bar_live_discriminator(suffix):
     assert "sample_std" in d and "oracle_sample_std" in r
 
 
-def _bar_selection(suffix):
-    r, d, s, _ = _dgmr_rows(suffix)
+def _bar_selection(suffix, name="gan_results.json"):
+    r, d, s, _ = _dgmr_rows(suffix, name)
     p = r["persistence@stochastic"]
     assert s["crps"] < p["crps"]
     assert s["crps"] <= d["crps"]
@@ -221,44 +228,44 @@ def _bar_selection(suffix):
     assert len(s["trajectory"]) >= 10  # the selection curve, every 10th epoch
 
 
-def _bar_oracle(suffix):
-    r, _, s, _ = _dgmr_rows(suffix)
+def _bar_oracle(suffix, name="gan_results.json"):
+    r, _, s, _ = _dgmr_rows(suffix, name)
     assert r["oracle_crps"] < s["crps"]
 
 
-def _bar_finetune(suffix):
-    r, _, s, ft = _dgmr_rows(suffix)
+def _bar_finetune(suffix, name="gan_results.json"):
+    r, _, s, ft = _dgmr_rows(suffix, name)
     assert (ft["finetune_steps"], ft["finetune_num_samples"]) == (1600, 8)
     assert ft["from_epoch"] == s["selected_epoch"]
     assert ft["crps_fair_m8"] < s["crps_fair_m8"]
     assert ft["mse"] < r["persistence@stochastic"]["mse"]
 
 
-def _bar_spread_50x(suffix):
-    _, _, s, ft = _dgmr_rows(suffix)
+def _bar_spread_50x(suffix, name="gan_results.json"):
+    _, _, s, ft = _dgmr_rows(suffix, name)
     assert ft["sample_std"] > 50 * s["sample_std"], (ft["sample_std"], s["sample_std"])
 
 
-def _bar_spread_half_oracle(suffix):
-    r, _, _, ft = _dgmr_rows(suffix)
+def _bar_spread_half_oracle(suffix, name="gan_results.json"):
+    r, _, _, ft = _dgmr_rows(suffix, name)
     assert ft["sample_std"] > 0.5 * r["oracle_sample_std"], (
         ft["sample_std"], r["oracle_sample_std"])
 
 
-def _bar_history(suffix):
-    hist = _dgmr_rows(suffix)[3]["fair_crps_history"]
+def _bar_history(suffix, name="gan_results.json"):
+    hist = _dgmr_rows(suffix, name)[3]["fair_crps_history"]
     assert len(hist) >= 3
     assert hist[-1] < hist[0]
 
 
-def _bar_frontier_below(suffix):
-    _, _, s, ft = _dgmr_rows(suffix)
+def _bar_frontier_below(suffix, name="gan_results.json"):
+    _, _, s, ft = _dgmr_rows(suffix, name)
     assert len(ft["frontier"]) >= 4
     assert all(p["crps_fair_m8"] < s["crps_fair_m8"] for p in ft["frontier"])
 
 
-def _bar_frontier_monotone(suffix):
-    stds = [p["sample_std"] for p in _dgmr_rows(suffix)[3]["frontier"]]
+def _bar_frontier_monotone(suffix, name="gan_results.json"):
+    stds = [p["sample_std"] for p in _dgmr_rows(suffix, name)[3]["frontier"]]
     assert all(b >= a for a, b in zip(stds, stds[1:])), stds
 
 
@@ -348,6 +355,24 @@ def test_dgmr_from_the_jax_init_holds_the_dgmr_bar(bar):
     DGMR_BARS[bar]("@jax_init")
 
 
+# The second card run from the same file (witness_jax_init/gan_results.json), held
+# to the same bars; the bars it misses, with the numbers (ROADMAP §3):
+WITNESS_MISSES = {
+    "frontier_monotone": "the second card run's frontier spread 0.018471, 0.024192, 0.023939, "
+                         "0.025648 dips after step 800 again (by 1.0 %; the first run's "
+                         "0.024283 -> 0.021932, 9.7 %; JAX's study run 0.007046, 0.024144, "
+                         "0.025060, 0.027826), every point above both spread bars: the open "
+                         "port fault with two witnesses (ROADMAP §3)",
+}
+
+
+@pytest.mark.parametrize("bar", [
+    pytest.param(b, marks=pytest.mark.xfail(strict=True, reason=WITNESS_MISSES[b]))
+    if b in WITNESS_MISSES else b for b in DGMR_BARS])
+def test_dgmr_jax_init_witness_holds_the_dgmr_bar(bar):
+    DGMR_BARS[bar]("@jax_init", WITNESS)
+
+
 def test_dgmr_jax_init_rows_come_from_the_committed_file():
     """Each ``@jax_init`` row carries the sha256 of the committed
     ``dgmr_jax_init.npz`` (``gan_gate --init``), the JAX budgets beside it."""
@@ -355,8 +380,9 @@ def test_dgmr_jax_init_rows_come_from_the_committed_file():
 
     with open(os.path.join(RESULTS, "dgmr_jax_init.npz"), "rb") as f:
         sha = hashlib.sha256(f.read()).hexdigest()
-    for row in _dgmr_rows("@jax_init")[1:]:
-        assert row["init_sha256"] == sha
+    for name in ("gan_results.json", WITNESS):
+        for row in _dgmr_rows("@jax_init", name)[1:]:
+            assert row["init_sha256"] == sha
 
 
 # DGMR at the reference geometry, tests/test_accuracy.py:466-505, one bar a test
